@@ -1,0 +1,69 @@
+"""The tensor-parallel layer functions of ``pipegoose_tpu.nn.tensor_parallel
+.layers`` at tp=1.
+
+Same conventions as the JAX module: a layer is a function over a params
+dict, kernels are laid out ``(in_features, out_features)``, and
+``axis_name=None`` is the single-device path. Tensor parallelism waits
+for a later slice of the port, so any other ``axis_name`` raises. Dense
+products stay ``torch.matmul``: the JAX package leaves them to XLA, so
+there is no kernel to port here.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def _check_axis(axis_name: Optional[str]) -> None:
+    if axis_name is not None:
+        raise NotImplementedError(
+            f"axis_name={axis_name!r}: tensor parallelism is not ported yet "
+            f"(ROADMAP.md queue A, TP serving); only axis_name=None runs"
+        )
+
+
+def _kernel_matmul(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """``x @ kernel`` in the activation dtype. In bf16 the product
+    accumulates in float32 inside cuBLAS and is rounded once, as
+    ``jnp.dot(..., preferred_element_type=f32).astype(x.dtype)`` does."""
+    return torch.matmul(x, params["kernel"]).to(x.dtype)
+
+
+def column_parallel_linear(params: dict, x: torch.Tensor,
+                           axis_name: Optional[str] = None) -> torch.Tensor:
+    """Y = X @ W (+ b)."""
+    _check_axis(axis_name)
+    y = _kernel_matmul(params, x)
+    if params.get("bias") is not None:
+        y = y + params["bias"]
+    return y
+
+
+def row_parallel_linear(params: dict, x: torch.Tensor,
+                        axis_name: Optional[str] = None) -> torch.Tensor:
+    """Y = X @ W + b (the psum over shards is the identity at tp=1)."""
+    _check_axis(axis_name)
+    y = _kernel_matmul(params, x)
+    if params.get("bias") is not None:
+        y = y + params["bias"]
+    return y
+
+
+def vocab_parallel_embedding(params: dict, ids: torch.Tensor,
+                             axis_name: Optional[str] = None) -> torch.Tensor:
+    """Embedding lookup over the whole vocabulary."""
+    _check_axis(axis_name)
+    return params["weight"][ids]
+
+
+def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with float32 statistics whatever the activation dtype.
+    The variance is the population variance (``jnp.var`` is ddof=0)."""
+    dtype = x.dtype
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * params["scale"] + params["bias"]
+    return y.to(dtype)
