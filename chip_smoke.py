@@ -3,11 +3,17 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-The main path is BLOOM-560m (full width: vocab 250880, hidden 1024, 24
-layers, 16 heads) served by ``pipegoose_tpu_torch.serving.ServingEngine``
-with chunked prefill over a paged KV pool, every attention read going
-through the hand-written CUDA paged-attention kernel. Weights are random,
-made from seed 0. Phases, each fatal on failure:
+Two main paths, both BLOOM-560m at full width (vocab 250880, hidden 1024,
+24 layers, 16 heads) with random weights made from seed 0:
+
+- serving: ``pipegoose_tpu_torch.serving.ServingEngine`` with chunked
+  prefill over a paged KV pool, every attention read going through the
+  hand-written CUDA paged-attention kernel;
+- training: ``pipegoose_tpu_torch.trainer.train_step`` (loss, backward,
+  Adam), its attention going through the hand-written CUDA flash-attention
+  forward, dQ and dK/dV kernels.
+
+Phases, each fatal on failure:
 
   0  the card: name and power limit (nvidia-smi), torch and CUDA versions;
   1  build every kernel from the sources in this checkout (nvcc, in
@@ -21,7 +27,20 @@ made from seed 0. Phases, each fatal on failure:
      mean decode-step ms, and the kernel's launch count, which must be
      n_layer x (decode steps + prefill chunks);
   5  the kernel's time at phase 4's decode shape beside its bound, its
-     plain version's time and one PyTorch library call's.
+     plain version's time and one PyTorch library call's;
+  6  the three flash-attention kernels against their plain versions at
+     bloom-560m's attention shape (B=8, S=1024, nh=16, hd=64) in bf16 and
+     float32, and on a right-padded mask, S=100, GQA g=2, window=64 and
+     causal=False;
+  7  the float32 train step on the card against the same step on the CPU
+     (full width, depth cut to 2 layers): loss, every gradient, and the
+     losses over 3 Adam steps;
+  8  timed bf16 training steps exactly as ``bench.py``'s "flash" variant
+     (24 layers, remat, flash, batch 8 x 1024, Adam 1e-4): step ms,
+     tokens/s, MFU, peak memory, falling losses, the kernels' launch
+     counts, and where one profiled step's device time goes;
+  9  each flash kernel's time at phase 8's shape beside its bound, its
+     plain version's time and PyTorch's SDPA forward or backward.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a card, or
@@ -42,6 +61,7 @@ import torch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense tensor cores
 ATOL = {"f32": 1e-4, "int8": 1e-4, "bf16": 2e-3}   # online-softmax reassociation
 LOGIT_ATOL = 1e-3              # float32 card vs CPU logits after 24 layers
 NEAR_TIE = 1e-4                # top-2 margin below which a flip is a genuine tie
@@ -50,6 +70,31 @@ KERNEL = {
     "replaces": "pipegoose_tpu/ops/paged_attention.py:217",
     "route": "cuda",
 }
+FLASH_SOURCE = "pipegoose_tpu_torch/ops/csrc/flash_attention.cu"
+FLASH_REPLACES = {
+    "fwd": "pipegoose_tpu/ops/flash_attention.py:88",
+    "dq": "pipegoose_tpu/ops/flash_attention.py:187",
+    "dkv": "pipegoose_tpu/ops/flash_attention.py:270",
+}
+# flash kernel vs plain, on max |diff| against the largest |plain| value M:
+# float32 outputs 1e-5 + 2e-4 M (the sums run in another order; ALiBi
+# scores reach ~512 at S=1024, where a float32 ulp is 6.1e-5, and the
+# backward multiplies P's relative error by dO.V); bf16 outputs
+# 1e-5 + 2^-7 M (both sides round float32 values that differ in their last
+# bits, so they may land one bf16 ulp, at most 2^-7 of the value, apart);
+# lse, float32 in both dtypes, 1e-5 + 2^-21 M (four float32 ulps).
+FLASH_RTOL = {torch.float32: 2e-4, torch.bfloat16: 2.0 ** -7}
+FLASH_ATOL = 1e-5
+LSE_RTOL = 2.0 ** -21
+# float32 train step, card vs CPU, full width at 2 layers: the loss to
+# 1e-4 absolute and every gradient to 1e-3 of its leaf's largest value
+# (float32 sums over 1024-wide products, 512 tokens and 250880 vocab
+# entries, taken in another order by cuBLAS and the CPU's BLAS); after
+# Adam steps the losses to 1e-3, since Adam moves a weight whose gradient
+# is near zero by up to lr whatever the gradient's rounding
+TRAIN_LOSS_ATOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_ADAM_LOSS_ATOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -303,9 +348,6 @@ def decode_profile(params, cfg, requests, dev, kv_dtype, label, ticks=16):
     """Where a decode step's time goes: fill the 8 slots, let every prefill
     finish, then run ``ticks`` decode-only ticks under torch.profiler and
     report wall time, device busy time and the top kernels per tick."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from pipegoose_tpu_torch.serving import Status
 
     eng = make_engine(params, cfg, dev, num_slots=8, kv_dtype=kv_dtype)
@@ -313,26 +355,37 @@ def decode_profile(params, cfg, requests, dev, kv_dtype, label, ticks=16):
     while eng.sched.queue or any(r.status is Status.PREFILL
                                  for r in eng.sched.active()):
         eng.tick_once()
+    profile_device(eng.tick_once, ticks, f"{label} decode tick (8 slots, profiled)",
+                   "tick", top=6)
+    eng.finish_run()
+
+
+def profile_device(fn, n, label, unit, top):
+    """Run ``fn()`` ``n`` times under torch.profiler after a sync; log the
+    wall time, the device busy time (summed kernel time) and its share,
+    and the ``top`` kernels by device time, each per ``unit``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(ticks):
-            eng.tick_once()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
-    eng.finish_run()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / ticks
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     if busy_ms == 0:
-        log(f"  {label} decode tick: {wall_ms} ms wall under the profiler; "
-            f"device time not measured (the profiler saw no device activity)")
+        log(f"  {label}: {wall_ms} ms wall under the profiler; device time "
+            f"not measured (the profiler saw no device activity)")
         return
-    log(f"  {label} decode tick (8 slots, profiled): {wall_ms} ms wall, device "
-        f"busy {busy_ms} ms ({100 * busy_ms / wall_ms:.1f}%), "
-        f"{sum(e.count for e in kernels) / ticks:.0f} kernels per tick")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"    {e.self_device_time_total / 1e3 / ticks:.4f} ms/tick "
-            f"{e.count / ticks:.0f} launches/tick  {e.key[:90]}")
+    log(f"  {label}: {wall_ms} ms wall, device busy {busy_ms} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), "
+        f"{sum(e.count for e in kernels) / n:.0f} kernels per {unit}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"    {e.self_device_time_total / 1e3 / n:.4f} ms/{unit} "
+            f"{e.count / n:.0f} launches/{unit}  {e.key[:90]}")
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -449,7 +502,327 @@ def phase5_kernel_time(dev, card, errs, launches) -> list:
     return rows
 
 
+# -- phase 6 -------------------------------------------------------------------
+
+def flash_case(dev, dtype, *, b, s=1024, nh=16, nkv=16, hd=64, pad=0, seed=0):
+    """Flattened flash-kernel operands: q, dO (B*nh, S, hd) and k, v
+    (B*nkv, S, hd) in ``dtype`` from a seeded normal, BLOOM's ALiBi slopes,
+    and kv_pos / kv_neg from a mask whose last row ends in ``pad`` padded
+    keys (all ones when pad is 0)."""
+    from pipegoose_tpu_torch.models.bloom import alibi_slopes
+    from pipegoose_tpu_torch.ops.flash_attention import mask_to_kv_bias
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda rows: torch.randn(rows, s, hd, device=dev, generator=gen).to(dtype)  # noqa: E731
+    mask = torch.ones(b, s, device=dev)
+    if pad:
+        mask[-1, s - pad:] = 0
+    kpos, kneg = (x[:, None].expand(b, nkv, s).reshape(b * nkv, s).contiguous()
+                  for x in mask_to_kv_bias(mask))
+    slopes = torch.from_numpy(alibi_slopes(nh)).to(dev).repeat(b)
+    return {"q": rand(b * nh), "k": rand(b * nkv), "v": rand(b * nkv),
+            "do": rand(b * nh), "slopes": slopes, "kpos": kpos, "kneg": kneg,
+            "g": nh // nkv, "scale": hd ** -0.5}
+
+
+def flash_args(case, causal=True, window=None):
+    """(forward args, backward args without lse/delta, mode) of a case."""
+    fwd = tuple(case[n] for n in ("q", "k", "v", "slopes", "kpos", "kneg"))
+    return fwd, (case["scale"], causal, case["g"], window)
+
+
+def flash_bwd_args(case, lse, delta):
+    return (case["q"], case["k"], case["v"], case["do"], lse, delta,
+            case["slopes"], case["kpos"], case["kneg"])
+
+
+def flash_err(got, want, rtol):
+    """(max abs error, tolerance) of a kernel output against its plain
+    version; fails on a bad shape or a non-finite value."""
+    if got.shape != want.shape or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"bad kernel output {tuple(got.shape)}")
+    err = (got.float() - want.float()).abs().max().item()
+    return err, FLASH_ATOL + rtol * want.float().abs().max().item()
+
+
+def check_flash(label, case, causal=True, window=None) -> dict:
+    """Each flash kernel once against its plain version on one case;
+    every launch counter must move by exactly one. Returns each kernel's
+    max abs error."""
+    from pipegoose_tpu_torch.ops import flash_attention as fa
+
+    fwd, mode = flash_args(case, causal, window)
+    dtype = case["q"].dtype
+    counts = (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches)
+    out, lse = fa.flash_fwd(*fwd, *mode)
+    ref_out, ref_lse = fa.flash_fwd_reference(*fwd, *mode)
+    delta = (case["do"].float() * ref_out.float()).sum(-1)
+    bwd = flash_bwd_args(case, ref_lse, delta)
+    dq = fa.flash_dq(*bwd, *mode)
+    dk, dv = fa.flash_dkv(*bwd, *mode)
+    torch.cuda.synchronize()
+    moved = tuple(n - c for n, c in zip(
+        (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches), counts))
+    if moved != (1, 1, 1):
+        raise AssertionError(f"{label}: launch counters moved by {moved}")
+    ref_dk, ref_dv = fa.flash_dkv_reference(*bwd, *mode)
+    checks = {
+        "out": flash_err(out, ref_out, FLASH_RTOL[dtype]),
+        "lse": flash_err(lse, ref_lse, LSE_RTOL),
+        "dq": flash_err(dq, fa.flash_dq_reference(*bwd, *mode), FLASH_RTOL[dtype]),
+        "dk": flash_err(dk, ref_dk, FLASH_RTOL[dtype]),
+        "dv": flash_err(dv, ref_dv, FLASH_RTOL[dtype]),
+    }
+    bad = [n for n, (err, tol) in checks.items() if err > tol]
+    log(f"phase 6: {label}: " + ", ".join(
+        f"{n} {err:.3g} (tol {tol:.3g})" for n, (err, tol) in checks.items())
+        + (f" FAIL {bad}" if bad else " ok"))
+    if bad:
+        raise AssertionError(f"{label}: flash kernels disagree with plain on {bad}")
+    return {"fwd": max(checks["out"][0], checks["lse"][0]), "dq": checks["dq"][0],
+            "dkv": max(checks["dk"][0], checks["dv"][0])}
+
+
+def phase6_flash_vs_plain(dev) -> dict:
+    """Returns the max abs errors of the bloom-560m bf16 case, the shape
+    and dtype of phase 8's calls."""
+    errs = {}
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        main = check_flash(f"{name} B=8 S=1024 nh=16 hd=64 causal",
+                           flash_case(dev, dtype, b=8, seed=SEED))
+        if dtype is torch.bfloat16:
+            errs = main
+        check_flash(f"{name} B=2 right-padded (300 keys)",
+                    flash_case(dev, dtype, b=2, pad=300, seed=SEED + 1))
+        check_flash(f"{name} B=2 S=100 (ragged tile)",
+                    flash_case(dev, dtype, b=2, s=100, seed=SEED + 2))
+        check_flash(f"{name} B=2 GQA nh=16 nkv=8",
+                    flash_case(dev, dtype, b=2, nkv=8, seed=SEED + 3))
+        check_flash(f"{name} B=2 window=64",
+                    flash_case(dev, dtype, b=2, seed=SEED + 4), window=64)
+        check_flash(f"{name} B=2 causal=False",
+                    flash_case(dev, dtype, b=2, seed=SEED + 5), causal=False)
+    return errs
+
+
+# -- phase 7 -------------------------------------------------------------------
+
+def phase7_train_vs_cpu(np_tree, dev) -> None:
+    from pipegoose_tpu_torch.models.bloom import BloomConfig, loss_fn
+    from pipegoose_tpu_torch.models.weights import grads_of, params_from_jax, params_to_jax
+    from pipegoose_tpu_torch.trainer import make_optimizer, train_step
+
+    n_layer, b, s, pad, lr = 2, 2, 256, 57, 1e-4
+    vocab, hidden = np_tree["embed"]["weight"].shape
+    cfg = BloomConfig(vocab_size=vocab, hidden_size=hidden, n_layer=n_layer,
+                      n_head=16, remat=True, use_flash=True)
+    tree = {**np_tree, "blocks": cut_layers(np_tree["blocks"], n_layer)}
+    rng = np.random.default_rng(SEED + 7)
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    mask = np.ones((b, s), np.int64)
+    mask[1, s - pad:] = 0
+    log(f"phase 7: float32 train step, card vs CPU: vocab {vocab}, hidden "
+        f"{hidden}, 16 heads, depth cut 24 -> {n_layer} layers, batch {b} x {s} (row 1 right-padded by {pad}), "
+        f"remat, flash, Adam lr {lr}")
+    runs = {}
+    for where in ("cpu", dev):
+        t0 = time.perf_counter()
+        params = params_from_jax(tree, cfg, device=where)
+        opt = make_optimizer(params, lr)
+        losses = [train_step(params, opt, ids, mask, ids, cfg, device=where).item()]
+        grads = params_to_jax(grads_of(params))
+        for _ in range(2):
+            losses.append(train_step(params, opt, ids, mask, ids, cfg,
+                                     device=where).item())
+        with torch.no_grad():
+            as_t = lambda a: torch.from_numpy(a).to(where)  # noqa: E731
+            losses.append(loss_fn(params, as_t(ids), as_t(mask), as_t(ids), cfg).item())
+        runs[str(where)] = (losses, grads)
+        log(f"  {where}: losses {losses} in {time.perf_counter() - t0:.1f} s")
+        del params, opt
+    (cpu_losses, cpu_grads), (gpu_losses, gpu_grads) = runs["cpu"], runs["cuda"]
+    if not all(np.isfinite(gpu_losses)):
+        raise AssertionError(f"non-finite card losses {gpu_losses}")
+    loss_err = abs(gpu_losses[0] - cpu_losses[0])
+    adam_err = max(abs(a - c) for a, c in zip(gpu_losses[1:], cpu_losses[1:]))
+    worst = max(((path, leaf_rel_err(g, c)) for path, g, c in
+                 zip_leaves(gpu_grads, cpu_grads)), key=lambda x: x[1])
+    log(f"  loss err {loss_err} (atol {TRAIN_LOSS_ATOL}); worst gradient "
+        f"{worst[0]} rel err {worst[1]} (rtol {TRAIN_GRAD_RTOL}); losses after "
+        f"1-3 Adam steps err {adam_err} (atol {TRAIN_ADAM_LOSS_ATOL})")
+    if (loss_err > TRAIN_LOSS_ATOL or worst[1] > TRAIN_GRAD_RTOL
+            or adam_err > TRAIN_ADAM_LOSS_ATOL):
+        raise AssertionError("card and CPU train steps disagree")
+
+
+def cut_layers(blocks, n):
+    """The first ``n`` layers of a stacked per-layer numpy subtree."""
+    if isinstance(blocks, dict):
+        return {k: cut_layers(v, n) for k, v in blocks.items()}
+    return blocks[:n]
+
+
+def zip_leaves(a, b, path=""):
+    if isinstance(a, dict):
+        for k in a:
+            yield from zip_leaves(a[k], b[k], f"{path}/{k}")
+    else:
+        yield path, a, b
+
+
+def leaf_rel_err(got, want):
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+# -- phase 8 -------------------------------------------------------------------
+
+def phase8_timed_training(np_tree, dev, card) -> dict:
+    """bench.py's "flash" variant on the card; returns the flash launch
+    counts of its 7 steps."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.weights import param_leaves, params_from_jax
+    from pipegoose_tpu_torch.ops import flash_attention as fa
+    from pipegoose_tpu_torch.trainer import make_optimizer, train_step
+
+    batch, seq, warm, timed = 8, 1024, 2, 5
+    cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16, remat=True, use_flash=True)
+    params = params_from_jax(np_tree, cfg, device=dev)
+    opt = make_optimizer(params, 1e-4)
+    ids = torch.from_numpy(
+        np.random.RandomState(0).randint(0, cfg.vocab_size, (batch, seq))).to(dev)
+    n_params = sum(t.numel() for t in param_leaves(params))
+    log(f"phase 8: bloom-560m bf16 train step (bench.py 'flash': remat, flash, "
+        f"fused_ce off), batch {batch} x {seq}, Adam 1e-4, {n_params} params, "
+        f"{warm} warm-up + {timed} timed steps, on {card}")
+
+    def step():
+        return train_step(params, opt, ids, None, ids, cfg, device=dev)
+
+    fa.flash_fwd.launches = fa.flash_dq.launches = fa.flash_dkv.launches = 0
+    losses = [step() for _ in range(warm)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    losses += [step() for _ in range(timed)]
+    t1.record()
+    torch.cuda.synchronize()
+    launches = {"fwd": fa.flash_fwd.launches, "dq": fa.flash_dq.launches,
+                "dkv": fa.flash_dkv.launches}
+    steps = warm + timed
+    step_ms = t0.elapsed_time(t1) / timed
+    tokens_per_s = batch * seq / (step_ms / 1e3)
+    flops_per_token = 6 * n_params + 12 * cfg.n_layer * cfg.hidden_size * seq
+    mfu = tokens_per_s * flops_per_token / BF16_FLOPS_PER_S
+    losses = [x.item() for x in losses]
+    log(f"  step {step_ms} ms, {tokens_per_s} tokens/s, MFU {mfu} (bench.py's "
+        f"{flops_per_token} flops/token over 989 TFLOP/s bf16), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  losses over {steps} steps on one batch: {losses}")
+    want = {"fwd": 2 * steps * cfg.n_layer, "dq": steps * cfg.n_layer,
+            "dkv": steps * cfg.n_layer}
+    log(f"  flash launches {launches}; want fwd = 2 x {steps} steps x "
+        f"{cfg.n_layer} layers (remat recomputes the forward), dq = dkv = "
+        f"{steps} x {cfg.n_layer}")
+    if launches != want:
+        raise AssertionError("the training step bypassed the flash kernels")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    profile_device(step, 1, "one profiled train step", "step", top=10)
+    return launches
+
+
+# -- phase 9 -------------------------------------------------------------------
+
+def time_eager_ms(fn, calls):
+    """Per-call ms of ``fn()`` called ``calls`` times eagerly between CUDA
+    events, after a warm-up call."""
+    fn()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0.record()
+    for _ in range(calls):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / calls
+
+
+def flash_bound_ms(kind, case, tensors, causal=True):
+    """Least time for one call: the flops of the visible (q, k) pairs (fwd
+    4 hd, dq 6 hd, dkv 8 hd per pair) at 989 TFLOP/s bf16, against every
+    input read once and every output written once at 3.35 TB/s."""
+    bh, s, hd = case["q"].shape
+    pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+    flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * hd * pairs
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase9_flash_time(dev, card, errs, launches) -> list:
+    from pipegoose_tpu_torch.models.bloom import NEG_INF
+    from pipegoose_tpu_torch.ops import flash_attention as fa
+
+    b, nh, s, hd = 8, 16, 1024, 64
+    case = flash_case(dev, torch.bfloat16, b=b, seed=SEED + 9)
+    fwd, mode = flash_args(case)
+    out, lse = fa.flash_fwd(*fwd, *mode)
+    delta = (case["do"].float() * out.float()).sum(-1)
+    bwd = flash_bwd_args(case, lse, delta)
+    dq = fa.flash_dq(*bwd, *mode)
+    dk, dv = fa.flash_dkv(*bwd, *mode)
+    io = {"fwd": fwd + (out, lse), "dq": bwd + (dq,), "dkv": bwd + (dk, dv)}
+    calls = {
+        "fwd": (lambda i: fa.flash_fwd(*fwd, *mode),
+                lambda i: fa.flash_fwd_reference(*fwd, *mode)),
+        "dq": (lambda i: fa.flash_dq(*bwd, *mode),
+               lambda i: fa.flash_dq_reference(*bwd, *mode)),
+        "dkv": (lambda i: fa.flash_dkv(*bwd, *mode),
+                lambda i: fa.flash_dkv_reference(*bwd, *mode)),
+    }
+    # the library yardstick: SDPA on (B, nh, S, hd) bf16 with the ALiBi and
+    # causal terms as one additive bias; its backward gives dq, dk and dv
+    # in one autograd call, timed eagerly (autograd runs it on a worker
+    # thread, outside a CUDA graph capture)
+    heads = lambda t: t.reshape(b, nh, s, hd).detach().clone().requires_grad_()  # noqa: E731
+    qs, ks, vs = heads(case["q"]), heads(case["k"]), heads(case["v"])
+    kpos = torch.arange(s, device=dev, dtype=torch.float32)
+    keep = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    bias = torch.where(keep, case["slopes"][:nh, None, None] * kpos, NEG_INF)
+    bias = bias[None].to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    so = sdpa(qs, ks, vs, attn_mask=bias)
+    go = case["do"].reshape(b, nh, s, hd)
+    with torch.no_grad():
+        lib_fwd_ms, _ = time_ms(lambda i: sdpa(qs, ks, vs, attn_mask=bias), 8)
+    lib_bwd_ms = time_eager_ms(
+        lambda: torch.autograd.grad(so, (qs, ks, vs), go, retain_graph=True), 8)
+    log(f"phase 9: flash kernels at phase 8's shape (B*nh={b * nh}, S={s}, "
+        f"hd={hd}, bf16, causal, no padding), device ms per call, on {card}")
+    rows = []
+    for kind in ("fwd", "dq", "dkv"):
+        kernel, plain = calls[kind]
+        ms, call_ms = time_ms(kernel, 8)
+        plain_ms, _ = time_ms(plain, 4)
+        bound_ms, bound_by = flash_bound_ms(kind, case, io[kind])
+        library_ms = lib_fwd_ms if kind == "fwd" else lib_bwd_ms
+        log(f"  flash_{kind}: kernel {ms} (eager {call_ms}), bound {bound_ms} "
+            f"({bound_by}), plain {plain_ms}, SDPA {'forward' if kind == 'fwd' else 'backward (dq, dk, dv in one call, eager)'} "
+            f"{library_ms}")
+        rows.append({
+            "name": f"flash_{kind} (bf16, B*nh=128, S=1024, hd=64, causal)",
+            "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[kind],
+            "route": "cuda", "launches": launches[kind],
+            "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "call_ms": call_ms,
+        })
+    return rows
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     card = phase0_card()
     dev = torch.device("cuda")
     from pipegoose_tpu_torch import resolve_device
@@ -465,10 +838,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches = phase4_timed_serving(np_tree, dev)
-    del np_tree
     gc.collect()
     torch.cuda.empty_cache()
     rows = phase5_kernel_time(dev, card, errs, launches)
+    gc.collect()
+    torch.cuda.empty_cache()   # the serving state is gone before training
+    flash_errs = phase6_flash_vs_plain(dev)
+    phase7_train_vs_cpu(np_tree, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_launches = phase8_timed_training(np_tree, dev, card)
+    del np_tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += phase9_flash_time(dev, card, flash_errs, flash_launches)
+    log(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,15 @@
-"""BLOOM pieces the serving path needs, in PyTorch.
+"""BLOOM in PyTorch: the config, the random init scheme, and the
+single-device causal-LM forward and loss.
 
 The counterpart of ``pipegoose_tpu/models/bloom.py``: the config, the
-ALiBi slopes, the tanh GeLU, the tied-embedding LM head, and the random
-init scheme drawn from numpy so that full-width weights can be made on
-the card from a seed. The training forward and loss wait for the
-training slice of the port.
+ALiBi slopes, the tanh GeLU, the tied-embedding LM head, the random init
+scheme drawn from numpy so that full-width weights can be made on the
+card from a seed, and the training forward (``forward_hidden``,
+``forward``, ``loss_fn``) over the per-layer list of blocks that
+``models.weights.params_from_jax`` builds. Attention takes the plain
+branch, or with ``use_flash`` the flash kernels of
+``ops.flash_attention``. Tensor, pipeline and sequence parallelism wait
+for later slices of the port.
 """
 from __future__ import annotations
 
@@ -14,6 +19,15 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from pipegoose_tpu_torch.models.generate import _attn_core, _qkv_proj
+from pipegoose_tpu_torch.nn.tensor_parallel.layers import (
+    column_parallel_linear,
+    layer_norm,
+    row_parallel_linear,
+    vocab_parallel_cross_entropy,
+    vocab_parallel_embedding,
+)
 
 NEG_INF = -1e9   # finite, as in the JAX package: masked scores stay finite
 
@@ -29,9 +43,23 @@ class BloomConfig:
     # dtype of activations/params at run time: float32 for parity,
     # bfloat16 for throughput
     dtype: torch.dtype = torch.float32
+    # rematerialize each block's activations in backward
+    # (torch.utils.checkpoint per block)
+    remat: bool = False
+    # selective-remat policy under remat=True: only None (full remat) is
+    # ported; "dots" and "attn" raise
+    remat_policy: Optional[str] = None
+    # the flash-attention kernels (ops/flash_attention.py) instead of the
+    # plain attention branch
+    use_flash: bool = False
     # set when the embedding was padded for TP divisibility: the true
-    # vocab size; padded logit slots never win a greedy pick
+    # vocab size; padded logit slots never win a greedy pick or enter the
+    # cross entropy
     valid_vocab_size: Optional[int] = None
+    # sequence-chunked cross entropy: not ported yet (raises)
+    ce_chunks: Optional[int] = None
+    # the fused cross-entropy kernels: not ported yet (raises)
+    fused_ce: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -112,3 +140,146 @@ def logits_fn(params: dict, hidden: torch.Tensor) -> torch.Tensor:
     to bf16 once, and the result is cast up."""
     w = params["embed"]["weight"]
     return torch.matmul(hidden, w.t()).float()
+
+
+def build_alibi(attention_mask: torch.Tensor, n_head: int) -> torch.Tensor:
+    """(B, n_head, 1, S) float32 bias: slope * key position, the position
+    being the mask-aware index ``(cumsum(mask) - 1) * mask``."""
+    slopes = torch.from_numpy(alibi_slopes(n_head)).to(attention_mask.device)
+    pos = (torch.cumsum(attention_mask, dim=-1) - 1) * attention_mask
+    return slopes[None, :, None, None] * pos[:, None, None, :].float()
+
+
+def _remat_wrap(fn, config):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in backward. Only the full-remat policy
+    (``remat_policy=None``) is ported."""
+    policy = getattr(config, "remat_policy", None)
+    if policy is not None:
+        raise NotImplementedError(
+            f"remat_policy={policy!r}: the selective remat policies are not "
+            f"ported yet (ROADMAP.md A3, remat policies); only None runs")
+    from torch.utils.checkpoint import checkpoint
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return wrapped
+
+
+def _mlp(blk: dict, x: torch.Tensor, config: BloomConfig,
+         tp_axis: Optional[str] = None) -> torch.Tensor:
+    """ln_2 -> column up -> gelu -> row down."""
+    ln2 = layer_norm(blk["ln_2"], x, config.layer_norm_epsilon)
+    h = column_parallel_linear(blk["mlp"]["up"], ln2, tp_axis)
+    return row_parallel_linear(blk["mlp"]["down"], bloom_gelu(h), tp_axis)
+
+
+def _attention(blk: dict, x: torch.Tensor, bias: dict, config: BloomConfig,
+               tp_axis: Optional[str] = None) -> torch.Tensor:
+    """Self-attention of one block; ``bias`` is the dict from
+    :func:`attention_bias`. Pad-query context is zero on both branches."""
+    b, s, _ = x.shape
+    q, k, v = _qkv_proj(blk, x, config, tp_axis)
+    if config.use_flash:
+        from pipegoose_tpu_torch.ops.flash_attention import flash_attention
+
+        slopes = torch.from_numpy(alibi_slopes(config.n_head)).to(x.device)
+        ctx = flash_attention(q, k, v, slopes, kv_pos=bias["kv_pos"],
+                              kv_neg=bias["kv_neg"], causal=True)
+        ctx = ctx * bias["qmask"][:, :, None, None].to(ctx.dtype)
+        ctx = ctx.to(x.dtype).reshape(b, s, config.hidden_size)
+    else:
+        ctx = _attn_core(q, k, v, bias["alibi"] + bias["mask_bias"],
+                         bias["qmask"], x.dtype)
+    return row_parallel_linear(blk["out"], ctx, tp_axis)
+
+
+def _block(blk: dict, x: torch.Tensor, bias: dict, config: BloomConfig,
+           tp_axis: Optional[str] = None) -> torch.Tensor:
+    """One transformer block, pre-LN, residual from the un-normalized
+    stream (HF BloomBlock ordering)."""
+    ln1 = layer_norm(blk["ln_1"], x, config.layer_norm_epsilon)
+    x = x + _attention(blk["attn"], ln1, bias, config, tp_axis)
+    return x + _mlp(blk, x, config, tp_axis)
+
+
+def embed_tokens(params: dict, input_ids: torch.Tensor, config: BloomConfig,
+                 tp_axis: Optional[str] = None) -> torch.Tensor:
+    """Embedding lookup + embedding LayerNorm."""
+    x = vocab_parallel_embedding(params["embed"], input_ids, tp_axis)
+    return layer_norm(params["embed_ln"], x.to(config.dtype),
+                      config.layer_norm_epsilon)
+
+
+def attention_bias(attention_mask: torch.Tensor, config: BloomConfig) -> dict:
+    """What the configured attention branch consumes: for flash the
+    per-key ``kv_pos``/``kv_neg`` (no (S, S) tensor), else the per-head
+    ``alibi`` and the dense causal/padding ``mask_bias``; ``qmask`` for
+    both."""
+    if config.use_flash:
+        from pipegoose_tpu_torch.ops.flash_attention import mask_to_kv_bias
+
+        kv_pos, kv_neg = mask_to_kv_bias(attention_mask)
+        return {"kv_pos": kv_pos, "kv_neg": kv_neg, "qmask": attention_mask}
+    s = attention_mask.shape[-1]
+    causal = torch.ones((s, s), dtype=torch.bool,
+                        device=attention_mask.device).tril()
+    keep = causal[None, None] & (attention_mask[:, None, None, :] > 0)
+    return {
+        "alibi": build_alibi(attention_mask, config.n_head),
+        "mask_bias": torch.where(keep, 0.0, NEG_INF).float(),
+        "qmask": attention_mask,
+    }
+
+
+def forward_hidden(params: dict, input_ids: torch.Tensor,
+                   attention_mask: Optional[torch.Tensor], config: BloomConfig,
+                   tp_axis: Optional[str] = None) -> torch.Tensor:
+    """Embedding -> blocks -> final LN. Returns (B, S, H)."""
+    b, s = input_ids.shape
+    if attention_mask is None:
+        attention_mask = torch.ones((b, s), dtype=torch.int32,
+                                    device=input_ids.device)
+    x = embed_tokens(params, input_ids, config, tp_axis)
+    bias = attention_bias(attention_mask, config)
+
+    def block(blk, h):
+        return _block(blk, h, bias, config, tp_axis)
+
+    if config.remat:
+        block = _remat_wrap(block, config)
+    for blk in params["blocks"]:
+        x = block(blk, x)
+    return layer_norm(params["ln_f"], x, config.layer_norm_epsilon)
+
+
+def forward(params: dict, input_ids: torch.Tensor,
+            attention_mask: Optional[torch.Tensor], config: BloomConfig,
+            tp_axis: Optional[str] = None) -> torch.Tensor:
+    """Full causal-LM forward -> float32 logits (B, S, V)."""
+    return logits_fn(params, forward_hidden(params, input_ids, attention_mask,
+                                            config, tp_axis))
+
+
+def loss_fn(params: dict, input_ids: torch.Tensor,
+            attention_mask: Optional[torch.Tensor], labels: torch.Tensor,
+            config: BloomConfig, tp_axis: Optional[str] = None) -> torch.Tensor:
+    """Next-token cross entropy (shift by one), weighted by
+    ``attention_mask[:, 1:]``, on the full-logits path."""
+    if config.fused_ce:
+        raise NotImplementedError(
+            "fused_ce=True: the fused cross-entropy kernels are not ported yet "
+            "(ROADMAP.md B4-B6)")
+    if config.ce_chunks:
+        raise NotImplementedError(
+            f"ce_chunks={config.ce_chunks}: the chunked cross entropy is not "
+            f"ported yet (ROADMAP.md A3, ce_chunks)")
+    logits = forward(params, input_ids, attention_mask, config, tp_axis)
+    per_tok = vocab_parallel_cross_entropy(
+        logits[:, :-1], labels[:, 1:], tp_axis,
+        valid_size=config.valid_vocab_size)
+    if attention_mask is not None:
+        w = attention_mask[:, 1:].to(per_tok.dtype)
+        return (per_tok * w).sum() / torch.clamp_min(w.sum(), 1)
+    return per_tok.mean()

@@ -1,13 +1,17 @@
-"""The JAX parameter tree, as numpy arrays, turned into the port's params.
+"""The JAX parameter tree, as numpy arrays, to the port's params and back.
 
 The JAX tree stacks every per-layer leaf on a leading ``n_layer`` axis
 (``bloom.init_params``) and lays dense kernels out ``(in, out)``. The
 port keeps that kernel layout, so no transpose is needed, and splits the
-stack into a list of per-layer dicts (views into one tensor per leaf) so
-that the layer loop indexes a Python list instead of slicing every leaf
-on every step.
+stack into a list of per-layer dicts so that the layer loop indexes a
+Python list instead of slicing every leaf on every step. Each layer's
+leaf is a tensor of its own (not a view into a stacked tensor), so every
+leaf can be handed to an optimizer that updates it in place, and the
+serving path reads the updated values with no copy.
 """
 from __future__ import annotations
+
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -16,8 +20,10 @@ from pipegoose_tpu_torch._device import resolve_device
 
 
 def _to_tensor(arr, dtype, device) -> torch.Tensor:
+    """A tensor with storage of its own: never an alias of the caller's
+    array, which an optimizer's in-place update would otherwise rewrite."""
     t = torch.from_numpy(np.ascontiguousarray(np.asarray(arr, np.float32)))
-    return t.to(device=device, dtype=dtype)
+    return t.to(device=device, dtype=dtype, copy=True)
 
 
 def _map(tree, fn):
@@ -30,22 +36,63 @@ def params_from_jax(np_tree: dict, config, device="cuda") -> dict:
     """``{"embed", "embed_ln", "blocks", "ln_f"}`` with every leaf a tensor
     of ``config.dtype`` on ``device``; ``"blocks"`` becomes a list of
     ``config.n_layer`` per-layer dicts with the same keys as the JAX
-    ``blocks`` subtree."""
+    ``blocks`` subtree. No leaf requires grad; ``trainer.step.
+    make_optimizer`` turns them into trainable leaves."""
     dev = resolve_device(device)
     conv = lambda a: _to_tensor(a, config.dtype, dev)  # noqa: E731
-    stacked = _map(np_tree["blocks"], conv)
     n_layer = config.n_layer
-    for leaf in _leaves(stacked):
-        if leaf.shape[0] != n_layer:
+    for leaf in _leaves(np_tree["blocks"]):
+        if np.shape(leaf)[0] != n_layer:
             raise ValueError(
-                f"per-layer leaf of shape {tuple(leaf.shape)} does not stack "
-                f"n_layer={n_layer} layers")
+                f"per-layer leaf of shape {tuple(np.shape(leaf))} does not "
+                f"stack n_layer={n_layer} layers")
     return {
         "embed": _map(np_tree["embed"], conv),
         "embed_ln": _map(np_tree["embed_ln"], conv),
-        "blocks": [_map(stacked, lambda t, i=i: t[i]) for i in range(n_layer)],
+        "blocks": [_map(np_tree["blocks"], lambda a, i=i: conv(a[i]))
+                   for i in range(n_layer)],
         "ln_f": _map(np_tree["ln_f"], conv),
     }
+
+
+def params_to_jax(params: dict) -> dict:
+    """The reverse of :func:`params_from_jax`: a float32 numpy tree in the
+    stacked JAX layout (per-layer leaves stacked on a leading axis). Works
+    on parameters and on a tree of their gradients alike. The arrays are
+    copies: a later in-place update of the params does not reach them."""
+    def host(t):
+        return t.detach().to("cpu", torch.float32, copy=True).numpy()
+
+    def stack(*per_layer):
+        if isinstance(per_layer[0], dict):
+            return {k: stack(*(p[k] for p in per_layer)) for k in per_layer[0]}
+        return np.stack([host(t) for t in per_layer])
+
+    return {
+        "embed": _map(params["embed"], host),
+        "embed_ln": _map(params["embed_ln"], host),
+        "blocks": stack(*params["blocks"]),
+        "ln_f": _map(params["ln_f"], host),
+    }
+
+
+def param_leaves(params: dict) -> Iterator[torch.Tensor]:
+    """Every leaf tensor of the port's params, in a fixed order."""
+    for key in ("embed", "embed_ln"):
+        yield from _leaves(params[key])
+    for blk in params["blocks"]:
+        yield from _leaves(blk)
+    yield from _leaves(params["ln_f"])
+
+
+def grads_of(params: dict) -> dict:
+    """The tree of ``.grad`` of every leaf (zeros where a leaf got none),
+    in the params' own layout; feed it to :func:`params_to_jax`."""
+    def grad(t):
+        return t.grad if t.grad is not None else torch.zeros_like(t)
+
+    return {k: ([_map(b, grad) for b in v] if k == "blocks" else _map(v, grad))
+            for k, v in params.items()}
 
 
 def _leaves(tree):

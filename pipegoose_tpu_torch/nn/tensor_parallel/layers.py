@@ -4,7 +4,10 @@
 Same conventions as the JAX module: a layer is a function over a params
 dict, kernels are laid out ``(in_features, out_features)``, and
 ``axis_name=None`` is the single-device path. Tensor parallelism waits
-for a later slice of the port, so any other ``axis_name`` raises. Dense
+for a later slice of the port, so any other ``axis_name`` raises. The
+cross entropy is the plain single-device one; its backward is autograd's
+softmax-minus-one-hot, which the JAX ``custom_vjp`` only needs under
+TP. Dense
 products stay ``torch.matmul``: the JAX package leaves them to XLA, so
 there is no kernel to port here.
 """
@@ -67,3 +70,27 @@ def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     y = (xf - mean) * torch.rsqrt(var + eps)
     y = y * params["scale"] + params["bias"]
     return y.to(dtype)
+
+
+def mask_padded_vocab(logits: torch.Tensor, axis_name: Optional[str],
+                      valid_size: int) -> torch.Tensor:
+    """Logits of vocab slots >= ``valid_size`` set to -1e9, so padded
+    slots never win a softmax or shift the log-sum-exp."""
+    _check_axis(axis_name)
+    slot = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(slot < valid_size, logits, -1e9)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                                 axis_name: Optional[str] = None,
+                                 valid_size: Optional[int] = None) -> torch.Tensor:
+    """Per-token cross entropy ``logsumexp(logits) - logits[target]`` in
+    float32 over the whole vocabulary; callers take the (weighted) mean.
+    ``valid_size`` excludes padded vocab slots from the log-sum-exp."""
+    _check_axis(axis_name)
+    if valid_size is not None:
+        logits = mask_padded_vocab(logits, axis_name, valid_size)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    pred = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return lse - pred

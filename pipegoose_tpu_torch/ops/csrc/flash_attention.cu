@@ -1,0 +1,559 @@
+// Flash attention for Hopper (sm_90a): the forward, dQ and dK/dV kernels.
+//
+// Replaces the three Pallas TPU kernels of pipegoose_tpu/ops/flash_attention.py
+// and computes the same functions:
+//   flash_fwd_*  <- _flash_fwd_pallas :88  (pallas_call :152)
+//   flash_dq_*   <- _flash_dq_pallas  :187 (pallas_call :242)
+//   flash_dkv_*  <- _flash_dkv_pallas :270 (pallas_call :334)
+//
+// Layout, as the JAX wrapper flattens it: q (BH, S, HD); k, v (BH/g, S, HD),
+// query row r reading kv row r / g (GQA, g = 1 for plain MHA); slopes (BH,);
+// kv_pos, kv_neg (BH/g, S) float32. The score of (query i, key j) is
+//   q_i . k_j * scale + (keep(i, j) ? slope * kv_pos[j] + kv_neg[j] : NEG_INF)
+// with NEG_INF = -1e9 (finite, as in the JAX package): the causal test
+// j <= i and the window test i - j < window are on the INDEX and REPLACE the
+// ALiBi + padding term; kv_neg adds -1e9 for padded keys. Keys past S do not
+// exist (probability exactly 0). Everything after the loads is float32:
+//   fwd: out = softmax(scores) . v in q's dtype, lse = m + log(max(l, 1e-30));
+//   dq:  dq = scale * sum_j p * (dO . v_j - delta) * k_j, p = exp(s - lse);
+//   dkv: dv = P^T dO, dk = scale * dS^T q, PER QUERY HEAD (BH rows): the
+//        wrapper sums the g heads that share a kv row.
+//
+// What bounds it on this card: per visible (query, key) pair the forward does
+// 4*HD flops, dQ 6*HD and dK/dV 8*HD, while each call reads q, k, v (and dO,
+// lse, delta) and writes its outputs once; at bloom-560m's attention (B*nh =
+// 128, S = 1024, HD = 64, bf16) the bf16 tensor-core time of those flops and
+// the device-memory time of those bytes are alike, 0.02-0.035 ms. These
+// kernels are the simple first version: float32 FMAs on the CUDA cores
+// (67 TFLOP/s peak, not the tensor cores' 989), so they sit far above that
+// bound, limited by the FMA rate and by shared-memory reads (one 4-byte load
+// per 2 FMAs in the 4 x 4 register micro-tiles). wgmma on bf16 tiles, TMA and
+// double buffering are later work.
+//
+// Design. The TPU's sequential grid axis becomes a loop inside one block:
+//   fwd, dq: one block per (row of BH, 64-query tile); it walks the 64-key
+//     tiles from the window's first key to the diagonal (the Pallas pl.when
+//     skip becomes the loop bound), carrying m, l and the accumulator in
+//     registers (fwd) or the dQ accumulator (dq);
+//   dkv: one block per (row of BH, 64-key tile); it walks the query tiles
+//     from the diagonal on, so each block owns its dK/dV rows: no atomics and
+//     no second pass.
+// 256 threads as 16 x 16; thread (ty, tx) owns rows ty + 16a and columns
+// tx + 16b (a, b < 4) of every 64 x 64 score tile, and columns tx + 16c of
+// the HD-wide accumulators. Tiles are staged in shared memory as float32
+// rows of stride HD + 1, so a column walk over 16 consecutive rows hits 16
+// distinct banks. Row max and row sum of the online softmax are reduced
+// across the 16 lanes that share a row with warp shuffles. Rows and keys past
+// S (the ragged last tile) are staged as zeros and masked to probability 0.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;    // 16 x 16
+constexpr int kTile = 64;        // queries per query tile = keys per key tile
+constexpr int kSub = kTile / 16; // rows (and score columns) per thread
+constexpr int kLdp = kTile + 1;  // row stride of a staged 64 x 64 score tile
+constexpr float kNegInf = -1e9f; // finite, as NEG_INF in the JAX package
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as astype(bf16)
+}
+
+// Stage rows [r0, r0 + kTile) of one (S, HD) matrix as float32 rows of
+// stride HD + 1; rows past S read as zero.
+template <typename T, int HD>
+__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src,
+                                           int r0, int s) {
+  for (int e = threadIdx.x; e < kTile * HD; e += kThreads) {
+    const int r = e / HD, d = e % HD;
+    dst[r * (HD + 1) + d] =
+        (r0 + r < s) ? to_f32(src[(int64_t)(r0 + r) * HD + d]) : 0.f;
+  }
+}
+
+// Stage kTile entries [r0, r0 + kTile) of a per-position vector.
+__device__ __forceinline__ void stage_vec(float* dst, const float* __restrict__ src,
+                                          int r0, int s) {
+  for (int e = threadIdx.x; e < kTile; e += kThreads)
+    dst[e] = (r0 + e < s) ? src[r0 + e] : 0.f;
+}
+
+// acc[a][b] += A[ra + 16a] . B[rb + 16b] over staged rows of stride HD + 1.
+template <int HD>
+__device__ __forceinline__ void dot_tile(float (&acc)[kSub][kSub], const float* A,
+                                         int ra, const float* B, int rb) {
+  constexpr int kLd = HD + 1;
+#pragma unroll 8
+  for (int d = 0; d < HD; ++d) {
+    float x[kSub], y[kSub];
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) {
+      x[i] = A[(ra + 16 * i) * kLd + d];
+      y[i] = B[(rb + 16 * i) * kLd + d];
+    }
+#pragma unroll
+    for (int i = 0; i < kSub; ++i)
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+  }
+}
+
+// The additive term of score (i, j), _bias_block of the Pallas kernels.
+__device__ __forceinline__ float bias_of(int i, int j, float slope, float kp, float kn,
+                                         int causal, int window) {
+  bool keep = true;
+  if (causal) keep = keep && (j <= i);
+  if (window > 0) keep = keep && (i - j < window);
+  return keep ? slope * kp + kn : kNegInf;
+}
+
+// Reductions over the 16 lanes (tx = 0..15) that share a score row.
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Keys a query tile [q0, q0 + kTile) can see: [first, end), first a tile start.
+__device__ __forceinline__ void key_range(int q0, int s, int causal, int window,
+                                          int* first, int* end) {
+  const int q_last = min(q0 + kTile, s) - 1;
+  *end = causal ? q_last + 1 : s;
+  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  *first = lo / kTile * kTile;
+}
+
+template <int HD>
+constexpr size_t fwd_smem_floats() { return 3 * kTile * (HD + 1) + kTile * kLdp + 2 * kTile; }
+template <int HD>
+constexpr size_t dq_smem_floats() { return 4 * kTile * (HD + 1) + kTile * kLdp + 2 * kTile; }
+template <int HD>
+constexpr size_t dkv_smem_floats() { return 4 * kTile * (HD + 1) + 2 * kTile * kLdp + 2 * kTile; }
+
+// ---------------------------------------------------------------------------
+// Forward: grid (BH, ceil(S / 64)). Out in q's dtype, lse float32 (BH, S).
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ slopes,
+                 const float* __restrict__ kpos, const float* __restrict__ kneg,
+                 T* __restrict__ out, float* __restrict__ lse, int s, int g,
+                 int causal, int window, float scale) {
+  constexpr int kLd = HD + 1, kCw = HD / 16;
+  const int row = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // longest walks first
+  const int kvr = row / g;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  extern __shared__ float smem[];
+  float* Qs = smem;               // [64][HD + 1]
+  float* Ks = Qs + kTile * kLd;   // [64][HD + 1]
+  float* Vs = Ks + kTile * kLd;   // [64][HD + 1]
+  float* Ps = Vs + kTile * kLd;   // [64][65] probabilities of the tile
+  float* KP = Ps + kTile * kLdp;  // [64] kv_pos of the key tile
+  float* KN = KP + kTile;         // [64] kv_neg of the key tile
+
+  const T* kr = k + (int64_t)kvr * s * HD;
+  const T* vr = v + (int64_t)kvr * s * HD;
+  const float slope = slopes[row];
+  stage_rows<T, HD>(Qs, q + (int64_t)row * s * HD, q0, s);
+
+  float m[kSub], l[kSub], acc[kSub][kCw];
+#pragma unroll
+  for (int a = 0; a < kSub; ++a) {
+    m[a] = kNegInf;
+    l[a] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCw; ++c) acc[a][c] = 0.f;
+  }
+  int k_first, k_end;
+  key_range(q0, s, causal, window, &k_first, &k_end);
+  for (int k0 = k_first; k0 < k_end; k0 += kTile) {
+    __syncthreads();  // the previous tile is consumed (and Qs staged)
+    stage_rows<T, HD>(Ks, kr, k0, s);
+    stage_rows<T, HD>(Vs, vr, k0, s);
+    stage_vec(KP, kpos + (int64_t)kvr * s, k0, s);
+    stage_vec(KN, kneg + (int64_t)kvr * s, k0, s);
+    __syncthreads();
+    float sc[kSub][kSub] = {};
+    dot_tile<HD>(sc, Qs, ty, Ks, tx);
+#pragma unroll
+    for (int a = 0; a < kSub; ++a) {
+      const int i = q0 + ty + 16 * a;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int b = 0; b < kSub; ++b) {
+        const int jl = tx + 16 * b, j = k0 + jl;
+        sc[a][b] = j < s ? sc[a][b] * scale +
+                               bias_of(i, j, slope, KP[jl], KN[jl], causal, window)
+                         : -INFINITY;
+        mx = fmaxf(mx, sc[a][b]);
+      }
+      const float m_new = fmaxf(m[a], row_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int b = 0; b < kSub; ++b) {
+        const float p = expf(sc[a][b] - m_new);
+        Ps[(ty + 16 * a) * kLdp + tx + 16 * b] = p;
+        sum += p;
+      }
+      const float alpha = expf(m[a] - m_new);
+      l[a] = l[a] * alpha + row_sum(sum);
+      m[a] = m_new;
+#pragma unroll
+      for (int c = 0; c < kCw; ++c) acc[a][c] *= alpha;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < kTile; ++j) {  // acc += P . V
+      float p[kSub], vv[kCw];
+#pragma unroll
+      for (int a = 0; a < kSub; ++a) p[a] = Ps[(ty + 16 * a) * kLdp + j];
+#pragma unroll
+      for (int c = 0; c < kCw; ++c) vv[c] = Vs[j * kLd + tx + 16 * c];
+#pragma unroll
+      for (int a = 0; a < kSub; ++a)
+#pragma unroll
+        for (int c = 0; c < kCw; ++c) acc[a][c] = fmaf(p[a], vv[c], acc[a][c]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < kSub; ++a) {
+    const int i = q0 + ty + 16 * a;
+    if (i >= s) continue;
+    const float lv = fmaxf(l[a], 1e-30f);
+    T* orow = out + ((int64_t)row * s + i) * HD;
+#pragma unroll
+    for (int c = 0; c < kCw; ++c) orow[tx + 16 * c] = from_f32<T>(acc[a][c] / lv);
+    if (tx == 0) lse[(int64_t)row * s + i] = m[a] + logf(lv);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dQ: grid (BH, ceil(S / 64)). dq in q's dtype.
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                const float* __restrict__ slopes, const float* __restrict__ kpos,
+                const float* __restrict__ kneg, T* __restrict__ dq, int s, int g,
+                int causal, int window, float scale) {
+  constexpr int kLd = HD + 1, kCw = HD / 16;
+  const int row = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int kvr = row / g;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  extern __shared__ float smem[];
+  float* Qs = smem;               // [64][HD + 1]
+  float* Os = Qs + kTile * kLd;   // [64][HD + 1] dO
+  float* Ks = Os + kTile * kLd;   // [64][HD + 1]
+  float* Vs = Ks + kTile * kLd;   // [64][HD + 1]
+  float* Ds = Vs + kTile * kLd;   // [64][65] dS of the tile
+  float* KP = Ds + kTile * kLdp;
+  float* KN = KP + kTile;
+
+  const T* kr = k + (int64_t)kvr * s * HD;
+  const T* vr = v + (int64_t)kvr * s * HD;
+  const float slope = slopes[row];
+  stage_rows<T, HD>(Qs, q + (int64_t)row * s * HD, q0, s);
+  stage_rows<T, HD>(Os, dout + (int64_t)row * s * HD, q0, s);
+  float lse_r[kSub], dl_r[kSub], acc[kSub][kCw];
+#pragma unroll
+  for (int a = 0; a < kSub; ++a) {
+    const int i = q0 + ty + 16 * a;
+    lse_r[a] = i < s ? lse[(int64_t)row * s + i] : 0.f;
+    dl_r[a] = i < s ? delta[(int64_t)row * s + i] : 0.f;
+#pragma unroll
+    for (int c = 0; c < kCw; ++c) acc[a][c] = 0.f;
+  }
+  int k_first, k_end;
+  key_range(q0, s, causal, window, &k_first, &k_end);
+  for (int k0 = k_first; k0 < k_end; k0 += kTile) {
+    __syncthreads();
+    stage_rows<T, HD>(Ks, kr, k0, s);
+    stage_rows<T, HD>(Vs, vr, k0, s);
+    stage_vec(KP, kpos + (int64_t)kvr * s, k0, s);
+    stage_vec(KN, kneg + (int64_t)kvr * s, k0, s);
+    __syncthreads();
+    float sc[kSub][kSub] = {}, dp[kSub][kSub] = {};
+    dot_tile<HD>(sc, Qs, ty, Ks, tx);
+    dot_tile<HD>(dp, Os, ty, Vs, tx);
+#pragma unroll
+    for (int a = 0; a < kSub; ++a) {
+      const int i = q0 + ty + 16 * a;
+#pragma unroll
+      for (int b = 0; b < kSub; ++b) {
+        const int jl = tx + 16 * b, j = k0 + jl;
+        float p = 0.f;
+        if (i < s && j < s)
+          p = expf(sc[a][b] * scale +
+                   bias_of(i, j, slope, KP[jl], KN[jl], causal, window) - lse_r[a]);
+        Ds[(ty + 16 * a) * kLdp + jl] = p * (dp[a][b] - dl_r[a]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < kTile; ++j) {  // acc += dS . K
+      float ds[kSub], kk[kCw];
+#pragma unroll
+      for (int a = 0; a < kSub; ++a) ds[a] = Ds[(ty + 16 * a) * kLdp + j];
+#pragma unroll
+      for (int c = 0; c < kCw; ++c) kk[c] = Ks[j * kLd + tx + 16 * c];
+#pragma unroll
+      for (int a = 0; a < kSub; ++a)
+#pragma unroll
+        for (int c = 0; c < kCw; ++c) acc[a][c] = fmaf(ds[a], kk[c], acc[a][c]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < kSub; ++a) {
+    const int i = q0 + ty + 16 * a;
+    if (i >= s) continue;
+    T* drow = dq + ((int64_t)row * s + i) * HD;
+#pragma unroll
+    for (int c = 0; c < kCw; ++c) drow[tx + 16 * c] = from_f32<T>(scale * acc[a][c]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV: grid (BH, ceil(S / 64)), one block per 64-key tile of one query
+// head. dk, dv (BH, S, HD) in k's dtype.
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 const float* __restrict__ slopes, const float* __restrict__ kpos,
+                 const float* __restrict__ kneg, T* __restrict__ dk,
+                 T* __restrict__ dv, int s, int g, int causal, int window,
+                 float scale) {
+  constexpr int kLd = HD + 1, kCw = HD / 16;
+  const int row = blockIdx.x;
+  const int k0 = blockIdx.y * kTile;  // early key tiles walk the most queries
+  const int kvr = row / g;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  extern __shared__ float smem[];
+  float* Ks = smem;               // [64][HD + 1]
+  float* Vs = Ks + kTile * kLd;   // [64][HD + 1]
+  float* Qs = Vs + kTile * kLd;   // [64][HD + 1]
+  float* Os = Qs + kTile * kLd;   // [64][HD + 1] dO
+  float* Pt = Os + kTile * kLd;   // [64 keys][65] P^T of the tile
+  float* Dt = Pt + kTile * kLdp;  // [64 keys][65] dS^T of the tile
+  float* LS = Dt + kTile * kLdp;  // [64] lse of the query tile
+  float* DL = LS + kTile;         // [64] delta of the query tile
+
+  const float slope = slopes[row];
+  stage_rows<T, HD>(Ks, k + (int64_t)kvr * s * HD, k0, s);
+  stage_rows<T, HD>(Vs, v + (int64_t)kvr * s * HD, k0, s);
+  const T* qr = q + (int64_t)row * s * HD;
+  const T* dor = dout + (int64_t)row * s * HD;
+  float kp[kSub], kn[kSub], dk_acc[kSub][kCw], dv_acc[kSub][kCw];
+#pragma unroll
+  for (int a = 0; a < kSub; ++a) {
+    const int j = k0 + ty + 16 * a;
+    kp[a] = j < s ? kpos[(int64_t)kvr * s + j] : 0.f;
+    kn[a] = j < s ? kneg[(int64_t)kvr * s + j] : 0.f;
+#pragma unroll
+    for (int c = 0; c < kCw; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.f;
+  }
+  // queries that can see a key of the tile: [q_first, q_end)
+  const int k_last = min(k0 + kTile, s) - 1;
+  const int q_first = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(s, k_last + window) : s;
+  for (int q0 = q_first / kTile * kTile; q0 < q_end; q0 += kTile) {
+    __syncthreads();
+    stage_rows<T, HD>(Qs, qr, q0, s);
+    stage_rows<T, HD>(Os, dor, q0, s);
+    stage_vec(LS, lse + (int64_t)row * s, q0, s);
+    stage_vec(DL, delta + (int64_t)row * s, q0, s);
+    __syncthreads();
+    float st[kSub][kSub] = {}, dpt[kSub][kSub] = {};
+    dot_tile<HD>(st, Ks, ty, Qs, tx);   // S^T: key rows, query columns
+    dot_tile<HD>(dpt, Vs, ty, Os, tx);  // (dO . V^T)^T
+#pragma unroll
+    for (int a = 0; a < kSub; ++a) {
+      const int j = k0 + ty + 16 * a;
+#pragma unroll
+      for (int b = 0; b < kSub; ++b) {
+        const int il = tx + 16 * b, i = q0 + il;
+        float p = 0.f;
+        if (i < s && j < s)
+          p = expf(st[a][b] * scale + bias_of(i, j, slope, kp[a], kn[a], causal, window) -
+                   LS[il]);
+        Pt[(ty + 16 * a) * kLdp + il] = p;
+        Dt[(ty + 16 * a) * kLdp + il] = p * (dpt[a][b] - DL[il]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int i = 0; i < kTile; ++i) {  // dv += P^T . dO, dk += dS^T . Q
+      float p[kSub], ds[kSub], oo[kCw], qq[kCw];
+#pragma unroll
+      for (int a = 0; a < kSub; ++a) {
+        p[a] = Pt[(ty + 16 * a) * kLdp + i];
+        ds[a] = Dt[(ty + 16 * a) * kLdp + i];
+      }
+#pragma unroll
+      for (int c = 0; c < kCw; ++c) {
+        oo[c] = Os[i * kLd + tx + 16 * c];
+        qq[c] = Qs[i * kLd + tx + 16 * c];
+      }
+#pragma unroll
+      for (int a = 0; a < kSub; ++a)
+#pragma unroll
+        for (int c = 0; c < kCw; ++c) {
+          dv_acc[a][c] = fmaf(p[a], oo[c], dv_acc[a][c]);
+          dk_acc[a][c] = fmaf(ds[a], qq[c], dk_acc[a][c]);
+        }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < kSub; ++a) {
+    const int j = k0 + ty + 16 * a;
+    if (j >= s) continue;
+    T* krow = dk + ((int64_t)row * s + j) * HD;
+    T* vrow = dv + ((int64_t)row * s + j) * HD;
+#pragma unroll
+    for (int c = 0; c < kCw; ++c) {
+      krow[tx + 16 * c] = from_f32<T>(scale * dk_acc[a][c]);
+      vrow[tx + 16 * c] = from_f32<T>(dv_acc[a][c]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch: the opt-in to more than 48 KB of dynamic shared memory is set once
+// per instantiation, at its first launch, so that later launches (a CUDA
+// graph capture among them) only queue the kernel.
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, bool* opted_in, size_t smem_floats, int bh, int s,
+           cudaStream_t stream, Args... args) {
+  const size_t smem = smem_floats * sizeof(float);
+  if (!*opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    *opted_in = true;
+  }
+  const dim3 grid(bh, (s + kTile - 1) / kTile);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int fwd(const void* q, const void* k, const void* v, const void* slopes,
+        const void* kpos, const void* kneg, void* out, void* lse, int bh, int s,
+        int g, int causal, int window, float scale, cudaStream_t stream) {
+  static bool opted_in = false;
+  return launch(flash_fwd_kernel<T, HD>, &opted_in, fwd_smem_floats<HD>(), bh, s,
+                stream, static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), static_cast<const float*>(slopes),
+                static_cast<const float*>(kpos), static_cast<const float*>(kneg),
+                static_cast<T*>(out), static_cast<float*>(lse), s, g, causal,
+                window, scale);
+}
+
+template <typename T, int HD>
+int dq(const void* q, const void* k, const void* v, const void* dout,
+       const void* lse, const void* delta, const void* slopes, const void* kpos,
+       const void* kneg, void* dq_out, int bh, int s, int g, int causal,
+       int window, float scale, cudaStream_t stream) {
+  static bool opted_in = false;
+  return launch(flash_dq_kernel<T, HD>, &opted_in, dq_smem_floats<HD>(), bh, s,
+                stream, static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), static_cast<const T*>(dout),
+                static_cast<const float*>(lse), static_cast<const float*>(delta),
+                static_cast<const float*>(slopes), static_cast<const float*>(kpos),
+                static_cast<const float*>(kneg), static_cast<T*>(dq_out), s, g,
+                causal, window, scale);
+}
+
+template <typename T, int HD>
+int dkv(const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, const void* delta, const void* slopes, const void* kpos,
+        const void* kneg, void* dk, void* dv, int bh, int s, int g, int causal,
+        int window, float scale, cudaStream_t stream) {
+  static bool opted_in = false;
+  return launch(flash_dkv_kernel<T, HD>, &opted_in, dkv_smem_floats<HD>(), bh, s,
+                stream, static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), static_cast<const T*>(dout),
+                static_cast<const float*>(lse), static_cast<const float*>(delta),
+                static_cast<const float*>(slopes), static_cast<const float*>(kpos),
+                static_cast<const float*>(kneg), static_cast<T*>(dk),
+                static_cast<T*>(dv), s, g, causal, window, scale);
+}
+
+}  // namespace
+
+// Entry points, one per kernel and dtype (float32, bf16), head_dim 32, 64 or
+// 128. causal is 0 or 1; window <= 0 means no window. Each returns the
+// launch's cudaError_t: 0 when the kernel was queued on `stream`.
+#define FLASH_ENTRIES(SUFFIX, T)                                                    \
+  extern "C" int flash_fwd_##SUFFIX(                                                \
+      const void* q, const void* k, const void* v, const void* slopes,              \
+      const void* kpos, const void* kneg, void* out, void* lse, int bh, int s,      \
+      int hd, int g, int causal, int window, float scale, void* stream) {           \
+    auto st = static_cast<cudaStream_t>(stream);                                    \
+    switch (hd) {                                                                   \
+      case 32: return fwd<T, 32>(q, k, v, slopes, kpos, kneg, out, lse, bh, s, g,   \
+                                 causal, window, scale, st);                        \
+      case 64: return fwd<T, 64>(q, k, v, slopes, kpos, kneg, out, lse, bh, s, g,   \
+                                 causal, window, scale, st);                        \
+      case 128: return fwd<T, 128>(q, k, v, slopes, kpos, kneg, out, lse, bh, s, g, \
+                                   causal, window, scale, st);                      \
+      default: return (int)cudaErrorInvalidValue;                                   \
+    }                                                                               \
+  }                                                                                 \
+  extern "C" int flash_dq_##SUFFIX(                                                 \
+      const void* q, const void* k, const void* v, const void* dout,                \
+      const void* lse, const void* delta, const void* slopes, const void* kpos,     \
+      const void* kneg, void* dq_out, int bh, int s, int hd, int g, int causal,     \
+      int window, float scale, void* stream) {                                      \
+    auto st = static_cast<cudaStream_t>(stream);                                    \
+    switch (hd) {                                                                   \
+      case 32: return dq<T, 32>(q, k, v, dout, lse, delta, slopes, kpos, kneg,      \
+                                dq_out, bh, s, g, causal, window, scale, st);       \
+      case 64: return dq<T, 64>(q, k, v, dout, lse, delta, slopes, kpos, kneg,      \
+                                dq_out, bh, s, g, causal, window, scale, st);       \
+      case 128: return dq<T, 128>(q, k, v, dout, lse, delta, slopes, kpos, kneg,    \
+                                  dq_out, bh, s, g, causal, window, scale, st);     \
+      default: return (int)cudaErrorInvalidValue;                                   \
+    }                                                                               \
+  }                                                                                 \
+  extern "C" int flash_dkv_##SUFFIX(                                                \
+      const void* q, const void* k, const void* v, const void* dout,                \
+      const void* lse, const void* delta, const void* slopes, const void* kpos,     \
+      const void* kneg, void* dk, void* dv, int bh, int s, int hd, int g,           \
+      int causal, int window, float scale, void* stream) {                          \
+    auto st = static_cast<cudaStream_t>(stream);                                    \
+    switch (hd) {                                                                   \
+      case 32: return dkv<T, 32>(q, k, v, dout, lse, delta, slopes, kpos, kneg, dk, \
+                                 dv, bh, s, g, causal, window, scale, st);          \
+      case 64: return dkv<T, 64>(q, k, v, dout, lse, delta, slopes, kpos, kneg, dk, \
+                                 dv, bh, s, g, causal, window, scale, st);          \
+      case 128: return dkv<T, 128>(q, k, v, dout, lse, delta, slopes, kpos, kneg,   \
+                                   dk, dv, bh, s, g, causal, window, scale, st);    \
+      default: return (int)cudaErrorInvalidValue;                                   \
+    }                                                                               \
+  }
+
+FLASH_ENTRIES(f32, float)
+FLASH_ENTRIES(bf16, __nv_bfloat16)

@@ -1,0 +1,345 @@
+"""Flash attention, forward and backward, with ALiBi, padding, causal and
+sliding-window masks and GQA.
+
+The counterpart of ``pipegoose_tpu/ops/flash_attention.py``. The public
+:func:`flash_attention` keeps the JAX layout, (B, S, nh, hd) in and out,
+and flattens to (B*nh, S, hd) for three kernels:
+
+- :func:`flash_fwd` -> (out, lse), the online-softmax forward;
+- :func:`flash_dq` -> dq, and :func:`flash_dkv` -> (dk, dv) per query
+  head, the two backward kernels, which recompute the probabilities from
+  the saved logsumexp.
+
+Each is a wrapper over one hand-written CUDA kernel
+(``csrc/flash_attention.cu``): on CPU tensors it calls its plain PyTorch
+version (``flash_fwd_reference``, ``flash_dq_reference``,
+``flash_dkv_reference``, the math of the Pallas bodies), on CUDA tensors
+it launches the kernel or raises; ``.launches`` counts the launches.
+``_Flash`` ties them together as a ``torch.autograd.Function``, the
+``jax.custom_vjp`` of the JAX file.
+
+Scores follow ``_bias_block``: ``q.k * scale + slope * kv_pos + kv_neg``,
+where the causal test (``k_idx <= q_idx``, on the index) and the window
+test REPLACE that term with the finite ``NEG_INF``; ``kv_neg`` adds
+``NEG_INF`` for padded keys; ``kv_pos`` is BLOOM's mask-aware ALiBi
+position. A query row that sees no key at all gets finite garbage, which
+the models zero with their query mask.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from pipegoose_tpu_torch.ops import _build
+
+NEG_INF = -1e9      # finite, as in the JAX package
+HEAD_DIMS = (32, 64, 128)   # head_dim values the source instantiates
+MAX_TILES = 65535           # grid.y limit: 64-position tiles per sequence
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def mask_to_kv_bias(attention_mask: torch.Tensor):
+    """(B, S) 1/0 mask -> (kv_pos, kv_neg) float32: the mask-aware ALiBi
+    position ``(cumsum(mask) - 1) * mask`` and 0 / NEG_INF key validity."""
+    m = attention_mask.float()
+    kv_pos = (torch.cumsum(m, dim=-1) - 1.0) * m
+    kv_neg = (1.0 - m) * NEG_INF
+    return kv_pos, kv_neg
+
+
+def _expand(x: torch.Tensor, g: int) -> torch.Tensor:
+    """kv rows -> query rows: query row r reads kv row r // g."""
+    return x if g == 1 else x.repeat_interleave(g, dim=0)
+
+
+def _scores(q, k, slopes, kpos, kneg, scale, causal, g, window):
+    """float32 (BH, S, S) scores of the whole sequence, with the additive
+    term of ``_bias_block``."""
+    s = q.shape[1]
+    kp, kn = _expand(kpos, g), _expand(kneg, g)
+    bias = slopes[:, None, None] * kp[:, None, :] + kn[:, None, :]
+    if causal or window is not None:
+        qi = torch.arange(s, device=q.device)[:, None]
+        kj = torch.arange(s, device=q.device)[None, :]
+        keep = torch.ones((s, s), dtype=torch.bool, device=q.device)
+        if causal:
+            keep = keep & (kj <= qi)
+        if window is not None:
+            keep = keep & (qi - kj < window)
+        bias = torch.where(keep[None], bias, NEG_INF)
+    dots = torch.einsum("bqd,bkd->bqk", q.float(), _expand(k, g).float())
+    return dots * scale + bias
+
+
+def flash_fwd_reference(q, k, v, slopes, kpos, kneg, scale, causal, g=1,
+                        window=None):
+    """Plain version of the forward kernel: (out in q's dtype, lse float32
+    (BH, S)). The row max starts at NEG_INF and the row sum is clamped at
+    1e-30, as in ``_flash_fwd_pallas``."""
+    sc = _scores(q, k, slopes, kpos, kneg, scale, causal, g, window)
+    m = torch.clamp_min(sc.amax(dim=-1), NEG_INF)
+    p = torch.exp(sc - m[..., None])
+    l = torch.clamp_min(p.sum(dim=-1), 1e-30)
+    out = torch.einsum("bqk,bkd->bqd", p, _expand(v, g).float()) / l[..., None]
+    return out.to(q.dtype), m + torch.log(l)
+
+
+def _p_ds(q, k, v, do, lse, delta, slopes, kpos, kneg, scale, causal, g,
+          window):
+    """P recomputed from the saved lse, and dS = P * (dO.Vᵀ - delta)."""
+    sc = _scores(q, k, slopes, kpos, kneg, scale, causal, g, window)
+    p = torch.exp(sc - lse[..., None])
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), _expand(v, g).float())
+    return p, p * (dp - delta[..., None])
+
+
+def flash_dq_reference(q, k, v, do, lse, delta, slopes, kpos, kneg, scale,
+                       causal, g=1, window=None):
+    """Plain version of the dQ kernel: ``scale * dS . K`` in q's dtype."""
+    _, ds = _p_ds(q, k, v, do, lse, delta, slopes, kpos, kneg, scale,
+                  causal, g, window)
+    dq = scale * torch.einsum("bqk,bkd->bqd", ds, _expand(k, g).float())
+    return dq.to(q.dtype)
+
+
+def flash_dkv_reference(q, k, v, do, lse, delta, slopes, kpos, kneg, scale,
+                        causal, g=1, window=None):
+    """Plain version of the dK/dV kernel: ``(scale * dSᵀ . Q, Pᵀ . dO)`` PER
+    QUERY HEAD, (BH, S, hd) each in k's dtype."""
+    p, ds = _p_ds(q, k, v, do, lse, delta, slopes, kpos, kneg, scale,
+                  causal, g, window)
+    dk = scale * torch.einsum("bqk,bqd->bkd", ds, q.float())
+    dv = torch.einsum("bqk,bqd->bkd", p, do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(q, k, v, slopes, kpos, kneg, g, window, **extra):
+    """Device, dtype, shape and contiguity checks before a launch."""
+    if q.dim() != 3:
+        raise ValueError(f"q must be (B*nh, S, hd), got {tuple(q.shape)}")
+    bh, s, hd = q.shape
+    if q.dtype not in _SUFFIX:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim={hd} not in the kernels' {HEAD_DIMS}")
+    if g < 1 or bh % g:
+        raise ValueError(f"B*nh={bh} is not a multiple of g={g}")
+    if -(-s // 64) > MAX_TILES:
+        raise ValueError(f"S={s} needs more than {MAX_TILES} tiles")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    shapes = {"k": (k, (bh // g, s, hd), q.dtype),
+              "v": (v, (bh // g, s, hd), q.dtype),
+              "slopes": (slopes, (bh,), torch.float32),
+              "kv_pos": (kpos, (bh // g, s), torch.float32),
+              "kv_neg": (kneg, (bh // g, s), torch.float32)}
+    shapes.update(extra)
+    for name, (t, shape, dtype) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    for name, t in [("q", q)] + [(n, t) for n, (t, _, _) in shapes.items()]:
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _kernel_fn(kind: str, dtype):
+    fn = getattr(_build.load("flash_attention"), f"flash_{kind}_{_SUFFIX[dtype]}")
+    if fn.argtypes is None:
+        n_ptr = {"fwd": 8, "dq": 10, "dkv": 11}[kind]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(kind, q, ptrs, g, causal, window, scale):
+    bh, s, hd = q.shape
+    with torch.cuda.device(q.device):
+        err = _kernel_fn(kind, q.dtype)(
+            *ptrs, bh, s, hd, g, int(bool(causal)), window or 0, float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_{kind} kernel launch failed: cudaError {err}")
+
+
+def _device_of(q, name):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+    return q.device.type
+
+
+def flash_fwd(q, k, v, slopes, kpos, kneg, scale, causal, g=1, window=None):
+    """Forward kernel: q (BH, S, hd), k/v (BH/g, S, hd) float32 or bf16,
+    slopes (BH,), kv_pos/kv_neg (BH/g, S) float32 -> (out (BH, S, hd) in
+    q's dtype, lse (BH, S) float32)."""
+    if _device_of(q, "flash_fwd") == "cpu":
+        return flash_fwd_reference(q, k, v, slopes, kpos, kneg, scale, causal,
+                                   g, window)
+    _check(q, k, v, slopes, kpos, kneg, g, window)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return out, lse
+    _launch("fwd", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       slopes.data_ptr(), kpos.data_ptr(), kneg.data_ptr(),
+                       out.data_ptr(), lse.data_ptr()), g, causal, window, scale)
+    flash_fwd.launches += 1
+    return out, lse
+
+
+def _check_bwd(q, k, v, do, lse, delta, slopes, kpos, kneg, g, window):
+    bh, s = q.shape[:2]
+    _check(q, k, v, slopes, kpos, kneg, g, window,
+           do=(do, tuple(q.shape), q.dtype),
+           lse=(lse, (bh, s), torch.float32),
+           delta=(delta, (bh, s), torch.float32))
+
+
+def _bwd_ptrs(q, k, v, do, lse, delta, slopes, kpos, kneg):
+    return tuple(t.data_ptr() for t in (q, k, v, do, lse, delta, slopes, kpos, kneg))
+
+
+def flash_dq(q, k, v, do, lse, delta, slopes, kpos, kneg, scale, causal, g=1,
+             window=None):
+    """dQ kernel: + do (BH, S, hd) in q's dtype, lse and delta (BH, S)
+    float32 -> dq (BH, S, hd) in q's dtype."""
+    args = (q, k, v, do, lse, delta, slopes, kpos, kneg)
+    if _device_of(q, "flash_dq") == "cpu":
+        return flash_dq_reference(*args, scale, causal, g, window)
+    _check_bwd(*args, g, window)
+    dq = torch.empty_like(q)
+    if q.numel() == 0:
+        return dq
+    _launch("dq", q, _bwd_ptrs(*args) + (dq.data_ptr(),), g, causal, window, scale)
+    flash_dq.launches += 1
+    return dq
+
+
+def flash_dkv(q, k, v, do, lse, delta, slopes, kpos, kneg, scale, causal, g=1,
+              window=None):
+    """dK/dV kernel: the dq kernel's inputs -> (dk, dv), each (BH, S, hd)
+    in k's dtype, PER QUERY HEAD (the caller sums the g heads of a group)."""
+    args = (q, k, v, do, lse, delta, slopes, kpos, kneg)
+    if _device_of(q, "flash_dkv") == "cpu":
+        return flash_dkv_reference(*args, scale, causal, g, window)
+    _check_bwd(*args, g, window)
+    dk = torch.empty_like(q)
+    dv = torch.empty_like(q)
+    if q.numel() == 0:
+        return dk, dv
+    _launch("dkv", q, _bwd_ptrs(*args) + (dk.data_ptr(), dv.data_ptr()), g,
+            causal, window, scale)
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+flash_fwd.launches = 0
+flash_dq.launches = 0
+flash_dkv.launches = 0
+
+
+class _Flash(torch.autograd.Function):
+    """The ``_flash`` custom_vjp: the forward kernel saves (q, k, v,
+    slopes, kv_pos, kv_neg, out, lse); the backward takes delta =
+    rowsum(dO * O) in plain torch, then launches the dQ and dK/dV kernels
+    and sums the per-query-head dK/dV over each GQA group. slopes, kv_pos
+    and kv_neg get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, slopes, kpos, kneg, scale, causal, g, window):
+        out, lse = flash_fwd(q, k, v, slopes, kpos, kneg, scale, causal, g, window)
+        ctx.save_for_backward(q, k, v, slopes, kpos, kneg, out, lse)
+        ctx.args = (scale, causal, g, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, slopes, kpos, kneg, out, lse = ctx.saved_tensors
+        scale, causal, g, window = ctx.args
+        do = do.to(q.dtype).contiguous()
+        delta = (do.float() * out.float()).sum(dim=-1)
+        args = (q, k, v, do, lse, delta, slopes, kpos, kneg, scale, causal, g, window)
+        dq = flash_dq(*args)
+        dk, dv = flash_dkv(*args)
+        if g > 1:
+            s, hd = k.shape[1:]
+            dk = dk.reshape(-1, g, s, hd).sum(dim=1).to(k.dtype)
+            dv = dv.reshape(-1, g, s, hd).sum(dim=1).to(v.dtype)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,                       # (B, S, nh, hd)
+    k: torch.Tensor,                       # (B, S, nh | nkv, hd)
+    v: torch.Tensor,
+    alibi_slopes: Optional[torch.Tensor] = None,    # (nh,)
+    attention_mask: Optional[torch.Tensor] = None,  # (B, S) 1 keep, 0 pad
+    kv_pos: Optional[torch.Tensor] = None,          # (B, S) ALiBi position per key
+    kv_neg: Optional[torch.Tensor] = None,          # (B, S) 0 valid / NEG_INF pad
+    causal: bool = True,
+    scale: Optional[float] = None,
+    window: Optional[int] = None,          # sliding window (Mistral semantics)
+) -> torch.Tensor:
+    """Fused attention, differentiable in q, k and v. Returns (B, S, nh, hd)
+    in q's dtype.
+
+    Padding: pass ``attention_mask`` (positions from BLOOM's mask-aware
+    cumsum) or precomputed ``kv_pos``/``kv_neg``; a mask fills only what
+    the caller left out. GQA: k/v with fewer heads than q (nh = g * nkv,
+    query head h reading kv head h // g). The (B*nh, S, hd) operands are
+    contiguous copies of the (possibly strided) inputs."""
+    b, s, nh, hd = q.shape
+    nkv = k.shape[2]
+    if nh % nkv:
+        raise ValueError(f"n_head={nh} must be a multiple of n_kv_head={nkv}")
+    g = nh // nkv
+    dev = q.device
+    if scale is None:
+        scale = hd ** -0.5
+    if alibi_slopes is None:
+        alibi_slopes = torch.zeros((nh,), dtype=torch.float32, device=dev)
+    if attention_mask is not None and (kv_pos is None or kv_neg is None):
+        pos, neg = mask_to_kv_bias(attention_mask)
+        kv_pos = pos if kv_pos is None else kv_pos
+        kv_neg = neg if kv_neg is None else kv_neg
+    if kv_pos is None:
+        kv_pos = torch.arange(s, dtype=torch.float32, device=dev)[None].expand(b, s)
+    if kv_neg is None:
+        kv_neg = torch.zeros((b, s), dtype=torch.float32, device=dev)
+    slopes = alibi_slopes.float()[None].expand(b, nh).reshape(b * nh)
+
+    def flat(x):
+        return x.transpose(1, 2).reshape(b * x.shape[2], s, hd).contiguous()
+
+    def flat_bs(x, h):   # (B, S) -> (B*h, S)
+        return x.float()[:, None, :].expand(b, h, s).reshape(b * h, s).contiguous()
+
+    out = _Flash.apply(flat(q), flat(k), flat(v), slopes.contiguous(),
+                       flat_bs(kv_pos, nkv), flat_bs(kv_neg, nkv), float(scale),
+                       causal, g, int(window) if window is not None else None)
+    return out.reshape(b, nh, s, hd).transpose(1, 2)
+
+
+def attention_reference(q, k, v, slopes, scale, causal, kpos=None, kneg=None):
+    """Plain attention over flattened (BH, S, hd) operands with the same
+    semantics (``_xla_reference`` of the JAX file): one softmax over the
+    whole score matrix, output in q's dtype."""
+    bh, s, _ = q.shape
+    if kpos is None:
+        kpos = torch.arange(s, dtype=torch.float32, device=q.device)[None].expand(bh, s)
+    if kneg is None:
+        kneg = torch.zeros((bh, s), dtype=torch.float32, device=q.device)
+    sc = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    sc = sc + slopes[:, None, None] * kpos[:, None, :] + kneg[:, None, :]
+    if causal:
+        keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        sc = torch.where(keep[None], sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)

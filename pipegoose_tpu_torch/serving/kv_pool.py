@@ -16,6 +16,8 @@ page table:
 
 JAX donates the pools to its jitted steps; here the pools are updated IN
 PLACE (``index_put_``), so the forward passes return only the logits.
+Both run under ``torch.no_grad``: params that a trainer marked as
+requiring grad are served without building an autograd graph.
 ``init_pages(kv_dtype="int8")`` makes each bank ``{"q": int8, "scale":
 float32}``: writes quantize per (position, head), the attention read
 dequantizes.
@@ -233,6 +235,7 @@ def _embed(params, tokens, config):
     return layer_norm(params["embed_ln"], x, config.layer_norm_epsilon)
 
 
+@torch.no_grad()
 def paged_decode_step(params, tokens, k_pages, v_pages, page_table, seq_lens,
                       config) -> torch.Tensor:
     """One decode step for every slot of the ragged active batch.
@@ -256,6 +259,7 @@ def paged_decode_step(params, tokens, k_pages, v_pages, page_table, seq_lens,
     return logits_fn(params, x)[:, 0]
 
 
+@torch.no_grad()
 def paged_prefill_chunk(params, tokens, k_pages, v_pages, page_table, start,
                         n_valid, config) -> torch.Tensor:
     """Forward one CHUNK of C tokens per row straight through the pool.

@@ -1,0 +1,201 @@
+"""The port's flash attention held against the JAX package on the CPU.
+
+Each plain kernel version (``flash_fwd_reference``, ``flash_dq_reference``,
+``flash_dkv_reference``) against its Pallas function run as the JAX tests
+run it, ``interpret=True`` with blocks from ``_pick_block``; then the
+public ``flash_attention`` and its autograd gradients against
+``jax.grad`` of the JAX ``flash_attention``. Inputs come from a numpy seed
+and go to both as numpy arrays, in float32.
+
+Tolerance 2e-5 absolute: the two sides sum the same float32 products in
+another order (the Pallas bodies block by block, the plain versions over
+the whole row); with ALiBi scores of order 10 and outputs and gradients
+of order 1 that moves results by a few ulps of the scores.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pipegoose_tpu.models.bloom import alibi_slopes
+from pipegoose_tpu.ops import flash_attention as jfa
+from pipegoose_tpu_torch.ops import flash_attention as tfa
+
+ATOL = 2e-5
+
+# name -> (B, S, nh, nkv, hd, causal, window, pad): pad trailing keys of
+# batch row 0 are masked out (right padding)
+CASES = {
+    "causal_alibi": (2, 64, 2, 2, 32, True, None, 0),
+    "right_padding": (2, 64, 2, 2, 32, True, None, 13),
+    "s96": (1, 96, 2, 2, 64, True, None, 0),
+    "noncausal": (2, 64, 2, 2, 32, False, None, 0),
+    "gqa_g2": (2, 64, 4, 2, 32, True, None, 0),
+    "window": (2, 64, 2, 2, 32, True, 16, 0),
+}
+
+
+def _inputs(name, seed=0):
+    """Flattened kernel operands as numpy: q (BH, S, hd), k/v (BH/g, S,
+    hd), slopes (BH,), kv_pos/kv_neg (BH/g, S), dO, and the config."""
+    b, s, nh, nkv, hd, causal, window, pad = CASES[name]
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.standard_normal(shape, dtype=np.float32)  # noqa: E731
+    mask = np.ones((b, s), np.float32)
+    if pad:
+        mask[0, s - pad:] = 0
+    kpos = (np.cumsum(mask, -1) - 1) * mask
+    kneg = (1 - mask) * np.float32(-1e9)
+    g = nh // nkv
+    return {
+        "q": f(b * nh, s, hd), "k": f(b * nkv, s, hd), "v": f(b * nkv, s, hd),
+        "do": f(b * nh, s, hd),
+        "slopes": np.tile(alibi_slopes(nh), b),
+        "kpos": np.repeat(kpos, nkv, 0), "kneg": np.repeat(kneg, nkv, 0),
+        "scale": hd ** -0.5, "causal": causal, "g": g, "window": window,
+        "blocks": (jfa._pick_block(s, 128), jfa._pick_block(s, 512)),
+    }
+
+
+def _jax_fwd(x):
+    return jfa._flash_fwd_pallas(
+        *(jnp.asarray(x[n]) for n in ("q", "k", "v", "slopes", "kpos", "kneg")),
+        x["scale"], x["causal"], *x["blocks"], True, x["g"], x["window"])
+
+
+def _torch(x, *names):
+    return tuple(torch.from_numpy(x[n]) for n in names)
+
+
+def _close(t, j, atol=ATOL, err_msg=""):
+    np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), rtol=0,
+                               atol=atol, err_msg=err_msg)
+
+
+@pytest.fixture(scope="module", params=sorted(CASES))
+def case(request):
+    """Inputs of one case with the JAX forward's out and lse, and the
+    delta = rowsum(dO * O) both backward kernels take."""
+    x = _inputs(request.param)
+    out, lse = _jax_fwd(x)
+    x["out"], x["lse"] = np.array(out), np.array(lse)
+    x["delta"] = (x["do"] * x["out"]).sum(-1)
+    return x
+
+
+def _bwd_args(x):
+    return _torch(x, "q", "k", "v", "do", "lse", "delta", "slopes", "kpos", "kneg")
+
+
+def _jax_bwd_args(x):
+    return tuple(jnp.asarray(x[n]) for n in (
+        "q", "k", "v", "do", "lse", "delta", "slopes", "kpos", "kneg"))
+
+
+def test_fwd_reference_matches_pallas(case):
+    x = case
+    out, lse = tfa.flash_fwd_reference(
+        *_torch(x, "q", "k", "v", "slopes", "kpos", "kneg"), x["scale"],
+        x["causal"], x["g"], x["window"])
+    _close(out, x["out"], err_msg="out")
+    _close(lse, x["lse"], err_msg="lse")
+
+
+def test_dq_reference_matches_pallas(case):
+    x = case
+    want = jfa._flash_dq_pallas(*_jax_bwd_args(x), x["scale"], x["causal"],
+                                *x["blocks"], True, x["g"], x["window"])
+    got = tfa.flash_dq_reference(*_bwd_args(x), x["scale"], x["causal"],
+                                 x["g"], x["window"])
+    _close(got, want)
+
+
+def test_dkv_reference_matches_pallas(case):
+    x = case
+    wk, wv = jfa._flash_dkv_pallas(*_jax_bwd_args(x), x["scale"], x["causal"],
+                                   *x["blocks"], True, x["g"], x["window"])
+    dk, dv = tfa.flash_dkv_reference(*_bwd_args(x), x["scale"], x["causal"],
+                                     x["g"], x["window"])
+    _close(dk, wk, err_msg="dk")
+    _close(dv, wv, err_msg="dv")
+
+
+def test_cpu_wrappers_take_the_plain_versions_and_count_nothing(case):
+    x = case
+    before = (tfa.flash_fwd.launches, tfa.flash_dq.launches, tfa.flash_dkv.launches)
+    out, lse = tfa.flash_fwd(*_torch(x, "q", "k", "v", "slopes", "kpos", "kneg"),
+                             x["scale"], x["causal"], x["g"], x["window"])
+    dq = tfa.flash_dq(*_bwd_args(x), x["scale"], x["causal"], x["g"], x["window"])
+    dk, _ = tfa.flash_dkv(*_bwd_args(x), x["scale"], x["causal"], x["g"], x["window"])
+    _close(out, x["out"])
+    assert dq.shape == out.shape and dk.shape == out.shape   # dk per query head
+    assert (tfa.flash_fwd.launches, tfa.flash_dq.launches,
+            tfa.flash_dkv.launches) == before
+
+
+# (B, S, nh, nkv, hd, causal, window, masked): the public function with
+# a BLOOM-style attention_mask (right-padded row 1) or without one
+PUBLIC = {
+    "bloom_causal_mask": (2, 32, 4, 4, 16, True, None, True),
+    "gqa_noncausal": (2, 32, 4, 2, 16, False, None, False),
+    "window_gqa": (1, 48, 4, 1, 16, True, 8, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PUBLIC))
+def test_flash_attention_and_grads_match_jax(name):
+    b, s, nh, nkv, hd, causal, window, masked = PUBLIC[name]
+    rng = np.random.default_rng(1)
+    q, k, v = (rng.standard_normal((b, s, h, hd), dtype=np.float32)
+               for h in (nh, nkv, nkv))
+    w = rng.standard_normal((b, s, nh, hd), dtype=np.float32)
+    slopes = alibi_slopes(nh)
+    mask = None
+    if masked:
+        mask = np.ones((b, s), np.int32)
+        mask[1, s - 9:] = 0
+
+    def jloss(q, k, v):
+        out = jfa.flash_attention(
+            q, k, v, jnp.asarray(slopes),
+            None if mask is None else jnp.asarray(mask), causal=causal,
+            window=window, interpret=True)
+        return (out * w).sum(), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tout = tfa.flash_attention(
+        tq, tk, tv, torch.from_numpy(slopes),
+        None if mask is None else torch.from_numpy(mask), causal=causal,
+        window=window)
+    (tout * torch.from_numpy(w)).sum().backward()
+    _close(tout, jout, err_msg="out")
+    for t, j, n in zip((tq, tk, tv), jgrads, "qkv"):
+        _close(t.grad, j, err_msg=f"d{n}")
+
+
+def test_mask_to_kv_bias_matches_jax():
+    mask = np.array([[1, 1, 1, 0, 0], [0, 1, 1, 1, 1]], np.int32)
+    for t, j in zip(tfa.mask_to_kv_bias(torch.from_numpy(mask)),
+                    jfa.mask_to_kv_bias(jnp.asarray(mask))):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_reference_matches_xla_reference(causal):
+    x = _inputs("causal_alibi")
+    want = jfa._xla_reference(
+        *(jnp.asarray(x[n]) for n in ("q", "k", "v", "slopes")), x["scale"],
+        causal, jnp.asarray(x["kpos"]), jnp.asarray(x["kneg"]))
+    got = tfa.attention_reference(*_torch(x, "q", "k", "v", "slopes"), x["scale"],
+                                  causal, *_torch(x, "kpos", "kneg"))
+    _close(got, want)
+
+
+def test_gqa_head_count_must_divide():
+    q = torch.zeros(1, 8, 3, 32)
+    kv = torch.zeros(1, 8, 2, 32)
+    with pytest.raises(ValueError, match="multiple of n_kv_head"):
+        tfa.flash_attention(q, kv, kv)

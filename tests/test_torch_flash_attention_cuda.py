@@ -1,0 +1,160 @@
+"""The flash-attention CUDA kernels (forward, dQ, dK/dV) against their
+plain PyTorch versions, on the card. Skips without one: the kernels have
+no CPU mode.
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine that has only PyTorch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_flash_attention_cuda.py
+
+Tolerance, on max |kernel - plain| against the largest |plain| value M:
+- float32 outputs: 1e-5 + 2e-4 * M. Both sides compute in float32 but sum
+  q.k, P.V and dS.K in another order; ALiBi scores reach slope * S (~128
+  here), where a float32 ulp is 1.5e-5, and P inherits that relative
+  error; the backward multiplies it by dO.V (~8).
+- bf16 outputs: 1e-5 + 2^-7 * M. Each side rounds a float32 value that
+  differs from the other's in its last bits, so the two may land one bf16
+  ulp apart, and a bf16 ulp is at most 2^-7 of the value.
+- lse (float32 in both dtypes): 1e-5 + 2^-21 * M, four float32 ulps of
+  the largest value.
+"""
+import numpy as np
+import pytest
+import torch
+
+from pipegoose_tpu_torch.ops import flash_attention as fa
+
+RTOL = {torch.float32: 2e-4, torch.bfloat16: 2.0 ** -7}
+ATOL = 1e-5
+LSE_RTOL = 2.0 ** -21
+
+# (g, causal, window, pad): GQA group size, causal mask, sliding window,
+# right-padded keys at the end of kv row 0
+VARIANTS = {
+    "causal": (1, True, None, 0),
+    "gqa_g2_padded": (2, True, None, 9),
+    "noncausal": (1, False, None, 0),
+    "window64": (1, True, 64, 0),
+}
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _case(s, dtype, g, pad, dev, bh=4, hd=64, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    f = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
+    q, do = f(bh, s, hd), f(bh, s, hd)
+    k, v = f(bh // g, s, hd), f(bh // g, s, hd)
+    slopes = torch.tensor([2.0 ** -(i + 1) for i in range(bh)])
+    mask = torch.ones(bh // g, s)
+    if pad and s > pad:
+        mask[0, s - pad:] = 0
+    kpos, kneg = fa.mask_to_kv_bias(mask)
+    cast = lambda t: t.to(dev, dtype)  # noqa: E731
+    f32 = lambda t: t.to(dev).contiguous()  # noqa: E731
+    return (cast(q), cast(k), cast(v), cast(do), f32(slopes), f32(kpos),
+            f32(kneg), hd ** -0.5)
+
+
+def _assert_close(got, want, rtol, what):
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape and torch.isfinite(got).all(), what
+    err = (got - want).abs().max().item()
+    tol = ATOL + rtol * want.abs().max().item()
+    assert err <= tol, f"{what}: max abs err {err} > {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("s", [1, 100, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kernels_match_plain_versions_on_card(dtype, s, variant):
+    """S=100 ends on a ragged 64-position tile; S=256 spans four."""
+    dev = _needs_card()
+    g, causal, window, pad = VARIANTS[variant]
+    q, k, v, do, slopes, kpos, kneg, scale = _case(s, dtype, g, pad, dev)
+    mode = (scale, causal, g, window)
+    counts = (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches)
+    out, lse = fa.flash_fwd(q, k, v, slopes, kpos, kneg, *mode)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, slopes, kpos, kneg, *mode)
+    delta = (do.float() * ref_out.float()).sum(-1)
+    bwd = (q, k, v, do, ref_lse, delta, slopes, kpos, kneg, *mode)
+    dq = fa.flash_dq(*bwd)
+    dk, dv = fa.flash_dkv(*bwd)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == tuple(c + 1 for c in counts)
+    assert out.dtype == dq.dtype == dk.dtype == dtype and lse.dtype == torch.float32
+    _assert_close(out, ref_out, RTOL[dtype], "out")
+    _assert_close(lse, ref_lse, LSE_RTOL, "lse")
+    _assert_close(dq, fa.flash_dq_reference(*bwd), RTOL[dtype], "dq")
+    ref_dk, ref_dv = fa.flash_dkv_reference(*bwd)
+    _assert_close(dk, ref_dk, RTOL[dtype], "dk")
+    _assert_close(dv, ref_dv, RTOL[dtype], "dv")
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_cannot_take():
+    """Wrong dtype, a non-contiguous operand or an odd head_dim raises
+    before any launch."""
+    dev = _needs_card()
+    q, k, v, do, slopes, kpos, kneg, scale = _case(64, torch.float32, 1, 0, dev)
+    counts = (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_fwd(q.half(), k.half(), v.half(), slopes, kpos, kneg, scale, True)
+    with pytest.raises(TypeError, match="kv_pos"):
+        fa.flash_fwd(q, k, v, slopes, kpos.double(), kneg, scale, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q, k.transpose(1, 2).contiguous().transpose(1, 2), v,
+                     slopes, kpos, kneg, scale, True)
+    lse = torch.zeros(q.shape[:2], device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_dq(q, k, v, do.transpose(1, 2).contiguous().transpose(1, 2),
+                    lse, lse, slopes, kpos, kneg, scale, True)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_dkv(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                     v[..., :48].contiguous(), do[..., :48].contiguous(), lse,
+                     lse, slopes, kpos, kneg, scale, True)
+    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_autograd_launches_each_kernel_once_and_matches_cpu(dtype):
+    """flash_attention forward + backward on the card: fwd, dq and dkv
+    launch once each, and the grads agree with the same function on the
+    CPU (which runs the plain versions), GQA g=2 with a padded row. The
+    tolerance is three times the kernels' own: in bf16 the backward also
+    takes delta from a rounded output, and dK/dV of a GQA group is a sum
+    of per-head values each rounded to bf16."""
+    dev = _needs_card()
+    gen = torch.Generator().manual_seed(3)
+    b, s, nh, nkv, hd = 2, 100, 4, 2, 64
+    host = [torch.randn(b, s, h, hd, generator=gen) for h in (nh, nkv, nkv)]
+    w = torch.randn(b, s, nh, hd, generator=gen)
+    slopes = torch.tensor([2.0 ** -(i + 1) for i in range(nh)])
+    mask = torch.ones(b, s, dtype=torch.int32)
+    mask[1, 80:] = 0
+    results = {}
+    for where in ("cpu", dev):
+        leaves = [x.to(where, dtype, copy=True).requires_grad_() for x in host]
+        counts = (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches)
+        out = fa.flash_attention(*leaves, slopes.to(where), mask.to(where))
+        (out.float() * w.to(where)).sum().backward()
+        moved = tuple(n - c for n, c in zip(
+            (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches),
+            counts))
+        results[str(where)] = (out, [x.grad for x in leaves], moved)
+    assert results["cpu"][2] == (0, 0, 0)
+    assert results["cuda"][2] == (1, 1, 1)
+    _assert_close(results["cuda"][0].cpu(), results["cpu"][0], RTOL[dtype], "out")
+    for got, want, n in zip(results["cuda"][1], results["cpu"][1], "qkv"):
+        _assert_close(got.cpu(), want, 3 * RTOL[dtype], f"d{n}")
+    np.testing.assert_array_equal(results["cuda"][0].shape, (b, s, nh, hd))
