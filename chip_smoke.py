@@ -11,7 +11,9 @@ Two main paths, both BLOOM-560m at full width (vocab 250880, hidden 1024,
   hand-written CUDA paged-attention kernel;
 - training: ``pipegoose_tpu_torch.trainer.train_step`` (loss, backward,
   Adam), its attention going through the hand-written CUDA flash-attention
-  forward, dQ and dK/dV kernels.
+  forward, dQ and dK/dV kernels, and with ``fused_ce`` its loss through the
+  hand-written CUDA fused cross-entropy forward, d-hidden and d-weight
+  kernels.
 
 Phases, each fatal on failure:
 
@@ -40,7 +42,22 @@ Phases, each fatal on failure:
      tokens/s, MFU, peak memory, falling losses, the kernels' launch
      counts, and where one profiled step's device time goes;
   9  each flash kernel's time at phase 8's shape beside its bound, its
-     plain version's time and PyTorch's SDPA forward or backward.
+     plain version's time and PyTorch's SDPA forward or backward;
+ 10  the three fused cross-entropy kernels (forward, d-hidden, d-weight)
+     against their plain versions on the card: float32 and bf16, ragged T
+     and V with a nonzero offset and valid_size < V, both weight layouts,
+     and bench.py's shape in bf16 (T = 8 x 1023, H = 1024, V = 250880);
+ 11  phase 7's float32 train step, card vs CPU, with fused_ce=True,
+     ce_chunks=8, remat_policy="dots" and remat_policy="attn"; on the card
+     the fused loss also equals the full-logits loss of the same weights;
+ 12  timed bf16 training as phase 8 in bench.py's "flash+fusedce",
+     "noremat+flash+fusedce" and "flash+ce8" variants: step ms, tokens/s,
+     MFU, peak memory (below phase 8's for the fused variants), falling
+     losses, every kernel's launches per step, and one profiled step's
+     device time with the fused kernels' share;
+ 13  each fused kernel's time at phase 12's shape beside its bound, its
+     plain version's time and a composite of PyTorch calls that computes
+     the same function through the full logits.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a card, or
@@ -49,6 +66,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -92,6 +110,23 @@ LSE_RTOL = 2.0 ** -21
 # entries, taken in another order by cuBLAS and the CPU's BLAS); after
 # Adam steps the losses to 1e-3, since Adam moves a weight whose gradient
 # is near zero by up to lr whatever the gradient's rounding
+FUSED_SOURCE = "pipegoose_tpu_torch/ops/csrc/fused_ce.cu"
+FUSED_REPLACES = {
+    "fwd": "pipegoose_tpu/ops/fused_ce.py:63",
+    "dh": "pipegoose_tpu/ops/fused_ce.py:163",
+    "dw": "pipegoose_tpu/ops/fused_ce.py:221",
+}
+# fused CE kernel vs plain, on max |diff| against the largest finite |plain|
+# value M (a masked target's logit, exactly -1e9, is left out of M), with no
+# absolute floor, since dh and dw scale with g = 1/T: lse and target logit
+# 2^-18 M (bf16 products are exact in float32 and only the order of the sums
+# differs; float32 inputs run in split TF32, which drops 2^-22 of each
+# product); float32 dh, dw 1e-4 M (split-TF32 products summed over the
+# vocabulary or the tokens in another order); bf16 dh, dw 2^-6 M, two bf16
+# ulps: the final rounding, and the dlogits tile that the kernels round to
+# bf16 before the second product
+FUSED_STAT_RTOL = 2.0 ** -18
+FUSED_GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 TRAIN_LOSS_ATOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_ADAM_LOSS_ATOL = 1e-3
@@ -363,7 +398,8 @@ def decode_profile(params, cfg, requests, dev, kv_dtype, label, ticks=16):
 def profile_device(fn, n, label, unit, top):
     """Run ``fn()`` ``n`` times under torch.profiler after a sync; log the
     wall time, the device busy time (summed kernel time) and its share,
-    and the ``top`` kernels by device time, each per ``unit``."""
+    and the ``top`` kernels by device time, each per ``unit``. Returns
+    (wall ms, busy ms, the profiler's device-kernel averages)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -379,13 +415,14 @@ def profile_device(fn, n, label, unit, top):
     if busy_ms == 0:
         log(f"  {label}: {wall_ms} ms wall under the profiler; device time "
             f"not measured (the profiler saw no device activity)")
-        return
+        return wall_ms, busy_ms, kernels
     log(f"  {label}: {wall_ms} ms wall, device busy {busy_ms} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), "
         f"{sum(e.count for e in kernels) / n:.0f} kernels per {unit}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.self_device_time_total / 1e3 / n:.4f} ms/{unit} "
             f"{e.count / n:.0f} launches/{unit}  {e.key[:90]}")
+    return wall_ms, busy_ms, kernels
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -608,6 +645,14 @@ def phase6_flash_vs_plain(dev) -> dict:
 # -- phase 7 -------------------------------------------------------------------
 
 def phase7_train_vs_cpu(np_tree, dev) -> None:
+    train_vs_cpu(np_tree, dev, "phase 7")
+
+
+def train_vs_cpu(np_tree, dev, label, **opts):
+    """The float32 train step on the card against the same step on the
+    CPU: full widths, depth cut to 2 layers, batch 2 x 256 with a
+    right-padded row, remat and flash, plus the config options ``opts``.
+    Returns the card's params after the steps and the config."""
     from pipegoose_tpu_torch.models.bloom import BloomConfig, loss_fn
     from pipegoose_tpu_torch.models.weights import grads_of, params_from_jax, params_to_jax
     from pipegoose_tpu_torch.trainer import make_optimizer, train_step
@@ -615,15 +660,16 @@ def phase7_train_vs_cpu(np_tree, dev) -> None:
     n_layer, b, s, pad, lr = 2, 2, 256, 57, 1e-4
     vocab, hidden = np_tree["embed"]["weight"].shape
     cfg = BloomConfig(vocab_size=vocab, hidden_size=hidden, n_layer=n_layer,
-                      n_head=16, remat=True, use_flash=True)
+                      n_head=16, **{"remat": True, "use_flash": True, **opts})
     tree = {**np_tree, "blocks": cut_layers(np_tree["blocks"], n_layer)}
     rng = np.random.default_rng(SEED + 7)
     ids = rng.integers(0, cfg.vocab_size, (b, s))
     mask = np.ones((b, s), np.int64)
     mask[1, s - pad:] = 0
-    log(f"phase 7: float32 train step, card vs CPU: vocab {vocab}, hidden "
+    extra = "".join(f", {k}={v!r}" for k, v in opts.items())
+    log(f"{label}: float32 train step, card vs CPU: vocab {vocab}, hidden "
         f"{hidden}, 16 heads, depth cut 24 -> {n_layer} layers, batch {b} x {s} (row 1 right-padded by {pad}), "
-        f"remat, flash, Adam lr {lr}")
+        f"remat={cfg.remat}, flash, Adam lr {lr}{extra}")
     runs = {}
     for where in ("cpu", dev):
         t0 = time.perf_counter()
@@ -637,10 +683,11 @@ def phase7_train_vs_cpu(np_tree, dev) -> None:
         with torch.no_grad():
             as_t = lambda a: torch.from_numpy(a).to(where)  # noqa: E731
             losses.append(loss_fn(params, as_t(ids), as_t(mask), as_t(ids), cfg).item())
-        runs[str(where)] = (losses, grads)
+        runs[str(where)] = (losses, grads, params)
         log(f"  {where}: losses {losses} in {time.perf_counter() - t0:.1f} s")
-        del params, opt
-    (cpu_losses, cpu_grads), (gpu_losses, gpu_grads) = runs["cpu"], runs["cuda"]
+        del opt
+    (cpu_losses, cpu_grads, _), (gpu_losses, gpu_grads, gpu_params) = (
+        runs["cpu"], runs["cuda"])
     if not all(np.isfinite(gpu_losses)):
         raise AssertionError(f"non-finite card losses {gpu_losses}")
     loss_err = abs(gpu_losses[0] - cpu_losses[0])
@@ -653,6 +700,7 @@ def phase7_train_vs_cpu(np_tree, dev) -> None:
     if (loss_err > TRAIN_LOSS_ATOL or worst[1] > TRAIN_GRAD_RTOL
             or adam_err > TRAIN_ADAM_LOSS_ATOL):
         raise AssertionError("card and CPU train steps disagree")
+    return gpu_params, cfg, (ids, mask)
 
 
 def cut_layers(blocks, n):
@@ -677,28 +725,50 @@ def leaf_rel_err(got, want):
 # -- phase 8 -------------------------------------------------------------------
 
 def phase8_timed_training(np_tree, dev, card) -> dict:
-    """bench.py's "flash" variant on the card; returns the flash launch
-    counts of its 7 steps."""
+    """bench.py's "flash" variant on the card; returns its run (the flash
+    launch counts of its 7 steps under "launches", its peak memory)."""
     from pipegoose_tpu_torch.models.bloom import BloomConfig
-    from pipegoose_tpu_torch.models.weights import param_leaves, params_from_jax
+
+    cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16, remat=True, use_flash=True)
+    return timed_training(np_tree, dev, card, cfg, "phase 8",
+                          "'flash': remat, flash, fused_ce off")
+
+
+def kernel_counters():
+    """Every ported training kernel's launch counter, by name."""
     from pipegoose_tpu_torch.ops import flash_attention as fa
+    from pipegoose_tpu_torch.ops import fused_ce as fce
+
+    return {"fwd": fa.flash_fwd, "dq": fa.flash_dq, "dkv": fa.flash_dkv,
+            "fused_ce_fwd": fce.fused_ce_fwd, "fused_ce_dh": fce.fused_ce_dh,
+            "fused_ce_dw": fce.fused_ce_dw}
+
+
+def timed_training(np_tree, dev, card, cfg, label, variant) -> dict:
+    """Timed bf16 train steps at bench.py's shape (batch 8 x 1024 of
+    RandomState(0) ids, labels = ids, no mask, Adam 1e-4, 2 warm-up and 5
+    timed steps between CUDA events), every launch counter set to 0 just
+    before the steps and read just after; then one profiled step. Fails
+    unless the kernels launch as ``cfg`` asks and the losses fall."""
+    from pipegoose_tpu_torch.models.weights import param_leaves, params_from_jax
     from pipegoose_tpu_torch.trainer import make_optimizer, train_step
 
     batch, seq, warm, timed = 8, 1024, 2, 5
-    cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16, remat=True, use_flash=True)
     params = params_from_jax(np_tree, cfg, device=dev)
     opt = make_optimizer(params, 1e-4)
     ids = torch.from_numpy(
         np.random.RandomState(0).randint(0, cfg.vocab_size, (batch, seq))).to(dev)
     n_params = sum(t.numel() for t in param_leaves(params))
-    log(f"phase 8: bloom-560m bf16 train step (bench.py 'flash': remat, flash, "
-        f"fused_ce off), batch {batch} x {seq}, Adam 1e-4, {n_params} params, "
-        f"{warm} warm-up + {timed} timed steps, on {card}")
+    log(f"{label}: bloom-560m bf16 train step (bench.py {variant}), batch {batch} "
+        f"x {seq}, Adam 1e-4, {n_params} params, {warm} warm-up + {timed} timed "
+        f"steps, on {card}")
 
     def step():
         return train_step(params, opt, ids, None, ids, cfg, device=dev)
 
-    fa.flash_fwd.launches = fa.flash_dq.launches = fa.flash_dkv.launches = 0
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
     losses = [step() for _ in range(warm)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -707,29 +777,43 @@ def phase8_timed_training(np_tree, dev, card) -> dict:
     losses += [step() for _ in range(timed)]
     t1.record()
     torch.cuda.synchronize()
-    launches = {"fwd": fa.flash_fwd.launches, "dq": fa.flash_dq.launches,
-                "dkv": fa.flash_dkv.launches}
+    counts = {name: c.launches for name, c in counters.items()}
     steps = warm + timed
     step_ms = t0.elapsed_time(t1) / timed
     tokens_per_s = batch * seq / (step_ms / 1e3)
     flops_per_token = 6 * n_params + 12 * cfg.n_layer * cfg.hidden_size * seq
     mfu = tokens_per_s * flops_per_token / BF16_FLOPS_PER_S
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = [x.item() for x in losses]
     log(f"  step {step_ms} ms, {tokens_per_s} tokens/s, MFU {mfu} (bench.py's "
         f"{flops_per_token} flops/token over 989 TFLOP/s bf16), peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{peak_gib:.2f} GiB")
     log(f"  losses over {steps} steps on one batch: {losses}")
-    want = {"fwd": 2 * steps * cfg.n_layer, "dq": steps * cfg.n_layer,
-            "dkv": steps * cfg.n_layer}
-    log(f"  flash launches {launches}; want fwd = 2 x {steps} steps x "
-        f"{cfg.n_layer} layers (remat recomputes the forward), dq = dkv = "
-        f"{steps} x {cfg.n_layer}")
-    if launches != want:
-        raise AssertionError("the training step bypassed the flash kernels")
+    fwd_per_layer = 2 if cfg.remat else 1
+    per_step = {"fwd": fwd_per_layer * cfg.n_layer, "dq": cfg.n_layer,
+                "dkv": cfg.n_layer}
+    per_step.update({k: int(cfg.fused_ce) for k in
+                     ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")})
+    want = {k: steps * n for k, n in per_step.items()}
+    log(f"  launches over {steps} steps {counts}; want per step {per_step} "
+        f"(flash fwd {fwd_per_layer} x {cfg.n_layer} layers"
+        f"{': remat recomputes the forward' if cfg.remat else ''})")
+    if counts != want:
+        raise AssertionError(f"{label}: the training step bypassed a kernel")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite and falling: {losses}")
-    profile_device(step, 1, "one profiled train step", "step", top=10)
-    return launches
+    _, busy_ms, kernels = profile_device(step, 1, "one profiled train step",
+                                         "step", top=10)
+    fused_ms = sum(e.self_device_time_total for e in kernels
+                   if "fused_ce" in e.key) / 1e3
+    if cfg.fused_ce:
+        log(f"  fused cross-entropy kernels: {fused_ms} ms of the profiled step's "
+            f"{busy_ms} ms device time "
+            f"({100 * fused_ms / busy_ms if busy_ms else float('nan'):.1f}%)")
+    run = {"launches": {k: v for k, v in counts.items() if want[k]},
+           "step_ms": step_ms, "peak_gib": peak_gib, "losses": losses}
+    del params, opt
+    return run
 
 
 # -- phase 9 -------------------------------------------------------------------
@@ -821,6 +905,229 @@ def phase9_flash_time(dev, card, errs, launches) -> list:
     return rows
 
 
+# -- phase 10 ------------------------------------------------------------------
+
+def fused_case(dev, dtype, *, t, hd, v, offset=0, valid=None, vh=True, seed=0):
+    """Fused CE operands: h (T, H) unit normal (a final LayerNorm's scale),
+    w like BLOOM's embedding (normal, std 0.02) in the "vh" (V, H) or "hv"
+    (H, V) layout, seeded targets over [0, offset + V), and g = 1/T per
+    token (the mean loss's cotangent)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(t, hd, device=dev, generator=gen).to(dtype)
+    w = (torch.randn(v, hd, device=dev, generator=gen) * 0.02).to(dtype)
+    if not vh:
+        w = w.t().contiguous()
+    targets = torch.randint(0, offset + v, (t,), device=dev, generator=gen,
+                            dtype=torch.int32)
+    g = torch.full((t,), 1.0 / t, device=dev)
+    return {"h": h, "w": w, "targets": targets, "g": g, "offset": offset,
+            "valid": valid, "vh": vh}
+
+
+def fused_err(got, want, rtol):
+    """(max abs error, tolerance) against the largest finite |plain| value
+    (entries of -1e9, masked target logits, are left out of the scale)."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"bad kernel output {tuple(got.shape)}")
+    finite = want.abs() < 1e8
+    scale = want[finite].abs().max().item() if finite.any() else 0.0
+    return (got - want).abs().max().item(), rtol * scale
+
+
+def check_fused(label, case) -> dict:
+    """Each fused kernel once against its plain version on one case; every
+    launch counter must move by exactly one. Returns each kernel's max abs
+    error."""
+    from pipegoose_tpu_torch.ops import fused_ce as fce
+
+    dtype = case["h"].dtype
+    fwd = (case["h"], case["w"], case["targets"], case["offset"], case["valid"],
+           case["vh"])
+    counters = (fce.fused_ce_fwd, fce.fused_ce_dh, fce.fused_ce_dw)
+    before = tuple(c.launches for c in counters)
+    lse, tl = fce.fused_ce_fwd(*fwd)
+    ref_lse, ref_tl = fce.fused_ce_fwd_reference(*fwd)
+    bwd = (case["h"], case["w"], case["targets"], ref_lse, case["g"],
+           case["offset"], case["valid"], case["vh"])
+    dh = fce.fused_ce_dh(*bwd)
+    dw = fce.fused_ce_dw(*bwd)
+    torch.cuda.synchronize()
+    moved = tuple(c.launches - b for c, b in zip(counters, before))
+    if moved != (1, 1, 1):
+        raise AssertionError(f"{label}: launch counters moved by {moved}")
+    checks = {"lse": fused_err(lse, ref_lse, FUSED_STAT_RTOL),
+              "target logit": fused_err(tl, ref_tl, FUSED_STAT_RTOL)}
+    del ref_lse, ref_tl
+    checks["dh"] = fused_err(dh, fce.fused_ce_dh_reference(*bwd), FUSED_GRAD_RTOL[dtype])
+    checks["dw"] = fused_err(dw, fce.fused_ce_dw_reference(*bwd), FUSED_GRAD_RTOL[dtype])
+    bad = [n for n, (err, tol) in checks.items() if err > tol]
+    log(f"phase 10: {label}: " + ", ".join(
+        f"{n} {err:.3g} (tol {tol:.3g})" for n, (err, tol) in checks.items())
+        + (f" FAIL {bad}" if bad else " ok"))
+    if bad:
+        raise AssertionError(f"{label}: fused kernels disagree with plain on {bad}")
+    return {"fwd": max(checks["lse"][0], checks["target logit"][0]),
+            "dh": checks["dh"][0], "dw": checks["dw"][0]}
+
+
+def phase10_fused_vs_plain(dev) -> dict:
+    """Returns the max abs errors at bench.py's shape in bf16, the shape
+    and dtype of phase 12's calls."""
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for vh in (True, False):
+            check_fused(f"{name} T=100 H=1024 V=1000 offset=300 valid=1283 "
+                        f"{'vh' if vh else 'hv'}",
+                        fused_case(dev, dtype, t=100, hd=1024, v=1000, offset=300,
+                                   valid=1283, vh=vh, seed=SEED + 10))
+    errs = check_fused("bf16 T=8184 H=1024 V=250880 vh (bench.py's shape)",
+                       fused_case(dev, torch.bfloat16, t=8 * 1023, hd=1024,
+                                  v=250880, seed=SEED + 11))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errs
+
+
+# -- phase 11 ------------------------------------------------------------------
+
+def phase11_train_options_vs_cpu(np_tree, dev) -> None:
+    """Phase 7's check with each option of this slice; the fused run's
+    kernels must launch, and its loss must equal the full-logits loss of
+    the same weights on the card."""
+    from pipegoose_tpu_torch.models.bloom import loss_fn
+
+    counters = kernel_counters()
+    for opts in (dict(fused_ce=True), dict(ce_chunks=8),
+                 dict(remat_policy="dots"), dict(remat_policy="attn")):
+        for c in counters.values():
+            c.launches = 0
+        params, cfg, (ids, mask) = train_vs_cpu(np_tree, dev, "phase 11", **opts)
+        counts = {n: c.launches for n, c in counters.items() if "fused" in n}
+        if cfg.fused_ce:
+            # 3 steps and the last loss: 4 forwards, 3 backwards
+            log(f"  fused launches {counts}; want fwd 4, dh 3, dw 3")
+            if counts != {"fused_ce_fwd": 4, "fused_ce_dh": 3, "fused_ce_dw": 3}:
+                raise AssertionError("the fused train step bypassed its kernels")
+            with torch.no_grad():
+                as_t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+                fused = loss_fn(params, as_t(ids), as_t(mask), as_t(ids), cfg).item()
+                full = loss_fn(params, as_t(ids), as_t(mask), as_t(ids),
+                               dataclasses.replace(cfg, fused_ce=False)).item()
+            log(f"  card: fused loss {fused}, full-logits loss {full}, err "
+                f"{abs(fused - full)} (atol {TRAIN_LOSS_ATOL})")
+            if abs(fused - full) > TRAIN_LOSS_ATOL:
+                raise AssertionError("fused and full-logits losses disagree")
+        elif any(counts.values()):
+            raise AssertionError(f"fused kernels launched without fused_ce: {counts}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# -- phase 12 ------------------------------------------------------------------
+
+def phase12_timed_variants(np_tree, dev, card, flash_peak_gib) -> dict:
+    """bench.py's fused and chunked variants, timed as phase 8. Returns the
+    runs by variant name."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+
+    variants = {
+        "flash+fusedce": dict(remat=True, use_flash=True, fused_ce=True),
+        "noremat+flash+fusedce": dict(remat=False, use_flash=True, fused_ce=True),
+        "flash+ce8": dict(remat=True, use_flash=True, ce_chunks=8),
+    }
+    runs = {}
+    for name, kw in variants.items():
+        cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16, **kw)
+        runs[name] = timed_training(np_tree, dev, card, cfg, "phase 12",
+                                    f"'{name}'")
+        gc.collect()
+        torch.cuda.empty_cache()
+        if cfg.fused_ce and not runs[name]["peak_gib"] < flash_peak_gib:
+            raise AssertionError(
+                f"{name}: peak {runs[name]['peak_gib']:.2f} GiB is not below the "
+                f"full-logits step's {flash_peak_gib:.2f} GiB")
+    log("phase 12: " + ", ".join(
+        f"{n} {r['step_ms']:.1f} ms / {r['peak_gib']:.2f} GiB" for n, r in runs.items())
+        + f" (phase 8 'flash' peak {flash_peak_gib:.2f} GiB)")
+    return runs
+
+
+# -- phase 13 ------------------------------------------------------------------
+
+def fused_bound_ms(kind, case, tensors):
+    """Least time for one call: 2 T V H flops for the forward's logits, 4 T
+    V H for dh and dw (the logits and the second product) at 989 TFLOP/s
+    bf16, against every input read once and every output written once at
+    3.35 TB/s."""
+    t, hd = case["h"].shape
+    v = case["w"].shape[0] if case["vh"] else case["w"].shape[1]
+    flops = (2 if kind == "fwd" else 4) * t * v * hd
+    nbytes = sum(x.numel() * x.element_size() for x in tensors)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase13_fused_time(dev, card, errs, launches) -> list:
+    from pipegoose_tpu_torch.ops import fused_ce as fce
+
+    t, hd, v = 8 * 1023, 1024, 250880
+    case = fused_case(dev, torch.bfloat16, t=t, hd=hd, v=v, seed=SEED + 13)
+    h, w, targets, g = case["h"], case["w"], case["targets"], case["g"]
+    lse, tl = fce.fused_ce_fwd(h, w, targets)
+    bwd = (h, w, targets, lse, g)
+    dh = fce.fused_ce_dh(*bwd)
+    dw = fce.fused_ce_dw(*bwd)
+    io = {"fwd": (h, w, targets, lse, tl), "dh": bwd + (dh,), "dw": bwd + (dw,)}
+    calls = {
+        "fwd": (lambda i: fce.fused_ce_fwd(h, w, targets),
+                lambda: fce.fused_ce_fwd_reference(h, w, targets)),
+        "dh": (lambda i: fce.fused_ce_dh(*bwd), lambda: fce.fused_ce_dh_reference(*bwd)),
+        "dw": (lambda i: fce.fused_ce_dw(*bwd), lambda: fce.fused_ce_dw_reference(*bwd)),
+    }
+    # the library yardstick, a composite: the full-logits path's PyTorch
+    # calls for the same function. fwd: the bf16 cuBLAS logits, logsumexp
+    # and a gather; dh and dw: softmax minus one-hot from the saved float32
+    # logits, times g, in bf16, then one cuBLAS product each
+    rows_t = torch.arange(t, device=dev)
+    tg = targets.long()
+
+    def lib_fwd():
+        lg = torch.matmul(h, w.t()).float()
+        return torch.logsumexp(lg, dim=-1), lg.gather(1, tg[:, None])
+
+    saved = torch.matmul(h, w.t()).float()
+
+    def lib_dl():
+        p = torch.softmax(saved, dim=-1)
+        p[rows_t, tg] -= 1.0
+        return (p * g[:, None]).to(torch.bfloat16)
+
+    library = {"fwd": lib_fwd, "dh": lambda: torch.matmul(lib_dl(), w),
+               "dw": lambda: torch.matmul(lib_dl().t(), h)}
+    log(f"phase 13: fused CE kernels at phase 12's shape (T={t}, H={hd}, V={v}, "
+        f"bf16, vh), device ms per call, on {card}")
+    rows = []
+    for kind in ("fwd", "dh", "dw"):
+        kernel, plain = calls[kind]
+        ms, call_ms = time_ms(kernel, 2, replays=5)
+        plain_ms = time_eager_ms(plain, 2)
+        library_ms = time_eager_ms(library[kind], 2)
+        bound_ms, bound_by = fused_bound_ms(kind, case, io[kind])
+        log(f"  fused_ce_{kind}: kernel {ms} (eager {call_ms}), bound {bound_ms} "
+            f"({bound_by}), plain {plain_ms}, full-logits composite {library_ms}")
+        rows.append({
+            "name": f"fused_ce_{kind} (bf16, T={t}, H={hd}, V={v}, vh)",
+            "source": FUSED_SOURCE, "replaces": FUSED_REPLACES[kind], "route": "cuda",
+            "launches": launches[f"fused_ce_{kind}"], "max_abs_err": errs[kind],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "call_ms": call_ms,
+        })
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase0_card()
@@ -847,11 +1154,22 @@ def main() -> int:
     phase7_train_vs_cpu(np_tree, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    flash_launches = phase8_timed_training(np_tree, dev, card)
+    flash_run = phase8_timed_training(np_tree, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += phase9_flash_time(dev, card, flash_errs, flash_run["launches"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    fused_errs = phase10_fused_vs_plain(dev)
+    phase11_train_options_vs_cpu(np_tree, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fused_runs = phase12_timed_variants(np_tree, dev, card, flash_run["peak_gib"])
     del np_tree
     gc.collect()
     torch.cuda.empty_cache()
-    rows += phase9_flash_time(dev, card, flash_errs, flash_launches)
+    rows += phase13_fused_time(dev, card, fused_errs,
+                               fused_runs["flash+fusedce"]["launches"])
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ card from a seed, and the training forward (``forward_hidden``,
 ``forward``, ``loss_fn``) over the per-layer list of blocks that
 ``models.weights.params_from_jax`` builds. Attention takes the plain
 branch, or with ``use_flash`` the flash kernels of
-``ops.flash_attention``. Tensor, pipeline and sequence parallelism wait
+``ops.flash_attention``; the loss takes the full logits, one sequence
+chunk of them at a time (``ce_chunks``), or the fused cross-entropy
+kernels of ``ops.fused_ce`` (``fused_ce``). Tensor, pipeline and sequence parallelism wait
 for later slices of the port.
 """
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from pipegoose_tpu_torch.models.generate import _attn_core, _qkv_proj
 from pipegoose_tpu_torch.nn.tensor_parallel.layers import (
+    chunked_ce_sums,
     column_parallel_linear,
     layer_norm,
     row_parallel_linear,
@@ -46,8 +49,8 @@ class BloomConfig:
     # rematerialize each block's activations in backward
     # (torch.utils.checkpoint per block)
     remat: bool = False
-    # selective-remat policy under remat=True: only None (full remat) is
-    # ported; "dots" and "attn" raise
+    # selective-remat policy under remat=True: None = full remat; "dots"
+    # saves the linear layers' products; "attn" saves the attention output
     remat_policy: Optional[str] = None
     # the flash-attention kernels (ops/flash_attention.py) instead of the
     # plain attention branch
@@ -56,9 +59,9 @@ class BloomConfig:
     # vocab size; padded logit slots never win a greedy pick or enter the
     # cross entropy
     valid_vocab_size: Optional[int] = None
-    # sequence-chunked cross entropy: not ported yet (raises)
+    # sequence-chunked cross entropy: the logits of one chunk at a time
     ce_chunks: Optional[int] = None
-    # the fused cross-entropy kernels: not ported yet (raises)
+    # the fused cross-entropy kernels (ops/fused_ce.py): no logits buffer
     fused_ce: bool = False
 
     @property
@@ -150,19 +153,72 @@ def build_alibi(attention_mask: torch.Tensor, n_head: int) -> torch.Tensor:
     return slopes[None, :, None, None] * pos[:, None, None, :].float()
 
 
+def _attn_out(x: torch.Tensor) -> torch.Tensor:
+    """Mark the attention output for ``remat_policy="attn"``: an identity
+    op the selective-checkpoint policy can recognise (the JAX package names
+    the tensor with ``checkpoint_name(ctx, "attn_out")``)."""
+    return torch.ops.pipegoose_tpu_torch.attn_out(x)
+
+
+@torch.library.custom_op("pipegoose_tpu_torch::attn_out", mutates_args=())
+def _attn_out_op(x: torch.Tensor) -> torch.Tensor:
+    return x.clone()   # a custom op may not return its input
+
+
+@_attn_out_op.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+_attn_out_op.register_autograd(lambda ctx, grad: grad)
+
+
+def _saved_ops(policy: str) -> tuple:
+    """The aten ops whose outputs a selective policy keeps for backward.
+
+    "dots" mirrors ``dots_with_no_batch_dims_saveable``: the four linear
+    layers' ``x @ kernel`` run as ``aten.mm``, while the attention einsums
+    (batched, ``aten.bmm``) are recomputed. "attn" keeps only the marked
+    attention output."""
+    if policy == "dots":
+        return (torch.ops.aten.mm.default,)
+    return (torch.ops.pipegoose_tpu_torch.attn_out.default,)
+
+
 def _remat_wrap(fn, config):
     """``fn`` under ``torch.utils.checkpoint`` (non-reentrant): its
-    activations are recomputed in backward. Only the full-remat policy
-    (``remat_policy=None``) is ported."""
+    activations are recomputed in backward, except, with
+    ``config.remat_policy`` "dots" or "attn", the outputs of the ops that
+    :func:`_saved_ops` names. Any other policy is full remat, as in the JAX
+    package.
+
+    A selective policy sees aten ops, not kernels: the flash
+    ``autograd.Function`` is rerun in the recompute to rebuild its saved
+    (q, k, v, out, lse), so its forward kernel launches twice per layer
+    under every policy, as ``jax.checkpoint`` reruns the custom_vjp's
+    forward for residuals no policy names."""
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        checkpoint,
+        create_selective_checkpoint_contexts,
+    )
+
     policy = getattr(config, "remat_policy", None)
-    if policy is not None:
-        raise NotImplementedError(
-            f"remat_policy={policy!r}: the selective remat policies are not "
-            f"ported yet (ROADMAP.md A3, remat policies); only None runs")
-    from torch.utils.checkpoint import checkpoint
+    context_fn = None
+    if policy in ("dots", "attn"):
+        saved = _saved_ops(policy)
+
+        def policy_fn(ctx, op, *args, **kwargs):
+            return (CheckpointPolicy.MUST_SAVE if op in saved
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        def context_fn():
+            return create_selective_checkpoint_contexts(policy_fn)
 
     def wrapped(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        if context_fn is None:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
 
     return wrapped
 
@@ -192,6 +248,8 @@ def _attention(blk: dict, x: torch.Tensor, bias: dict, config: BloomConfig,
     else:
         ctx = _attn_core(q, k, v, bias["alibi"] + bias["mask_bias"],
                          bias["qmask"], x.dtype)
+    if config.remat and config.remat_policy == "attn":
+        ctx = _attn_out(ctx)
     return row_parallel_linear(blk["out"], ctx, tp_axis)
 
 
@@ -266,15 +324,25 @@ def loss_fn(params: dict, input_ids: torch.Tensor,
             attention_mask: Optional[torch.Tensor], labels: torch.Tensor,
             config: BloomConfig, tp_axis: Optional[str] = None) -> torch.Tensor:
     """Next-token cross entropy (shift by one), weighted by
-    ``attention_mask[:, 1:]``, on the full-logits path."""
+    ``attention_mask[:, 1:]``: with ``config.fused_ce`` through the fused
+    kernels straight from the final hidden states and the tied embedding
+    (no logits buffer), else with ``config.ce_chunks`` one sequence chunk
+    of logits at a time, else over the full logits."""
     if config.fused_ce:
-        raise NotImplementedError(
-            "fused_ce=True: the fused cross-entropy kernels are not ported yet "
-            "(ROADMAP.md B4-B6)")
+        from pipegoose_tpu_torch.ops.fused_ce import fused_ce_shifted_loss
+
+        hidden = forward_hidden(params, input_ids, attention_mask, config, tp_axis)
+        return fused_ce_shifted_loss(hidden, params["embed"]["weight"], labels,
+                                     attention_mask, tp_axis,
+                                     config.valid_vocab_size)
     if config.ce_chunks:
-        raise NotImplementedError(
-            f"ce_chunks={config.ce_chunks}: the chunked cross entropy is not "
-            f"ported yet (ROADMAP.md A3, ce_chunks)")
+        hidden = forward_hidden(params, input_ids, attention_mask, config, tp_axis)
+        w = (attention_mask[:, 1:] if attention_mask is not None
+             else torch.ones_like(labels[:, 1:])).float()
+        tot, cnt = chunked_ce_sums(
+            hidden[:, :-1], labels[:, 1:], w, lambda h: logits_fn(params, h),
+            tp_axis, config.valid_vocab_size, config.ce_chunks)
+        return tot / torch.clamp_min(cnt, 1)
     logits = forward(params, input_ids, attention_mask, config, tp_axis)
     per_tok = vocab_parallel_cross_entropy(
         logits[:, :-1], labels[:, 1:], tp_axis,

@@ -7,15 +7,16 @@ dict, kernels are laid out ``(in_features, out_features)``, and
 for a later slice of the port, so any other ``axis_name`` raises. The
 cross entropy is the plain single-device one; its backward is autograd's
 softmax-minus-one-hot, which the JAX ``custom_vjp`` only needs under
-TP. Dense
+TP. ``chunked_ce_sums`` bounds the logits to one sequence chunk. Dense
 products stay ``torch.matmul``: the JAX package leaves them to XLA, so
 there is no kernel to port here.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def _check_axis(axis_name: Optional[str]) -> None:
@@ -94,3 +95,40 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     lse = torch.logsumexp(logits, dim=-1)
     pred = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return lse - pred
+
+
+def chunked_ce_sums(hidden: torch.Tensor, labels: torch.Tensor,
+                    weights: torch.Tensor,
+                    logits_fn: Callable[[torch.Tensor], torch.Tensor],
+                    axis_name: Optional[str], valid_size: Optional[int],
+                    n_chunks: int):
+    """(weighted loss sum, weight sum) without the (B, T, V) logits: T is
+    padded to a multiple of ``n_chunks`` with weight-0 positions and cut
+    into chunks, each chunk's logits and cross entropy computed under
+    ``torch.utils.checkpoint`` (non-reentrant), so that backward rebuilds
+    one chunk's logits at a time. ``hidden`` (B, T, H) is already shifted
+    to align with ``labels`` and ``weights`` (B, T); ``logits_fn`` maps
+    (B, C, H) to (B, C, V)."""
+    _check_axis(axis_name)
+    b, t, _ = hidden.shape
+    if t % n_chunks:
+        pad = n_chunks - t % n_chunks
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        weights = torch.nn.functional.pad(weights, (0, pad))
+        t += pad
+    c = t // n_chunks
+
+    def chunk(h_c, l_c, w_c):
+        per_tok = vocab_parallel_cross_entropy(logits_fn(h_c), l_c, axis_name,
+                                               valid_size=valid_size)
+        w_c = w_c.to(per_tok.dtype)
+        return (per_tok * w_c).sum(), w_c.sum()
+
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n_chunks):
+        part = slice(i * c, (i + 1) * c)
+        s_c, n_c = checkpoint(chunk, hidden[:, part], labels[:, part],
+                              weights[:, part], use_reentrant=False)
+        tot, cnt = tot + s_c, cnt + n_c
+    return tot, cnt

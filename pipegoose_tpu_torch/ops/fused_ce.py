@@ -1,0 +1,347 @@
+"""Fused vocab cross entropy, forward and backward, straight from (hidden,
+weight): the (T, V) logits never exist in device memory.
+
+The counterpart of ``pipegoose_tpu/ops/fused_ce.py``. Three kernels, each
+a wrapper over one hand-written CUDA entry point (``csrc/fused_ce.cu``):
+
+- :func:`fused_ce_fwd` -> (lse, target_logit), float32 (T,): the online
+  log-sum-exp and the target's logit over vocab tiles;
+- :func:`fused_ce_dh` -> dh (T, H) in h's dtype, and :func:`fused_ce_dw`
+  -> dw in w's shape and dtype: the two backward products, each rebuilding
+  ``dlogits = g * (softmax - onehot)`` tile by tile from the saved lse.
+
+On CPU tensors a wrapper calls its plain PyTorch version
+(``fused_ce_fwd_reference``, ``fused_ce_dh_reference``,
+``fused_ce_dw_reference``: the math of the Pallas bodies over the whole
+(T, V) at once); on CUDA tensors it launches its kernel or raises.
+``.launches`` counts the launches. ``_FusedCE`` ties them together as a
+``torch.autograd.Function``, the ``_fused_ce`` custom_vjp of the JAX file.
+
+Semantics of ``_dlogits_tile``: logits in float32; columns whose global
+index ``offset + j`` is ``>= valid_size`` are set to the finite
+``NEG_INF``; the target logit is read after that mask; lse is ``m +
+log(max(l, 1e-30))`` with the running max starting at ``NEG_INF``;
+dlogits is ``g * (exp(logit - lse) - onehot)``. ``weight_layout`` "vh" is
+a (V, H) weight (BLOOM's tied embedding), "hv" an (H, V) one (an untied
+head); both are read in place. Tensor parallelism waits for a later slice:
+``_shard_offset`` and ``_combine`` are its tp=1 identities, and any
+``axis_name`` raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from pipegoose_tpu_torch.nn.tensor_parallel.layers import _check_axis
+from pipegoose_tpu_torch.ops import _build
+
+NEG_INF = -1e9      # finite, as in the JAX package
+H_MULTIPLE = 16     # the kernels' product depth: H must be a multiple of it
+SMS = 132           # H100 SXM streaming multiprocessors
+FWD_TILE_T = 64     # token rows per forward block (csrc/fused_ce.cu kFwdBR)
+FWD_TILE_V = 128    # vocab columns per forward tile (kBS)
+FWD_BLOCKS_PER_SM = 2   # forward blocks resident on one SM (its launch bounds)
+FWD_WAVES = 16      # waves of forward blocks: the last, partial one costs <= 1/16
+NO_VALID = 2 ** 31 - 1   # valid_size=None: no column is masked
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+# -- plain versions ------------------------------------------------------------
+
+def _masked_logits(h, w, offset, valid, vh):
+    """float32 (T, V) logits with columns >= ``valid`` set to NEG_INF."""
+    wf = w.float()
+    logits = h.float() @ (wf.t() if vh else wf)
+    if valid is not None:
+        col = offset + torch.arange(logits.shape[1], device=logits.device)
+        logits.masked_fill_(col[None, :] >= valid, NEG_INF)
+    return logits
+
+
+def _target_index(targets, offset, v):
+    """(local column of each target, whether it lies in this shard)."""
+    idx = targets.long() - offset
+    inside = (idx >= 0) & (idx < v)
+    return idx.clamp(0, max(v - 1, 0)), inside
+
+
+def fused_ce_fwd_reference(h, w, targets, offset=0, valid=None, vh=True):
+    """Plain version of the forward kernel: (lse, target_logit), float32
+    (T,). The target logit is the masked logit of the target's column, 0
+    when the target lies outside ``[offset, offset + V)``."""
+    logits = _masked_logits(h, w, offset, valid, vh)
+    idx, inside = _target_index(targets, offset, logits.shape[1])
+    tl = torch.where(inside, logits.gather(1, idx[:, None])[:, 0], 0.0)
+    m = torch.clamp_min(logits.amax(dim=1), NEG_INF)
+    l = logits.sub_(m[:, None]).exp_().sum(dim=1)
+    return m + torch.log(torch.clamp_min(l, 1e-30)), tl
+
+
+def _dlogits(h, w, targets, lse, g, offset, valid, vh):
+    """float32 (T, V) ``g * (exp(logit - lse) - onehot)``, in place."""
+    logits = _masked_logits(h, w, offset, valid, vh)
+    idx, inside = _target_index(targets, offset, logits.shape[1])
+    p = logits.sub_(lse[:, None]).exp_()
+    rows = torch.nonzero(inside)[:, 0]
+    p[rows, idx[rows]] -= 1.0
+    return p.mul_(g[:, None])
+
+
+def fused_ce_dh_reference(h, w, targets, lse, g, offset=0, valid=None, vh=True):
+    """Plain version of the d-hidden kernel: ``dlogits @ W`` in h's dtype."""
+    dl = _dlogits(h, w, targets, lse, g, offset, valid, vh)
+    wf = w.float()
+    return (dl @ (wf if vh else wf.t())).to(h.dtype)
+
+
+def fused_ce_dw_reference(h, w, targets, lse, g, offset=0, valid=None, vh=True):
+    """Plain version of the d-weight kernel: ``dlogitsᵀ @ h`` (vh) or
+    ``hᵀ @ dlogits`` (hv), in w's dtype."""
+    dl = _dlogits(h, w, targets, lse, g, offset, valid, vh)
+    hf = h.float()
+    return (dl.t() @ hf if vh else hf.t() @ dl).to(w.dtype)
+
+
+# -- kernels -------------------------------------------------------------------
+
+def _device_of(h, name):
+    if h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {h.device}")
+    return h.device.type
+
+
+def _check(h, w, targets, offset, vh, **extra):
+    """Device, dtype, shape and contiguity checks before a launch; returns
+    (T, H, V)."""
+    if h.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"h must be (T, H) and w 2-D, got {tuple(h.shape)}, "
+                         f"{tuple(w.shape)}")
+    t, hd = h.shape
+    if h.dtype not in _SUFFIX:
+        raise TypeError(f"h must be float32 or bfloat16, got {h.dtype}")
+    if w.dtype != h.dtype:
+        raise TypeError(f"w must be {h.dtype} like h, got {w.dtype}")
+    if (w.shape[1] if vh else w.shape[0]) != hd:
+        raise ValueError(f"w {tuple(w.shape)} does not match H={hd} "
+                         f"({'vh' if vh else 'hv'} layout)")
+    if hd % H_MULTIPLE:
+        raise ValueError(f"H={hd} is not a multiple of {H_MULTIPLE}")
+    if offset < 0:
+        raise ValueError(f"offset must be >= 0, got {offset}")
+    v = w.shape[0] if vh else w.shape[1]
+    shapes = {"targets": (targets, (t,), torch.int32)}
+    shapes.update(extra)
+    for name, (x, shape, dtype) in shapes.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    named = [("h", h), ("w", w)] + [(n, x) for n, (x, _, _) in shapes.items()]
+    for name, x in named:
+        if x.device != h.device:
+            raise ValueError(f"{name} is on {x.device}, h on {h.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return t, hd, v
+
+
+def _kernel_fn(kind: str, dtype):
+    fn = getattr(_build.load("fused_ce"), f"fused_ce_{kind}_{_SUFFIX[dtype]}")
+    if fn.argtypes is None:
+        n_int = 7 if kind == "fwd" else 6   # the forward also takes its splits
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(kind, h, ptrs, ints):
+    with torch.cuda.device(h.device):
+        err = _kernel_fn(kind, h.dtype)(
+            *ptrs, *ints, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_ce_{kind} kernel launch failed: cudaError {err}")
+
+
+def fwd_splits(t: int, v: int) -> int:
+    """Vocab splits of the forward grid: enough blocks for FWD_WAVES waves
+    of FWD_BLOCKS_PER_SM per SM, and at least one vocab tile per split."""
+    t_tiles = -(-t // FWD_TILE_T)
+    v_tiles = -(-v // FWD_TILE_V)
+    wave = FWD_BLOCKS_PER_SM * SMS
+    return max(1, min(v_tiles, -(-FWD_WAVES * wave // t_tiles)))
+
+
+def fused_ce_fwd(h, w, targets, offset=0, valid=None, vh=True):
+    """Forward kernel: h (T, H), w (V, H) "vh" or (H, V) "hv", both float32
+    or bf16, targets int32 (T,) -> (lse, target_logit) float32 (T,)."""
+    if _device_of(h, "fused_ce_fwd") == "cpu":
+        return fused_ce_fwd_reference(h, w, targets, offset, valid, vh)
+    t, hd, v = _check(h, w, targets, offset, vh)
+    lse = torch.empty(t, dtype=torch.float32, device=h.device)
+    tl = torch.empty(t, dtype=torch.float32, device=h.device)
+    if t == 0:
+        return lse, tl
+    if v == 0:
+        raise ValueError("w has no vocab columns")
+    splits = fwd_splits(t, v)
+    part = torch.empty((3, splits, t), dtype=torch.float32, device=h.device)
+    _launch("fwd", h, (h.data_ptr(), w.data_ptr(), targets.data_ptr(),
+                       part.data_ptr(), lse.data_ptr(), tl.data_ptr()),
+            (t, hd, v, offset, NO_VALID if valid is None else valid,
+             int(bool(vh)), splits))
+    fused_ce_fwd.launches += 1
+    return lse, tl
+
+
+def _check_bwd(h, w, targets, lse, g, offset, vh):
+    t = h.shape[0] if h.dim() == 2 else -1
+    return _check(h, w, targets, offset, vh,
+                  lse=(lse, (t,), torch.float32), g=(g, (t,), torch.float32))
+
+
+def _bwd_ptrs(h, w, targets, lse, g, out):
+    return tuple(x.data_ptr() for x in (h, w, targets, lse, g, out))
+
+
+def fused_ce_dh(h, w, targets, lse, g, offset=0, valid=None, vh=True):
+    """d-hidden kernel: + the global lse and the per-token cotangent g,
+    float32 (T,) -> dh (T, H) in h's dtype."""
+    args = (h, w, targets, lse, g)
+    if _device_of(h, "fused_ce_dh") == "cpu":
+        return fused_ce_dh_reference(*args, offset, valid, vh)
+    t, hd, v = _check_bwd(*args, offset, vh)
+    dh = torch.empty_like(h)
+    if t == 0 or v == 0:
+        return dh.zero_()
+    _launch("dh", h, _bwd_ptrs(*args, dh),
+            (t, hd, v, offset, NO_VALID if valid is None else valid, int(bool(vh))))
+    fused_ce_dh.launches += 1
+    return dh
+
+
+def fused_ce_dw(h, w, targets, lse, g, offset=0, valid=None, vh=True):
+    """d-weight kernel: the dh kernel's inputs -> dw in w's shape and
+    dtype."""
+    args = (h, w, targets, lse, g)
+    if _device_of(h, "fused_ce_dw") == "cpu":
+        return fused_ce_dw_reference(*args, offset, valid, vh)
+    t, hd, v = _check_bwd(*args, offset, vh)
+    dw = torch.empty_like(w)
+    if t == 0 or v == 0:
+        return dw.zero_()
+    _launch("dw", h, _bwd_ptrs(*args, dw),
+            (t, hd, v, offset, NO_VALID if valid is None else valid, int(bool(vh))))
+    fused_ce_dw.launches += 1
+    return dw
+
+
+fused_ce_fwd.launches = 0
+fused_ce_dh.launches = 0
+fused_ce_dw.launches = 0
+
+
+# -- autograd and the public sums ----------------------------------------------
+
+def _shard_offset(axis_name, v_local: int) -> int:
+    """First global column of this vocab shard: 0 at tp=1."""
+    _check_axis(axis_name)
+    return 0
+
+
+def _combine(lse_l, tl_l, axis_name):
+    """Local-shard (lse, target_logit) -> global: the identity at tp=1."""
+    _check_axis(axis_name)
+    return lse_l, tl_l
+
+
+class _FusedCE(torch.autograd.Function):
+    """The ``_fused_ce`` custom_vjp: the forward kernel's (lse, target
+    logit) give (loss_sum, weight_sum) and save (h, w, targets, token_w,
+    lse); the backward takes ``g = ct_loss * token_w`` and launches the dh
+    and dw kernels. ``weight_sum`` is a count and gets no gradient, nor do
+    targets and token_w."""
+
+    @staticmethod
+    def forward(ctx, h, w, targets, token_w, axis_name, valid, vh):
+        offset = _shard_offset(axis_name, w.shape[0] if vh else w.shape[1])
+        lse_l, tl_l = fused_ce_fwd(h, w, targets, offset, valid, vh)
+        lse, tl = _combine(lse_l, tl_l, axis_name)
+        ctx.save_for_backward(h, w, targets, token_w, lse)
+        ctx.args = (axis_name, valid, vh, offset)
+        weight_sum = token_w.sum()
+        ctx.mark_non_differentiable(weight_sum)
+        return ((lse - tl) * token_w).sum(), weight_sum
+
+    @staticmethod
+    def backward(ctx, ct_loss, _ct_count):
+        h, w, targets, token_w, lse = ctx.saved_tensors
+        axis_name, valid, vh, offset = ctx.args
+        g = (ct_loss * token_w).float().contiguous()
+        dh = fused_ce_dh(h, w, targets, lse, g, offset, valid, vh)
+        dw = fused_ce_dw(h, w, targets, lse, g, offset, valid, vh)
+        return dh, dw, None, None, None, None, None
+
+
+def fused_ce_sums(hidden: torch.Tensor, weight: torch.Tensor,
+                  targets: torch.Tensor, token_w: torch.Tensor,
+                  axis_name: Optional[str] = None,
+                  valid_size: Optional[int] = None,
+                  weight_layout: str = "vh"):
+    """(weighted loss sum, weight sum) of the cross entropy of ``hidden``
+    (T, H) against ``weight``, fused: no (T, V) logits buffer, forward or
+    backward. Differentiable in hidden and weight.
+
+    ``weight_layout``: "vh" = (V, H) (BLOOM's tied embedding), "hv" =
+    (H, V) (an untied head); both are read in place. The JAX function's
+    ``block_t``/``block_v`` and its T padding are left out: they size the
+    TPU's VMEM tiles, while the CUDA kernels take any T and V and mask the
+    ragged edges themselves."""
+    if weight_layout not in ("vh", "hv"):
+        raise ValueError(f"weight_layout must be 'vh' or 'hv', got "
+                         f"{weight_layout!r}")
+    return _FusedCE.apply(
+        hidden.contiguous(), weight.contiguous(),
+        targets.to(torch.int32).contiguous(), token_w.float().contiguous(),
+        axis_name, valid_size, weight_layout == "vh")
+
+
+def fused_ce_shifted_sums(hidden, weight, labels, attention_mask,
+                          axis_name: Optional[str] = None,
+                          valid_size: Optional[int] = None,
+                          weight_layout: str = "vh"):
+    """Shift-by-one causal-LM (weighted loss sum, weight sum): hidden (B,
+    S, H) predicts labels (B, S) one position on, weighted by
+    ``attention_mask[:, 1:]`` (all ones when None)."""
+    b, s, hd = hidden.shape
+    w = (attention_mask[:, 1:] if attention_mask is not None
+         else torch.ones_like(labels[:, 1:])).float()
+    return fused_ce_sums(hidden[:, :-1].reshape(b * (s - 1), hd), weight,
+                         labels[:, 1:].reshape(-1), w.reshape(-1), axis_name,
+                         valid_size, weight_layout)
+
+
+def fused_ce_shifted_loss(hidden, weight, labels, attention_mask,
+                          axis_name: Optional[str] = None,
+                          valid_size: Optional[int] = None,
+                          weight_layout: str = "vh") -> torch.Tensor:
+    """Causal-LM mean loss (shift by one, mask-weighted) through the fused
+    kernels."""
+    tot, cnt = fused_ce_shifted_sums(hidden, weight, labels, attention_mask,
+                                     axis_name, valid_size, weight_layout)
+    return tot / torch.clamp_min(cnt, 1)
+
+
+def fused_ce_masked_sums(hidden, weight, labels, weights,
+                         axis_name: Optional[str] = None,
+                         valid_size: Optional[int] = None,
+                         weight_layout: str = "vh"):
+    """(weighted loss sum, weight sum) over positions already aligned with
+    their labels (no shift): hidden (B, S, H), labels and weights (B, S)."""
+    b, s, hd = hidden.shape
+    return fused_ce_sums(hidden.reshape(b * s, hd), weight, labels.reshape(-1),
+                         weights.reshape(-1).float(), axis_name, valid_size,
+                         weight_layout)

@@ -1,9 +1,10 @@
 """The port's training path held against the JAX package on the CPU:
 ``bloom.loss_fn`` and every parameter gradient against
-``jax.value_and_grad(bloom.loss_fn)`` (plain and flash attention), full
-remat against none, three ``train_step`` calls against three steps of
-``value_and_grad`` + ``optax.adam``, the weights' round trip and the
-probes that must raise.
+``jax.value_and_grad(bloom.loss_fn)`` (plain and flash attention; the
+full-logits, fused (``fused_ce``) and chunked (``ce_chunks``) losses),
+full and selective remat against none, three ``train_step`` calls against
+three steps of ``value_and_grad`` + ``optax.adam`` (full-logits and
+fused), the weights' round trip and the probes that must raise.
 
 Tiny BLOOM (vocab 256, hidden 64, 2 layers, 4 heads), B=2 x S=32 with row
 1 right-padded, nonzero LayerNorm and bias leaves; inputs and weights
@@ -23,6 +24,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from pipegoose_tpu.models import bloom as jbloom
 from pipegoose_tpu.nn.tensor_parallel import layers as jlayers
@@ -128,6 +130,86 @@ def test_remat_gives_the_same_loss_and_grads(data, use_flash):
     _assert_trees_close(g1, g0, 0.0)
 
 
+def _jax_loss_and_grads(np_tree, jcfg, ids, mask, labels):
+    return jax.value_and_grad(jbloom.loss_fn)(
+        jax.tree_util.tree_map(jnp.asarray, np_tree), jnp.asarray(ids),
+        jnp.asarray(mask), jnp.asarray(labels), jcfg)
+
+
+@pytest.mark.parametrize("use_flash", [False, True], ids=["plain", "flash"])
+def test_fused_ce_loss_and_every_grad_match_jax(data, use_flash):
+    """The fused loss (plain versions of the kernels on the CPU) against
+    the JAX fused loss (Pallas in interpret mode): the LM head's gradient
+    reaches the tied embedding through the dw kernel."""
+    np_tree, ids, labels, mask = data
+    jcfg, tcfg = _cfgs(use_flash=use_flash, fused_ce=True)
+    jloss, jgrads = _jax_loss_and_grads(np_tree, jcfg, ids, mask, labels)
+    loss, grads = _torch_loss_and_grads(np_tree, tcfg, ids, mask, labels)
+    assert abs(loss - float(jloss)) <= LOSS_ATOL
+    _assert_trees_close(grads, jgrads, GRAD_ATOL)
+
+
+@pytest.mark.parametrize("n_chunks", [4, 5])
+def test_ce_chunks_loss_and_every_grad_match_jax(data, n_chunks):
+    """S - 1 = 31 positions: neither 4 nor 5 divides them, so both take
+    the weight-0 pad path."""
+    np_tree, ids, labels, mask = data
+    jcfg, tcfg = _cfgs(use_flash=True, ce_chunks=n_chunks)
+    jloss, jgrads = _jax_loss_and_grads(np_tree, jcfg, ids, mask, labels)
+    loss, grads = _torch_loss_and_grads(np_tree, tcfg, ids, mask, labels)
+    assert abs(loss - float(jloss)) <= LOSS_ATOL
+    _assert_trees_close(grads, jgrads, GRAD_ATOL)
+
+
+@pytest.mark.parametrize("use_flash", [False, True], ids=["plain", "flash"])
+@pytest.mark.parametrize("policy", ["dots", "attn", "unknown"])
+def test_remat_policies_give_the_same_loss_and_grads(data, policy, use_flash):
+    """A selective policy only decides what backward recomputes: loss and
+    gradients equal the no-remat run exactly, and JAX's under the same
+    policy within GRAD_ATOL. An unknown policy is full remat, as in JAX."""
+    np_tree, ids, labels, mask = data
+    _, plain = _cfgs(use_flash=use_flash)
+    jcfg, tcfg = _cfgs(use_flash=use_flash, remat=True, remat_policy=policy)
+    loss0, g0 = _torch_loss_and_grads(np_tree, plain, ids, mask, labels)
+    loss1, g1 = _torch_loss_and_grads(np_tree, tcfg, ids, mask, labels)
+    assert loss0 == loss1
+    _assert_trees_close(g1, g0, 0.0)
+    jloss, jgrads = _jax_loss_and_grads(np_tree, jcfg, ids, mask, labels)
+    assert abs(loss1 - float(jloss)) <= LOSS_ATOL
+    _assert_trees_close(g1, jgrads, GRAD_ATOL)
+
+
+class _CountOps(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.counts = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[func] = self.counts.get(func, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_dots_policy_recomputes_no_linear_product(data):
+    """Under "dots" the backward runs as many ``aten.mm`` as without remat
+    (the products' own gradients), while full remat adds the recomputed
+    forward products."""
+    np_tree, ids, labels, mask = data
+    mm = {}
+    for name, kw in (("none", {}), ("full", dict(remat=True)),
+                     ("dots", dict(remat=True, remat_policy="dots"))):
+        _, tcfg = _cfgs(**kw)
+        params = params_from_jax(np_tree, tcfg, device="cpu")
+        for t in param_leaves(params):
+            t.requires_grad_(True)
+        loss = tbloom.loss_fn(params, torch.from_numpy(ids).long(),
+                              torch.from_numpy(mask),
+                              torch.from_numpy(labels).long(), tcfg)
+        with _CountOps() as counter:
+            loss.backward()
+        mm[name] = counter.counts.get(torch.ops.aten.mm.default, 0)
+    assert mm["dots"] == mm["none"] < mm["full"]
+
+
 def test_no_mask_takes_the_plain_mean(data):
     np_tree, ids, labels, _ = data
     jcfg, tcfg = _cfgs(use_flash=True)
@@ -149,6 +231,28 @@ def test_three_train_steps_match_optax_adam(data):
     jlosses = []
     for _ in range(3):
         loss, grads = value_and_grad(
+            jparams, jnp.asarray(ids), jnp.asarray(mask), jnp.asarray(labels), jcfg)
+        updates, opt_state = opt.update(grads, opt_state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        jlosses.append(float(loss))
+    params = params_from_jax(np_tree, tcfg, device="cpu")
+    optimizer = make_optimizer(params, LR)
+    losses = [train_step(params, optimizer, ids, mask, labels, tcfg,
+                         device="cpu").item() for _ in range(3)]
+    np.testing.assert_allclose(losses, jlosses, rtol=0, atol=ADAM_LOSS_ATOL)
+    assert losses[2] < losses[0]
+    _assert_trees_close(params_to_jax(params), jparams, ADAM_PARAM_ATOL)
+
+
+def test_three_fused_ce_train_steps_match_optax_adam(data):
+    np_tree, ids, labels, mask = data
+    jcfg, tcfg = _cfgs(use_flash=True, remat=True, fused_ce=True)
+    jparams = jax.tree_util.tree_map(jnp.asarray, np_tree)
+    opt = optax.adam(LR)
+    opt_state = opt.init(jparams)
+    jlosses = []
+    for _ in range(3):
+        loss, grads = jax.value_and_grad(jbloom.loss_fn)(
             jparams, jnp.asarray(ids), jnp.asarray(mask), jnp.asarray(labels), jcfg)
         updates, opt_state = opt.update(grads, opt_state, jparams)
         jparams = optax.apply_updates(jparams, updates)
@@ -224,26 +328,19 @@ def test_build_alibi_matches_jax():
         np.asarray(jbloom.build_alibi(jnp.asarray(mask), 4)))
 
 
-@pytest.mark.parametrize("probe", ["fused_ce", "ce_chunks", "remat_policy_dots",
-                                   "remat_policy_attn", "tp_axis_loss",
-                                   "tp_axis_ce"])
+@pytest.mark.parametrize("probe", ["tp_axis_loss", "tp_axis_ce", "tp_axis_fused_ce"])
 def test_unported_options_raise(data, probe):
     np_tree, ids, labels, mask = data
-    kw = {"fused_ce": dict(fused_ce=True), "ce_chunks": dict(ce_chunks=4),
-          "remat_policy_dots": dict(remat=True, remat_policy="dots"),
-          "remat_policy_attn": dict(remat=True, remat_policy="attn")}.get(probe, {})
-    _, tcfg = _cfgs(**kw)
+    _, tcfg = _cfgs(fused_ce=probe == "tp_axis_fused_ce")
     params = params_from_jax(np_tree, tcfg, device="cpu")
     args = (torch.from_numpy(ids).long(), torch.from_numpy(mask),
             torch.from_numpy(labels).long())
-    with pytest.raises(NotImplementedError, match="ROADMAP|tensor parallelism"):
-        if probe == "tp_axis_loss":
-            tbloom.loss_fn(params, *args, tcfg, tp_axis="tensor")
-        elif probe == "tp_axis_ce":
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        if probe == "tp_axis_ce":
             tlayers.vocab_parallel_cross_entropy(torch.zeros(1, 4), torch.zeros(
                 1, dtype=torch.long), "tensor")
         else:
-            tbloom.loss_fn(params, *args, tcfg)
+            tbloom.loss_fn(params, *args, tcfg, tp_axis="tensor")
 
 
 def test_cuda_device_without_a_card_raises(data):
