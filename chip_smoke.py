@@ -8,7 +8,9 @@ Two main paths, both BLOOM-560m at full width (vocab 250880, hidden 1024,
 
 - serving: ``pipegoose_tpu_torch.serving.ServingEngine`` with chunked
   prefill over a paged KV pool, every attention read going through the
-  hand-written CUDA paged-attention kernel;
+  hand-written CUDA paged-attention kernel, and with int8 or int4 weights
+  (``weight_dtype``) every block product through the hand-written CUDA
+  quantized-matmul kernels, chunked or with the monolithic prefill;
 - training: ``pipegoose_tpu_torch.trainer.train_step`` (loss, backward,
   Adam), its attention going through the hand-written CUDA flash-attention
   forward, dQ and dK/dV kernels, and with ``fused_ce`` its loss through the
@@ -57,7 +59,24 @@ Phases, each fatal on failure:
      device time with the fused kernels' share;
  13  each fused kernel's time at phase 12's shape beside its bound, its
      plain version's time and a composite of PyTorch calls that computes
-     the same function through the full logits.
+     the same function through the full logits;
+ 14  the int8 and int4 (G = 32) quantized-matmul kernels against their plain
+     version at bloom-560m's four products (qkv, out, up, down) and T in
+     {8, 128, 512}, float32 and bf16; the card's quantize_params against
+     the CPU's on the full bloom-560m tree, byte for byte;
+ 15  phase 3's float32 card-vs-CPU check with int8 and int4 weights, each
+     with chunked and with monolithic prefill; the card engine's tokens
+     also equal the card's generate() on the engine's quantized params;
+ 16  phase 4's timed workload in four arms (fp, int8 weights, int4 weights,
+     int8 weights + int8 KV): tokens/s, mean TTFT, mean decode-step ms, the
+     memory report's weight and KV bytes (weights exactly as the shapes
+     give), each quantized kernel's launch count (4 x n_layer x (decode
+     steps + prefill chunks)) and the quantized kernels' share of one
+     profiled decode tick;
+ 17  each quantized kernel's time at the decode (T = 8) and chunk (T = 128)
+     shapes, bf16, per bloom-560m product, beside its bound, its plain
+     version's time, cuBLAS's bf16 product with the dequantized weight, and
+     PyTorch's weight-only int8/int4 matmul where it applies.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a card, or
@@ -127,6 +146,19 @@ FUSED_REPLACES = {
 # bf16 before the second product
 FUSED_STAT_RTOL = 2.0 ** -18
 FUSED_GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+QUANT_SOURCE = "pipegoose_tpu_torch/ops/csrc/quant_matmul.cu"
+QUANT_REPLACES = {"int8": "pipegoose_tpu/quant/matmul.py:94",
+                  "int4": "pipegoose_tpu/quant/matmul.py:132"}
+# quantized matmul kernel vs plain, max |diff| against the largest |plain|
+# value M: 1e-5 M in float32 and for bf16 x (a bf16 x times an int8 weight
+# is exact in float32, an int4 weight times its scale is rounded once on
+# both sides): only the order of up to 4096 float32 sums differs
+QUANT_RTOL = 1e-5
+BLOOM_KN = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))  # qkv, out, up, down
+# bloom-560m bf16 resident weight bytes, from its shapes: every leaf in
+# bf16; the 24 x 4 block kernels as int8 + float32 per-channel scales; as
+# packed int4 + float32 scales per 32 rows
+WEIGHT_BYTES = {"fp": 1_118_429_184, "int8": 817_324_032, "int4": 703_193_088}
 TRAIN_LOSS_ATOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_ADAM_LOSS_ATOL = 1e-3
@@ -267,15 +299,16 @@ def prefill_logits(params, config, prompt, dev):
         i32([0]), i32([n]), config)
 
 
-def make_engine(params, config, dev, *, num_slots, kv_dtype=None):
+def make_engine(params, config, dev, *, num_slots, kv_dtype=None, **knobs):
     """The main path's engine: page size 16, 1024-token context, 128-token
-    prefill chunks, enough pages for every slot's worst case."""
+    prefill chunks unless ``knobs`` say otherwise, enough pages for every
+    slot's worst case."""
     from pipegoose_tpu_torch.serving import ServingEngine
 
+    knobs = {"prefill_chunk": 128, **knobs}
     return ServingEngine(params, config, num_slots=num_slots,
                          num_pages=num_slots * (1024 // 16) + 1, page_size=16,
-                         max_context=1024, prefill_chunk=128,
-                         kv_dtype=kv_dtype, device=dev)
+                         max_context=1024, kv_dtype=kv_dtype, device=dev, **knobs)
 
 
 def as_requests(requests):
@@ -284,16 +317,45 @@ def as_requests(requests):
     return [Request(prompt=p, max_new_tokens=n) for p, n in requests]
 
 
-def serve(params, config, requests, dev, *, num_slots, kv_dtype=None):
-    eng = make_engine(params, config, dev, num_slots=num_slots, kv_dtype=kv_dtype)
+def serve(params, config, requests, dev, *, num_slots, kv_dtype=None, **knobs):
+    eng = make_engine(params, config, dev, num_slots=num_slots, kv_dtype=kv_dtype,
+                      **knobs)
     return eng, *eng.run(as_requests(requests))
 
 
-def check_launches(label, launches, metrics, n_layer):
-    want = n_layer * (metrics["decode_steps"] + metrics["prefill_chunks"])
+def serving_counters():
+    """Every kernel of the serving path's launch counter, by name."""
+    from pipegoose_tpu_torch.ops import paged_attention as pa
+    from pipegoose_tpu_torch.quant import matmul as qm
+
+    return {"paged_attention": pa.paged_attention,
+            "int8": qm.quantized_matmul_int8, "int4": qm.quantized_matmul_int4}
+
+
+def check_quant_launches(label, counts, metrics, n_layer, weight_dtype):
+    """With ``weight_dtype`` set, its quantized matmul must launch 4 times
+    per layer per forward (qkv, out, up, down) and the other kernel never;
+    without, neither launches. A chunked engine reports its prefill
+    chunks; a monolithic prefill is one forward, counted in ``prefills``."""
+    forwards = metrics["decode_steps"] + metrics.get("prefill_chunks",
+                                                     metrics["prefills"])
+    want = {k: (4 * n_layer * forwards if k == weight_dtype else 0)
+            for k in ("int8", "int4")}
+    got = {k: counts[k] for k in want}
+    log(f"  {label}: quantized matmul launches {got}, want {want} (4 x n_layer x "
+        f"{forwards} forwards for {weight_dtype or 'fp'} weights)")
+    if got != want:
+        raise AssertionError(f"{label}: the quantized path bypassed its kernel")
+
+
+def check_launches(label, launches, metrics, n_layer, chunked=True):
+    """The paged kernel runs once per layer in every decode step and, with
+    chunked prefill, every prefill chunk; a monolithic prefill attends
+    through its contiguous cache instead, as the JAX engine's does."""
+    chunks = metrics["prefill_chunks"] if chunked else 0
+    want = n_layer * (metrics["decode_steps"] + chunks)
     log(f"  {label}: kernel launches {launches}, n_layer x (decode steps "
-        f"{metrics['decode_steps']} + prefill chunks {metrics['prefill_chunks']}) "
-        f"= {want}")
+        f"{metrics['decode_steps']} + prefill chunks {chunks}) = {want}")
     if launches != want or launches == 0:
         raise AssertionError(f"{label}: the main path bypassed the kernel")
 
@@ -301,36 +363,14 @@ def check_launches(label, launches, metrics, n_layer):
 def phase3_engine_vs_cpu(np_tree, dev):
     from pipegoose_tpu_torch.models.bloom import BloomConfig
     from pipegoose_tpu_torch.models.weights import params_from_jax
-    from pipegoose_tpu_torch.ops import paged_attention as pa
 
     cfg = BloomConfig.bloom_560m()
-    rng = np.random.default_rng(SEED + 3)
-    requests = [(rng.integers(0, cfg.vocab_size, int(n)), 16)
-                for n in rng.integers(40, 301, 3)]
+    requests = card_vs_cpu_requests(cfg)
     log(f"phase 3: bloom-560m float32, prompts {[len(p) for p, _ in requests]}, "
         f"16 new tokens each, 4 slots, chunk 128")
     cpu_params = params_from_jax(np_tree, cfg, device="cpu")
     gpu_params = params_from_jax(np_tree, cfg, device=dev)
-    t0 = time.perf_counter()
-    _, cpu_outs, _ = serve(cpu_params, cfg, requests, "cpu", num_slots=4)
-    log(f"  cpu engine: {time.perf_counter() - t0:.1f} s")
-    pa.paged_attention.launches = 0
-    _, gpu_outs, gpu_metrics = serve(gpu_params, cfg, requests, dev, num_slots=4)
-    check_launches("card engine", pa.paged_attention.launches, gpu_metrics,
-                   cfg.n_layer)
-    for (prompt, _), c, g in zip(requests, cpu_outs, gpu_outs):
-        diff = np.nonzero(c.generated != g.generated)[0]
-        if diff.size == 0:
-            log(f"  request {c.uid}: {len(g.generated)} tokens identical")
-            continue
-        step = int(diff[0])
-        prefix = np.concatenate([prompt, c.generated[:step]])
-        top2 = torch.topk(prefill_logits(cpu_params, cfg, prefix, "cpu")[0], 2).values
-        margin = (top2[0] - top2[1]).item()
-        log(f"  request {c.uid}: diverges at step {step}, cpu top-2 margin {margin}")
-        if margin >= NEAR_TIE:
-            raise AssertionError(f"request {c.uid} diverged at step {step}, "
-                                 f"margin {margin} is not a near-tie")
+    engines_agree(cfg, requests, cpu_params, gpu_params, dev)
     prompt = requests[0][0]
     lg = prefill_logits(gpu_params, cfg, prompt, dev)
     lc = prefill_logits(cpu_params, cfg, prompt, "cpu")
@@ -341,6 +381,56 @@ def phase3_engine_vs_cpu(np_tree, dev):
         f"max_abs_err={err} (atol {LOGIT_ATOL})")
     if err > LOGIT_ATOL:
         raise AssertionError("card and cpu logits disagree")
+
+
+def card_vs_cpu_requests(cfg):
+    """Three seeded requests, prompts 40-300 tokens, 16 new tokens each."""
+    rng = np.random.default_rng(SEED + 3)
+    return [(rng.integers(0, cfg.vocab_size, int(n)), 16)
+            for n in rng.integers(40, 301, 3)]
+
+
+def check_flip(label, params, cfg, prompt, want, got):
+    """Fails unless token streams ``want`` and ``got`` agree, or part
+    first where the CPU's top-2 logits after the common prefix are a
+    near-tie."""
+    diff = np.nonzero(np.asarray(want) != np.asarray(got))[0]
+    if diff.size == 0:
+        log(f"  {label}: {len(got)} tokens identical")
+        return
+    step = int(diff[0])
+    prefix = np.concatenate([prompt, np.asarray(want)[:step]])
+    top2 = torch.topk(prefill_logits(params, cfg, prefix, "cpu")[0], 2).values
+    margin = (top2[0] - top2[1]).item()
+    log(f"  {label}: diverges at step {step}, cpu top-2 margin {margin}")
+    if margin >= NEAR_TIE:
+        raise AssertionError(f"{label} diverged at step {step}, margin {margin} "
+                             f"is not a near-tie")
+
+
+def engines_agree(cfg, requests, cpu_params, gpu_params, dev, **knobs):
+    """The float32 engine with ``knobs`` on the CPU and on the card: the
+    card run must launch the paged kernel (and, with ``weight_dtype``,
+    its quantized matmul) on every forward, and give the CPU's greedy
+    tokens, a flip allowed only at a CPU top-2 margin below NEAR_TIE.
+    Returns the CPU engine, the card engine and the card's outputs."""
+    counters = serving_counters()
+    t0 = time.perf_counter()
+    cpu_eng, cpu_outs, _ = serve(cpu_params, cfg, requests, "cpu", num_slots=4, **knobs)
+    log(f"  cpu engine: {time.perf_counter() - t0:.1f} s")
+    for c in counters.values():
+        c.launches = 0
+    gpu_eng, gpu_outs, gpu_metrics = serve(gpu_params, cfg, requests, dev,
+                                           num_slots=4, **knobs)
+    counts = {n: c.launches for n, c in counters.items()}
+    check_launches("card engine", counts["paged_attention"], gpu_metrics, cfg.n_layer,
+                   chunked=knobs.get("prefill_chunk", 128) is not None)
+    check_quant_launches("card engine", counts, gpu_metrics, cfg.n_layer,
+                         gpu_eng.weight_dtype)
+    for (prompt, _), c, g in zip(requests, cpu_outs, gpu_outs):
+        check_flip(f"request {c.uid}", cpu_eng.params, cfg, prompt, c.generated,
+                   g.generated)
+    return cpu_eng, gpu_eng, gpu_outs
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -379,20 +469,22 @@ def phase4_timed_serving(np_tree, dev) -> dict:
     return launches
 
 
-def decode_profile(params, cfg, requests, dev, kv_dtype, label, ticks=16):
+def decode_profile(params, cfg, requests, dev, kv_dtype, label, ticks=16, **knobs):
     """Where a decode step's time goes: fill the 8 slots, let every prefill
     finish, then run ``ticks`` decode-only ticks under torch.profiler and
-    report wall time, device busy time and the top kernels per tick."""
+    report wall time, device busy time and the top kernels per tick.
+    Returns what ``profile_device`` returns."""
     from pipegoose_tpu_torch.serving import Status
 
-    eng = make_engine(params, cfg, dev, num_slots=8, kv_dtype=kv_dtype)
+    eng = make_engine(params, cfg, dev, num_slots=8, kv_dtype=kv_dtype, **knobs)
     eng.start_run(as_requests(requests))
     while eng.sched.queue or any(r.status is Status.PREFILL
                                  for r in eng.sched.active()):
         eng.tick_once()
-    profile_device(eng.tick_once, ticks, f"{label} decode tick (8 slots, profiled)",
-                   "tick", top=6)
+    prof = profile_device(eng.tick_once, ticks,
+                          f"{label} decode tick (8 slots, profiled)", "tick", top=6)
     eng.finish_run()
+    return prof
 
 
 def profile_device(fn, n, label, unit, top):
@@ -1128,6 +1220,250 @@ def phase13_fused_time(dev, card, errs, launches) -> list:
     return rows
 
 
+# -- phase 14 ------------------------------------------------------------------
+
+def quant_case(dev, kind, k, n, t, dtype, seed, layers=1):
+    """x (T, K) unit normal in ``dtype`` and ``layers`` weights like BLOOM's
+    (normal, std 0.02) quantized on the card: int8, or int4 with G = 32."""
+    from pipegoose_tpu_torch.quant.weights import QuantSpec, _quantize_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(t, k, device=dev, generator=gen).to(dtype)
+    leaves = [_quantize_kernel(torch.randn(k, n, device=dev, generator=gen) * 0.02,
+                               QuantSpec(kind, 32)) for _ in range(layers)]
+    return x, [(leaf["q"], leaf["scale"]) for leaf in leaves]
+
+
+def phase14_quant_vs_plain(np_tree, dev) -> dict:
+    """Both quantized matmul kernels against their plain version at
+    bloom-560m's four products and T in {8, 128, 512}, float32 and bf16;
+    then the card's quantize_params against the CPU's on the full tree.
+    Returns each kernel's largest bf16 error at T = 8 and 128, the dtype
+    and shapes of phase 17's calls."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+    from pipegoose_tpu_torch.quant import matmul as qm
+    from pipegoose_tpu_torch.quant.weights import QuantSpec, quantize_params
+
+    errs = {"int8": 0.0, "int4": 0.0}
+    for kind in ("int8", "int4"):
+        kernel = getattr(qm, f"quantized_matmul_{kind}")
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            for t in (8, 128, 512):
+                parts = []
+                for i, (k, n) in enumerate(BLOOM_KN):
+                    x, [(q, scale)] = quant_case(dev, kind, k, n, t, dtype, SEED + 14 + i)
+                    before = kernel.launches
+                    y = kernel(x, q, scale)
+                    torch.cuda.synchronize()
+                    if kernel.launches != before + 1:
+                        raise AssertionError(f"{kind}: launch counter did not move")
+                    ref = qm.quantized_matmul_reference(x, q, scale)
+                    if y.shape != ref.shape or not torch.isfinite(y).all():
+                        raise AssertionError(f"{kind}: bad output {tuple(y.shape)}")
+                    err = (y - ref).abs().max().item()
+                    tol = QUANT_RTOL * ref.abs().max().item()
+                    parts.append(f"{k}x{n} {err:.3g} (tol {tol:.3g})")
+                    if err > tol:
+                        raise AssertionError(f"{kind} {name} T={t} {k}x{n}: kernel "
+                                             f"disagrees with plain: {err} > {tol}")
+                    if dtype is torch.bfloat16 and t in (8, 128):
+                        errs[kind] = max(errs[kind], err)
+                log(f"phase 14: {kind} {name} T={t}: " + ", ".join(parts) + " ok")
+    cfg = BloomConfig.bloom_560m()
+    cpu = params_from_jax(np_tree, cfg, device="cpu")
+    gpu = params_from_jax(np_tree, cfg, device=dev)
+    for spec in (QuantSpec("int8"), QuantSpec("int4", 32)):
+        qc, qg = quantize_params(cpu, spec), quantize_params(gpu, spec)
+        for i, (bc, bg) in enumerate(zip(qc["blocks"], qg["blocks"])):
+            for a, b in (("attn", "qkv"), ("attn", "out"), ("mlp", "up"), ("mlp", "down")):
+                for plane in ("q", "scale"):
+                    if not torch.equal(bg[a][b][plane].cpu(), bc[a][b][plane]):
+                        raise AssertionError(f"{spec.weight_dtype}: layer {i} {a}.{b} "
+                                             f"{plane} differs card vs CPU")
+        log(f"phase 14: quantize_params {spec.weight_dtype} (G={spec.group_size}) of "
+            f"bloom-560m float32: every q byte and scale equal, card vs CPU")
+        del qc, qg
+    return errs
+
+
+# -- phase 15 ------------------------------------------------------------------
+
+def phase15_quant_engine_vs_cpu(np_tree, dev) -> None:
+    """Phase 3's float32 check with int8 and int4 weights, chunked and
+    monolithic prefill; the card engine's tokens must also equal the card's
+    generate() on the engine's own quantized params."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.generate import generate
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+
+    cfg = BloomConfig.bloom_560m()
+    requests = card_vs_cpu_requests(cfg)
+    cpu_params = params_from_jax(np_tree, cfg, device="cpu")
+    gpu_params = params_from_jax(np_tree, cfg, device=dev)
+    for weight_dtype in ("int8", "int4"):
+        for chunk in (128, None):
+            log(f"phase 15: bloom-560m float32, {weight_dtype} weights (G=32), "
+                f"{'chunk 128' if chunk else 'monolithic prefill'}, prompts "
+                f"{[len(p) for p, _ in requests]}, 16 new tokens, 4 slots")
+            cpu_eng, eng, outs = engines_agree(cfg, requests, cpu_params, gpu_params,
+                                               dev, weight_dtype=weight_dtype,
+                                               prefill_chunk=chunk)
+            for (prompt, n), o in zip(requests, outs):
+                ref = generate(eng.params, prompt[None], cfg, n, device=dev)
+                check_flip(f"request {o.uid} engine vs card generate()", cpu_eng.params,
+                           cfg, prompt, ref[0, len(prompt):].cpu().numpy(), o.generated)
+            del cpu_eng, eng
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+# -- phase 16 ------------------------------------------------------------------
+
+def phase16_quant_serving(np_tree, dev) -> dict:
+    """Phase 4's workload in four arms: fp, int8 weights, int4 weights
+    (G = 32) and int8 weights + int8 KV. Returns each quantized kernel's
+    launch count from its arm's timed run."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+
+    cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16)
+    params = params_from_jax(np_tree, cfg, device=dev)
+    rng = np.random.default_rng(SEED + 4)
+    requests = [(rng.integers(0, cfg.vocab_size, int(n)), 64)
+                for n in rng.integers(128, 513, 12)]
+    log(f"phase 16: phase 4's workload (bloom-560m bf16, 12 requests, prompts "
+        f"128-512, 64 new tokens, 8 slots, chunk 128) in four arms")
+    arms = {"fp": {}, "int8w": dict(weight_dtype="int8"),
+            "int4w": dict(weight_dtype="int4", weight_group_size=32),
+            "int8w+int8kv": dict(weight_dtype="int8", kv_dtype="int8")}
+    counters = serving_counters()
+    launches = {}
+    for arm, knobs in arms.items():
+        serve(params, cfg, requests, dev, num_slots=8, **knobs)          # warm-up
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        eng, outs, m = serve(params, cfg, requests, dev, num_slots=8, **knobs)
+        counts = {n: c.launches for n, c in counters.items()}
+        report = eng.memory_report()
+        wbytes, kvbytes = report["weights"]["total_bytes"], report["kv"]["total_bytes"]
+        log(f"  {arm}: {m['decode_tokens_per_s']} tokens/s, mean TTFT "
+            f"{m['mean_ttft_s'] * 1e3} ms, mean decode step "
+            f"{m['decode_step_time_s'] / m['decode_steps'] * 1e3} ms, weights "
+            f"{wbytes} bytes {report['weights']['bytes_by_dtype']}, KV {kvbytes} bytes")
+        if m["generated_tokens"] != 12 * 64 or any(len(o.generated) != 64 for o in outs):
+            raise AssertionError(f"{arm}: not every request got 64 tokens")
+        want_bytes = WEIGHT_BYTES[eng.weight_dtype or "fp"]
+        if wbytes != want_bytes:
+            raise AssertionError(f"{arm}: weights {wbytes} bytes, want {want_bytes}")
+        check_launches(arm, counts["paged_attention"], m, cfg.n_layer)
+        check_quant_launches(arm, counts, m, cfg.n_layer, eng.weight_dtype)
+        if eng.weight_dtype and eng.weight_dtype not in launches:
+            launches[eng.weight_dtype] = counts[eng.weight_dtype]
+        del eng
+        _, busy_ms, kernels = decode_profile(params, cfg, requests[:8], dev,
+                                             knobs.get("kv_dtype"), arm,
+                                             weight_dtype=knobs.get("weight_dtype"),
+                                             weight_group_size=32)
+        quant_ms = sum(e.self_device_time_total for e in kernels
+                       if "quant_matmul" in e.key) / 1e3 / 16
+        if busy_ms:
+            log(f"  {arm}: quantized matmul kernels {quant_ms} ms of the tick's "
+                f"{busy_ms} ms device time ({100 * quant_ms / busy_ms:.1f}%)")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 17 ------------------------------------------------------------------
+
+def quant_bound_ms(x, q, scale, t, k, n):
+    """Least time for one call: x, q, scale and the float32 y each moved
+    once at 3.35 TB/s, against 2 T K N flops at 989 TFLOP/s (the bf16
+    tensor-core rate, as the product could run at)."""
+    nbytes = (x.numel() * x.element_size() + q.numel() + scale.numel() * 4 + t * n * 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * t * k * n / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, t_bytes, t_ops
+
+
+def packed_library_call(kind, x, q, scale):
+    """PyTorch's own one-call weight-only matmul for this function, or
+    (None, reason). ``_weight_int8pack_mm`` takes (N, K) int8 and
+    per-channel scales; ``_weight_int4pack_mm`` takes tinygemm's packed
+    layout with bf16 (scale, zero) pairs, so its int4 weights here are
+    q4 + 8 with zero point 0 (the same weights, scales rounded to bf16)."""
+    from pipegoose_tpu_torch.quant.matmul import unpack_int4
+
+    try:
+        if kind == "int8":
+            w = q.t().contiguous()
+            fn = lambda: torch._weight_int8pack_mm(x, w, scale.to(x.dtype))  # noqa: E731
+        else:
+            u = (unpack_int4(q).t().to(torch.int32) + 8).contiguous()        # (N, K)
+            packed = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)
+            wp = torch._convert_weight_to_int4pack(packed, 8)
+            sz = torch.stack([scale, torch.zeros_like(scale)], dim=-1).to(torch.bfloat16)
+            fn = lambda: torch._weight_int4pack_mm(x, wp, 32, sz.contiguous())  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        return fn, None
+    except Exception as e:   # the op is missing or refuses this card or layout
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+
+
+def phase17_quant_time(dev, card, errs, launches) -> list:
+    """Each quantized matmul kernel at the decode (T = 8) and chunk (T = 128)
+    shapes, bf16, per product of one layer; each call reads the next of 24
+    layers' weights (L2-cold). Rows: one layer's four products summed."""
+    from pipegoose_tpu_torch.quant import matmul as qm
+
+    n_layer = 24
+    log(f"phase 17: quantized matmul kernels, bf16 x, device ms per call, each call "
+        f"reading the next of {n_layer} layers' weights, on {card}")
+    rows = []
+    for kind in ("int8", "int4"):
+        kernel = getattr(qm, f"quantized_matmul_{kind}")
+        for t, shape in ((8, "decode"), (128, "chunk")):
+            tot = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                   "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+            for i, (k, n) in enumerate(BLOOM_KN):
+                x, layers = quant_case(dev, kind, k, n, t, torch.bfloat16,
+                                       SEED + 17 + i, layers=n_layer)
+                deq = [qm.dequantize_weight(q, s).to(torch.bfloat16) for q, s in layers]
+                ms, call_ms = time_ms(lambda j: kernel(x, *layers[j % n_layer]), n_layer)
+                plain_ms, _ = time_ms(
+                    lambda j: qm.quantized_matmul_reference(x, *layers[j % n_layer]), n_layer)
+                library_ms, _ = time_ms(lambda j: torch.matmul(x, deq[j % n_layer]), n_layer)
+                bound_ms, t_bytes, t_ops = quant_bound_ms(x, *layers[0], t, k, n)
+                packed, why = packed_library_call(kind, x, *layers[0])
+                packed_txt = (f"{time_eager_ms(packed, 20)} (one layer's weights, eager)"
+                              if packed else f"not applicable ({why})")
+                log(f"  {kind} T={t} {k}x{n}: kernel {ms} (eager {call_ms}), bound "
+                    f"{bound_ms} ({'bytes' if t_bytes >= t_ops else 'operations'}), plain "
+                    f"{plain_ms}, cuBLAS bf16 x @ dequantized bf16 {library_ms}, "
+                    f"torch._weight_{kind}pack_mm {packed_txt}")
+                for key, v in (("ms", ms), ("call_ms", call_ms), ("plain_ms", plain_ms),
+                               ("library_ms", library_ms), ("bound_ms", bound_ms),
+                               ("bytes", t_bytes), ("ops", t_ops)):
+                    tot[key] += v
+                del layers, deq
+                gc.collect()
+                torch.cuda.empty_cache()
+            rows.append({
+                "name": f"quantized_matmul_{kind} (bf16, {shape} T={t}, one layer's "
+                        f"qkv+out+up+down summed)",
+                "source": QUANT_SOURCE, "replaces": QUANT_REPLACES[kind], "route": "cuda",
+                "launches": launches[kind], "max_abs_err": errs[kind],
+                "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+                "bound_by": "bytes" if tot["bytes"] >= tot["ops"] else "operations",
+                "library_ms": tot["library_ms"], "call_ms": tot["call_ms"],
+            })
+            log(f"  {kind} T={t} one layer: kernel {tot['ms']}, bound {tot['bound_ms']}, "
+                f"plain {tot['plain_ms']}, cuBLAS bf16 {tot['library_ms']}")
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase0_card()
@@ -1165,11 +1501,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fused_runs = phase12_timed_variants(np_tree, dev, card, flash_run["peak_gib"])
-    del np_tree
     gc.collect()
     torch.cuda.empty_cache()
     rows += phase13_fused_time(dev, card, fused_errs,
                                fused_runs["flash+fusedce"]["launches"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant_errs = phase14_quant_vs_plain(np_tree, dev)
+    phase15_quant_engine_vs_cpu(np_tree, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant_launches = phase16_quant_serving(np_tree, dev)
+    del np_tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += phase17_quant_time(dev, card, quant_errs, quant_launches)
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Where the port runs: the card unless the caller asks for the CPU."""
+"""Where the port runs: the card unless the caller asks for the CPU, and
+the arithmetic that must round the same on both."""
 from __future__ import annotations
 
 import torch
@@ -25,3 +26,11 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     return dev
+
+
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` rounded once, on every device. PyTorch's CUDA division by
+    a CPU scalar multiplies by its reciprocal instead, which can land one
+    ulp away from the CPU's and JAX's quotient; a divisor tensor on x's
+    device takes the true division there too."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)

@@ -1,5 +1,6 @@
-"""Greedy token pick shared by the serving engine's decode step and chunked
-prefill (the counterpart of ``pipegoose_tpu/models/_decode.py``)."""
+"""The shared decode loop and greedy token pick (the counterpart of
+``pipegoose_tpu/models/_decode.py``), used by the serving engine's decode
+step and prefills and by ``models.generate.generate``."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -32,3 +33,51 @@ def greedy_token(logits: torch.Tensor,
     if logits_mask is not None:
         logits = logits_mask(logits)
     return torch.argmax(logits, dim=-1)
+
+
+def autoregressive_generate(forward_cached: Callable, init_cache: Callable,
+                            params, input_ids: torch.Tensor, config,
+                            max_new_tokens: int, temperature: float = 0.0,
+                            eos_token_id: Optional[int] = None,
+                            logits_mask: Optional[Callable] = None,
+                            extras=None) -> torch.Tensor:
+    """Greedy decoding with a KV cache: one prefill of the whole prompt,
+    then one ``forward_cached`` call per new token.
+
+    - ``eos_token_id``: finished rows emit eos from then on (HF generate's
+      pad-with-eos);
+    - ``logits_mask(logits) -> logits``: e.g. padded-vocab masking;
+    - ``extras``: side inputs forwarded to ``forward_cached(...,
+      extras=extras)``, e.g. the extended mask of ragged prompts.
+
+    ``forward_cached(params, ids, cache, start, config[, extras=])``
+    returns (logits, cache); ``init_cache(config, batch, max_len,
+    device=)`` the empty cache. The JAX loop's jit cache and telemetry
+    spans have no counterpart. Sampling (``temperature > 0``) raises
+    ``NotImplementedError``: ``jax.random``'s draws cannot be matched, and
+    the serving path is greedy."""
+    if max_new_tokens <= 0:
+        return input_ids
+    if temperature > 0.0:
+        raise NotImplementedError(
+            "sampling (temperature > 0) is not ported yet (ROADMAP.md queue "
+            "A); generate is greedy")
+    b, s = input_ids.shape
+    cache = init_cache(config, b, s + max_new_tokens, device=input_ids.device)
+    eos = -1 if eos_token_id is None else int(eos_token_id)
+
+    def fwd(ids, cache, pos):
+        if extras is None:
+            return forward_cached(params, ids, cache, pos, config)
+        return forward_cached(params, ids, cache, pos, config, extras=extras)
+
+    logits, cache = fwd(input_ids, cache, 0)
+    tok = greedy_token(logits, logits_mask)
+    done = tok == eos
+    out = [tok]
+    for pos in range(s, s + max_new_tokens - 1):
+        logits, cache = fwd(tok[:, None], cache, pos)
+        tok = torch.where(done, eos, greedy_token(logits, logits_mask))
+        done = done | (tok == eos)
+        out.append(tok)
+    return torch.cat([input_ids, torch.stack(out, dim=1).to(input_ids.dtype)], dim=1)

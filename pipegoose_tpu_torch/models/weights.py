@@ -8,6 +8,10 @@ Python list instead of slicing every leaf on every step. Each layer's
 leaf is a tensor of its own (not a view into a stacked tensor), so every
 leaf can be handed to an optimizer that updates it in place, and the
 serving path reads the updated values with no copy.
+
+A tree that the JAX package's ``quantize_params`` made carries quantized
+block leaves ``{"q": int8, "scale": float32, "bias"}``: their ``q`` stays
+int8 and their ``scale`` float32, whatever ``config.dtype`` is.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from pipegoose_tpu_torch._device import resolve_device
 def _to_tensor(arr, dtype, device) -> torch.Tensor:
     """A tensor with storage of its own: never an alias of the caller's
     array, which an optimizer's in-place update would otherwise rewrite."""
-    t = torch.from_numpy(np.ascontiguousarray(np.asarray(arr, np.float32)))
+    host = np.int8 if dtype == torch.int8 else np.float32
+    t = torch.from_numpy(np.ascontiguousarray(np.asarray(arr, host)))
     return t.to(device=device, dtype=dtype, copy=True)
 
 
@@ -32,14 +37,32 @@ def _map(tree, fn):
     return fn(tree)
 
 
+# the exact dtypes of a quantized leaf's planes (quant.weights)
+_QUANT_DTYPES = {"q": torch.int8, "scale": torch.float32}
+
+
+def _convert(tree, fn):
+    """``fn(leaf, dtype)`` over a tree: ``None`` (the config's dtype)
+    everywhere but the ``q``/``scale`` planes of a quantized leaf."""
+    if isinstance(tree, dict):
+        if "q" in tree:
+            return {k: fn(v, _QUANT_DTYPES.get(k)) for k, v in tree.items()}
+        return {k: _convert(v, fn) for k, v in tree.items()}
+    return fn(tree, None)
+
+
 def params_from_jax(np_tree: dict, config, device="cuda") -> dict:
     """``{"embed", "embed_ln", "blocks", "ln_f"}`` with every leaf a tensor
     of ``config.dtype`` on ``device``; ``"blocks"`` becomes a list of
     ``config.n_layer`` per-layer dicts with the same keys as the JAX
-    ``blocks`` subtree. No leaf requires grad; ``trainer.step.
-    make_optimizer`` turns them into trainable leaves."""
+    ``blocks`` subtree (a quantized leaf keeps its int8 ``q`` and float32
+    ``scale``). No leaf requires grad; ``trainer.step.make_optimizer``
+    turns them into trainable leaves."""
     dev = resolve_device(device)
-    conv = lambda a: _to_tensor(a, config.dtype, dev)  # noqa: E731
+
+    def conv(a, dtype=None):
+        return _to_tensor(a, dtype or config.dtype, dev)
+
     n_layer = config.n_layer
     for leaf in _leaves(np_tree["blocks"]):
         if np.shape(leaf)[0] != n_layer:
@@ -49,7 +72,7 @@ def params_from_jax(np_tree: dict, config, device="cuda") -> dict:
     return {
         "embed": _map(np_tree["embed"], conv),
         "embed_ln": _map(np_tree["embed_ln"], conv),
-        "blocks": [_map(np_tree["blocks"], lambda a, i=i: conv(a[i]))
+        "blocks": [_convert(np_tree["blocks"], lambda a, d, i=i: conv(a[i], d))
                    for i in range(n_layer)],
         "ln_f": _map(np_tree["ln_f"], conv),
     }

@@ -9,7 +9,9 @@ cross entropy is the plain single-device one; its backward is autograd's
 softmax-minus-one-hot, which the JAX ``custom_vjp`` only needs under
 TP. ``chunked_ce_sums`` bounds the logits to one sequence chunk. Dense
 products stay ``torch.matmul``: the JAX package leaves them to XLA, so
-there is no kernel to port here.
+there is no kernel to port here. A quantized leaf (``quant.weights``)
+goes through ``quant.matmul.quantized_matmul`` instead, whose kernels
+are ported.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from typing import Callable, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from pipegoose_tpu_torch.quant.matmul import quantized_matmul
 
 
 def _check_axis(axis_name: Optional[str]) -> None:
@@ -28,9 +32,14 @@ def _check_axis(axis_name: Optional[str]) -> None:
 
 
 def _kernel_matmul(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """``x @ kernel`` in the activation dtype. In bf16 the product
-    accumulates in float32 inside cuBLAS and is rounded once, as
+    """The local product both parallel linears share, dispatching on the
+    leaf: ``{"kernel": fp}`` is ``x @ kernel``; a quantized leaf ``{"q",
+    "scale"}`` runs the dequant-fused matmul, so no float copy of the
+    weight is made. Either result comes back in the activation dtype: in
+    bf16 the product accumulates in float32 and is rounded once, as
     ``jnp.dot(..., preferred_element_type=f32).astype(x.dtype)`` does."""
+    if "q" in params:
+        return quantized_matmul(x, params["q"], params["scale"]).to(x.dtype)
     return torch.matmul(x, params["kernel"]).to(x.dtype)
 
 

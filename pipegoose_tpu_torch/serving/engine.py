@@ -1,21 +1,25 @@
 """Synchronous continuous-batching serving engine over the paged pool.
 
 The counterpart of ``pipegoose_tpu/serving/engine.py`` with
-``attn_kernel="paged"`` and ``prefill_chunk`` set, the configuration in
-which every attention read goes through the paged-attention kernel.
+``attn_kernel="paged"``, the configuration in which every decode step
+and prefill chunk reads attention through the paged-attention kernel.
 ``ServingEngine.run(requests)`` drives the host-side loop:
 
     while work remains:
         admit queued requests into free slots        (scheduler.admit)
-        advance prefills, one CHUNK per prefilling   (paged_prefill_chunk)
-          request per tick
+        prefill: one CHUNK per prefilling request    (paged_prefill_chunk)
+          per tick, or with prefill_chunk=None the
+          whole prompt at admission                  (forward_cached +
+                                                      write_prompt_pages)
         one decode step over ALL decoding slots      (paged_decode_step)
         record tokens; evict finished, reclaim pages (scheduler)
 
-Greedy decoding only: the contract is token identity with the JAX
-engine and with per-request ``generate()``. The KV pool lives in place
-on the device. The monolithic prefill, prefix cache, speculative
-decoding, weight quantisation, tensor parallelism, disaggregation, KV
+``weight_dtype="int8"|"int4"`` quantizes the block kernels at
+construction (``quant.quantize_params``); every dense product of a block
+then runs the dequant-fused matmul kernels. Greedy decoding only: the
+contract is token identity with the JAX engine and with per-request
+``generate()``. The KV pool lives in place on the device. The prefix
+cache, speculative decoding, tensor parallelism, disaggregation, KV
 tiers and the telemetry hooks wait for later slices of the port
 (ROADMAP.md queue A).
 """
@@ -30,12 +34,20 @@ import torch
 
 from pipegoose_tpu_torch._device import resolve_device
 from pipegoose_tpu_torch.models._decode import greedy_token, vocab_mask_for
+from pipegoose_tpu_torch.models.generate import forward_cached, init_cache
+from pipegoose_tpu_torch.quant.weights import (
+    QuantSpec,
+    bytes_by_dtype,
+    quantize_params,
+    quantized_weight_bytes,
+)
 from pipegoose_tpu_torch.serving.kv_pool import (
     PagePool,
     check_kv_dtype,
     init_pages,
     paged_decode_step,
     paged_prefill_chunk,
+    write_prompt_pages,
 )
 from pipegoose_tpu_torch.serving.scheduler import Request, Scheduler, Status
 
@@ -58,7 +70,8 @@ class _RunState:
         self.t0 = 0.0
         self.done: List[Request] = []
         self.steps = 0
-        self.chunks = 0
+        self.chunks = 0                 # prefill forwards; chunks when chunked
+        self.prefills = 0               # prefills completed
         self.step_time = 0.0            # summed decode-step wall time
 
 
@@ -67,21 +80,24 @@ class ServingEngine:
 
     ``num_slots`` bounds the decode batch, ``num_pages * page_size`` the
     pooled KV capacity, ``max_context`` the per-request prompt+new budget
-    (it fixes the page-table width). ``prefill_chunk`` (required, a page
-    multiple) is how many prompt tokens each prefilling request forwards
-    per tick. ``kv_dtype="int8"`` stores int8 pages with a per-(position,
-    head) scale. ``params`` come from ``models.weights.params_from_jax``
-    on ``device``."""
+    (it fixes the page-table width). ``prefill_chunk`` (a page multiple)
+    is how many prompt tokens each prefilling request forwards per tick;
+    None prefills each prompt whole at admission through the contiguous
+    cache, in a bucket of ``pages_for(len) * page_size`` left-padded
+    positions. ``kv_dtype="int8"`` stores int8 pages with a per-(position,
+    head) scale. ``weight_dtype`` ("int8" | "int4"; "fp" is an alias for
+    None) quantizes the block kernels at construction, on ``device``;
+    ``weight_group_size`` is the int4 contraction-group width. With
+    neither knob set the engine serves ``params`` as given (the same
+    object). ``params`` come from ``models.weights.params_from_jax`` on
+    ``device``."""
 
     def __init__(self, params, config, *, num_slots: int = 4,
                  num_pages: int = 64, page_size: int = 16,
                  max_context: int = 256, prefill_chunk: Optional[int] = None,
-                 kv_dtype: Optional[str] = None, device="cuda"):
-        if prefill_chunk is None:
-            raise ValueError(
-                "prefill_chunk is required: the monolithic prefill is not "
-                "ported yet (ROADMAP.md queue A), chunked prefill is the "
-                "only prefill path")
+                 kv_dtype: Optional[str] = None,
+                 weight_dtype: Optional[str] = None,
+                 weight_group_size: int = 32, device="cuda"):
         if max_context % page_size:
             raise ValueError("max_context must be a multiple of page_size")
         self.device = resolve_device(device)
@@ -90,6 +106,13 @@ class ServingEngine:
                 f"params are on {params['embed']['weight'].device}, the "
                 f"engine on {self.device}: build them with "
                 f"params_from_jax(..., device={str(self.device)!r})")
+        if weight_dtype == "fp":
+            weight_dtype = None
+        self.weight_dtype = weight_dtype
+        if weight_dtype is not None:
+            with torch.no_grad():
+                params = quantize_params(params, QuantSpec(weight_dtype,
+                                                           weight_group_size))
         self.params = params
         self.config = config
         self.num_slots = num_slots
@@ -129,6 +152,31 @@ class ServingEngine:
         if end == target:
             self.sched.record_token(req, tok, now())
 
+    def _prefill_request(self, req: Request, now) -> None:
+        """Monolithic prefill: forward the whole prompt through a
+        contiguous cache in a page-multiple bucket, left-padded, scatter
+        its k/v into the request's pages and record the first token."""
+        s = req.prompt_len
+        ps = self.pool.page_size
+        bucket = self.pool.pages_for(s) * ps
+        pad = bucket - s
+        ids = np.zeros((1, bucket), np.int32)
+        ids[0, pad:] = np.asarray(req.prompt, np.int32)
+        mask = np.zeros((1, bucket), np.int32)
+        mask[0, pad:] = 1
+        cache = init_cache(self.config, 1, bucket, device=self.device)
+        logits, cache = forward_cached(self.params, self._tensor(ids), cache, 0,
+                                       self.config,
+                                       extras={"mask": self._tensor(mask)})
+        tok = greedy_token(logits, self._mask_fn)
+        phys = np.zeros((self.table_width,), np.int32)
+        phys[:len(req.pages)] = req.pages
+        write_prompt_pages(self.k_pages, self.v_pages, cache,
+                           self._tensor(phys), pad, ps)
+        tok = int(tok[0])                                  # syncs the device
+        req.prefilled_len = s
+        self.sched.record_token(req, tok, now())
+
     def _decode_step(self, active: List[Request]) -> np.ndarray:
         """One decode step over the decoding slots; returns each slot's
         next token (padded slots included, ignored by the caller)."""
@@ -145,6 +193,36 @@ class ServingEngine:
         return greedy_token(logits, self._mask_fn).cpu().numpy()  # syncs
 
     # -- API ---------------------------------------------------------------
+
+    def memory_report(self) -> dict:
+        """Byte census of the engine's resident state, by dtype: weights
+        from the live params (quantized leaves count their int8 + scale
+        bytes), KV from the live pool (values + scale planes).
+        ``page_capacity_ratio`` is how many times more pages the same KV
+        bytes hold than an fp pool of this geometry. The JAX report's
+        registry gauges and host tier wait for the port's telemetry and KV
+        tiers."""
+        weights = quantized_weight_bytes(self.params)
+        kv_by = bytes_by_dtype((self.k_pages, self.v_pages))
+        kv_total = int(sum(kv_by.values()))
+        cfg = self.config
+        num_pages = self.pool.num_pages
+        itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+        fp_total = (2 * cfg.n_layer * num_pages * self.pool.page_size
+                    * cfg.n_head * cfg.head_dim * itemsize)
+        return {
+            "weight_dtype": self.weight_dtype or "fp",
+            "kv_dtype": self.kv_dtype or "fp",
+            "weights": weights,
+            "kv": {
+                "bytes_by_dtype": kv_by,
+                "total_bytes": kv_total,
+                "num_pages": num_pages,
+                "bytes_per_page": kv_total // num_pages,
+                "fp_bytes_per_page": fp_total // num_pages,
+                "page_capacity_ratio": round(fp_total / max(kv_total, 1), 4),
+            },
+        }
 
     def run(self, requests: Sequence[Request], now=time.perf_counter):
         """Serve ``requests`` to completion; returns (list[RequestOutput] in
@@ -181,10 +259,17 @@ class ServingEngine:
             raise RuntimeError("tick_once needs start_run first")
         now = rs.now
         admitted = self.sched.admit(now())
-        prefilling = [r for r in self.sched.active() if r.status is Status.PREFILL]
+        if self.prefill_chunk is None:
+            prefilling, prefill = admitted, self._prefill_request
+        else:
+            prefilling = [r for r in self.sched.active()
+                          if r.status is Status.PREFILL]
+            prefill = self._prefill_chunk_tick
         for req in prefilling:
-            self._prefill_chunk_tick(req, now)
+            prefill(req, now)
             rs.chunks += 1
+            if req.status is not Status.PREFILL:
+                rs.prefills += 1
             if req.status is Status.DONE:
                 rs.done.append(req)
         active = [r for r in self.sched.active() if r.status is Status.DECODE]
@@ -226,9 +311,13 @@ class ServingEngine:
             "decode_tokens_per_s": generated / wall,
             "decode_steps": rs.steps,
             "decode_step_time_s": rs.step_time,
-            "prefill_chunks": rs.chunks,
+            "prefills": rs.prefills,
             "mean_ttft_s": (sum(o.ttft_s for o in outputs) / len(outputs)
                             if outputs else 0.0),
         }
+        if self.prefill_chunk is not None:
+            # as the JAX engine: a monolithic prefill is one forward per
+            # request, counted in ``prefills``, and reports no chunks
+            metrics["prefill_chunks"] = rs.chunks
         self._run = None
         return outputs, metrics

@@ -10,7 +10,8 @@ page table:
   the NULL page that absorbs writes from padded slots and pad positions.
 - :func:`paged_prefill_chunk` forwards a C-token chunk per row through
   the page tables; :func:`paged_decode_step` forwards one pending token
-  per slot. Both read attention through ``ops.paged_attention``, whose
+  per slot; :func:`write_prompt_pages` scatters a monolithic prefill's
+  contiguous cache (``models.generate.forward_cached``) into the pages. Both read attention through ``ops.paged_attention``, whose
   keys keep logical positions ``w*ps + o`` whatever physical page holds
   them.
 
@@ -29,7 +30,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 
 import torch
 
-from pipegoose_tpu_torch._device import resolve_device
+from pipegoose_tpu_torch._device import resolve_device, true_div
 from pipegoose_tpu_torch.models.bloom import alibi_slopes, bloom_gelu, logits_fn
 from pipegoose_tpu_torch.models.generate import _qkv_proj
 from pipegoose_tpu_torch.nn.tensor_parallel.layers import (
@@ -58,10 +59,11 @@ def check_kv_dtype(kv_dtype: Optional[str]) -> Optional[str]:
 
 def quantize_kv(x: torch.Tensor):
     """fp (..., hd) -> (int8 (..., hd), float32 scale (...,)): symmetric
-    max-abs per position per head over the head dim. ``torch.round``
-    rounds half to even, as ``jnp.round`` does."""
+    max-abs per position per head over the head dim, the same on the card
+    as on the CPU (``true_div``). ``torch.round`` rounds half to even, as
+    ``jnp.round`` does."""
     x32 = x.float()
-    scale = torch.clamp_min(x32.abs().amax(dim=-1) / _KV_INT8_MAX,
+    scale = torch.clamp_min(true_div(x32.abs().amax(dim=-1), _KV_INT8_MAX),
                             torch.finfo(torch.float32).tiny)
     q = torch.clamp(torch.round(x32 / scale[..., None]),
                     -_KV_INT8_MAX, _KV_INT8_MAX).to(torch.int8)
@@ -203,6 +205,37 @@ def _write_kv(pages, page_idx: torch.Tensor, off_idx: torch.Tensor,
         pages["scale"].index_put_(idx, s)
     else:
         pages.index_put_(idx, val.to(pages.dtype))
+
+
+@torch.no_grad()
+def write_prompt_pages(k_pages, v_pages, cache: dict, phys_pages: torch.Tensor,
+                       pad: int, page_size: int) -> None:
+    """Scatter a prefill's contiguous cache into the pool, in place.
+
+    ``cache`` is ``forward_cached``'s (L, 1, S_pad, nh, hd) pair holding a
+    LEFT-padded prompt (``pad`` pad slots, then the prompt); logical
+    prompt position p lands in page ``phys_pages[p // page_size]`` at
+    offset ``p % page_size``, so decode sees the unpadded 0..len-1
+    layout. Pad positions go to the NULL page. ``phys_pages`` is the
+    slot's page-table row. An int8 pool quantizes on write."""
+    k_seq, v_seq = cache["k"][:, 0], cache["v"][:, 0]     # (L, S_pad, nh, hd)
+    dev = k_seq.device
+    logical = torch.arange(k_seq.shape[1], device=dev) - pad
+    valid = logical >= 0
+    lclip = torch.where(valid, logical, 0)
+    dest_page = torch.where(valid, phys_pages.long()[lclip // page_size], NULL_PAGE)
+    dest_off = torch.where(valid, lclip % page_size, 0)
+
+    def scatter(pages, seq):
+        if _is_quantized(pages):
+            q, s = quantize_kv(seq)
+            pages["q"][:, dest_page, dest_off] = q
+            pages["scale"][:, dest_page, dest_off] = s
+        else:
+            pages[:, dest_page, dest_off] = seq.to(pages.dtype)
+
+    scatter(k_pages, k_seq)
+    scatter(v_pages, v_seq)
 
 
 def _local_slopes(config, device) -> torch.Tensor:

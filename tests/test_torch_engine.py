@@ -98,7 +98,7 @@ def test_steppable_run_equals_run(setup, runs):
 
 
 @pytest.mark.parametrize("probe, kwargs, error, match", [
-    ("no prefill_chunk", {"prefill_chunk": None}, ValueError, "prefill_chunk"),
+    ("fp8 weights", {"weight_dtype": "fp8"}, ValueError, "weight_dtype"),
     ("chunk not a page multiple", {"prefill_chunk": 6}, ValueError, "multiple"),
     ("int4 KV", {"kv_dtype": "int4"}, ValueError, "kv_dtype"),
     ("context not a page multiple", {"max_context": 62}, ValueError, "multiple"),
