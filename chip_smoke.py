@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Two main paths, both BLOOM-560m at full width (vocab 250880, hidden 1024,
+Three main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
 24 layers, 16 heads) with random weights made from seed 0:
 
 - serving: ``pipegoose_tpu_torch.serving.ServingEngine`` with chunked
@@ -15,7 +15,11 @@ Two main paths, both BLOOM-560m at full width (vocab 250880, hidden 1024,
   Adam), its attention going through the hand-written CUDA flash-attention
   forward, dQ and dK/dV kernels, and with ``fused_ce`` its loss through the
   hand-written CUDA fused cross-entropy forward, d-hidden and d-weight
-  kernels.
+  kernels;
+- sequence-parallel training: ``pipegoose_tpu_torch.trainer.sp_train_step``
+  over a ``ParallelContext`` (one rank over NCCL, sp = 1: the driver's
+  machine has one card), its attention the ring of ``ring_flash_attention``
+  through the hand-written CUDA ring-chunk forward, dQ and dK/dV kernels.
 
 Phases, each fatal on failure:
 
@@ -76,7 +80,27 @@ Phases, each fatal on failure:
  17  each quantized kernel's time at the decode (T = 8) and chunk (T = 128)
      shapes, bf16, per bloom-560m product, beside its bound, its plain
      version's time, cuBLAS's bf16 product with the dequantized weight, and
-     PyTorch's weight-only int8/int4 matmul where it applies.
+     PyTorch's weight-only int8/int4 matmul where it applies;
+ 18  the ring-chunk kernels (B7 forward, B8 dQ, B9 dK/dV) against their plain
+     versions: (a) at phase 20's attention shape (B*nh = 16, S = 8192,
+     hd = 64, bf16, the diagonal chunk); (b) every (rank, kv_rank) pair of an
+     sp = 4 split of S = 4096 in ring order with carried state, float32 and
+     bf16, right- and left-padded masks (the latter with the ALiBi
+     correction) and GQA g = 2, a fully-future pair leaving the state bit for
+     bit; (c) the chain over the split against the whole-sequence flash
+     kernels B1-B3, unpadded and right-padded;
+ 19  the float32 SP loss at sp = 1 (``loss_fn_sp`` with flash) against the
+     card's and the CPU's single-device ``loss_fn`` (2 layers, 2 x 512,
+     right-padded, fused_ce off and on: the loss and every gradient), then 3
+     ``sp_train_step``s against 3 ``train_step``s; B1-B3 never launch on
+     the SP path;
+ 20  timed bf16 SP training, bloom-560m at 24 layers, remat, flash, fused CE,
+     batch 1 x 8192: step ms, tokens/s, MFU, peak memory, falling losses,
+     launches per step (B7 48, B8 and B9 24, B1-B3 0, fused CE 1 each), the
+     chunk kernels' share of a profiled step; then the same shape through
+     ``train_step``;
+ 21  each chunk kernel's time at phase 20's shape beside its bound, its plain
+     version's time and PyTorch's SDPA forward or backward.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a card, or
@@ -162,6 +186,14 @@ WEIGHT_BYTES = {"fp": 1_118_429_184, "int8": 817_324_032, "int4": 703_193_088}
 TRAIN_LOSS_ATOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_ADAM_LOSS_ATOL = 1e-3
+CHUNK_SOURCE = "pipegoose_tpu_torch/ops/csrc/flash_chunk.cu"
+CHUNK_REPLACES = {
+    "fwd": "pipegoose_tpu/ops/flash_attention.py:371",
+    "dq": "pipegoose_tpu/ops/flash_attention.py:514",
+    "dkv": "pipegoose_tpu/ops/flash_attention.py:596",
+}
+NEG_INF_F = -1e9               # the models' finite NEG_INF: a ring state's initial m
+SP_SEQ = 8192                  # phase 20's tokens a step (bench.py's 8 x 1024) in one sequence
 
 
 def log(msg: str) -> None:
@@ -833,19 +865,24 @@ def kernel_counters():
 
     return {"fwd": fa.flash_fwd, "dq": fa.flash_dq, "dkv": fa.flash_dkv,
             "fused_ce_fwd": fce.fused_ce_fwd, "fused_ce_dh": fce.fused_ce_dh,
-            "fused_ce_dw": fce.fused_ce_dw}
+            "fused_ce_dw": fce.fused_ce_dw, "chunk_fwd": fa.flash_ring_chunk,
+            "chunk_dq": fa.flash_chunk_dq, "chunk_dkv": fa.flash_chunk_dkv}
 
 
-def timed_training(np_tree, dev, card, cfg, label, variant) -> dict:
-    """Timed bf16 train steps at bench.py's shape (batch 8 x 1024 of
-    RandomState(0) ids, labels = ids, no mask, Adam 1e-4, 2 warm-up and 5
-    timed steps between CUDA events), every launch counter set to 0 just
-    before the steps and read just after; then one profiled step. Fails
-    unless the kernels launch as ``cfg`` asks and the losses fall."""
+def timed_training(np_tree, dev, card, cfg, label, variant, batch=8, seq=1024,
+                   step_fn=None) -> dict:
+    """Timed bf16 train steps (by default at bench.py's shape, batch 8 x 1024)
+    of RandomState(0) ids, labels = ids, no mask, Adam 1e-4, 2 warm-up and 5
+    timed steps between CUDA events, every launch counter set to 0 just
+    before the steps and read just after; then one profiled step.
+    ``step_fn`` is ``train_step`` unless given (``sp_train_step`` runs the
+    ring: its chunk kernels take the flash kernels' launches). Fails unless
+    the kernels launch as ``cfg`` asks and the losses fall."""
     from pipegoose_tpu_torch.models.weights import param_leaves, params_from_jax
-    from pipegoose_tpu_torch.trainer import make_optimizer, train_step
+    from pipegoose_tpu_torch.trainer import make_optimizer, sp_train_step, train_step
 
-    batch, seq, warm, timed = 8, 1024, 2, 5
+    step_fn = step_fn or train_step
+    warm, timed = 2, 5
     params = params_from_jax(np_tree, cfg, device=dev)
     opt = make_optimizer(params, 1e-4)
     ids = torch.from_numpy(
@@ -856,7 +893,7 @@ def timed_training(np_tree, dev, card, cfg, label, variant) -> dict:
         f"steps, on {card}")
 
     def step():
-        return train_step(params, opt, ids, None, ids, cfg, device=dev)
+        return step_fn(params, opt, ids, None, ids, cfg, device=dev)
 
     counters = kernel_counters()
     for c in counters.values():
@@ -882,8 +919,10 @@ def timed_training(np_tree, dev, card, cfg, label, variant) -> dict:
         f"{peak_gib:.2f} GiB")
     log(f"  losses over {steps} steps on one batch: {losses}")
     fwd_per_layer = 2 if cfg.remat else 1
-    per_step = {"fwd": fwd_per_layer * cfg.n_layer, "dq": cfg.n_layer,
-                "dkv": cfg.n_layer}
+    attn = "chunk_" if step_fn is sp_train_step else ""   # the ring at sp = 1
+    per_step = {k: 0 for k in counters}
+    per_step.update({f"{attn}fwd": fwd_per_layer * cfg.n_layer,
+                     f"{attn}dq": cfg.n_layer, f"{attn}dkv": cfg.n_layer})
     per_step.update({k: int(cfg.fused_ce) for k in
                      ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")})
     want = {k: steps * n for k, n in per_step.items()}
@@ -902,8 +941,14 @@ def timed_training(np_tree, dev, card, cfg, label, variant) -> dict:
         log(f"  fused cross-entropy kernels: {fused_ms} ms of the profiled step's "
             f"{busy_ms} ms device time "
             f"({100 * fused_ms / busy_ms if busy_ms else float('nan'):.1f}%)")
+    if attn:
+        chunk_ms = sum(e.self_device_time_total for e in kernels
+                       if "chunk_" in e.key) / 1e3
+        log(f"  chunk kernels B7-B9: {chunk_ms} ms of the profiled step's {busy_ms} ms "
+            f"device time ({100 * chunk_ms / busy_ms if busy_ms else float('nan'):.1f}%)")
     run = {"launches": {k: v for k, v in counts.items() if want[k]},
-           "step_ms": step_ms, "peak_gib": peak_gib, "losses": losses}
+           "step_ms": step_ms, "peak_gib": peak_gib, "losses": losses,
+           "tokens_per_s": tokens_per_s, "mfu": mfu}
     del params, opt
     return run
 
@@ -1464,6 +1509,413 @@ def phase17_quant_time(dev, card, errs, launches) -> list:
     return rows
 
 
+# -- phase 18 ------------------------------------------------------------------
+
+def sp_case(dev, dtype, *, b, nh=16, nkv=None, s, hd=64, pad=None, seed=0):
+    """One sequence's flattened ring operands: q, dO (B*nh, S, hd), k, v
+    (B*nkv, S, hd) from a seeded normal, BLOOM's ALiBi slopes, the mask,
+    and the per-head key bias (B*nkv, S): padding NEG_INF, plus under left
+    padding the mask-aware ALiBi correction slope * (alibi_pos - pos) that
+    ``ring_flash_attention`` folds in (it needs nh == nkv). Padded queries
+    get zero dO, as the models give them."""
+    from pipegoose_tpu_torch.models.bloom import NEG_INF, alibi_slopes
+
+    nkv = nkv or nh
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda rows: torch.randn(rows, s, hd, device=dev, generator=gen)  # noqa: E731
+    q, do, k, v = rand(b * nh), rand(b * nh), rand(b * nkv), rand(b * nkv)
+    mask = torch.ones(b, s, device=dev)
+    if pad == "right":
+        mask[-1, s - s // 5:] = 0
+    elif pad == "left":
+        mask[0, :s // 5] = 0
+        mask[-1, :7] = 0
+    slopes = torch.from_numpy(alibi_slopes(nh)).to(dev).repeat(b)
+    heads = lambda x, h: x[:, None].expand(b, h, s).reshape(b * h, s)  # noqa: E731
+    kneg = heads((1 - mask) * NEG_INF, nkv)
+    if pad == "left":
+        apos = (torch.cumsum(mask, -1) - 1) * mask
+        kneg = kneg + slopes[:, None] * (heads(apos, nh) - torch.arange(s, device=dev).float())
+    do = do * heads(mask, nh)[..., None]
+    return {"q": q.to(dtype), "k": k.to(dtype), "v": v.to(dtype), "do": do.to(dtype),
+            "slopes": slopes, "kneg": kneg.contiguous(), "mask": mask,
+            "g": nh // nkv, "scale": hd ** -0.5}
+
+
+def chunk_args(case, sp, rank, kv_rank):
+    """(q, k, v, do, slopes, qpos, kpos, kneg) of one (rank, kv_rank) pair
+    of an sp-way split: plain global positions, as the ring passes them."""
+    s = case["q"].shape[1]
+    sl = s // sp
+    dev = case["q"].device
+    qs, ks = slice(rank * sl, (rank + 1) * sl), slice(kv_rank * sl, (kv_rank + 1) * sl)
+    bh, bkv = case["q"].shape[0], case["k"].shape[0]
+    pos = lambda r, rows: (r * sl + torch.arange(sl, device=dev)).float()[None].expand(rows, sl).contiguous()  # noqa: E731
+    c = lambda t, part: t[:, part].contiguous()  # noqa: E731
+    return (c(case["q"], qs), c(case["k"], ks), c(case["v"], ks), c(case["do"], qs),
+            case["slopes"], pos(rank, bh), pos(kv_rank, bkv), c(case["kneg"], ks))
+
+
+def chunk_err(got, want, rtol):
+    """(max abs error, tolerance) against the largest |plain| value."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"bad kernel output {tuple(got.shape)}")
+    if want.numel() == 0:
+        return 0.0, FLASH_ATOL
+    err = (got - want).abs().max().item()
+    return err, FLASH_ATOL + rtol * want.abs().max().item()
+
+
+def ring_walk(label, case, sp, rtol=None):
+    """Every (rank, kv_rank) pair of an sp-way split in ring order: B7 from
+    the state the plain chain carries into the pair, on the rows that have
+    seen an unmasked key (a fully-future pair must return its state bit for
+    bit); then B8 and B9 with the chain's final lse against their plain
+    versions everywhere. The state, dq, dk and dv are float32 in both
+    dtypes, so float32's FLASH_RTOL holds them unless ``rtol`` is given; m,
+    a maximum of scores, LSE_RTOL. Returns each kernel's worst error."""
+    from pipegoose_tpu_torch.ops import flash_attention as fa
+
+    rtol = FLASH_RTOL[torch.float32] if rtol is None else rtol
+    bh, s, hd = case["q"].shape
+    sl, g, scale, dev = s // sp, case["g"], case["scale"], case["q"].device
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    bad = []
+    finals = []
+    for rank in range(sp):
+        state = (torch.full((bh, sl), NEG_INF_F, device=dev),
+                 torch.zeros((bh, sl), device=dev), torch.zeros((bh, sl, hd), device=dev))
+        for t in range(sp):
+            kv_rank = (rank - t) % sp
+            q, k, v, _, slopes, qpos, kpos, kneg = chunk_args(case, sp, rank, kv_rank)
+            got = fa.flash_ring_chunk(q, k, v, slopes, qpos, kpos, kneg, *state, scale, g)
+            want = fa.flash_ring_chunk_reference(q, k, v, slopes, qpos, kpos, kneg,
+                                                 *state, scale, g)
+            if kv_rank > rank and not all(torch.equal(a, b) for a, b in zip(got, state)):
+                bad.append(f"fully-future pair ({rank}, {kv_rank}) moved the state")
+            seen = want[0] > NEG_INF_F / 10
+            for name, a, b, tol_r in (("m", got[0], want[0], LSE_RTOL),
+                                      ("l", got[1], want[1], rtol),
+                                      ("acc", got[2], want[2], rtol)):
+                err, tol = chunk_err(a[seen], b[seen], tol_r)
+                worst["fwd"] = max(worst["fwd"], err)
+                if err > tol:
+                    bad.append(f"B7 {name} ({rank}, {kv_rank}) {err:.3g} > {tol:.3g}")
+            state = want
+        m, l, acc = state
+        l = torch.clamp_min(l, 1e-30)
+        finals.append(((acc / l[..., None]).to(case["q"].dtype), m + torch.log(l)))
+        del got, want
+    for rank in range(sp):
+        out, lse = finals[rank]
+        for kv_rank in range(sp):
+            q, k, v, do, slopes, qpos, kpos, kneg = chunk_args(case, sp, rank, kv_rank)
+            delta = (do.float() * out.float()).sum(-1)
+            args = (q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, scale, g)
+            err, tol = chunk_err(fa.flash_chunk_dq(*args), fa.flash_chunk_dq_reference(*args), rtol)
+            worst["dq"] = max(worst["dq"], err)
+            if err > tol:
+                bad.append(f"B8 ({rank}, {kv_rank}) {err:.3g} > {tol:.3g}")
+            for name, a, b in zip(("dk", "dv"), fa.flash_chunk_dkv(*args),
+                                  fa.flash_chunk_dkv_reference(*args)):
+                err, tol = chunk_err(a, b, rtol)
+                worst["dkv"] = max(worst["dkv"], err)
+                if err > tol:
+                    bad.append(f"B9 {name} ({rank}, {kv_rank}) {err:.3g} > {tol:.3g}")
+    torch.cuda.synchronize()
+    log(f"phase 18: {label}: worst errors {worst}" + (f" FAIL {bad[:6]}" if bad else " ok"))
+    if bad:
+        raise AssertionError(f"{label}: chunk kernels disagree with plain: {bad[:6]}")
+    return worst
+
+
+def ring_chain_vs_flash(label, case, sp):
+    """The ring chain against the whole-sequence flash kernels B1-B3: B7 over
+    the kv ranks in ring order, normalized, equals B1's output and lse on
+    each rank's rows; with B1's lse and delta, B8 summed over the kv ranks
+    equals B2's dQ and B9 summed over the query ranks B3's dK/dV."""
+    from pipegoose_tpu_torch.ops import flash_attention as fa
+
+    dtype = case["q"].dtype
+    bh, s, hd = case["q"].shape
+    sl, scale, dev = s // sp, case["scale"], case["q"].device
+    b = case["mask"].shape[0]
+    kv_pos, kv_neg = (x[:, None].expand(b, bh // b, s).reshape(bh, s).contiguous()
+                      for x in fa.mask_to_kv_bias(case["mask"]))
+    fwd = (case["q"], case["k"], case["v"], case["slopes"], kv_pos, kv_neg)
+    out, lse = fa.flash_fwd(*fwd, scale, True)
+    delta = (case["do"].float() * out.float()).sum(-1)
+    bwd = (case["q"], case["k"], case["v"], case["do"], lse, delta, case["slopes"],
+           kv_pos, kv_neg, scale, True)
+    dq_full, (dk_full, dv_full) = fa.flash_dq(*bwd), fa.flash_dkv(*bwd)
+    checks = {n: 0.0 for n in ("out", "lse", "dq", "dk", "dv")}
+    bad = []
+    dk_sum = torch.zeros((bh, s, hd), device=dev)
+    dv_sum = torch.zeros((bh, s, hd), device=dev)
+    for rank in range(sp):
+        rows = slice(rank * sl, (rank + 1) * sl)
+        state = (torch.full((bh, sl), NEG_INF_F, device=dev),
+                 torch.zeros((bh, sl), device=dev), torch.zeros((bh, sl, hd), device=dev))
+        dq = torch.zeros((bh, sl, hd), device=dev)
+        for t in range(sp):
+            kv_rank = (rank - t) % sp
+            q, k, v, do, slopes, qpos, kpos, kneg = chunk_args(case, sp, rank, kv_rank)
+            state = fa.flash_ring_chunk(q, k, v, slopes, qpos, kpos, kneg, *state, scale)
+            args = (q, k, v, do, lse[:, rows].contiguous(), delta[:, rows].contiguous(),
+                    slopes, qpos, kpos, kneg, scale)
+            dq += fa.flash_chunk_dq(*args)
+            dk, dv = fa.flash_chunk_dkv(*args)
+            keys = slice(kv_rank * sl, (kv_rank + 1) * sl)
+            dk_sum[:, keys] += dk
+            dv_sum[:, keys] += dv
+        m, l, acc = state
+        l = torch.clamp_min(l, 1e-30)
+        pairs = (("out", (acc / l[..., None]).to(dtype), out[:, rows], FLASH_RTOL[dtype]),
+                 ("lse", m + torch.log(l), lse[:, rows], LSE_RTOL),
+                 ("dq", dq, dq_full[:, rows], FLASH_RTOL[dtype]))
+        for name, got, want, rtol in pairs:
+            err, tol = chunk_err(got, want, rtol)
+            checks[name] = max(checks[name], err)
+            if err > tol:
+                bad.append(f"{name} rank {rank} {err:.3g} > {tol:.3g}")
+    for name, got, want in (("dk", dk_sum, dk_full), ("dv", dv_sum, dv_full)):
+        err, tol = chunk_err(got, want, FLASH_RTOL[dtype])
+        checks[name] = err
+        if err > tol:
+            bad.append(f"{name} {err:.3g} > {tol:.3g}")
+    torch.cuda.synchronize()
+    log(f"phase 18: {label}: chain vs B1-B3 max errors {checks}"
+        + (f" FAIL {bad}" if bad else " ok"))
+    if bad:
+        raise AssertionError(f"{label}: the ring chain disagrees with B1-B3: {bad}")
+
+
+def phase18_chunk_vs_plain(dev) -> dict:
+    """B7-B9 against their plain versions: (a) at phase 20's attention shape,
+    the diagonal chunk from zero state; (b) every pair of an sp = 4 split;
+    (c) the chain against B1-B3. Returns (a)'s errors."""
+    counts = [fn.launches for fn in chunk_counters()]
+    case = sp_case(dev, torch.bfloat16, b=1, s=SP_SEQ, seed=SEED + 18)
+    errs = ring_walk(f"(a) bf16 B*nh=16 S={SP_SEQ} hd=64, diagonal chunk", case, 1)
+    del case
+    gc.collect()
+    torch.cuda.empty_cache()
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for pad, nkv in (("right", 16), ("left", 16), ("right", 8)):
+            label = (f"(b) {name} B=2 nh=16 nkv={nkv} S=4096 sp=4, {pad}-padded"
+                     + (" with the ALiBi correction" if pad == "left" else ""))
+            ring_walk(label, sp_case(dev, dtype, b=2, nkv=nkv, s=4096, pad=pad,
+                                     seed=SEED + 181), 4)
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for pad in (None, "right"):
+            ring_chain_vs_flash(f"(c) {name} B=2 nh=16 S=4096 sp=4, "
+                                f"{pad or 'un'}{'-' if pad else ''}padded",
+                                sp_case(dev, dtype, b=2, s=4096, pad=pad, seed=SEED + 182), 4)
+    moved = [fn.launches - c for fn, c in zip(chunk_counters(), counts)]
+    if min(moved) <= 0:
+        raise AssertionError(f"phase 18: the chunk wrappers did not launch: {moved}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def chunk_counters():
+    """The chunk kernels' wrappers, B7, B8, B9."""
+    counters = kernel_counters()
+    return [counters[n] for n in ("chunk_fwd", "chunk_dq", "chunk_dkv")]
+
+
+# -- phase 19 ------------------------------------------------------------------
+
+def sp_context():
+    """A world of one rank over NCCL (a FileStore in a temporary
+    directory: no network) and ``ParallelContext(sequence_parallel_size=1)``
+    over it; the caller destroys it."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pipegoose_tpu_torch.distributed import ParallelContext
+
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    store = dist.FileStore(f"{store_dir}/store", 1)
+    return ParallelContext.init_multihost(store=store, world_size=1, rank=0,
+                                          device="cuda", sequence_parallel_size=1)
+
+
+def phase19_sp_loss_vs_single(np_tree, dev) -> None:
+    """The float32 SP loss at sp = 1 with use_flash against the card's
+    single-device loss and the CPU's, fused_ce off and on; then 3
+    sp_train_steps against 3 train_steps. B1-B3 never launch on the SP path."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig, loss_fn, loss_fn_sp
+    from pipegoose_tpu_torch.models.weights import grads_of, params_from_jax, params_to_jax
+    from pipegoose_tpu_torch.trainer import make_optimizer, sp_train_step, train_step
+
+    n_layer, b, s, pad, lr = 2, 2, 512, 57, 1e-4
+    vocab, hidden = np_tree["embed"]["weight"].shape
+    tree = {**np_tree, "blocks": cut_layers(np_tree["blocks"], n_layer)}
+    rng = np.random.default_rng(SEED + 19)
+    ids = rng.integers(0, vocab, (b, s))
+    mask = np.ones((b, s), np.int64)
+    mask[1, s - pad:] = 0
+    flash = [kernel_counters()[n] for n in ("fwd", "dq", "dkv")]
+    chunk = chunk_counters()
+    for fused in (False, True):
+        cfg = BloomConfig(vocab_size=vocab, hidden_size=hidden, n_layer=n_layer,
+                          n_head=16, remat=True, use_flash=True, fused_ce=fused)
+        log(f"phase 19: float32 SP loss at sp=1 vs the single-device loss: depth cut "
+            f"24 -> {n_layer}, batch {b} x {s} (row 1 right-padded by {pad}), remat, "
+            f"flash, fused_ce={fused}")
+        grads = {}
+        for label, where, fn in (("card sp", dev, loss_fn_sp), ("card", dev, loss_fn),
+                                 ("cpu", "cpu", loss_fn)):
+            params = params_from_jax(tree, cfg, device=where)
+            make_optimizer(params, lr)
+            as_t = lambda a: torch.from_numpy(a).to(where)  # noqa: E731
+            before = [c.launches for c in flash + chunk]
+            loss = fn(params, as_t(ids), as_t(mask), as_t(ids), cfg)
+            loss.backward()
+            moved = [c.launches - n for c, n in zip(flash + chunk, before)]
+            grads[label] = (loss.item(), params_to_jax(grads_of(params)))
+            log(f"  {label}: loss {grads[label][0]}, launches B1-B3 {moved[:3]}, "
+                f"B7-B9 {moved[3:]}")
+            if label == "card sp" and (any(moved[:3]) or not all(moved[3:])):
+                raise AssertionError(f"the SP path launched B1-B3 {moved[:3]} or "
+                                     f"skipped B7-B9 {moved[3:]}")
+            del params
+        sp_loss, sp_grads = grads["card sp"]
+        for ref in ("card", "cpu"):
+            loss_err = abs(sp_loss - grads[ref][0])
+            worst = max(((path, leaf_rel_err(g, c)) for path, g, c in
+                         zip_leaves(sp_grads, grads[ref][1])), key=lambda x: x[1])
+            log(f"  card sp vs {ref}: loss err {loss_err} (atol {TRAIN_LOSS_ATOL}); "
+                f"worst gradient {worst[0]} rel err {worst[1]} (rtol {TRAIN_GRAD_RTOL})")
+            if loss_err > TRAIN_LOSS_ATOL or worst[1] > TRAIN_GRAD_RTOL:
+                raise AssertionError(f"SP loss or gradients disagree with {ref}")
+        losses = {}
+        for label, step in (("sp_train_step", sp_train_step), ("train_step", train_step)):
+            params = params_from_jax(tree, cfg, device=dev)
+            opt = make_optimizer(params, lr)
+            losses[label] = [step(params, opt, ids, mask, ids, cfg, device=dev).item()
+                             for _ in range(3)]
+            del params, opt
+        err = max(abs(a - c) for a, c in zip(*losses.values()))
+        log(f"  3 steps: {losses}, err {err} (atol {TRAIN_ADAM_LOSS_ATOL})")
+        if err > TRAIN_ADAM_LOSS_ATOL or not all(np.isfinite(losses["sp_train_step"])):
+            raise AssertionError("sp_train_step and train_step disagree")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# -- phase 20 ------------------------------------------------------------------
+
+def phase20_timed_sp_training(np_tree, dev, card) -> dict:
+    """Timed bf16 SP training at sp = 1, bloom-560m at full width and depth,
+    remat, flash, fused CE, batch 1 x 8192, through sp_train_step; then the
+    same shape through train_step ("flash+fusedce"). Returns the SP run."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.trainer import sp_train_step
+
+    cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16, remat=True, use_flash=True,
+                                 fused_ce=True)
+    run = timed_training(np_tree, dev, card, cfg, "phase 20",
+                         "sp_train_step at sp=1: remat, flash (the ring), fused_ce",
+                         batch=1, seq=SP_SEQ, step_fn=sp_train_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    single = timed_training(np_tree, dev, card, cfg, "phase 20",
+                            "train_step, 'flash+fusedce'", batch=1, seq=SP_SEQ)
+    log(f"phase 20: 1 x {SP_SEQ} step: sp_train_step {run['step_ms']} ms, train_step "
+        f"{single['step_ms']} ms (ring at sp=1 / flash: "
+        f"{run['step_ms'] / single['step_ms']:.3f}x)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+# -- phase 21 ------------------------------------------------------------------
+
+def chunk_bound_ms(kind, case, tensors):
+    """Least time for one diagonal-chunk call: 4 hd (fwd), 6 hd (dq) or
+    8 hd (dkv) flops per visible (q, k) pair at 989 TFLOP/s bf16, against
+    every input read once and every output written once (the forward's
+    float32 state in and out included) at 3.35 TB/s."""
+    bh, s, hd = case["q"].shape
+    flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * hd * bh * (s * (s + 1) // 2)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase21_chunk_time(dev, card, errs, launches) -> list:
+    from pipegoose_tpu_torch.models.bloom import NEG_INF
+    from pipegoose_tpu_torch.ops import flash_attention as fa
+
+    b, nh, s, hd = 1, 16, SP_SEQ, 64
+    case = sp_case(dev, torch.bfloat16, b=b, s=s, seed=SEED + 21)
+    q, k, v, do, slopes, qpos, kpos, kneg = chunk_args(case, 1, 0, 0)
+    bh = b * nh
+    state = (torch.full((bh, s), NEG_INF_F, device=dev), torch.zeros((bh, s), device=dev),
+             torch.zeros((bh, s, hd), device=dev))
+    fwd = (q, k, v, slopes, qpos, kpos, kneg, *state, case["scale"])
+    m, l, acc = fa.flash_ring_chunk(*fwd)
+    out = (acc / l[..., None]).to(q.dtype)
+    lse = m + torch.log(l)
+    delta = (do.float() * out.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, case["scale"])
+    dq = fa.flash_chunk_dq(*bwd)
+    dk, dv = fa.flash_chunk_dkv(*bwd)
+    io = {"fwd": fwd[:-1] + (m, l, acc), "dq": bwd[:-1] + (dq,), "dkv": bwd[:-1] + (dk, dv)}
+    calls = {
+        "fwd": (lambda i: fa.flash_ring_chunk(*fwd),
+                lambda: fa.flash_ring_chunk_reference(*fwd)),
+        "dq": (lambda i: fa.flash_chunk_dq(*bwd), lambda: fa.flash_chunk_dq_reference(*bwd)),
+        "dkv": (lambda i: fa.flash_chunk_dkv(*bwd), lambda: fa.flash_chunk_dkv_reference(*bwd)),
+    }
+    # the library yardstick: SDPA on (B, nh, S, hd) bf16 with the ALiBi and
+    # causal terms of the diagonal chunk as one additive bias; its backward
+    # gives dq, dk and dv in one autograd call, timed eagerly
+    heads = lambda t: t.reshape(b, nh, s, hd).detach().clone().requires_grad_()  # noqa: E731
+    qs, ks, vs = heads(q), heads(k), heads(v)
+    pos = torch.arange(s, device=dev, dtype=torch.float32)
+    keep = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    bias = torch.where(keep, slopes[:nh, None, None] * pos, NEG_INF)[None].to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    so = sdpa(qs, ks, vs, attn_mask=bias)
+    with torch.no_grad():
+        lib_fwd_ms, _ = time_ms(lambda i: sdpa(qs, ks, vs, attn_mask=bias), 2, replays=5)
+    lib_bwd_ms = time_eager_ms(
+        lambda: torch.autograd.grad(so, (qs, ks, vs), do.reshape(b, nh, s, hd),
+                                    retain_graph=True), 2)
+    del so, bias, keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 21: chunk kernels at phase 20's shape (B*nh={bh}, S={s}, hd={hd}, "
+        f"bf16, the diagonal chunk, zero state), device ms per call, on {card}")
+    rows = []
+    for kind in ("fwd", "dq", "dkv"):
+        kernel, plain = calls[kind]
+        ms, call_ms = time_ms(kernel, 2, replays=5)
+        plain_ms = time_eager_ms(plain, 2)
+        gc.collect()
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = chunk_bound_ms(kind, case, io[kind])
+        library_ms = lib_fwd_ms if kind == "fwd" else lib_bwd_ms
+        log(f"  flash_chunk_{kind}: kernel {ms} (eager {call_ms}), bound {bound_ms} "
+            f"({bound_by}), plain {plain_ms}, SDPA "
+            f"{'forward' if kind == 'fwd' else 'backward (dq, dk, dv in one call, eager)'} "
+            f"{library_ms}")
+        rows.append({
+            "name": f"flash_chunk_{kind} (bf16, B*nh={bh}, S={s}, hd={hd}, diagonal chunk)",
+            "source": CHUNK_SOURCE, "replaces": CHUNK_REPLACES[kind], "route": "cuda",
+            "launches": launches[f"chunk_{kind}"], "max_abs_err": errs[kind], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "call_ms": call_ms,
+        })
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase0_card()
@@ -1512,10 +1964,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     quant_launches = phase16_quant_serving(np_tree, dev)
-    del np_tree
     gc.collect()
     torch.cuda.empty_cache()
     rows += phase17_quant_time(dev, card, quant_errs, quant_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    chunk_errs = phase18_chunk_vs_plain(dev)
+    ctx = sp_context()
+    try:
+        phase19_sp_loss_vs_single(np_tree, dev)
+        sp_run = phase20_timed_sp_training(np_tree, dev, card)
+    finally:
+        ctx.destroy()
+    del np_tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += phase21_chunk_time(dev, card, chunk_errs, sp_run["launches"])
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

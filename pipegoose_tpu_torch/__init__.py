@@ -10,7 +10,11 @@ quant_matmul.cu``) and chunked or monolithic prefill; greedy
 single-device BLOOM training step (``models.bloom.loss_fn``,
 ``trainer.train_step``; the flash-attention kernels of ``ops/csrc/
 flash_attention.cu`` and the fused cross entropy of ``ops/csrc/
-fused_ce.cu``). Entry points run on the card unless called with
+fused_ce.cu``); and sequence-parallel BLOOM training over a
+``torch.distributed`` ``distributed.ParallelContext``
+(``models.bloom.loss_fn_sp``, ``trainer.sp_train_step``; ring attention
+through the chunk kernels of ``ops/csrc/flash_chunk.cu``, or Ulysses).
+Entry points run on the card unless called with
 ``device="cpu"``; nothing here builds a kernel or touches a card at
 import time.
 """

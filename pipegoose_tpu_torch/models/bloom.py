@@ -10,8 +10,10 @@ card from a seed, and the training forward (``forward_hidden``,
 branch, or with ``use_flash`` the flash kernels of
 ``ops.flash_attention``; the loss takes the full logits, one sequence
 chunk of them at a time (``ce_chunks``), or the fused cross-entropy
-kernels of ``ops.fused_ce`` (``fused_ce``). Tensor, pipeline and sequence parallelism wait
-for later slices of the port.
+kernels of ``ops.fused_ce`` (``fused_ce``). The sequence-parallel loss
+(``loss_fn_sp``) runs the blocks on this rank's chunk of the sequence with
+ring attention (the chunk kernels B7-B9 with ``use_flash``) or Ulysses.
+Tensor and pipeline parallelism wait for later slices of the port.
 """
 from __future__ import annotations
 
@@ -351,3 +353,143 @@ def loss_fn(params: dict, input_ids: torch.Tensor,
         w = attention_mask[:, 1:].to(per_tok.dtype)
         return (per_tok * w).sum() / torch.clamp_min(w.sum(), 1)
     return per_tok.mean()
+
+
+# -- sequence-parallel composition ---------------------------------------------
+
+
+def _sp_alibi_pos(pad_mask_local: torch.Tensor, sp_axis: str) -> torch.Tensor:
+    """Global mask-aware ALiBi key positions of this sequence chunk: BLOOM's
+    ``(cumsum(mask) - 1) * mask`` over the FULL sequence, from one small
+    all_gather of the chunks' mask counts. Equal to plain global positions
+    for unpadded or right-padded batches; what HF computes for left-padded
+    ones. Computed once per step and threaded through the blocks."""
+    from pipegoose_tpu_torch.distributed.functional import (
+        all_gather,
+        axis_index,
+        axis_size,
+    )
+
+    m = pad_mask_local.float()
+    counts = all_gather(m.sum(dim=-1)[None], sp_axis, dim=0)   # (sp, B)
+    earlier = torch.arange(axis_size(sp_axis), device=m.device) < axis_index(sp_axis)
+    prefix = torch.where(earlier[:, None], counts, 0.0).sum(dim=0)
+    return (prefix[:, None] + torch.cumsum(m, dim=-1) - 1.0) * m
+
+
+def _attention_sp(blk: dict, x: torch.Tensor, config: BloomConfig,
+                  tp_axis: Optional[str], sp_axis: str,
+                  pad_mask_local: torch.Tensor, variant: str = "ring",
+                  alibi_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """BLOOM attention with the sequence sharded over ``sp_axis``.
+
+    ``variant="ring"``: K/V chunks rotate over the ring, through the chunk
+    kernels B7-B9 with ``config.use_flash`` (``ring_flash_attention``),
+    else in dense math (``ring_attention``); ``"ulysses"``: all_to_all
+    re-sharding on heads around full-sequence attention (the flash kernels
+    B1-B3 with ``use_flash``). ALiBi takes ``alibi_pos`` (global mask-aware
+    positions, :func:`_sp_alibi_pos`), or plain global positions when None.
+    Pad-query context is zero in every branch."""
+    from pipegoose_tpu_torch.nn.sequence_parallel.ring_attention import (
+        make_causal_alibi_bias_fn,
+        ring_attention,
+        ring_flash_attention,
+    )
+
+    if variant not in ("ring", "ulysses"):
+        raise ValueError(f"unknown SP variant {variant!r} (ring, ulysses)")
+    b, s_local, _ = x.shape
+    q, k, v = _qkv_proj(blk, x, config, tp_axis)
+    slopes = torch.from_numpy(alibi_slopes(config.n_head)).to(x.device)
+    if variant == "ulysses":
+        from pipegoose_tpu_torch.nn.sequence_parallel.ulysses import (
+            ulysses_causal_attention,
+        )
+
+        ctx = ulysses_causal_attention(q, k, v, sp_axis, pad_mask_local,
+                                       alibi_slopes=slopes, use_flash=config.use_flash,
+                                       alibi_pos_local=alibi_pos)
+    elif config.use_flash:
+        ctx = ring_flash_attention(q, k, v, sp_axis, alibi_slopes=slopes,
+                                   kv_side=pad_mask_local, alibi_pos=alibi_pos)
+    else:
+        bias_fn = make_causal_alibi_bias_fn(s_local, sp_axis, alibi_slopes=slopes)
+        side = ((pad_mask_local, alibi_pos) if alibi_pos is not None
+                else pad_mask_local)
+        ctx = ring_attention(q, k, v, sp_axis, bias_fn, kv_side=side)
+    ctx = ctx * pad_mask_local[:, :, None, None].to(ctx.dtype)
+    if config.remat and config.remat_policy == "attn":
+        ctx = _attn_out(ctx)
+    ctx = ctx.to(x.dtype).reshape(b, s_local, config.hidden_size)
+    return row_parallel_linear(blk["out"], ctx, tp_axis)
+
+
+def _sp_block(blk: dict, h: torch.Tensor, config: BloomConfig,
+              tp_axis: Optional[str], sp_axis: str, pad_mask_local: torch.Tensor,
+              variant: str = "ring", alibi_pos=None) -> torch.Tensor:
+    """One transformer block on sequence-sharded activations."""
+    ln1 = layer_norm(blk["ln_1"], h, config.layer_norm_epsilon)
+    h = h + _attention_sp(blk["attn"], ln1, config, tp_axis, sp_axis,
+                          pad_mask_local, variant, alibi_pos=alibi_pos)
+    return h + _mlp(blk, h, config, tp_axis)
+
+
+def _sp_head_sums(params: dict, x: torch.Tensor, attention_mask: torch.Tensor,
+                  labels: torch.Tensor, config: BloomConfig,
+                  tp_axis: Optional[str], sp_axis: str):
+    """Final LN, then the LOCAL (weighted loss sum, weight sum) of this
+    shard against the next-token targets across shards
+    (``sp_shifted_targets``): through the fused kernels with
+    ``config.fused_ce``, else over the full (B, S_local, V) logits."""
+    from pipegoose_tpu_torch.nn.sequence_parallel.targets import sp_shifted_targets
+
+    x = layer_norm(params["ln_f"], x, config.layer_norm_epsilon)
+    shifted_labels, shifted_w = sp_shifted_targets(labels, attention_mask, sp_axis)
+    if config.fused_ce:
+        from pipegoose_tpu_torch.ops.fused_ce import fused_ce_masked_sums
+
+        return fused_ce_masked_sums(x, params["embed"]["weight"], shifted_labels,
+                                    shifted_w, tp_axis, config.valid_vocab_size)
+    per_tok = vocab_parallel_cross_entropy(logits_fn(params, x), shifted_labels,
+                                           tp_axis, valid_size=config.valid_vocab_size)
+    w = shifted_w.to(per_tok.dtype)
+    return (per_tok * w).sum(), w.sum()
+
+
+def loss_fn_sp(params: dict, input_ids: torch.Tensor,
+               attention_mask: Optional[torch.Tensor], labels: torch.Tensor,
+               config: BloomConfig, tp_axis: Optional[str] = None,
+               sp_axis: str = "seq", variant: str = "ring") -> torch.Tensor:
+    """Sequence-parallel causal-LM loss: ``input_ids``, ``attention_mask``
+    and ``labels`` are this rank's (B, S_local) chunk of the sequence axis
+    ``sp_axis``; every activation stays sequence-sharded and attention is
+    the ring (or Ulysses, see :func:`_attention_sp`). Returns the global
+    loss on every rank; its backward gives each rank's partial gradients,
+    which the train step sums over ``sp_axis``
+    (``parallel.hybrid.sync_replicated_grads``). ``tp_axis`` must be None
+    until tensor parallelism is ported."""
+    from pipegoose_tpu_torch.distributed.functional import (
+        all_reduce,
+        reduce_from_tensor_group,
+    )
+
+    b, s_local = input_ids.shape
+    if attention_mask is None:
+        attention_mask = torch.ones((b, s_local), dtype=torch.int32,
+                                    device=input_ids.device)
+    x = embed_tokens(params, input_ids, config, tp_axis)
+    apos = _sp_alibi_pos(attention_mask, sp_axis)
+
+    def block(blk, h):
+        return _sp_block(blk, h, config, tp_axis, sp_axis, attention_mask, variant,
+                         alibi_pos=apos)
+
+    if config.remat:
+        block = _remat_wrap(block, config)
+    for blk in params["blocks"]:
+        x = block(blk, x)
+    total, w_sum = _sp_head_sums(params, x, attention_mask, labels, config,
+                                 tp_axis, sp_axis)
+    count = all_reduce(w_sum, sp_axis)
+    # identity-backward combine: each rank's gradients stay its own partials
+    return reduce_from_tensor_group(total / torch.clamp_min(count, 1), sp_axis)

@@ -18,11 +18,17 @@ it launches the kernel or raises; ``.launches`` counts the launches.
 ``_Flash`` ties them together as a ``torch.autograd.Function``, the
 ``jax.custom_vjp`` of the JAX file.
 
-Scores follow ``_bias_block``: ``q.k * scale + slope * kv_pos + kv_neg``,
-where the causal test (``k_idx <= q_idx``, on the index) and the window
-test REPLACE that term with the finite ``NEG_INF``; ``kv_neg`` adds
-``NEG_INF`` for padded keys; ``kv_pos`` is BLOOM's mask-aware ALiBi
-position. A query row that sees no key at all gets finite garbage, which
+The ring-attention chunk kernels B7-B9 (``csrc/flash_chunk.cu``) sit at
+the end of the file: :func:`flash_ring_chunk` (one ring step's update of
+the unnormalized online-softmax state), :func:`flash_chunk_dq` and
+:func:`flash_chunk_dkv`, each beside its plain version, with the causal
+test on position values and the NEG_INF added (``_flash_chunk_pallas``).
+
+Scores of the three whole-sequence kernels follow ``_bias_block``:
+``q.k * scale + slope * kv_pos + kv_neg``, where the causal test
+(``k_idx <= q_idx``, on the index) and the window test REPLACE that term
+with the finite ``NEG_INF``; ``kv_neg`` adds ``NEG_INF`` for padded keys;
+``kv_pos`` is BLOOM's mask-aware ALiBi position. A query row that sees no key at all gets finite garbage, which
 the models zero with their query mask.
 """
 from __future__ import annotations
@@ -131,18 +137,22 @@ def _check(q, k, v, slopes, kpos, kneg, g, window, **extra):
         raise ValueError(f"S={s} needs more than {MAX_TILES} tiles")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    shapes = {"k": (k, (bh // g, s, hd), q.dtype),
-              "v": (v, (bh // g, s, hd), q.dtype),
-              "slopes": (slopes, (bh,), torch.float32),
-              "kv_pos": (kpos, (bh // g, s), torch.float32),
-              "kv_neg": (kneg, (bh // g, s), torch.float32)}
-    shapes.update(extra)
-    for name, (t, shape, dtype) in shapes.items():
+    _check_specs(q, {"k": (k, (bh // g, s, hd), q.dtype),
+                     "v": (v, (bh // g, s, hd), q.dtype),
+                     "slopes": (slopes, (bh,), torch.float32),
+                     "kv_pos": (kpos, (bh // g, s), torch.float32),
+                     "kv_neg": (kneg, (bh // g, s), torch.float32), **extra})
+
+
+def _check_specs(q, specs):
+    """Each ``name: (tensor, shape, dtype)`` of ``specs`` has that shape and
+    dtype, and it and q lie on q's device, contiguous."""
+    for name, (t, shape, dtype) in specs.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    for name, t in [("q", q)] + [(n, t) for n, (t, _, _) in shapes.items()]:
+    for name, t in [("q", q)] + [(n, t) for n, (t, _, _) in specs.items()]:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
@@ -343,3 +353,177 @@ def attention_reference(q, k, v, slopes, scale, causal, kpos=None, kneg=None):
         sc = torch.where(keep[None], sc, NEG_INF)
     p = torch.softmax(sc, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+# -- ring-attention chunks (B7-B9) -------------------------------------------------
+#
+# One ring step of ``ring_flash_attention`` (nn/sequence_parallel): q of this
+# rank's chunk against ONE K/V chunk, with the causal test on the position
+# VALUES qpos/kpos and the -1e9 ADDED to the ALiBi + key-bias term, as in
+# ``_flash_chunk_pallas``/``_chunk_dq_pallas``/``_chunk_dkv_pallas``. Each
+# wrapper runs its plain version on CPU tensors and launches its kernel
+# (``csrc/flash_chunk.cu``) on CUDA tensors, or raises. The kernels skip a
+# 64 x 64 tile pair whose keys all lie in the future of all its queries, as
+# the Pallas kernels skip a block; the plain versions compute every pair. The
+# two differ only on a query row that has seen no unmasked key yet (a padded
+# query, whose m is still about NEG_INF), which the models zero.
+
+
+def _chunk_scores(q, k, slopes, qpos, kpos, kneg, scale, g):
+    """float32 (BH, Sq, Skv) scores of one chunk, in ``_xla_chunk``'s order:
+    scaled dot, + slope * kpos, + kneg, + (kpos <= qpos ? 0 : NEG_INF)."""
+    kp, kn = _expand(kpos, g), _expand(kneg, g)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), _expand(k, g).float()) * scale
+    s = s + slopes[:, None, None] * kp[:, None, :] + kn[:, None, :]
+    return s + torch.where(kp[:, None, :] <= qpos[:, :, None], 0.0, NEG_INF)
+
+
+def flash_ring_chunk_reference(q, k, v, slopes, qpos, kpos, kneg, m, l, acc,
+                               scale, g=1):
+    """Plain version of the chunk forward (``_xla_chunk``): the carried
+    unnormalized online-softmax state (m, l (BH, Sq), acc (BH, Sq, hd),
+    float32) updated against one K/V chunk."""
+    s = _chunk_scores(q, k, slopes, qpos, kpos, kneg, scale, g)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + p.sum(dim=-1)
+    acc_new = acc * alpha[..., None] + torch.einsum(
+        "bqk,bkd->bqd", p, _expand(v, g).float())
+    return m_new, l_new, acc_new
+
+
+def _chunk_p_ds(q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, scale, g):
+    """P from the FINAL lse, and dS = P * (dO.Vᵀ - delta), of one chunk."""
+    s = _chunk_scores(q, k, slopes, qpos, kpos, kneg, scale, g)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), _expand(v, g).float())
+    return p, p * (dp - delta[..., None])
+
+
+def flash_chunk_dq_reference(q, k, v, do, lse, delta, slopes, qpos, kpos, kneg,
+                             scale, g=1):
+    """Plain version of the chunk dQ (``_chunk_dq_pallas``'s body): this
+    chunk's float32 contribution ``scale * dS . K`` (BH, Sq, hd)."""
+    _, ds = _chunk_p_ds(q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, scale, g)
+    return scale * torch.einsum("bqk,bkd->bqd", ds, _expand(k, g).float())
+
+
+def flash_chunk_dkv_reference(q, k, v, do, lse, delta, slopes, qpos, kpos, kneg,
+                              scale, g=1):
+    """Plain version of the chunk dK/dV (``_chunk_dkv_pallas``'s body):
+    ``(scale * dSᵀ . Q, Pᵀ . dO)`` PER QUERY HEAD, float32 (BH, Skv, hd)
+    each."""
+    p, ds = _chunk_p_ds(q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, scale, g)
+    dk = scale * torch.einsum("bqk,bqd->bkd", ds, q.float())
+    dv = torch.einsum("bqk,bqd->bkd", p, do.float())
+    return dk, dv
+
+
+def _check_chunk(q, k, v, slopes, qpos, kpos, kneg, g, **extra):
+    """Device, dtype, shape and contiguity checks before a chunk launch."""
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError(f"q must be (B*nh, Sq, hd) and k (B*nkv, Skv, hd), got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    if q.dtype not in _SUFFIX:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim={hd} not in the kernels' {HEAD_DIMS}")
+    if g < 1 or bh % g:
+        raise ValueError(f"B*nh={bh} is not a multiple of g={g}")
+    if max(-(-sq // 64), -(-skv // 64)) > MAX_TILES:
+        raise ValueError(f"Sq={sq} or Skv={skv} needs more than {MAX_TILES} tiles")
+    _check_specs(q, {"k": (k, (bh // g, skv, hd), q.dtype),
+                     "v": (v, (bh // g, skv, hd), q.dtype),
+                     "slopes": (slopes, (bh,), torch.float32),
+                     "qpos": (qpos, (bh, sq), torch.float32),
+                     "kpos": (kpos, (bh // g, skv), torch.float32),
+                     "kneg": (kneg, (bh // g, skv), torch.float32), **extra})
+
+
+_CHUNK_PTRS = {"fwd": 13, "dq": 11, "dkv": 12}
+
+
+def _chunk_launch(kind, q, k, ptrs, g, scale):
+    fn = getattr(_build.load("flash_chunk"), f"flash_chunk_{kind}_{_SUFFIX[q.dtype]}")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * _CHUNK_PTRS[kind] + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    bh, sq, hd = q.shape
+    with torch.cuda.device(q.device):
+        err = fn(*ptrs, bh, sq, k.shape[1], hd, g, float(scale),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_chunk_{kind} kernel launch failed: cudaError {err}")
+
+
+def flash_ring_chunk(q, k, v, slopes, qpos, kpos, kneg, m, l, acc, scale, g=1):
+    """One forward ring step (B7): q (BH, Sq, hd), k/v (BH/g, Skv, hd)
+    float32 or bf16; slopes (BH,), qpos (BH, Sq), kpos/kneg (BH/g, Skv),
+    the state m, l (BH, Sq) and acc (BH, Sq, hd), all float32 -> the
+    updated (m, l, acc), new tensors. Not differentiable on its own: the
+    ring owns the backward."""
+    if _device_of(q, "flash_ring_chunk") == "cpu":
+        return flash_ring_chunk_reference(q, k, v, slopes, qpos, kpos, kneg, m, l,
+                                          acc, scale, g)
+    bh, sq, hd = q.shape
+    _check_chunk(q, k, v, slopes, qpos, kpos, kneg, g,
+                 m=(m, (bh, sq), torch.float32), l=(l, (bh, sq), torch.float32),
+                 acc=(acc, (bh, sq, hd), torch.float32))
+    m_out, l_out, acc_out = torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc)
+    if q.numel() == 0 or k.shape[1] == 0:
+        return m.clone(), l.clone(), acc.clone()
+    ptrs = tuple(t.data_ptr() for t in (q, k, v, slopes, qpos, kpos, kneg, m, l,
+                                        acc, m_out, l_out, acc_out))
+    _chunk_launch("fwd", q, k, ptrs, g, scale)
+    flash_ring_chunk.launches += 1
+    return m_out, l_out, acc_out
+
+
+def _check_chunk_bwd(q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, g):
+    bh, sq = q.shape[:2]
+    _check_chunk(q, k, v, slopes, qpos, kpos, kneg, g,
+                 do=(do, tuple(q.shape), q.dtype),
+                 lse=(lse, (bh, sq), torch.float32),
+                 delta=(delta, (bh, sq), torch.float32))
+
+
+def flash_chunk_dq(q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, scale, g=1):
+    """This chunk's dQ (B8): + do (BH, Sq, hd) in q's dtype, the final lse
+    and delta (BH, Sq) float32 -> dq float32 (BH, Sq, hd)."""
+    args = (q, k, v, do, lse, delta, slopes, qpos, kpos, kneg)
+    if _device_of(q, "flash_chunk_dq") == "cpu":
+        return flash_chunk_dq_reference(*args, scale, g)
+    _check_chunk_bwd(*args, g)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if q.numel() == 0 or k.shape[1] == 0:
+        return dq.zero_()
+    _chunk_launch("dq", q, k, tuple(t.data_ptr() for t in args + (dq,)), g, scale)
+    flash_chunk_dq.launches += 1
+    return dq
+
+
+def flash_chunk_dkv(q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, scale, g=1):
+    """This chunk's dK/dV (B9): the dq kernel's inputs -> (dk, dv) float32
+    (BH, Skv, hd) each, PER QUERY HEAD (the ring sums the g heads of a
+    group)."""
+    args = (q, k, v, do, lse, delta, slopes, qpos, kpos, kneg)
+    if _device_of(q, "flash_chunk_dkv") == "cpu":
+        return flash_chunk_dkv_reference(*args, scale, g)
+    _check_chunk_bwd(*args, g)
+    shape = (q.shape[0], k.shape[1], q.shape[2])
+    dk = torch.empty(shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(shape, dtype=torch.float32, device=q.device)
+    if q.numel() == 0 or k.shape[1] == 0:
+        return dk.zero_(), dv.zero_()
+    _chunk_launch("dkv", q, k, tuple(t.data_ptr() for t in args + (dk, dv)), g, scale)
+    flash_chunk_dkv.launches += 1
+    return dk, dv
+
+
+flash_ring_chunk.launches = 0
+flash_chunk_dq.launches = 0
+flash_chunk_dkv.launches = 0

@@ -34,6 +34,7 @@ def test_port_imports_without_jax_or_a_card():
         "import sys\n"
         "import pipegoose_tpu_torch.serving, pipegoose_tpu_torch.ops.paged_attention\n"
         "import pipegoose_tpu_torch.models.weights\n"
+        "import pipegoose_tpu_torch.distributed, pipegoose_tpu_torch.nn.sequence_parallel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (FORBIDDEN,)
     )
