@@ -66,8 +66,13 @@ Phases, each fatal on failure:
      the same function through the full logits;
  14  the int8 and int4 (G = 32) quantized-matmul kernels against their plain
      version at bloom-560m's four products (qkv, out, up, down) and T in
-     {8, 128, 512}, float32 and bf16; the card's quantize_params against
-     the CPU's on the full bloom-560m tree, byte for byte;
+     {1, 8, 128, 512}: the tensor-core route with bf16 x, the float32
+     route with float32 and with bf16 x; quantized_linear (the cast and the
+     bias in the kernel's epilogue) equal to the unfused composite bit for
+     bit; the card's quantize_params against the CPU's on the full
+     bloom-560m tree, byte for byte; a bf16 bloom-560m prefill with int8
+     and int4 weights through the kernels against the same prefill through
+     the plain composite (last-position logits, greedy next token);
  15  phase 3's float32 card-vs-CPU check with int8 and int4 weights, each
      with chunked and with monolithic prefill; the card engine's tokens
      also equal the card's generate() on the engine's quantized params;
@@ -75,12 +80,16 @@ Phases, each fatal on failure:
      int8 weights + int8 KV): tokens/s, mean TTFT, mean decode-step ms, the
      memory report's weight and KV bytes (weights exactly as the shapes
      give), each quantized kernel's launch count (4 x n_layer x (decode
-     steps + prefill chunks)) and the quantized kernels' share of one
-     profiled decode tick;
+     steps + prefill chunks), all on the tensor-core route), and the
+     kernels a profiled decode tick launches and the quantized kernels'
+     share of its device time;
  17  each quantized kernel's time at the decode (T = 8) and chunk (T = 128)
      shapes, bf16, per bloom-560m product, beside its bound, its plain
-     version's time, cuBLAS's bf16 product with the dequantized weight, and
-     PyTorch's weight-only int8/int4 matmul where it applies;
+     version's time, the float32-route kernel on the same inputs, cuBLAS's
+     bf16 product with the dequantized weight, PyTorch's weight-only
+     int8/int4 matmul where it applies, and the whole biased layer product
+     before (float32-route kernel, split combine, cast, bias) and after
+     (quantized_linear, one launch);
  18  the ring-chunk kernels (B7 forward, B8 dQ, B9 dK/dV) against their plain
      versions: (a) at phase 20's attention shape (B*nh = 16, S = 8192,
      hd = 64, bf16, the diagonal chunk); (b) every (rank, kv_rank) pair of an
@@ -174,10 +183,18 @@ QUANT_SOURCE = "pipegoose_tpu_torch/ops/csrc/quant_matmul.cu"
 QUANT_REPLACES = {"int8": "pipegoose_tpu/quant/matmul.py:94",
                   "int4": "pipegoose_tpu/quant/matmul.py:132"}
 # quantized matmul kernel vs plain, max |diff| against the largest |plain|
-# value M: 1e-5 M in float32 and for bf16 x (a bf16 x times an int8 weight
-# is exact in float32, an int4 weight times its scale is rounded once on
-# both sides): only the order of up to 4096 float32 sums differs
+# value M: 1e-5 M on both routes. A bf16 x times an int8 or int4 weight is
+# exact in float32 (and in bf16 for the tensor cores' operands): only the
+# order of up to 4096 float32 sums differs, and for int4 on the tensor
+# cores a group's sum is scaled where the plain version scales each weight
 QUANT_RTOL = 1e-5
+# bf16 bloom-560m prefill with quantized weights, kernels vs the plain
+# composite, last-position logits: 2^-5 of the largest |logit| (four bf16
+# ulps of it). The forwards differ only where a product's float32 sum,
+# taken in another order, rounds to the other bf16 neighbour; such one-ulp
+# (2^-8) steps ride the residual stream through 24 layers. A greedy token
+# may differ only where the plain forward's top-2 margin is below that.
+QUANT_LOGIT_RTOL = 2.0 ** -5
 BLOOM_KN = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))  # qkv, out, up, down
 # bloom-560m bf16 resident weight bytes, from its shapes: every leaf in
 # bf16; the 24 x 4 block kernels as int8 + float32 per-channel scales; as
@@ -226,9 +243,12 @@ def phase1_build() -> None:
     _build.build(names)
     log(f"phase 1: built {names} in {time.perf_counter() - t0:.1f} s")
     for name in names:
+        fn = "?"
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:   # ptxas -v, per kernel
-                log(f"  {name}: {line.strip()}")
+            if "Function properties for" in line:   # ptxas -v names each kernel first
+                fn = line.split("Function properties for")[-1].strip()[:72]
+            elif "registers" in line or "spill" in line:
+                log(f"  {name} {fn}: {line.strip()}")
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -1279,42 +1299,64 @@ def quant_case(dev, kind, k, n, t, dtype, seed, layers=1):
     return x, [(leaf["q"], leaf["scale"]) for leaf in leaves]
 
 
+def check_quant_call(kind, route, x, q, scale, forced):
+    """One product through ``route`` against the plain version; returns
+    (max |diff|, tolerance, y). ``forced`` launches the float32 route for
+    any x; otherwise the wrapper picks, and must pick ``route``."""
+    from pipegoose_tpu_torch.quant import matmul as qm
+
+    wrapper = getattr(qm, f"quantized_matmul_{kind}")
+    before, routes = wrapper.launches, dict(wrapper.routes)
+    y = qm._launch(kind, x, q, scale, route=route) if forced else wrapper(x, q, scale)
+    torch.cuda.synchronize()
+    if wrapper.launches != before + 1 or wrapper.routes[route] != routes[route] + 1:
+        raise AssertionError(f"{kind}: the {route} route's launch counter did not move")
+    ref = qm.quantized_matmul_reference(x, q, scale)
+    if y.shape != ref.shape or y.dtype != torch.float32 or not torch.isfinite(y).all():
+        raise AssertionError(f"{kind} {route}: bad output {tuple(y.shape)} {y.dtype}")
+    return (y - ref).abs().max().item(), QUANT_RTOL * ref.abs().max().item(), y
+
+
 def phase14_quant_vs_plain(np_tree, dev) -> dict:
     """Both quantized matmul kernels against their plain version at
-    bloom-560m's four products and T in {8, 128, 512}, float32 and bf16;
-    then the card's quantize_params against the CPU's on the full tree.
-    Returns each kernel's largest bf16 error at T = 8 and 128, the dtype
-    and shapes of phase 17's calls."""
+    bloom-560m's four products and T in {1, 8, 128, 512}: the tensor-core
+    route (bf16 x), the float32 route (float32 x, and bf16 x forced onto
+    it); quantized_linear with a bias equal to the unfused composite bit
+    for bit; then the card's quantize_params against the CPU's on the full
+    tree, and a bf16 prefill with quantized weights through the kernels
+    against the plain composite. Returns each kernel's largest tensor-core
+    error at T = 8 and 128, phase 17's dtype and shapes."""
     from pipegoose_tpu_torch.models.bloom import BloomConfig
     from pipegoose_tpu_torch.models.weights import params_from_jax
     from pipegoose_tpu_torch.quant import matmul as qm
     from pipegoose_tpu_torch.quant.weights import QuantSpec, quantize_params
 
     errs = {"int8": 0.0, "int4": 0.0}
+    arms = (("mma", torch.bfloat16, False), ("fma", torch.float32, False),
+            ("fma", torch.bfloat16, True))
     for kind in ("int8", "int4"):
-        kernel = getattr(qm, f"quantized_matmul_{kind}")
-        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            for t in (8, 128, 512):
+        for route, dtype, forced in arms:
+            name = f"{route} route, {str(dtype).split('.')[-1]} x"
+            for t in (1, 8, 128, 512):
                 parts = []
                 for i, (k, n) in enumerate(BLOOM_KN):
                     x, [(q, scale)] = quant_case(dev, kind, k, n, t, dtype, SEED + 14 + i)
-                    before = kernel.launches
-                    y = kernel(x, q, scale)
-                    torch.cuda.synchronize()
-                    if kernel.launches != before + 1:
-                        raise AssertionError(f"{kind}: launch counter did not move")
-                    ref = qm.quantized_matmul_reference(x, q, scale)
-                    if y.shape != ref.shape or not torch.isfinite(y).all():
-                        raise AssertionError(f"{kind}: bad output {tuple(y.shape)}")
-                    err = (y - ref).abs().max().item()
-                    tol = QUANT_RTOL * ref.abs().max().item()
+                    err, tol, y = check_quant_call(kind, route, x, q, scale, forced)
                     parts.append(f"{k}x{n} {err:.3g} (tol {tol:.3g})")
                     if err > tol:
                         raise AssertionError(f"{kind} {name} T={t} {k}x{n}: kernel "
                                              f"disagrees with plain: {err} > {tol}")
-                    if dtype is torch.bfloat16 and t in (8, 128):
-                        errs[kind] = max(errs[kind], err)
-                log(f"phase 14: {kind} {name} T={t}: " + ", ".join(parts) + " ok")
+                    if route == "mma":
+                        if t in (8, 128):
+                            errs[kind] = max(errs[kind], err)
+                        bias = torch.randn(n, device=dev).to(dtype) * 0.1
+                        lin = qm.quantized_linear(x, q, scale, bias)
+                        if not torch.equal(lin, y.to(dtype) + bias):
+                            raise AssertionError(f"{kind} T={t} {k}x{n}: quantized_linear "
+                                                 f"differs from the unfused composite")
+                log(f"phase 14: {kind} {name} T={t}: " + ", ".join(parts) + " ok"
+                    + (", quantized_linear == y.to(bf16) + bias bit for bit"
+                       if route == "mma" else ""))
     cfg = BloomConfig.bloom_560m()
     cpu = params_from_jax(np_tree, cfg, device="cpu")
     gpu = params_from_jax(np_tree, cfg, device=dev)
@@ -1329,7 +1371,58 @@ def phase14_quant_vs_plain(np_tree, dev) -> dict:
         log(f"phase 14: quantize_params {spec.weight_dtype} (G={spec.group_size}) of "
             f"bloom-560m float32: every q byte and scale equal, card vs CPU")
         del qc, qg
+    del cpu, gpu
+    quant_prefill_vs_plain(np_tree, dev)
     return errs
+
+
+def quant_prefill_vs_plain(np_tree, dev) -> None:
+    """bf16 bloom-560m with int8 and int4 (G = 32) weights: one prefill of
+    each of three seeded prompts through the kernels (4 x 24 launches on
+    the tensor-core route) against the same prefill with the layers'
+    quantized product patched to the plain composite."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+    from pipegoose_tpu_torch.nn.tensor_parallel import layers
+    from pipegoose_tpu_torch.quant import matmul as qm
+    from pipegoose_tpu_torch.quant.weights import QuantSpec, quantize_params
+
+    cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16)
+    params = params_from_jax(np_tree, cfg, device=dev)
+    rng = np.random.default_rng(SEED + 140)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (100, 256, 512)]
+    for spec in (QuantSpec("int8"), QuantSpec("int4", 32)):
+        kind = spec.weight_dtype
+        wrapper = getattr(qm, f"quantized_matmul_{kind}")
+        qparams = quantize_params(params, spec)
+        for prompt in prompts:
+            before = wrapper.routes["mma"]
+            got = prefill_logits(qparams, cfg, prompt, dev)[0].float()
+            if wrapper.routes["mma"] - before != 4 * cfg.n_layer:
+                raise AssertionError(f"{kind} prefill: {wrapper.routes['mma'] - before} "
+                                     f"tensor-core launches, want {4 * cfg.n_layer}")
+            layers.quantized_linear = qm.quantized_linear_reference
+            try:
+                want = prefill_logits(qparams, cfg, prompt, dev)[0].float()
+            finally:
+                layers.quantized_linear = qm.quantized_linear
+            err = (got - want).abs().max().item()
+            tol = QUANT_LOGIT_RTOL * want.abs().max().item()
+            top2 = torch.topk(want, 2).values
+            margin = (top2[0] - top2[1]).item()
+            tok_got, tok_want = int(got.argmax()), int(want.argmax())
+            log(f"phase 14: bf16 {kind} prefill of {len(prompt)} tokens, kernels vs plain "
+                f"composite: logits max |diff| {err:.4g} (tol {tol:.4g}), next token "
+                f"{tok_got} vs {tok_want} (plain top-2 margin {margin:.4g})")
+            if not torch.isfinite(got).all() or err > tol:
+                raise AssertionError(f"{kind} prefill: logits differ by {err} > {tol}")
+            if tok_got != tok_want and margin >= tol:
+                raise AssertionError(f"{kind} prefill: next token {tok_got} != {tok_want} "
+                                     f"at a top-2 margin {margin} >= {tol}")
+        del qparams
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # -- phase 15 ------------------------------------------------------------------
@@ -1389,8 +1482,12 @@ def phase16_quant_serving(np_tree, dev) -> dict:
         torch.cuda.synchronize()
         for c in counters.values():
             c.launches = 0
+        for kind in ("int8", "int4"):
+            counters[kind].routes = {"mma": 0, "fma": 0}
         eng, outs, m = serve(params, cfg, requests, dev, num_slots=8, **knobs)
         counts = {n: c.launches for n, c in counters.items()}
+        if any(counters[kind].routes["fma"] for kind in ("int8", "int4")):
+            raise AssertionError(f"{arm}: a bf16 quantized product left the tensor cores")
         report = eng.memory_report()
         wbytes, kvbytes = report["weights"]["total_bytes"], report["kv"]["total_bytes"]
         log(f"  {arm}: {m['decode_tokens_per_s']} tokens/s, mean TTFT "
@@ -1412,10 +1509,12 @@ def phase16_quant_serving(np_tree, dev) -> dict:
                                              weight_dtype=knobs.get("weight_dtype"),
                                              weight_group_size=32)
         quant_ms = sum(e.self_device_time_total for e in kernels
-                       if "quant_matmul" in e.key) / 1e3 / 16
+                       if "quant_m" in e.key) / 1e3 / 16
+        per_tick = sum(e.count for e in kernels) / 16
         if busy_ms:
-            log(f"  {arm}: quantized matmul kernels {quant_ms} ms of the tick's "
-                f"{busy_ms} ms device time ({100 * quant_ms / busy_ms:.1f}%)")
+            log(f"  {arm}: {per_tick:.0f} kernels a decode tick; quantized matmul kernels "
+                f"{quant_ms} ms of the tick's {busy_ms} ms device time "
+                f"({100 * quant_ms / busy_ms:.1f}%)")
         gc.collect()
         torch.cuda.empty_cache()
     return launches
@@ -1460,7 +1559,10 @@ def packed_library_call(kind, x, q, scale):
 def phase17_quant_time(dev, card, errs, launches) -> list:
     """Each quantized matmul kernel at the decode (T = 8) and chunk (T = 128)
     shapes, bf16, per product of one layer; each call reads the next of 24
-    layers' weights (L2-cold). Rows: one layer's four products summed."""
+    layers' weights (L2-cold). Beside the tensor-core kernel: the float32
+    route's kernel on the same inputs, the plain version, cuBLAS bf16, and
+    the biased layer product before (float32 route, combine, cast, bias)
+    and after (quantized_linear). Rows: one layer's four products summed."""
     from pipegoose_tpu_torch.quant import matmul as qm
 
     n_layer = 24
@@ -1470,28 +1572,43 @@ def phase17_quant_time(dev, card, errs, launches) -> list:
     for kind in ("int8", "int4"):
         kernel = getattr(qm, f"quantized_matmul_{kind}")
         for t, shape in ((8, "decode"), (128, "chunk")):
-            tot = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                   "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+            keys = ("ms", "call_ms", "fma_ms", "plain_ms", "library_ms", "before_ms",
+                    "after_ms", "bound_ms", "bytes", "ops")
+            tot = dict.fromkeys(keys, 0.0)
             for i, (k, n) in enumerate(BLOOM_KN):
                 x, layers = quant_case(dev, kind, k, n, t, torch.bfloat16,
                                        SEED + 17 + i, layers=n_layer)
+                bias = torch.randn(n, device=dev).to(torch.bfloat16) * 0.1
                 deq = [qm.dequantize_weight(q, s).to(torch.bfloat16) for q, s in layers]
-                ms, call_ms = time_ms(lambda j: kernel(x, *layers[j % n_layer]), n_layer)
-                plain_ms, _ = time_ms(
+
+                def fma(j):
+                    return qm._launch(kind, x, *layers[j % n_layer], route="fma")
+
+                got = {}
+                got["ms"], got["call_ms"] = time_ms(
+                    lambda j: kernel(x, *layers[j % n_layer]), n_layer)
+                got["fma_ms"], _ = time_ms(fma, n_layer)
+                got["plain_ms"], _ = time_ms(
                     lambda j: qm.quantized_matmul_reference(x, *layers[j % n_layer]), n_layer)
-                library_ms, _ = time_ms(lambda j: torch.matmul(x, deq[j % n_layer]), n_layer)
-                bound_ms, t_bytes, t_ops = quant_bound_ms(x, *layers[0], t, k, n)
+                got["library_ms"], _ = time_ms(lambda j: torch.matmul(x, deq[j % n_layer]),
+                                               n_layer)
+                got["before_ms"], _ = time_ms(
+                    lambda j: fma(j).to(torch.bfloat16) + bias, n_layer)
+                got["after_ms"], _ = time_ms(
+                    lambda j: qm.quantized_linear(x, *layers[j % n_layer], bias), n_layer)
+                got["bound_ms"], got["bytes"], got["ops"] = quant_bound_ms(
+                    x, *layers[0], t, k, n)
                 packed, why = packed_library_call(kind, x, *layers[0])
                 packed_txt = (f"{time_eager_ms(packed, 20)} (one layer's weights, eager)"
                               if packed else f"not applicable ({why})")
-                log(f"  {kind} T={t} {k}x{n}: kernel {ms} (eager {call_ms}), bound "
-                    f"{bound_ms} ({'bytes' if t_bytes >= t_ops else 'operations'}), plain "
-                    f"{plain_ms}, cuBLAS bf16 x @ dequantized bf16 {library_ms}, "
-                    f"torch._weight_{kind}pack_mm {packed_txt}")
-                for key, v in (("ms", ms), ("call_ms", call_ms), ("plain_ms", plain_ms),
-                               ("library_ms", library_ms), ("bound_ms", bound_ms),
-                               ("bytes", t_bytes), ("ops", t_ops)):
-                    tot[key] += v
+                log(f"  {kind} T={t} {k}x{n}: kernel {got['ms']} (eager {got['call_ms']}), "
+                    f"float32 route {got['fma_ms']}, bound {got['bound_ms']} "
+                    f"({'bytes' if got['bytes'] >= got['ops'] else 'operations'}), plain "
+                    f"{got['plain_ms']}, cuBLAS bf16 x @ dequantized bf16 "
+                    f"{got['library_ms']}, torch._weight_{kind}pack_mm {packed_txt}; "
+                    f"biased product before {got['before_ms']}, after {got['after_ms']}")
+                for key in keys:
+                    tot[key] += got[key]
                 del layers, deq
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -1503,9 +1620,13 @@ def phase17_quant_time(dev, card, errs, launches) -> list:
                 "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
                 "bound_by": "bytes" if tot["bytes"] >= tot["ops"] else "operations",
                 "library_ms": tot["library_ms"], "call_ms": tot["call_ms"],
+                "fma_route_ms": tot["fma_ms"], "layer_before_ms": tot["before_ms"],
+                "layer_after_ms": tot["after_ms"],
             })
-            log(f"  {kind} T={t} one layer: kernel {tot['ms']}, bound {tot['bound_ms']}, "
-                f"plain {tot['plain_ms']}, cuBLAS bf16 {tot['library_ms']}")
+            log(f"  {kind} T={t} one layer: kernel {tot['ms']}, float32 route "
+                f"{tot['fma_ms']}, bound {tot['bound_ms']}, plain {tot['plain_ms']}, "
+                f"cuBLAS bf16 {tot['library_ms']}, biased product before "
+                f"{tot['before_ms']} -> after {tot['after_ms']}")
     return rows
 
 

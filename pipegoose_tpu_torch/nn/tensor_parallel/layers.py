@@ -10,8 +10,8 @@ softmax-minus-one-hot, which the JAX ``custom_vjp`` only needs under
 TP. ``chunked_ce_sums`` bounds the logits to one sequence chunk. Dense
 products stay ``torch.matmul``: the JAX package leaves them to XLA, so
 there is no kernel to port here. A quantized leaf (``quant.weights``)
-goes through ``quant.matmul.quantized_matmul`` instead, whose kernels
-are ported.
+goes through ``quant.matmul.quantized_linear`` instead, whose kernels are
+ported and on the card add the bias in their epilogue.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Callable, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from pipegoose_tpu_torch.quant.matmul import quantized_matmul
+from pipegoose_tpu_torch.quant.matmul import quantized_linear
 
 
 def _check_axis(axis_name: Optional[str]) -> None:
@@ -32,35 +32,33 @@ def _check_axis(axis_name: Optional[str]) -> None:
 
 
 def _kernel_matmul(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """The local product both parallel linears share, dispatching on the
-    leaf: ``{"kernel": fp}`` is ``x @ kernel``; a quantized leaf ``{"q",
-    "scale"}`` runs the dequant-fused matmul, so no float copy of the
-    weight is made. Either result comes back in the activation dtype: in
-    bf16 the product accumulates in float32 and is rounded once, as
-    ``jnp.dot(..., preferred_element_type=f32).astype(x.dtype)`` does."""
+    """The local product and bias both parallel linears share, dispatching
+    on the leaf: ``{"kernel": fp}`` is ``x @ kernel``; a quantized leaf
+    ``{"q", "scale"}`` runs the dequant-fused matmul with the bias in its
+    epilogue, so no float copy of the weight is made. Either result comes
+    back in the activation dtype: in bf16 the product accumulates in
+    float32 and is rounded once before the bias is added, as
+    ``jnp.dot(..., preferred_element_type=f32).astype(x.dtype) + b``
+    does."""
+    bias = params.get("bias")
     if "q" in params:
-        return quantized_matmul(x, params["q"], params["scale"]).to(x.dtype)
-    return torch.matmul(x, params["kernel"]).to(x.dtype)
+        return quantized_linear(x, params["q"], params["scale"], bias)
+    y = torch.matmul(x, params["kernel"]).to(x.dtype)
+    return y if bias is None else y + bias
 
 
 def column_parallel_linear(params: dict, x: torch.Tensor,
                            axis_name: Optional[str] = None) -> torch.Tensor:
     """Y = X @ W (+ b)."""
     _check_axis(axis_name)
-    y = _kernel_matmul(params, x)
-    if params.get("bias") is not None:
-        y = y + params["bias"]
-    return y
+    return _kernel_matmul(params, x)
 
 
 def row_parallel_linear(params: dict, x: torch.Tensor,
                         axis_name: Optional[str] = None) -> torch.Tensor:
     """Y = X @ W + b (the psum over shards is the identity at tp=1)."""
     _check_axis(axis_name)
-    y = _kernel_matmul(params, x)
-    if params.get("bias") is not None:
-        y = y + params["bias"]
-    return y
+    return _kernel_matmul(params, x)
 
 
 def vocab_parallel_embedding(params: dict, ids: torch.Tensor,

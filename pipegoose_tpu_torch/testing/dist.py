@@ -48,6 +48,9 @@ def _child(fn, rank, world_size, store_path, results, args):
         store = dist.FileStore(store_path, world_size)
         dist.init_process_group("gloo", store=store, rank=rank,
                                 world_size=world_size)
+        # no rank may run fn and exit while a peer is still connecting:
+        # its closed socket would fail the peer's init instead of fn
+        dist.barrier()
         results.put((rank, True, to_numpy(fn(rank, world_size, *args))))
     except BaseException:  # reported to the parent, which fails the test
         results.put((rank, False, traceback.format_exc()))
