@@ -26,16 +26,23 @@ Phases, each fatal on failure:
   0  the card: name and power limit (nvidia-smi), torch and CUDA versions;
   1  build every kernel from the sources in this checkout (nvcc, in
      parallel) and print ptxas's registers / shared memory / spills;
-  2  each kernel against its plain PyTorch version on the card at
-     bloom-560m's shapes (decode B=8 C=1, chunked prefill B=1 C=128;
-     float32, bf16 and int8 pages);
+  2  the paged kernel against its plain PyTorch version on the card at
+     bloom-560m's shapes (decode B=8 C=1, chunked prefill B=1 C=128, one
+     long decode row whose keys split over a cluster; float32, bf16 and
+     int8 pages; float32 q, bf16 q and bf16 q as a strided view of the
+     fused qkv product), through both routes;
   3  the float32 engine on the card against the same engine on the CPU:
      identical greedy tokens, and agreeing finite logits;
   4  timed bf16 serving runs (fp KV, then int8 KV): tokens/s, mean TTFT,
      mean decode-step ms, and the kernel's launch count, which must be
-     n_layer x (decode steps + prefill chunks);
-  5  the kernel's time at phase 4's decode shape beside its bound, its
-     plain version's time and one PyTorch library call's;
+     n_layer x (decode steps + prefill chunks): the decode steps on the
+     FMA route, the chunks on the tensor-core route;
+  5  the kernel's time at phase 4's decode shape and at its chunk shape
+     (B=1, C=128 from position 384) beside its bound, its plain version's
+     time and SDPA's; then a bf16 bloom-560m prefill of 512 tokens in
+     128-token chunks through the kernel against the same chunks through
+     the plain version, fp and int8 KV (last-position logits, greedy
+     next token);
   6  the three flash-attention kernels against their plain versions at
      bloom-560m's attention shape (B=8, S=1024, nh=16, hd=64) in bf16 and
      float32, and on a right-padded mask, S=100, GQA g=2, window=64 and
@@ -300,7 +307,18 @@ def layer_of(pages, i):
     return layer_bank(pages, i)
 
 
+def q_variants(q):
+    """The queries as the engines hand them to the kernel: float32 (the
+    float32 engine), bf16, and bf16 as the q slice of a fused (B, C, nh, 3,
+    hd) qkv product (head stride 3 hd), read in place."""
+    fused = torch.stack([q, torch.randn_like(q), torch.randn_like(q)], dim=3)
+    return {"f32 q": q, "bf16 q": q.to(torch.bfloat16),
+            "strided bf16 q": fused.to(torch.bfloat16)[..., 0, :]}
+
+
 def phase2_kernel_vs_plain(dev) -> dict:
+    """Every route of the paged kernel against its plain version. Returns
+    the largest error per (page format, decode | chunk)."""
     from pipegoose_tpu_torch.ops import paged_attention as pa
 
     rng = np.random.default_rng(SEED)
@@ -311,44 +329,60 @@ def phase2_kernel_vs_plain(dev) -> dict:
                                     starts=[0, 17, 1023, 100, 300, 511, 700, 15]),
         "chunk B=1 C=128": make_case(rng, dev, rows=1, c=128, width=64,
                                      starts=[200]),
+        # one long row: its keys split over a cluster's blocks
+        "long decode B=1 C=1": make_case(rng, dev, rows=1, c=1, width=64,
+                                         starts=[1023]),
     }
     errs = {}
     for label, case in cases.items():
+        kind = "chunk" if "chunk" in label else "decode"
         for fmt in ("f32", "bf16", "int8"):
             k, v = (layer_of(p, 0) for p in pages_as(case, fmt))
-            args = (case["q"], k, v, case["table"], case["start"])
-            before = pa.paged_attention.launches
-            out = pa.paged_attention(*args, slopes=case["slopes"])
-            torch.cuda.synchronize()
-            if pa.paged_attention.launches != before + 1:
-                raise AssertionError(f"{label} {fmt}: launch counter did not move")
-            ref = pa.paged_attention_reference(*args, slopes=case["slopes"])
-            if out.shape != ref.shape or not torch.isfinite(out).all():
-                raise AssertionError(f"{label} {fmt}: bad output {tuple(out.shape)}")
-            err = (out - ref).abs().max().item()
-            ok = err <= ATOL[fmt]
-            log(f"phase 2: {label} {fmt} pages: max_abs_err={err} "
-                f"(atol {ATOL[fmt]}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{label} {fmt}: kernel disagrees with plain")
-            errs[fmt] = max(errs.get(fmt, 0.0), err)
+            for qname, q in q_variants(case["q"]).items():
+                args = (q, k, v, case["table"], case["start"])
+                pages = k["q"] if fmt == "int8" else k
+                b, c, nh, hd = q.shape
+                plan = pa.paged_plan(b, c, nh, hd, pages.shape[1],
+                                     case["table"].shape[1], q.dtype, pages.dtype)
+                before = pa.paged_attention.launches
+                out = pa.paged_attention(*args, slopes=case["slopes"])
+                torch.cuda.synchronize()
+                if pa.paged_attention.launches != before + 1:
+                    raise AssertionError(f"{label} {fmt}: launch counter did not move")
+                ref = pa.paged_attention_reference(*args, slopes=case["slopes"])
+                if out.shape != ref.shape or not torch.isfinite(out).all():
+                    raise AssertionError(f"{label} {fmt}: bad output {tuple(out.shape)}")
+                err = (out - ref).abs().max().item()
+                ok = err <= ATOL[fmt]
+                log(f"phase 2: {label} {fmt} pages, {qname} ({plan['route']} route, "
+                    f"{plan['splits']} splits): max_abs_err={err} (atol {ATOL[fmt]}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{label} {fmt} {qname}: kernel disagrees with plain")
+                errs[f"{fmt} {kind}"] = max(errs.get(f"{fmt} {kind}", 0.0), err)
     return errs
 
 
 # -- phase 3 -------------------------------------------------------------------
 
-def prefill_logits(params, config, prompt, dev):
-    """Float32 logits after ``prompt`` from ONE paged chunk over a fresh
-    pool (pages 1..W in order): an engine-free reference forward."""
+def prefill_logits(params, config, prompt, dev, kv_dtype=None, chunk=None):
+    """Float32 logits after ``prompt`` from paged chunks of ``chunk`` tokens
+    (one chunk of the whole prompt by default) over a fresh pool (pages
+    1..W in order): an engine-free reference forward."""
     from pipegoose_tpu_torch.serving.kv_pool import init_pages, paged_prefill_chunk
 
     ps, n = 16, len(prompt)
+    chunk = chunk or n
     width = -(-n // ps)
-    k, v = init_pages(config, width + 1, ps, device=dev)
+    k, v = init_pages(config, width + 1, ps, kv_dtype=kv_dtype, device=dev)
     i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)  # noqa: E731
-    return paged_prefill_chunk(
-        params, i32([list(prompt)]), k, v, i32([list(range(1, width + 1))]),
-        i32([0]), i32([n]), config)
+    table = i32([list(range(1, width + 1))])
+    for s in range(0, n, chunk):
+        toks = np.zeros(chunk, np.int64)
+        toks[:min(chunk, n - s)] = prompt[s:s + chunk]
+        logits = paged_prefill_chunk(params, i32([toks.tolist()]), k, v, table, i32([s]),
+                                     i32([min(chunk, n - s)]), config)
+    return logits
 
 
 def make_engine(params, config, dev, *, num_slots, kv_dtype=None, **knobs):
@@ -506,8 +540,10 @@ def phase4_timed_serving(np_tree, dev) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         pa.paged_attention.launches = 0
+        pa.paged_attention.routes = {"fma": 0, "mma": 0}
         _, outs, m = serve(params, cfg, requests, dev, num_slots=8, kv_dtype=kv)
-        launches[kv or "fp"] = pa.paged_attention.launches
+        launches[kv or "fp"] = {"all": pa.paged_attention.launches,
+                                **pa.paged_attention.routes}
         log(f"  {label}: {m['decode_tokens_per_s']} tokens/s, "
             f"mean TTFT {m['mean_ttft_s'] * 1e3} ms, mean decode step "
             f"{m['decode_step_time_s'] / m['decode_steps'] * 1e3} ms, "
@@ -516,7 +552,14 @@ def phase4_timed_serving(np_tree, dev) -> dict:
         if m["generated_tokens"] != 12 * 64 or any(
                 len(o.generated) != 64 for o in outs):
             raise AssertionError(f"{label}: not every request got 64 tokens")
-        check_launches(label, launches[kv or "fp"], m, cfg.n_layer)
+        check_launches(label, launches[kv or "fp"]["all"], m, cfg.n_layer)
+        routes = {r: launches[kv or "fp"][r] for r in ("fma", "mma")}
+        want = {"fma": cfg.n_layer * m["decode_steps"],
+                "mma": cfg.n_layer * m["prefill_chunks"]}
+        log(f"  {label}: launches by route {routes}, want {want} (decode steps on "
+            f"the FMA route, 128-token bf16 chunks on the tensor cores)")
+        if routes != want:
+            raise AssertionError(f"{label}: a route of the paged kernel did not run")
         decode_profile(params, cfg, requests[:8], dev, kv, label)
     return launches
 
@@ -605,82 +648,157 @@ def time_ms(fn, calls, replays=20):
     return t0.elapsed_time(t1) / (replays * calls), call_ms
 
 
-def decode_bound_ms(case, fmt):
-    """Least time for the decode call: each visible K/V value (plus its
-    scale for int8), the f32 queries, the output, the visited table
-    entries, starts and slopes moved once at 3.35 TB/s, against 4 flops
-    per visible key element (q.k and p.v FMAs) at 67 TFLOP/s."""
+def paged_bound_ms(case, fmt, route):
+    """Least time for one call: each visible K/V value of a row (those of
+    its last query, plus their scales for int8), the bf16 queries, the
+    float32 output, the visited table entries, starts and slopes moved once
+    at 3.35 TB/s, against 4 hd flops per visible (query, key) pair (q.k and
+    p.v) at 67 TFLOP/s on the FMA route and 989 TFLOP/s (bf16 tensor
+    cores) on the tensor-core route."""
     b, c, nh, hd = case["q"].shape
-    keys = int((case["start"].long() + c).sum())        # visible keys, all rows
+    starts = case["start"].long().tolist()
+    keys = sum(s + c for s in starts)
+    pairs = sum(c * (s + 1) + c * (c - 1) // 2 for s in starts)
     per = {"f32": 4, "bf16": 2, "int8": 1}[fmt]
     kv = 2 * keys * nh * (hd * per + (4 if fmt == "int8" else 0))
-    pages = int(((case["start"].long() + c - 1) // 16 + 1).sum())
-    nbytes = kv + 2 * b * c * nh * hd * 4 + pages * 4 + b * 4 + nh * 4
-    flops = 4 * keys * nh * hd
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    pages = sum((s + c - 1) // 16 + 1 for s in starts)
+    nbytes = kv + b * c * nh * hd * (2 + 4) + pages * 4 + b * 4 + nh * 4
+    flops = 4 * pairs * nh * hd
+    rate = BF16_FLOPS_PER_S if route == "mma" else F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase5_kernel_time(dev, card, errs, launches) -> list:
+def paged_time(case, fmt, n_layer, dev):
+    """Device and eager ms per call of the paged kernel, its plain version
+    and SDPA over the pre-gathered view (bf16, float32 for int8 pages; with
+    the same additive bias; the gather itself not timed). bf16 queries, as
+    the bf16 engine's; each call reads the next of ``n_layer`` layer banks
+    (L2-cold)."""
     from pipegoose_tpu_torch.models.bloom import NEG_INF
     from pipegoose_tpu_torch.ops import paged_attention as pa
     from pipegoose_tpu_torch.serving.kv_pool import gather_pages
 
-    n_layer = 24
+    k, v = pages_as(case, fmt)
+    banks = [(layer_of(k, i), layer_of(v, i)) for i in range(n_layer)]
+    q = case["q"].to(torch.bfloat16)
+    table, start, slopes = case["table"], case["start"], case["slopes"]
+    c = q.shape[1]
+    calls = {
+        "kernel": lambda kb, vb: pa.paged_attention(q, kb, vb, table, start, slopes=slopes),
+        "plain": lambda kb, vb: pa.paged_attention_reference(q, kb, vb, table, start,
+                                                             slopes=slopes),
+    }
+    sdpa_dtype = torch.bfloat16 if fmt == "bf16" else torch.float32
+    views = [(gather_pages(kb, table).to(sdpa_dtype).transpose(1, 2).contiguous(),
+              gather_pages(vb, table).to(sdpa_dtype).transpose(1, 2).contiguous())
+             for kb, vb in banks]
+    key_pos = torch.arange(views[0][0].shape[2], device=dev)
+    q_pos = start.long()[:, None] + torch.arange(c, device=dev)[None, :]
+    keep = key_pos[None, None, :] <= q_pos[:, :, None]                   # (B, C, K)
+    bias = (slopes[None, :, None, None] * key_pos.float()[None, None, None, :]
+            + torch.where(keep, 0.0, NEG_INF)[:, None]).to(sdpa_dtype)
+    qs = q.to(sdpa_dtype).transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, fn in calls.items():
+        out[name] = time_ms(lambda i, fn=fn: fn(*banks[i % n_layer]), n_layer)
+    out["library"] = time_ms(
+        lambda i: sdpa(qs, *views[i % n_layer], attn_mask=bias), n_layer)
+    del banks, views
+    return out
+
+
+def phase5_cases(dev, n_layer):
+    """Phase 5's inputs over ``n_layer`` layer banks: phase 4's decode shape
+    (8 rows from seeded starts) and its chunk shape (B=1, C=128 from 384)."""
     rng = np.random.default_rng(SEED + 5)
     starts = [int(s) for s in rng.integers(128, 576, 8)]
-    case = make_case(rng, dev, rows=8, c=1, width=64, starts=starts,
-                     layers=n_layer)
-    log(f"phase 5: decode B=8 C=1 nh=16 hd=64 ps=16 W=64, starts {starts}; "
-        f"each call reads the next of {n_layer} layer banks (L2-cold), on {card}")
+    return {
+        "decode": make_case(rng, dev, rows=8, c=1, width=64, starts=starts,
+                            layers=n_layer),
+        "chunk": make_case(rng, dev, rows=1, c=128, width=64, starts=[384],
+                           layers=n_layer),
+    }
+
+
+def phase5_kernel_time(dev, card, errs, launches) -> list:
+    """The kernel's time at phase 5's shapes, bf16 and int8 pages, beside
+    the bound, the plain version and SDPA."""
+    from pipegoose_tpu_torch.ops import paged_attention as pa
+
+    n_layer = 24
+    cases = phase5_cases(dev, n_layer)
+    starts = cases["decode"]["start"].tolist()
+    log(f"phase 5: decode B=8 C=1 nh=16 hd=64 ps=16 W=64, starts {starts}; chunk B=1 "
+        f"C=128 from 384; bf16 q; each call reads the next of {n_layer} layer banks "
+        f"(L2-cold), on {card}")
     rows = []
-    for fmt, kv in (("bf16", "fp"), ("int8", "int8")):
-        k, v = pages_as(case, fmt)
-        banks = [(layer_of(k, i), layer_of(v, i)) for i in range(n_layer)]
-        q, table, start, slopes = case["q"], case["table"], case["start"], case["slopes"]
-        if fmt == "bf16":
-            q = q.to(torch.bfloat16)       # the bf16 engine's queries
-
-        def kernel(i):
-            kb, vb = banks[i % n_layer]
-            pa.paged_attention(q, kb, vb, table, start, slopes=slopes)
-
-        def plain(i):
-            kb, vb = banks[i % n_layer]
-            pa.paged_attention_reference(q, kb, vb, table, start, slopes=slopes)
-
-        # the library yardstick: SDPA over each layer's pre-gathered view
-        # with the same additive bias (the gather itself is not timed)
-        sdpa_dtype = torch.bfloat16 if fmt == "bf16" else torch.float32
-        views = [(gather_pages(kb, table).to(sdpa_dtype).transpose(1, 2).contiguous(),
-                  gather_pages(vb, table).to(sdpa_dtype).transpose(1, 2).contiguous())
-                 for kb, vb in banks]
-        key_pos = torch.arange(views[0][0].shape[2], device=dev)
-        keep = key_pos[None, :] <= start.long()[:, None]
-        bias = (slopes[None, :, None, None] * key_pos.float()[None, None, None, :]
-                + torch.where(keep, 0.0, NEG_INF)[:, None, None, :]).to(sdpa_dtype)
-        qs = q.to(sdpa_dtype).transpose(1, 2).contiguous()
-
-        def library(i):
-            kt, vt = views[i % n_layer]
-            torch.nn.functional.scaled_dot_product_attention(qs, kt, vt, attn_mask=bias)
-
-        ms, call_ms = time_ms(kernel, n_layer)
-        plain_ms, plain_call_ms = time_ms(plain, n_layer)
-        library_ms, library_call_ms = time_ms(library, n_layer)
-        bound_ms, bound_by = decode_bound_ms(case, fmt)
-        log(f"  {fmt} pages, device ms per call: kernel {ms}, bound {bound_ms} "
-            f"({bound_by}), plain {plain_ms}, SDPA {library_ms} [{card}]")
-        log(f"  {fmt} pages, eager ms per call (host included): kernel "
-            f"{call_ms}, plain {plain_call_ms}, SDPA {library_call_ms}")
-        rows.append({
-            "name": f"paged_attention ({fmt} pages, decode)", **KERNEL,
-            "launches": launches[kv], "max_abs_err": errs[fmt], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "call_ms": call_ms,
-        })
-        del banks, views
+    for kind, case in cases.items():
+        for fmt, kv in (("bf16", "fp"), ("int8", "int8")):
+            b, c, nh, hd = case["q"].shape
+            plan = pa.paged_plan(b, c, nh, hd, 16, 64, torch.bfloat16,
+                                 torch.bfloat16 if fmt == "bf16" else torch.int8)
+            t = paged_time(case, fmt, n_layer, dev)
+            bound_ms, bound_by = paged_bound_ms(case, fmt, plan["route"])
+            (ms, call_ms), (plain_ms, _), (library_ms, _) = t["kernel"], t["plain"], t["library"]
+            log(f"  {kind} {fmt} pages ({plan['route']} route, {plan['splits']} splits, "
+                f"{plan['blocks']} blocks), device ms per call: kernel {ms}, bound "
+                f"{bound_ms} ({bound_by}), plain {plain_ms}, SDPA {library_ms} [{card}]")
+            log(f"  {kind} {fmt} pages, eager ms per call (host included): kernel "
+                f"{call_ms}, plain {t['plain'][1]}, SDPA {t['library'][1]}")
+            rows.append({
+                "name": f"paged_attention ({fmt} pages, {kind}, {plan['route']} route)",
+                **KERNEL, "launches": launches[kv][plan["route"]],
+                "max_abs_err": errs[f"{fmt} {kind}"], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                "call_ms": call_ms,
+            })
     return rows
+
+
+def paged_prefill_vs_plain(np_tree, dev) -> None:
+    """bf16 bloom-560m: a 512-token prompt prefilled in four 128-token chunks
+    through the kernel (tensor-core route, 4 x 24 launches), fp and int8 KV,
+    against the same chunks with kv_pool's paged attention patched to the
+    plain version: last-position logits within 2^-5 of the largest, the
+    greedy token equal unless the plain top-2 margin is below that."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+    from pipegoose_tpu_torch.ops import paged_attention as pa
+    from pipegoose_tpu_torch.serving import kv_pool
+
+    cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16)
+    params = params_from_jax(np_tree, cfg, device=dev)
+    prompt = np.random.default_rng(SEED + 50).integers(0, cfg.vocab_size, 512)
+    for kv in (None, "int8"):
+        before = pa.paged_attention.routes["mma"]
+        got = prefill_logits(params, cfg, prompt, dev, kv, chunk=128)[0].float()
+        if pa.paged_attention.routes["mma"] - before != 4 * cfg.n_layer:
+            raise AssertionError(f"{kv or 'fp'} KV prefill: "
+                                 f"{pa.paged_attention.routes['mma'] - before} tensor-core "
+                                 f"launches, want {4 * cfg.n_layer}")
+        kv_pool.paged_attention = pa.paged_attention_reference
+        try:
+            want = prefill_logits(params, cfg, prompt, dev, kv, chunk=128)[0].float()
+        finally:
+            kv_pool.paged_attention = pa.paged_attention
+        err = (got - want).abs().max().item()
+        tol = QUANT_LOGIT_RTOL * want.abs().max().item()
+        top2 = torch.topk(want, 2).values
+        margin = (top2[0] - top2[1]).item()
+        tok_got, tok_want = int(got.argmax()), int(want.argmax())
+        log(f"phase 5: bf16 prefill of {len(prompt)} tokens in 128-token chunks, "
+            f"{kv or 'fp'} KV, kernel vs plain: logits max |diff| {err:.4g} (tol {tol:.4g}), "
+            f"next token {tok_got} vs {tok_want} (plain top-2 margin {margin:.4g})")
+        if not torch.isfinite(got).all() or err > tol:
+            raise AssertionError(f"{kv or 'fp'} KV prefill: logits differ by {err} > {tol}")
+        if tok_got != tok_want and margin >= tol:
+            raise AssertionError(f"{kv or 'fp'} KV prefill: next token {tok_got} != "
+                                 f"{tok_want} at a top-2 margin {margin} >= {tol}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # -- phase 6 -------------------------------------------------------------------
@@ -2057,6 +2175,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rows = phase5_kernel_time(dev, card, errs, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged_prefill_vs_plain(np_tree, dev)
     gc.collect()
     torch.cuda.empty_cache()   # the serving state is gone before training
     flash_errs = phase6_flash_vs_plain(dev)

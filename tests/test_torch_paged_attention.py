@@ -78,10 +78,73 @@ def test_quantize_kv_matches_jax():
 
 
 def test_tile_guard_raises_instead_of_falling_back():
-    geom = tpa.check_paged_tile(16, 64, 128)       # bloom-560m chunked prefill
+    """Keys are staged by logical position, so shared memory follows
+    head_dim and the route, not page_size; a head_dim the source does not
+    instantiate, or a page_size below 1, raises."""
+    geom = tpa.check_paged_tile(16, 64, 128, route="mma")   # bloom-560m chunk
     assert geom["fits"] and geom["query_tile"] == 64
-    with pytest.raises(ValueError, match="shared memory"):
-        tpa.check_paged_tile(512, 128, 64)
+    assert geom["smem_bytes"] == 2 * 2 * 64 * (64 * 2 + 16)  # two (K, V) bf16 stages
+    int8 = tpa.check_paged_tile(16, 64, 128, route="mma", page_bytes=1)
+    assert int8["smem_bytes"] == 2 * (2 * 64 * 80 + 2 * 64 * 4) + 2 * 64 * 144
+    assert tpa.check_paged_tile(16, 64, 1)["query_tile"] == 1
+    assert tpa.check_paged_tile(16, 64, 4)["query_tile"] == 4
+    assert tpa.check_paged_tile(512, 128, 64, route="mma")["fits"]
+    with pytest.raises(ValueError, match="head_dim"):
+        tpa.check_paged_tile(16, 96, 64)
+    with pytest.raises(ValueError, match="page_size"):
+        tpa.check_paged_tile(0, 64, 1)
+
+
+BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
+
+
+@pytest.mark.parametrize("shape, dtypes, want", [
+    # bloom-560m decode: 128 (row, head) blocks, keys split over clusters of 2
+    ((8, 1, 16, 64, 16, 64), (BF16, BF16), ("fma", 1, 2, 256, "paged_fma_bf16q_bf16")),
+    ((8, 1, 16, 64, 16, 64), (BF16, I8), ("fma", 1, 2, 256, "paged_fma_bf16q_int8")),
+    # bloom-560m chunked prefill: 2 query tiles x 16 heads, clusters of 8
+    ((1, 128, 16, 64, 16, 64), (BF16, BF16), ("mma", 64, 8, 256, "paged_mma_bf16q_bf16")),
+    ((1, 128, 16, 64, 16, 64), (BF16, I8), ("mma", 64, 8, 256, "paged_mma_bf16q_int8")),
+    # the float32 engine's chunk stays on float32 FMAs, 512 blocks unsplit
+    ((1, 128, 16, 64, 16, 64), (F32, F32), ("fma", 4, 1, 512, "paged_fma_f32q_f32")),
+    ((1, 128, 16, 64, 16, 64), (BF16, F32), ("fma", 4, 1, 512, "paged_fma_bf16q_f32")),
+    # below the tensor-core threshold
+    ((1, 15, 16, 64, 16, 64), (BF16, BF16), ("fma", 4, 4, 256, "paged_fma_bf16q_bf16")),
+    # a single long row: 16 blocks, the most splits
+    ((1, 1, 16, 64, 16, 64), (F32, BF16), ("fma", 1, 8, 128, "paged_fma_f32q_bf16")),
+    # a short table caps the splits at one per 32 keys
+    ((1, 1, 16, 64, 16, 4), (BF16, BF16), ("fma", 1, 2, 32, "paged_fma_bf16q_bf16")),
+])
+def test_plan_picks_route_and_splits(shape, dtypes, want):
+    """The wrapper's launch as a pure function of the shapes and dtypes."""
+    plan = tpa.paged_plan(*shape, *dtypes)
+    got = (plan["route"], plan["query_tile"], plan["splits"], plan["blocks"], plan["entry"])
+    assert got == want
+    assert plan["splits"] <= tpa.MAX_SPLITS and plan["fits"]
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("c", [1, 4])
+def test_strided_bf16_q_view_matches_jax(quantized, c):
+    """bf16 q as the q slice of a fused (B, C, nh, 3, hd) qkv tensor, the
+    engine's view, through the CPU path: equal to the JAX reference and
+    to the Pallas kernel in interpret mode on the same bf16 values."""
+    rng = np.random.default_rng(10 + c)
+    q, k, v, table, start, slopes = _case(rng, c, quantized)
+    fused = rng.standard_normal((B, c, NH, 3, HD), dtype=np.float32)
+    fused[..., 0, :] = q
+    tq = torch.from_numpy(fused).to(torch.bfloat16)[..., 0, :]
+    assert tq.stride(2) == 3 * HD and not tq.is_contiguous()
+    jq = jnp.asarray(tq.float().numpy()).astype(jnp.bfloat16)
+    jargs = [jq] + [_to(a, jnp.asarray) for a in (k, v, table, start)]
+    ref = jreference(*jargs, slopes=jnp.asarray(slopes))
+    pallas = jpaged_attention(*jargs, slopes=jnp.asarray(slopes), interpret=True)
+    out = tpa.paged_attention(tq, *[_to(a, torch.from_numpy) for a in
+                                    (k, v, table, start)],
+                              slopes=torch.from_numpy(slopes))
+    assert out.dtype == torch.float32 and tuple(out.shape) == (B, c, NH, HD)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), rtol=0, atol=ATOL)
 
 
 def test_wrapper_refuses_other_devices():
