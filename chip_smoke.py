@@ -104,19 +104,24 @@ Phases, each fatal on failure:
      bf16, right- and left-padded masks (the latter with the ALiBi
      correction) and GQA g = 2, a fully-future pair leaving the state bit for
      bit; (c) the chain over the split against the whole-sequence flash
-     kernels B1-B3, unpadded and right-padded;
+     kernels B1-B3, unpadded and right-padded. bf16 B8/B9 must take the
+     tensor-core route (dq, dk, dv within 2^-7 of the largest value), float32
+     the FMA route (2e-4);
  19  the float32 SP loss at sp = 1 (``loss_fn_sp`` with flash) against the
      card's and the CPU's single-device ``loss_fn`` (2 layers, 2 x 512,
      right-padded, fused_ce off and on: the loss and every gradient), then 3
      ``sp_train_step``s against 3 ``train_step``s; B1-B3 never launch on
-     the SP path;
+     the SP path; then the same loss in bf16 (B8/B9 on the tensor cores)
+     against the bf16 flash ``loss_fn`` (B1-B3): the loss within 2^-7
+     relative, every gradient within 2^-6 of its leaf's largest value;
  20  timed bf16 SP training, bloom-560m at 24 layers, remat, flash, fused CE,
      batch 1 x 8192: step ms, tokens/s, MFU, peak memory, falling losses,
-     launches per step (B7 48, B8 and B9 24, B1-B3 0, fused CE 1 each), the
-     chunk kernels' share of a profiled step; then the same shape through
-     ``train_step``;
+     launches per step (B7 48, B8 and B9 24 on the tensor-core route, B1-B3
+     0, fused CE 1 each), the chunk kernels' share of a profiled step; then
+     the same shape through ``train_step``;
  21  each chunk kernel's time at phase 20's shape beside its bound, its plain
-     version's time and PyTorch's SDPA forward or backward.
+     version's time and PyTorch's SDPA forward or backward, with its route
+     and ptxas's registers and spills.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a card, or
@@ -216,6 +221,7 @@ CHUNK_REPLACES = {
     "dq": "pipegoose_tpu/ops/flash_attention.py:514",
     "dkv": "pipegoose_tpu/ops/flash_attention.py:596",
 }
+SP_BF16_LOSS_RTOL = 2.0 ** -7  # bf16 SP loss vs the flash path's, relative
 NEG_INF_F = -1e9               # the models' finite NEG_INF: a ring state's initial m
 SP_SEQ = 8192                  # phase 20's tokens a step (bench.py's 8 x 1024) in one sequence
 
@@ -1806,17 +1812,24 @@ def chunk_err(got, want, rtol):
     return err, FLASH_ATOL + rtol * want.abs().max().item()
 
 
-def ring_walk(label, case, sp, rtol=None):
+def ring_walk(label, case, sp):
     """Every (rank, kv_rank) pair of an sp-way split in ring order: B7 from
     the state the plain chain carries into the pair, on the rows that have
     seen an unmasked key (a fully-future pair must return its state bit for
     bit); then B8 and B9 with the chain's final lse against their plain
-    versions everywhere. The state, dq, dk and dv are float32 in both
-    dtypes, so float32's FLASH_RTOL holds them unless ``rtol`` is given; m,
-    a maximum of scores, LSE_RTOL. Returns each kernel's worst error."""
+    versions everywhere. The state is float32 in both dtypes and B7 sums
+    float32 products of the inputs, so float32's FLASH_RTOL holds it; m, a
+    maximum of scores, LSE_RTOL. dq, dk and dv hold to FLASH_RTOL of the
+    inputs' dtype: float32 inputs take B8/B9's FMA route (2e-4), bf16 inputs
+    the tensor-core route, which rounds P and dS once to bf16 before the
+    second product (2^-7); each call must launch that route. Returns each
+    kernel's worst error."""
     from pipegoose_tpu_torch.ops import flash_attention as fa
 
-    rtol = FLASH_RTOL[torch.float32] if rtol is None else rtol
+    rtol = FLASH_RTOL[torch.float32]
+    bwd_rtol = FLASH_RTOL[case["q"].dtype]
+    route = fa.chunk_bwd_plan(case["q"].dtype, case["q"].shape[2], 1, 1)["route"]
+    routes = [fn.routes[route] for fn in (fa.flash_chunk_dq, fa.flash_chunk_dkv)]
     bh, s, hd = case["q"].shape
     sl, g, scale, dev = s // sp, case["g"], case["scale"], case["q"].device
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
@@ -1852,18 +1865,23 @@ def ring_walk(label, case, sp, rtol=None):
             q, k, v, do, slopes, qpos, kpos, kneg = chunk_args(case, sp, rank, kv_rank)
             delta = (do.float() * out.float()).sum(-1)
             args = (q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, scale, g)
-            err, tol = chunk_err(fa.flash_chunk_dq(*args), fa.flash_chunk_dq_reference(*args), rtol)
+            err, tol = chunk_err(fa.flash_chunk_dq(*args), fa.flash_chunk_dq_reference(*args),
+                                 bwd_rtol)
             worst["dq"] = max(worst["dq"], err)
             if err > tol:
                 bad.append(f"B8 ({rank}, {kv_rank}) {err:.3g} > {tol:.3g}")
             for name, a, b in zip(("dk", "dv"), fa.flash_chunk_dkv(*args),
                                   fa.flash_chunk_dkv_reference(*args)):
-                err, tol = chunk_err(a, b, rtol)
+                err, tol = chunk_err(a, b, bwd_rtol)
                 worst["dkv"] = max(worst["dkv"], err)
                 if err > tol:
                     bad.append(f"B9 {name} ({rank}, {kv_rank}) {err:.3g} > {tol:.3g}")
     torch.cuda.synchronize()
-    log(f"phase 18: {label}: worst errors {worst}" + (f" FAIL {bad[:6]}" if bad else " ok"))
+    moved = [fn.routes[route] - n for fn, n in zip((fa.flash_chunk_dq, fa.flash_chunk_dkv), routes)]
+    if moved != [sp * sp] * 2:
+        bad.append(f"B8/B9 launched the {route} route {moved} times, not {sp * sp}")
+    log(f"phase 18: {label}: worst errors {worst} (B8/B9 {route} route, dq/dk/dv rtol "
+        f"{bwd_rtol})" + (f" FAIL {bad[:6]}" if bad else " ok"))
     if bad:
         raise AssertionError(f"{label}: chunk kernels disagree with plain: {bad[:6]}")
     return worst
@@ -1986,7 +2004,8 @@ def sp_context():
 def phase19_sp_loss_vs_single(np_tree, dev) -> None:
     """The float32 SP loss at sp = 1 with use_flash against the card's
     single-device loss and the CPU's, fused_ce off and on; then 3
-    sp_train_steps against 3 train_steps. B1-B3 never launch on the SP path."""
+    sp_train_steps against 3 train_steps. B1-B3 never launch on the SP path.
+    Then the bf16 arm (``sp_bf16_vs_flash``)."""
     from pipegoose_tpu_torch.models.bloom import BloomConfig, loss_fn, loss_fn_sp
     from pipegoose_tpu_torch.models.weights import grads_of, params_from_jax, params_to_jax
     from pipegoose_tpu_torch.trainer import make_optimizer, sp_train_step, train_step
@@ -2045,6 +2064,53 @@ def phase19_sp_loss_vs_single(np_tree, dev) -> None:
             raise AssertionError("sp_train_step and train_step disagree")
         gc.collect()
         torch.cuda.empty_cache()
+    sp_bf16_vs_flash(tree, ids, mask, dev, n_layer)
+
+
+def sp_bf16_vs_flash(tree, ids, mask, dev, n_layer) -> None:
+    """bf16 on the card: the SP loss at sp = 1 (``loss_fn_sp``: B7, and B8/B9
+    on the tensor cores) against the single-device ``loss_fn`` with
+    use_flash (B1-B3) on the same weights and batch. Both run bf16
+    activations with float32 sums, and B8/B9 round P and dS to bf16 where
+    B2/B3 do not, so the loss holds to SP_BF16_LOSS_RTOL relative and every
+    gradient to FUSED_GRAD_RTOL[bfloat16] of its leaf's largest value."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig, loss_fn, loss_fn_sp
+    from pipegoose_tpu_torch.models.weights import grads_of, params_from_jax, params_to_jax
+    from pipegoose_tpu_torch.ops import flash_attention as fa
+    from pipegoose_tpu_torch.trainer import make_optimizer
+
+    vocab, hidden = tree["embed"]["weight"].shape
+    cfg = BloomConfig(vocab_size=vocab, hidden_size=hidden, n_layer=n_layer, n_head=16,
+                      remat=True, use_flash=True, dtype=torch.bfloat16)
+    log(f"phase 19: bf16 SP loss at sp=1 (B7-B9) vs the single-device flash loss "
+        f"(B1-B3) on the card: depth {n_layer}, batch {tuple(ids.shape)}, row 1 "
+        f"right-padded, remat, fused_ce off")
+    runs = {}
+    for label, fn in (("sp", loss_fn_sp), ("flash", loss_fn)):
+        params = params_from_jax(tree, cfg, device=dev)
+        make_optimizer(params, 1e-4)
+        mma = [f.routes["mma"] for f in (fa.flash_chunk_dq, fa.flash_chunk_dkv)]
+        as_t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        loss = fn(params, as_t(ids), as_t(mask), as_t(ids), cfg)
+        loss.backward()
+        moved = [f.routes["mma"] - n for f, n in zip((fa.flash_chunk_dq, fa.flash_chunk_dkv), mma)]
+        if label == "sp" and moved != [n_layer] * 2:
+            raise AssertionError(f"bf16 B8/B9 took the tensor cores {moved} times, "
+                                 f"not {n_layer} each")
+        runs[label] = (loss.item(), params_to_jax(grads_of(params)))
+        del params
+    (sp_loss, sp_grads), (ref_loss, ref_grads) = runs["sp"], runs["flash"]
+    loss_err = abs(sp_loss - ref_loss) / abs(ref_loss)
+    worst = max(((path, leaf_rel_err(g, c)) for path, g, c in zip_leaves(sp_grads, ref_grads)),
+                key=lambda x: x[1])
+    log(f"  loss sp {sp_loss} vs flash {ref_loss}: rel err {loss_err} (rtol "
+        f"{SP_BF16_LOSS_RTOL}); worst gradient {worst[0]} rel err {worst[1]} (rtol "
+        f"{FUSED_GRAD_RTOL[torch.bfloat16]})")
+    if (not np.isfinite(sp_loss) or loss_err > SP_BF16_LOSS_RTOL
+            or worst[1] > FUSED_GRAD_RTOL[torch.bfloat16]):
+        raise AssertionError("the bf16 SP loss or gradients disagree with the flash path")
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # -- phase 20 ------------------------------------------------------------------
@@ -2056,11 +2122,19 @@ def phase20_timed_sp_training(np_tree, dev, card) -> dict:
     from pipegoose_tpu_torch.models.bloom import BloomConfig
     from pipegoose_tpu_torch.trainer import sp_train_step
 
+    from pipegoose_tpu_torch.ops import flash_attention as fa
+
     cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16, remat=True, use_flash=True,
                                  fused_ce=True)
+    bwd = (fa.flash_chunk_dq, fa.flash_chunk_dkv)
+    routes = [dict(fn.routes) for fn in bwd]
     run = timed_training(np_tree, dev, card, cfg, "phase 20",
                          "sp_train_step at sp=1: remat, flash (the ring), fused_ce",
                          batch=1, seq=SP_SEQ, step_fn=sp_train_step)
+    moved = [{r: fn.routes[r] - before[r] for r in before} for fn, before in zip(bwd, routes)]
+    log(f"phase 20: B8, B9 launches by route over the SP run {moved}")
+    if any(m["fma"] or m["mma"] < 7 * cfg.n_layer for m in moved):
+        raise AssertionError("the bf16 SP step's B8/B9 left the tensor-core route")
     gc.collect()
     torch.cuda.empty_cache()
     single = timed_training(np_tree, dev, card, cfg, "phase 20",
@@ -2085,6 +2159,22 @@ def chunk_bound_ms(kind, case, tensors):
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def ptxas_usage(source, kernel):
+    """(registers, spill store bytes) of the one instantiation of ``source``'s
+    build whose mangled name contains ``kernel``, from ptxas's report."""
+    from pipegoose_tpu_torch.ops import _build
+
+    fn, regs, spills = "", None, None
+    for line in _build.build_log(source).splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[-1]
+        elif kernel in fn and "spill stores" in line:
+            spills = int(next(p for p in line.split(",") if "spill stores" in p).split()[0])
+        elif kernel in fn and "registers" in line:
+            regs = int(line.split("Used")[1].split("registers")[0])
+    return regs, spills
 
 
 def phase21_chunk_time(dev, card, errs, launches) -> list:
@@ -2132,6 +2222,10 @@ def phase21_chunk_time(dev, card, errs, launches) -> list:
     torch.cuda.empty_cache()
     log(f"phase 21: chunk kernels at phase 20's shape (B*nh={bh}, S={s}, hd={hd}, "
         f"bf16, the diagonal chunk, zero state), device ms per call, on {card}")
+    plan = fa.chunk_bwd_plan(q.dtype, hd, s, s)
+    routes = {"fwd": "fma", "dq": plan["route"], "dkv": plan["route"]}
+    mangled = {"fwd": f"chunk_fwd_kernelI13__nv_bfloat16Li{hd}E",
+               "dq": f"chunk_dq_mma_kernelILi{hd}E", "dkv": f"chunk_dkv_mma_kernelILi{hd}E"}
     rows = []
     for kind in ("fwd", "dq", "dkv"):
         kernel, plain = calls[kind]
@@ -2141,16 +2235,20 @@ def phase21_chunk_time(dev, card, errs, launches) -> list:
         torch.cuda.empty_cache()
         bound_ms, bound_by = chunk_bound_ms(kind, case, io[kind])
         library_ms = lib_fwd_ms if kind == "fwd" else lib_bwd_ms
-        log(f"  flash_chunk_{kind}: kernel {ms} (eager {call_ms}), bound {bound_ms} "
-            f"({bound_by}), plain {plain_ms}, SDPA "
+        regs, spills = ptxas_usage("flash_chunk", mangled[kind])
+        log(f"  flash_chunk_{kind} ({routes[kind]} route, {regs} registers, {spills} bytes "
+            f"spilled): kernel {ms} (eager {call_ms}), bound {bound_ms} ({bound_by}), "
+            f"plain {plain_ms}, SDPA "
             f"{'forward' if kind == 'fwd' else 'backward (dq, dk, dv in one call, eager)'} "
             f"{library_ms}")
         rows.append({
-            "name": f"flash_chunk_{kind} (bf16, B*nh={bh}, S={s}, hd={hd}, diagonal chunk)",
+            "name": f"flash_chunk_{kind} (bf16, B*nh={bh}, S={s}, hd={hd}, diagonal chunk, "
+                    f"{routes[kind]} route)",
             "source": CHUNK_SOURCE, "replaces": CHUNK_REPLACES[kind], "route": "cuda",
             "launches": launches[f"chunk_{kind}"], "max_abs_err": errs[kind], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "call_ms": call_ms,
+            "library_ms": library_ms, "call_ms": call_ms, "registers": regs,
+            "spill_store_bytes": spills,
         })
     return rows
 

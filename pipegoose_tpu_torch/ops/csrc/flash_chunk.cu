@@ -41,25 +41,66 @@
 // acc of the same size as q in float32). At the ring's diagonal chunk of
 // bloom-560m at 8192 tokens (BH = 16, S = 8192, HD = 64, bf16) the flops
 // at 989 TFLOP/s bf16 take 0.14-0.28 ms and the bytes at 3.35 TB/s about a
-// tenth of that: the operations bound it. These are the simple first version
-// of the kernels, as in flash_attention.cu: float32 FMAs on the CUDA cores
-// (67 TFLOP/s peak, not the tensor cores' 989) from 64 x 64 tiles staged in
-// shared memory, so they sit far above that bound. wgmma on bf16 tiles, TMA
-// and double buffering are later work.
+// tenth of that: the operations bound it.
 //
-// Design. The TPU's sequential grid axis becomes a loop inside one block:
-//   fwd, dq: one block per (row of BH, 64-query tile); it walks every 64-key
-//     tile of the chunk, skipping fully-future ones, with the state (fwd) or
-//     the dQ accumulator (dq) in registers;
-//   dkv: one block per (row of BH, 64-key tile); it walks every query tile,
-//     so each block owns its dK/dV rows: no atomics and no second pass.
-// The skip test reads the tile's positions from shared memory, so every
-// thread of a block takes the same branch. 256 threads as 16 x 16; thread
-// (ty, tx) owns rows ty + 16a and columns tx + 16b (a, b < 4) of every 64 x 64
-// score tile, and columns tx + 16c of the HD-wide accumulators. Tiles are
-// staged as float32 rows of stride HD + 1 (a column walk over 16 rows hits 16
-// distinct banks); row max and row sum are reduced over the 16 lanes of a row
-// with warp shuffles. Ragged tiles are staged as zeros and masked.
+// Two routes, picked by the wrapper (ops/flash_attention.py chunk_bwd_plan):
+//
+// 1. The FMA route: the forward in both dtypes, and dQ and dK/dV for
+//    float32 inputs, whose rounding to bf16 would change the function.
+//    float32 FMAs on the CUDA cores (67 TFLOP/s peak, not the tensor cores'
+//    989) from 64 x 64 tiles staged in shared memory, so these sit far above
+//    the bound.
+//    - The TPU's sequential grid axis becomes a loop inside one block. fwd,
+//      dq: one block per (row of BH, 64-query tile); it walks every 64-key
+//      tile of the chunk, skipping fully-future ones, with the state (fwd)
+//      or the dQ accumulator (dq) in registers. dkv: one block per (row of
+//      BH, 64-key tile); it walks every query tile, so each block owns its
+//      dK/dV rows: no atomics and no second pass.
+//    - The skip test reads the tile's positions from shared memory, so
+//      every thread of a block takes the same branch. 256 threads as 16 x
+//      16; thread (ty, tx) owns rows ty + 16a and columns tx + 16b (a, b <
+//      4) of every 64 x 64 score tile, and columns tx + 16c of the HD-wide
+//      accumulators. Tiles are staged as float32 rows of stride HD + 1 (a
+//      column walk over 16 rows hits 16 distinct banks); row max and row
+//      sum are reduced over the 16 lanes of a row with warp shuffles.
+//      Ragged tiles are staged as zeros and masked.
+// 2. The tensor-core route, chunk_dq_mma_kernel and chunk_dkv_mma_kernel:
+//    dQ and dK/dV for bf16 inputs (B8, B9). Same blocks and walks as the FMA
+//    route, same skip and score order, but every product runs as bf16
+//    mma.sync.m16n8k16 with float32 accumulators (attn_mma.cuh):
+//    - 128 threads, four warps of 16 rows each of the block's own 64-row
+//      tile (dq: queries; dkv: keys). Those rows (dq: Q and dO; dkv: K and
+//      V) are staged once and read by ldmatrix as A fragments at each k
+//      step. Holding them in registers instead left 2 blocks an SM (~175
+//      registers a thread); read from shared memory, both kernels fit 128
+//      registers with no spills and an SM holds 4 blocks at HD <= 64 (2 at
+//      HD = 128, where shared memory allows no more): ~30% faster on an H100
+//      at bloom-560m's 8192-token ring chunk.
+//    - The walked tiles (dq: K, V, kpos, kneg; dkv: Q, dO, qpos, lse,
+//      delta) stream through a two-deep cp.async ring: the next visible
+//      tile is in flight while the block computes on this one. bf16 rows
+//      are staged with 16 bytes of padding, so each ldmatrix reads 8 rows
+//      from 8 distinct bank quads.
+//    - dq: S = Q K^T and dP = dO V^T, then in registers and in float32 the
+//      score in the order above, P = exp(s - lse), dS = P (dP - delta), and
+//      dS packed straight into A fragments: dQ += dS K with K read by
+//      ldmatrix.trans. dkv: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T in
+//      registers, dV += P^T dO and dK += dS^T Q (dO, Q by ldmatrix.trans),
+//      in passes of 16 queries to bound the registers.
+//    - P and dS are rounded once to bf16 before the second product (a
+//      relative 2^-9 each, as the TPU's matrix unit rounds them at JAX's
+//      default precision); every sum is float32.
+//    - The skip test takes a tile's smallest or largest position from a
+//      warp reduction of its 64 positions read from device memory, four
+//      tiles a round: every warp reads the same values and reduces them in
+//      the same order, so the block agrees on the branch without a
+//      barrier, and a skipped tile is never staged. Positions need not be
+//      monotone.
+//    - On the diagonal chunk dq's query tile i walks i + 1 key tiles and
+//      dkv's key tile j walks n - j query tiles: dq's grid runs the query
+//      tiles in reverse, so on both kernels the longest blocks start first.
+//    - No atomics, no workspace: a repeat call gives the same bits.
+// Both routes write float32 outputs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,9 +109,12 @@
 
 #include <type_traits>
 
+#include "attn_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;    // 16 x 16
+constexpr int kThreads = 256;    // FMA route: 16 x 16
+constexpr int kMmaThreads = 128; // tensor-core route: four warps
 constexpr int kTile = 64;        // queries per query tile = keys per key tile
 constexpr int kSub = kTile / 16; // rows (and score columns) per thread
 constexpr int kLdp = kTile + 1;  // row stride of a staged 64 x 64 score tile
@@ -480,15 +524,420 @@ chunk_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Tensor-core route (bf16 q, k, v, dO): shared memory, staging, the skip scan.
+
+constexpr int kScanTiles = 4;    // tiles a position scan tests per round
+
+template <int HD>
+struct BwdSmem {
+  static constexpr int kPitch = HD * 2 + 16;              // bytes a staged bf16 row
+  static constexpr int kMat = kTile * kPitch;             // one staged 64-row tile
+  static constexpr int kStage = 2 * kMat + 3 * kTile * 4; // two tiles + three vectors
+  static constexpr int kBytes = 2 * kMat + 2 * kStage;    // resident tiles + the ring
+  // blocks an SM holds: 4 (<= 128 registers a thread) where shared memory
+  // allows it (HD <= 64, ~57 KB a block), else 2
+  static constexpr int kMinBlocks = HD <= 64 ? 4 : 2;
+};
+
+// Queue rows [r0, r0 + 64) of a (rows, HD) bf16 matrix into a staged tile;
+// rows at or past `rows` are zero filled.
+template <int HD>
+__device__ __forceinline__ void stage_tile(uint8_t* dst, const uint16_t* __restrict__ src,
+                                           int r0, int rows, int tid) {
+  constexpr int kChunks = HD * 2 / 16;   // 16-byte pieces a row
+  for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
+    const int r = e / kChunks, j = e % kChunks;
+    const bool ok = r0 + r < rows;
+    cp_async16(dst + r * BwdSmem<HD>::kPitch + 16 * j,
+               src + (int64_t)(ok ? r0 + r : 0) * HD + 8 * j, ok);
+  }
+}
+
+// Queue entries [r0, r0 + 64) of a float32 vector of n; past n zero filled.
+__device__ __forceinline__ void stage_vec_async(float* dst, const float* __restrict__ src,
+                                                int r0, int n, int tid) {
+  for (int e = tid; e < kTile; e += kMmaThreads) {
+    const bool ok = r0 + e < n;
+    cp_async4(dst + e, src + (ok ? r0 + e : 0), ok);
+  }
+}
+
+// The smallest (kMin) or largest position of 64-position tile t of the n
+// at `pos`, over the positions that exist; every lane gets the same value.
+template <bool kMin>
+__device__ __forceinline__ float tile_extreme(const float* __restrict__ pos, int n, int t,
+                                              int lane) {
+  const float fill = kMin ? INFINITY : -INFINITY;
+  const int i = t * kTile + lane;
+  const float a = i < n ? pos[i] : fill, b = i + 32 < n ? pos[i + 32] : fill;
+  float x = kMin ? fminf(a, b) : fmaxf(a, b);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float y = shfl_xor(x, o);
+    x = kMin ? fminf(x, y) : fmaxf(x, y);
+  }
+  return x;
+}
+
+// The first tile t >= from of the n positions at `pos` that the block must
+// visit, or the tile count if none: with kMin a key tile whose smallest
+// position is <= bound (the largest query position of the block: dq), else
+// a query tile whose largest position is >= bound (the smallest key
+// position of the block: dkv). The other tiles are fully future. Tests
+// kScanTiles tiles a round, their loads all in flight together.
+template <bool kMin>
+__device__ __forceinline__ int next_visible(const float* __restrict__ pos, int n, int from,
+                                            float bound, int lane) {
+  const int n_tiles = (n + kTile - 1) / kTile;
+  const float fill = kMin ? INFINITY : -INFINITY;
+  for (int t0 = from; t0 < n_tiles; t0 += kScanTiles) {
+    float x[kScanTiles];
+#pragma unroll
+    for (int u = 0; u < kScanTiles; ++u) {
+      const int i = (t0 + u) * kTile + lane;
+      const float a = i < n ? pos[i] : fill, b = i + 32 < n ? pos[i + 32] : fill;
+      x[u] = kMin ? fminf(a, b) : fmaxf(a, b);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < kScanTiles; ++u) {
+        const float y = shfl_xor(x[u], o);
+        x[u] = kMin ? fminf(x[u], y) : fmaxf(x[u], y);
+      }
+#pragma unroll
+    for (int u = 0; u < kScanTiles; ++u)
+      if (t0 + u < n_tiles && (kMin ? x[u] <= bound : x[u] >= bound)) return t0 + u;
+  }
+  return n_tiles;
+}
+
+// The A fragment of rows 16 w .. 16 w + 15 and k columns 16 kk .. 16 kk + 15
+// of a staged tile.
+template <int HD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint8_t* tile, int w, int kk,
+                                       int lane) {
+  const int mi = lane / 8, mr = lane % 8;
+  ldmatrix4<false>(a, tile + (16 * w + (mi % 2) * 8 + mr) * BwdSmem<HD>::kPitch +
+                          (16 * kk + (mi / 2) * 8) * 2);
+}
+
+// B fragments of n-tiles 2 np and 2 np + 1 for k step kk, where the
+// product's n runs over the staged tile's rows 16 np .. 16 np + 15 and its k
+// over their columns (A . tile^T): b[0], b[1] for n-tile 2 np, b[2], b[3]
+// for 2 np + 1.
+template <int HD>
+__device__ __forceinline__ void load_bt(uint32_t (&b)[4], const uint8_t* tile, int np, int kk,
+                                        int lane) {
+  const int mi = lane / 8, mr = lane % 8;
+  ldmatrix4<false>(b, tile + ((2 * np + mi / 2) * 8 + mr) * BwdSmem<HD>::kPitch +
+                          (16 * kk + (mi % 2) * 8) * 2);
+}
+
+// B fragments of n-tiles 2 np and 2 np + 1 for k step kk, where the
+// product's k runs over the staged tile's rows 16 kk .. 16 kk + 15 and its n
+// over their columns 16 np .. 16 np + 15 (A . tile), by ldmatrix.trans.
+template <int HD>
+__device__ __forceinline__ void load_b(uint32_t (&b)[4], const uint8_t* tile, int np, int kk,
+                                       int lane) {
+  const int mi = lane / 8, mr = lane % 8;
+  ldmatrix4<true>(b, tile + (16 * kk + (mi % 2) * 8 + mr) * BwdSmem<HD>::kPitch +
+                         (16 * np + (mi / 2) * 8) * 2);
+}
+
+// ---------------------------------------------------------------------------
+// dQ on the tensor cores: grid (BH, ceil(Sq / 64)), the query tiles in
+// reverse. dq float32 (BH, Sq, HD).
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads, BwdSmem<HD>::kMinBlocks)
+chunk_dq_mma_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                    const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    const float* __restrict__ slopes, const float* __restrict__ qpos,
+                    const float* __restrict__ kpos, const float* __restrict__ kneg,
+                    float* __restrict__ dq, int sq, int skv, int g, float scale) {
+  using S = BwdSmem<HD>;
+  constexpr int KS = HD / 16;        // k steps of a product over HD
+  constexpr int ND = HD / 8;         // n-tiles of the dQ accumulator
+  const int row = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // the longest walks first
+  const int q0 = qt * kTile;
+  const int kvr = row / g;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gr = lane / 4, c = lane % 4;
+  uint8_t* smem = dyn_smem();
+  uint8_t* Qs = smem;                  // [64][pitch] this block's Q rows
+  uint8_t* Os = smem + S::kMat;        // [64][pitch] its dO rows
+  uint8_t* ring = smem + 2 * S::kMat;  // two stages of K, V, kpos, kneg
+
+  const int64_t rs = (int64_t)row * sq;
+  const uint16_t* kr = k + (int64_t)kvr * skv * HD;
+  const uint16_t* vr = v + (int64_t)kvr * skv * HD;
+  const float* kpr = kpos + (int64_t)kvr * skv;
+  const float* knr = kneg + (int64_t)kvr * skv;
+  const float slope = slopes[row];
+  const int n_kt = (skv + kTile - 1) / kTile;
+
+  stage_tile<HD>(Qs, q + rs * HD, q0, sq, tid);
+  stage_tile<HD>(Os, dout + rs * HD, q0, sq, tid);
+  cp_async_commit();
+  auto stage_keys = [&](int t, int slot) {
+    uint8_t* st = ring + slot * S::kStage;
+    stage_tile<HD>(st, kr, t * kTile, skv, tid);
+    stage_tile<HD>(st + S::kMat, vr, t * kTile, skv, tid);
+    float* vec = reinterpret_cast<float*>(st + 2 * S::kMat);
+    stage_vec_async(vec, kpr, t * kTile, skv, tid);
+    stage_vec_async(vec + kTile, knr, t * kTile, skv, tid);
+  };
+
+  // this lane's query rows: r0 (accumulator elements 0, 1) and r0 + 8 (2, 3)
+  const int r0 = q0 + 16 * warp + gr;
+  float lse_r[2], dl_r[2], qp_r[2];
+  bool ok_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    ok_r[h] = r < sq;
+    lse_r[h] = ok_r[h] ? lse[rs + r] : 0.f;
+    dl_r[h] = ok_r[h] ? delta[rs + r] : 0.f;
+    qp_r[h] = ok_r[h] ? qpos[rs + r] : 0.f;
+  }
+  const float q_max = tile_extreme<false>(qpos + rs, sq, qt, lane);
+
+  int cur = next_visible<true>(kpr, skv, 0, q_max, lane);
+  if (cur < n_kt) stage_keys(cur, 0);
+  cp_async_commit();
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int slot = 0; cur < n_kt; slot ^= 1) {
+    const int nxt = next_visible<true>(kpr, skv, cur + 1, q_max, lane);
+    if (nxt < n_kt) stage_keys(nxt, slot ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // key tile `cur` has landed in `slot` (and Q, dO before it)
+    const uint8_t* Ks = ring + slot * S::kStage;
+    const uint8_t* Vs = Ks + S::kMat;
+    const float* KP = reinterpret_cast<const float*>(Ks + 2 * S::kMat);
+    const float* KN = KP + kTile;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t aq[4], ao[4];
+      load_a<HD>(aq, Qs, warp, kk, lane);
+      load_a<HD>(ao, Os, warp, kk, lane);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        load_bt<HD>(b, Ks, np, kk, lane);
+        mma_bf16(s[2 * np], aq, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], aq, b[2], b[3]);
+        load_bt<HD>(b, Vs, np, kk, lane);
+        mma_bf16(dp[2 * np], ao, b[0], b[1]);
+        mma_bf16(dp[2 * np + 1], ao, b[2], b[3]);
+      }
+    }
+    const int k0 = cur * kTile;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * n + 2 * c + (e & 1), h = e >> 1;
+        float p = 0.f;
+        if (ok_r[h] && k0 + j < skv)
+          p = expf(score(s[n][e], scale, slope, KP[j], KN[j], qp_r[h]) - lse_r[h]);
+        s[n][e] = p * (dp[n][e] - dl_r[h]);   // dS
+      }
+#pragma unroll
+    for (int kp = 0; kp < 4; ++kp) {   // dQ += dS . K, 16 keys a k step
+      uint32_t a[4];
+      pack_a(a, s[2 * kp], s[2 * kp + 1]);
+#pragma unroll
+      for (int np = 0; np < ND / 2; ++np) {
+        uint32_t b[4];
+        load_b<HD>(b, Ks, np, kp, lane);
+        mma_bf16(acc[2 * np], a, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();   // `slot` is free for the tile after next
+    cur = nxt;
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!ok_r[h]) continue;
+    float* out = dq + (rs + r0 + 8 * h) * HD + 2 * c;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(scale * acc[n][2 * h], scale * acc[n][2 * h + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV on the tensor cores: grid (BH, ceil(Skv / 64)), one block per 64-key
+// tile of one query head. dk, dv float32 (BH, Skv, HD).
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads, BwdSmem<HD>::kMinBlocks)
+chunk_dkv_mma_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                     const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const float* __restrict__ slopes, const float* __restrict__ qpos,
+                     const float* __restrict__ kpos, const float* __restrict__ kneg,
+                     float* __restrict__ dk, float* __restrict__ dv, int sq, int skv,
+                     int g, float scale) {
+  using S = BwdSmem<HD>;
+  constexpr int KS = HD / 16;
+  constexpr int ND = HD / 8;
+  const int row = blockIdx.x;
+  const int kt = blockIdx.y;
+  const int k0 = kt * kTile;
+  const int kvr = row / g;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gr = lane / 4, c = lane % 4;
+  uint8_t* smem = dyn_smem();
+  uint8_t* Ks = smem;                  // [64][pitch] this block's K rows
+  uint8_t* Vs = smem + S::kMat;        // [64][pitch] its V rows
+  uint8_t* ring = smem + 2 * S::kMat;  // two stages of Q, dO, qpos, lse, delta
+
+  const int64_t rs = (int64_t)row * sq;
+  const uint16_t* qr = q + rs * HD;
+  const uint16_t* dor = dout + rs * HD;
+  const float* kpr = kpos + (int64_t)kvr * skv;
+  const float* knr = kneg + (int64_t)kvr * skv;
+  const float slope = slopes[row];
+  const int n_qt = (sq + kTile - 1) / kTile;
+
+  stage_tile<HD>(Ks, k + (int64_t)kvr * skv * HD, k0, skv, tid);
+  stage_tile<HD>(Vs, v + (int64_t)kvr * skv * HD, k0, skv, tid);
+  cp_async_commit();
+  auto stage_queries = [&](int t, int slot) {
+    uint8_t* st = ring + slot * S::kStage;
+    stage_tile<HD>(st, qr, t * kTile, sq, tid);
+    stage_tile<HD>(st + S::kMat, dor, t * kTile, sq, tid);
+    float* vec = reinterpret_cast<float*>(st + 2 * S::kMat);
+    stage_vec_async(vec, qpos + rs, t * kTile, sq, tid);
+    stage_vec_async(vec + kTile, lse + rs, t * kTile, sq, tid);
+    stage_vec_async(vec + 2 * kTile, delta + rs, t * kTile, sq, tid);
+  };
+
+  // this lane's key rows: j0 (accumulator elements 0, 1) and j0 + 8 (2, 3)
+  const int j0 = k0 + 16 * warp + gr;
+  float kp_r[2], kn_r[2];
+  bool ok_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = j0 + 8 * h;
+    ok_r[h] = j < skv;
+    kp_r[h] = ok_r[h] ? kpr[j] : 0.f;
+    kn_r[h] = ok_r[h] ? knr[j] : 0.f;
+  }
+  const float k_min = tile_extreme<true>(kpr, skv, kt, lane);
+
+  int cur = next_visible<false>(qpos + rs, sq, 0, k_min, lane);
+  if (cur < n_qt) stage_queries(cur, 0);
+  cp_async_commit();
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  for (int slot = 0; cur < n_qt; slot ^= 1) {
+    const int nxt = next_visible<false>(qpos + rs, sq, cur + 1, k_min, lane);
+    if (nxt < n_qt) stage_queries(nxt, slot ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // query tile `cur` has landed in `slot` (and K, V before it)
+    const uint8_t* Qt = ring + slot * S::kStage;
+    const uint8_t* Ot = Qt + S::kMat;
+    const float* QP = reinterpret_cast<const float*>(Qt + 2 * S::kMat);
+    const float* LS = QP + kTile;
+    const float* DL = LS + kTile;
+    const int q0 = cur * kTile;
+    // 16 queries a pass (one k step of the second products): the pass loop
+    // stays rolled so that its scores never share registers with the next
+    // pass's, and the kernel fits 128 registers with no spills
+#pragma unroll 1
+    for (int pass = 0; pass < kTile / 16; ++pass) {
+      float st[2][4], dpt[2][4];   // S^T, dP^T: key rows, query columns
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ak[4], av[4], b[4];
+        load_a<HD>(ak, Ks, warp, kk, lane);
+        load_a<HD>(av, Vs, warp, kk, lane);
+        load_bt<HD>(b, Qt, pass, kk, lane);
+        mma_bf16(st[0], ak, b[0], b[1]);
+        mma_bf16(st[1], ak, b[2], b[3]);
+        load_bt<HD>(b, Ot, pass, kk, lane);
+        mma_bf16(dpt[0], av, b[0], b[1]);
+        mma_bf16(dpt[1], av, b[2], b[3]);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 16 * pass + 8 * n + 2 * c + (e & 1), h = e >> 1;
+          float p = 0.f;
+          if (ok_r[h] && q0 + i < sq)
+            p = expf(score(st[n][e], scale, slope, kp_r[h], kn_r[h], QP[i]) - LS[i]);
+          st[n][e] = p;                         // P^T
+          dpt[n][e] = p * (dpt[n][e] - DL[i]);  // dS^T
+        }
+      uint32_t ap[4], as[4];   // dV += P^T dO, dK += dS^T Q
+      pack_a(ap, st[0], st[1]);
+      pack_a(as, dpt[0], dpt[1]);
+#pragma unroll
+      for (int np = 0; np < ND / 2; ++np) {
+        uint32_t b[4];
+        load_b<HD>(b, Ot, np, pass, lane);
+        mma_bf16(dv_acc[2 * np], ap, b[0], b[1]);
+        mma_bf16(dv_acc[2 * np + 1], ap, b[2], b[3]);
+        load_b<HD>(b, Qt, np, pass, lane);
+        mma_bf16(dk_acc[2 * np], as, b[0], b[1]);
+        mma_bf16(dk_acc[2 * np + 1], as, b[2], b[3]);
+      }
+    }
+    __syncthreads();   // `slot` is free for the tile after next
+    cur = nxt;
+  }
+  cp_async_wait<0>();
+  const int64_t ks = (int64_t)row * skv;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!ok_r[h]) continue;
+    const int64_t at = (ks + j0 + 8 * h) * HD + 2 * c;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<float2*>(dk + at + 8 * n) =
+          make_float2(scale * dk_acc[n][2 * h], scale * dk_acc[n][2 * h + 1]);
+      *reinterpret_cast<float2*>(dv + at + 8 * n) =
+          make_float2(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Launch: the opt-in to more than 48 KB of dynamic shared memory is set once
 // per instantiation, at its first launch, so that later launches (a CUDA
 // graph capture among them) only queue the kernel.
 
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, bool* opted_in, size_t smem_floats, int bh, int tiles_of,
+int launch(Kernel kernel, bool* opted_in, size_t smem, int threads, int bh, int tiles_of,
            cudaStream_t stream, Args... args) {
-  const size_t smem = smem_floats * sizeof(float);
   if (!*opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -496,11 +945,12 @@ int launch(Kernel kernel, bool* opted_in, size_t smem_floats, int bh, int tiles_
     *opted_in = true;
   }
   const dim3 grid(bh, (tiles_of + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
 using cf = const float*;
+using cb = const uint16_t*;
 
 template <typename T, int HD>
 int fwd(const void* q, const void* k, const void* v, const void* slopes,
@@ -509,8 +959,8 @@ int fwd(const void* q, const void* k, const void* v, const void* slopes,
         void* acc_out, int bh, int sq, int skv, int g, float scale,
         cudaStream_t stream) {
   static bool opted_in = false;
-  return launch(chunk_fwd_kernel<T, HD>, &opted_in, fwd_smem_floats<HD>(), bh, sq,
-                stream, static_cast<const T*>(q), static_cast<const T*>(k),
+  return launch(chunk_fwd_kernel<T, HD>, &opted_in, fwd_smem_floats<HD>() * sizeof(float),
+                kThreads, bh, sq, stream, static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<cf>(slopes),
                 static_cast<cf>(qpos), static_cast<cf>(kpos), static_cast<cf>(kneg),
                 static_cast<cf>(m_in), static_cast<cf>(l_in), static_cast<cf>(acc_in),
@@ -518,18 +968,26 @@ int fwd(const void* q, const void* k, const void* v, const void* slopes,
                 static_cast<float*>(acc_out), sq, skv, g, scale);
 }
 
+// dQ and dK/dV: float32 inputs on the FMA kernels, bf16 on the tensor cores.
 template <typename T, int HD>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, const void* slopes, const void* qpos,
        const void* kpos, const void* kneg, void* dq_out, int bh, int sq, int skv,
        int g, float scale, cudaStream_t stream) {
   static bool opted_in = false;
-  return launch(chunk_dq_kernel<T, HD>, &opted_in, dq_smem_floats<HD>(), bh, sq,
-                stream, static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout),
-                static_cast<cf>(lse), static_cast<cf>(delta), static_cast<cf>(slopes),
-                static_cast<cf>(qpos), static_cast<cf>(kpos), static_cast<cf>(kneg),
-                static_cast<float*>(dq_out), sq, skv, g, scale);
+  if constexpr (std::is_same_v<T, float>)
+    return launch(chunk_dq_kernel<float, HD>, &opted_in, dq_smem_floats<HD>() * sizeof(float),
+                  kThreads, bh, sq, stream, static_cast<cf>(q), static_cast<cf>(k),
+                  static_cast<cf>(v), static_cast<cf>(dout), static_cast<cf>(lse),
+                  static_cast<cf>(delta), static_cast<cf>(slopes), static_cast<cf>(qpos),
+                  static_cast<cf>(kpos), static_cast<cf>(kneg), static_cast<float*>(dq_out),
+                  sq, skv, g, scale);
+  else
+    return launch(chunk_dq_mma_kernel<HD>, &opted_in, BwdSmem<HD>::kBytes, kMmaThreads, bh, sq,
+                  stream, static_cast<cb>(q), static_cast<cb>(k), static_cast<cb>(v),
+                  static_cast<cb>(dout), static_cast<cf>(lse), static_cast<cf>(delta),
+                  static_cast<cf>(slopes), static_cast<cf>(qpos), static_cast<cf>(kpos),
+                  static_cast<cf>(kneg), static_cast<float*>(dq_out), sq, skv, g, scale);
 }
 
 template <typename T, int HD>
@@ -538,19 +996,30 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
         const void* kpos, const void* kneg, void* dk, void* dv, int bh, int sq,
         int skv, int g, float scale, cudaStream_t stream) {
   static bool opted_in = false;
-  return launch(chunk_dkv_kernel<T, HD>, &opted_in, dkv_smem_floats<HD>(), bh, skv,
-                stream, static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout),
-                static_cast<cf>(lse), static_cast<cf>(delta), static_cast<cf>(slopes),
-                static_cast<cf>(qpos), static_cast<cf>(kpos), static_cast<cf>(kneg),
-                static_cast<float*>(dk), static_cast<float*>(dv), sq, skv, g, scale);
+  if constexpr (std::is_same_v<T, float>)
+    return launch(chunk_dkv_kernel<float, HD>, &opted_in,
+                  dkv_smem_floats<HD>() * sizeof(float), kThreads, bh, skv, stream,
+                  static_cast<cf>(q), static_cast<cf>(k), static_cast<cf>(v),
+                  static_cast<cf>(dout), static_cast<cf>(lse), static_cast<cf>(delta),
+                  static_cast<cf>(slopes), static_cast<cf>(qpos), static_cast<cf>(kpos),
+                  static_cast<cf>(kneg), static_cast<float*>(dk), static_cast<float*>(dv), sq,
+                  skv, g, scale);
+  else
+    return launch(chunk_dkv_mma_kernel<HD>, &opted_in, BwdSmem<HD>::kBytes, kMmaThreads, bh,
+                  skv, stream, static_cast<cb>(q), static_cast<cb>(k), static_cast<cb>(v),
+                  static_cast<cb>(dout), static_cast<cf>(lse), static_cast<cf>(delta),
+                  static_cast<cf>(slopes), static_cast<cf>(qpos), static_cast<cf>(kpos),
+                  static_cast<cf>(kneg), static_cast<float*>(dk), static_cast<float*>(dv), sq,
+                  skv, g, scale);
 }
 
 }  // namespace
 
 // Entry points, one per kernel and dtype of q/k/v/dO (float32, bf16), head_dim
-// 32, 64 or 128; every other array is float32. Each returns the launch's
-// cudaError_t: 0 when the kernel was queued on `stream`.
+// 32, 64 or 128; every other array is float32. The bf16 dq and dkv entries
+// launch the tensor-core kernels, whose 16-byte copies need q, k, v and dO to
+// start on a 16-byte boundary. Each returns the launch's cudaError_t: 0 when
+// the kernel was queued on `stream`.
 
 template <typename Fn>
 int by_head_dim(int hd, Fn fn) {

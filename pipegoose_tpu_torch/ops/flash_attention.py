@@ -23,6 +23,8 @@ the end of the file: :func:`flash_ring_chunk` (one ring step's update of
 the unnormalized online-softmax state), :func:`flash_chunk_dq` and
 :func:`flash_chunk_dkv`, each beside its plain version, with the causal
 test on position values and the NEG_INF added (``_flash_chunk_pallas``).
+The two backward kernels have two routes (:func:`chunk_bwd_plan`): bf16
+inputs on the tensor cores, float32 inputs on float32 FMAs.
 
 Scores of the three whole-sequence kernels follow ``_bias_block``:
 ``q.k * scale + slope * kv_pos + kv_neg``, where the causal test
@@ -444,6 +446,55 @@ def _check_chunk(q, k, v, slopes, qpos, kpos, kneg, g, **extra):
 
 
 _CHUNK_PTRS = {"fwd": 13, "dq": 11, "dkv": 12}
+CHUNK_TILE = 64            # queries of a query tile = keys of a key tile
+FMA_THREADS = 256          # a block of the FMA route, 16 x 16 threads
+MMA_THREADS = 128          # a block of the tensor-core route, four warps
+
+
+def chunk_bwd_plan(dtype, hd: int, sq: int, skv: int) -> dict:
+    """The launches :func:`flash_chunk_dq` and :func:`flash_chunk_dkv` make
+    for q/k/v/dO of ``dtype``, head_dim ``hd``, ``sq`` queries and ``skv``
+    keys. Pure Python, so the CPU tests check it.
+
+    - "mma" (bf16): the tensor-core kernels, bf16 ``mma.sync`` with float32
+      sums, four warps of 16 rows each of the block's 64-row tile, the
+      walked tiles in a two-deep ``cp.async`` ring of bf16 rows padded by
+      16 bytes, the block's own rows read from shared memory at each k
+      step, ``blocks_per_sm`` blocks an SM (128 registers a thread where
+      shared memory holds 4); dK/dV takes each query tile in passes of
+      ``dkv_pass_queries``. P and dS are rounded once to bf16 before the
+      second product.
+    - "fma" (float32): the float32-FMA kernels, 16 x 16 threads, tiles
+      staged as float32 rows of stride hd + 1; exact in the inputs.
+
+    dq has one block per (row, query tile), on the tensor-core route the
+    query tiles in reverse so that on the diagonal chunk the longest walks
+    start first; dkv one per (row, key tile), whose natural order already
+    starts the longest first.
+    Raises TypeError for a dtype and ValueError for a head_dim or a length
+    the kernels do not take."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim={hd} not in the kernels' {HEAD_DIMS}")
+    if min(sq, skv) < 0 or max(-(-sq // CHUNK_TILE), -(-skv // CHUNK_TILE)) > MAX_TILES:
+        raise ValueError(f"Sq={sq} or Skv={skv} needs more than {MAX_TILES} tiles")
+    if dtype == torch.bfloat16:
+        mat = CHUNK_TILE * (2 * hd + 16)                 # one staged bf16 tile
+        smem = 2 * mat + 2 * (2 * mat + 3 * CHUNK_TILE * 4)
+        route = {"route": "mma", "threads": MMA_THREADS,
+                 "smem_bytes": {"dq": smem, "dkv": smem},
+                 "blocks_per_sm": 4 if hd <= 64 else 2, "dkv_pass_queries": 16}
+    else:
+        rows = CHUNK_TILE * (hd + 1)                    # one staged float32 tile
+        score = CHUNK_TILE * (CHUNK_TILE + 1)
+        route = {"route": "fma", "threads": FMA_THREADS,
+                 "smem_bytes": {"dq": 4 * (4 * rows + score + 3 * CHUNK_TILE),
+                                "dkv": 4 * (4 * rows + 2 * score + 4 * CHUNK_TILE)},
+                 "blocks_per_sm": None, "dkv_pass_queries": CHUNK_TILE}
+    return {**route, "tile": CHUNK_TILE,
+            "grid_tiles": {"dq": -(-sq // CHUNK_TILE), "dkv": -(-skv // CHUNK_TILE)},
+            "dq_tiles_reversed": route["route"] == "mma"}
 
 
 def _chunk_launch(kind, q, k, ptrs, g, scale):
@@ -484,36 +535,48 @@ def flash_ring_chunk(q, k, v, slopes, qpos, kpos, kneg, m, l, acc, scale, g=1):
 
 
 def _check_chunk_bwd(q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, g):
+    """The chunk checks plus dO, lse and delta; returns the backward plan.
+    The tensor-core route copies bf16 rows 16 bytes at a time, so q, k, v
+    and dO must start on a 16-byte boundary there."""
     bh, sq = q.shape[:2]
     _check_chunk(q, k, v, slopes, qpos, kpos, kneg, g,
                  do=(do, tuple(q.shape), q.dtype),
                  lse=(lse, (bh, sq), torch.float32),
                  delta=(delta, (bh, sq), torch.float32))
+    plan = chunk_bwd_plan(q.dtype, q.shape[2], sq, k.shape[1])
+    if plan["route"] == "mma":
+        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary")
+    return plan
 
 
 def flash_chunk_dq(q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, scale, g=1):
     """This chunk's dQ (B8): + do (BH, Sq, hd) in q's dtype, the final lse
-    and delta (BH, Sq) float32 -> dq float32 (BH, Sq, hd)."""
+    and delta (BH, Sq) float32 -> dq float32 (BH, Sq, hd). On CUDA tensors
+    it launches by the route :func:`chunk_bwd_plan` picks (``.launches``
+    counts the launches, ``.routes`` them by route)."""
     args = (q, k, v, do, lse, delta, slopes, qpos, kpos, kneg)
     if _device_of(q, "flash_chunk_dq") == "cpu":
         return flash_chunk_dq_reference(*args, scale, g)
-    _check_chunk_bwd(*args, g)
+    plan = _check_chunk_bwd(*args, g)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if q.numel() == 0 or k.shape[1] == 0:
         return dq.zero_()
     _chunk_launch("dq", q, k, tuple(t.data_ptr() for t in args + (dq,)), g, scale)
     flash_chunk_dq.launches += 1
+    flash_chunk_dq.routes[plan["route"]] += 1
     return dq
 
 
 def flash_chunk_dkv(q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, scale, g=1):
     """This chunk's dK/dV (B9): the dq kernel's inputs -> (dk, dv) float32
     (BH, Skv, hd) each, PER QUERY HEAD (the ring sums the g heads of a
-    group)."""
+    group). Routes and counters as :func:`flash_chunk_dq`."""
     args = (q, k, v, do, lse, delta, slopes, qpos, kpos, kneg)
     if _device_of(q, "flash_chunk_dkv") == "cpu":
         return flash_chunk_dkv_reference(*args, scale, g)
-    _check_chunk_bwd(*args, g)
+    plan = _check_chunk_bwd(*args, g)
     shape = (q.shape[0], k.shape[1], q.shape[2])
     dk = torch.empty(shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(shape, dtype=torch.float32, device=q.device)
@@ -521,9 +584,12 @@ def flash_chunk_dkv(q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, scale, g=
         return dk.zero_(), dv.zero_()
     _chunk_launch("dkv", q, k, tuple(t.data_ptr() for t in args + (dk, dv)), g, scale)
     flash_chunk_dkv.launches += 1
+    flash_chunk_dkv.routes[plan["route"]] += 1
     return dk, dv
 
 
 flash_ring_chunk.launches = 0
 flash_chunk_dq.launches = 0
 flash_chunk_dkv.launches = 0
+flash_chunk_dq.routes = {"fma": 0, "mma": 0}    # launches by route
+flash_chunk_dkv.routes = {"fma": 0, "mma": 0}

@@ -22,6 +22,13 @@ padded queries, as the models give it, and is compared everywhere.
 Tolerance 2e-5 absolute: both sides sum the same float32 products in
 another order (bf16 inputs are converted exactly), with scores, states
 and gradients of order 10 and below.
+
+On the card, bf16 dQ and dK/dV take the tensor-core route
+(``chunk_bwd_plan``), which rounds P and dS once to bf16 before the second
+product and sums in float32. A test-local emulation of exactly those
+roundings is held against the same JAX kernels within the card tests'
+tolerance for that route, 1e-5 + 2^-7 of the largest |JAX| value, so the
+tolerance is checked here before the card checks the kernels.
 """
 import functools
 
@@ -35,6 +42,7 @@ from pipegoose_tpu.ops import flash_attention as jfa
 from pipegoose_tpu_torch.ops import flash_attention as tfa
 
 ATOL = 2e-5
+TC_RTOL = 2.0 ** -7   # the tensor-core route's tolerance, of the largest value
 SP, B, S, HD = 4, 2, 64, 32
 SL = S // SP
 SEEN = -1e8   # m above this: the row has seen an unmasked key
@@ -164,3 +172,142 @@ def test_plain_chunk_forward_matches_xla_chunk_with_random_state():
                                hd ** -0.5)
     for what, a, b_ in zip(("m", "l", "acc"), got, want):
         _close(a.numpy(), b_, what)
+
+
+def _tc_rounded(q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, scale, g):
+    """dq, dk, dv as the tensor-core kernels round them: P and dS from
+    float32 scores, each rounded once to bf16 before the second product,
+    every sum in float32."""
+    p, ds = tfa._chunk_p_ds(q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, scale, g)
+    p, ds = (x.to(torch.bfloat16).float() for x in (p, ds))
+    dq = scale * torch.einsum("bqk,bkd->bqd", ds, tfa._expand(k, g).float())
+    dk = scale * torch.einsum("bqk,bqd->bkd", ds, q.float())
+    dv = torch.einsum("bqk,bqd->bkd", p, do.float())
+    return dq, dk, dv
+
+
+def _tc_close(got, want, what):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    tol = 1e-5 + TC_RTOL * np.abs(want).max()
+    err = np.abs(got - want).max()
+    assert err <= tol, f"{what}: {err} > {tol}"
+    return err / tol
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_tensor_core_roundings_stay_within_tolerance_of_jax(name):
+    """Every (rank, kv_rank) pair of the sp = 4 split, bf16 inputs, the
+    final lse of the plain forward chain: the emulated tensor-core
+    roundings against ``flash_chunk_dq``/``flash_chunk_dkv`` in interpret
+    mode, within 1e-5 + 2^-7 of the largest value; and not bit for bit,
+    so the check sees the rounding."""
+    case = _case(name, "bf16")
+    g, scale = case["g"], case["scale"]
+    _, j_dq, j_dkv = _jax_fns(scale, g)
+    bh = case["q"].shape[0]
+    worst = 0.0
+    for rank in range(SP):
+        state = (_t(np.full((bh, SL), -1e9, np.float32)), _t(np.zeros((bh, SL), np.float32)),
+                 _t(np.zeros((bh, SL, HD), np.float32)))
+        for t in range(SP):
+            q, k, v, _, slopes, qpos, kpos, kneg = map(_t, _pair(case, rank, (rank - t) % SP))
+            state = tfa.flash_ring_chunk_reference(q, k, v, slopes, qpos, kpos, kneg, *state,
+                                                   scale, g)
+        m, l, acc = (x.numpy() for x in state)
+        l = np.maximum(l, 1e-30)
+        out = np.asarray(jnp.asarray(acc / l[..., None], jnp.bfloat16).astype(jnp.float32))
+        lse = m + np.log(l)
+        for kv_rank in range(SP):
+            q, k, v, do, slopes, qpos, kpos, kneg = _pair(case, rank, kv_rank)
+            delta = (do * out).sum(-1).astype(np.float32)
+            rest = (lse, delta, slopes, qpos, kpos, kneg)
+            jx = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do)]
+            want = (j_dq(*jx, *rest), *j_dkv(*jx, *rest))
+            got = _tc_rounded(*(_t(x).to(torch.bfloat16) for x in (q, k, v, do)),
+                              *map(_t, rest), scale, g)
+            for what, a, b_ in zip(("dq", "dk", "dv"), got, want):
+                worst = max(worst, _tc_close(a.numpy(), b_, f"{what} ({rank}, {kv_rank})"))
+    assert worst > 0
+
+
+def test_tensor_core_roundings_at_s1024_stay_within_tolerance_of_jax():
+    """One diagonal chunk of S = 1024 (sp = 1, 16 x 16 tiles of 64), bf16,
+    ALiBi and a right-padded row, the lse of the plain forward: as the sp
+    = 4 cases, at a length where each row sums over hundreds of keys."""
+    rng = np.random.default_rng(8)
+    bh, s, hd = 2, 1024, 64
+    bf = lambda x: np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))  # noqa: E731
+    q, k, v, do = (bf(rng.standard_normal((bh, s, hd), dtype=np.float32)) for _ in range(4))
+    slopes = np.array([2.0 ** -1, 2.0 ** -5], np.float32)
+    pos = np.broadcast_to(np.arange(s, dtype=np.float32), (bh, s)).copy()
+    kneg = np.zeros((bh, s), np.float32)
+    kneg[1, s - 200:] = -1e9
+    do[1, s - 200:] = 0
+    scale = hd ** -0.5
+    state = tfa.flash_ring_chunk_reference(
+        *map(_t, (q, k, v, slopes, pos, pos, kneg)), _t(np.full((bh, s), -1e9, np.float32)),
+        _t(np.zeros((bh, s), np.float32)), _t(np.zeros((bh, s, hd), np.float32)), scale)
+    m, l, acc = (x.numpy() for x in state)
+    out = bf(acc / l[..., None])
+    lse = m + np.log(l)
+    rest = (lse, (do * out).sum(-1).astype(np.float32), slopes, pos, pos, kneg)
+    _, j_dq, j_dkv = _jax_fns(scale, 1)
+    jx = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do)]
+    want = (j_dq(*jx, *rest), *j_dkv(*jx, *rest))
+    got = _tc_rounded(*(_t(x).to(torch.bfloat16) for x in (q, k, v, do)), *map(_t, rest),
+                      scale, 1)
+    for what, a, b_ in zip(("dq", "dk", "dv"), got, want):
+        _tc_close(a.numpy(), b_, what)
+
+
+@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+def test_chunk_bwd_plan_routes_bf16_to_the_tensor_cores(hd):
+    plan = tfa.chunk_bwd_plan(torch.bfloat16, hd, 200, 8192)
+    assert plan["route"] == "mma" and plan["threads"] == 128
+    assert plan["grid_tiles"] == {"dq": 4, "dkv": 128} and plan["dq_tiles_reversed"]
+    # resident tiles + a two-deep ring of (two bf16 tiles, three float32 vectors)
+    mat = 64 * (2 * hd + 16)
+    assert plan["smem_bytes"] == {"dq": 6 * mat + 1536, "dkv": 6 * mat + 1536}
+    assert max(plan["smem_bytes"].values()) <= 227 * 1024
+    # the blocks an SM is built for fit its 228 KB (1 KB reserved a block)
+    assert plan["blocks_per_sm"] * (plan["smem_bytes"]["dq"] + 1024) <= 228 * 1024
+    assert plan["blocks_per_sm"] == (4 if hd <= 64 else 2)
+    assert plan["dkv_pass_queries"] == 16
+
+
+@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+def test_chunk_bwd_plan_keeps_float32_on_the_fma_kernels(hd):
+    plan = tfa.chunk_bwd_plan(torch.float32, hd, 8192, 130)
+    assert plan["route"] == "fma" and plan["threads"] == 256
+    assert plan["grid_tiles"] == {"dq": 128, "dkv": 3} and not plan["dq_tiles_reversed"]
+    assert plan["blocks_per_sm"] is None and plan["dkv_pass_queries"] == 64
+    rows, score = 64 * (hd + 1), 64 * 65
+    assert plan["smem_bytes"] == {"dq": 4 * (4 * rows + score + 192),
+                                  "dkv": 4 * (4 * rows + 2 * score + 256)}
+    assert max(plan["smem_bytes"].values()) <= 227 * 1024
+
+
+def test_chunk_bwd_plan_rejects_what_the_kernels_do_not_take():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa.chunk_bwd_plan(torch.float16, 64, 64, 64)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.chunk_bwd_plan(torch.bfloat16, 96, 64, 64)
+    with pytest.raises(ValueError, match="tiles"):
+        tfa.chunk_bwd_plan(torch.bfloat16, 64, 64 * tfa.MAX_TILES + 1, 64)
+    with pytest.raises(ValueError, match="tiles"):
+        tfa.chunk_bwd_plan(torch.float32, 64, 64, -1)
+
+
+def test_chunk_backward_on_cpu_takes_the_plain_versions_and_counts_nothing():
+    case = _case("gqa_g2", "bf16")
+    q, k, v, do, slopes, qpos, kpos, kneg = map(_t, _pair(case, 1, 0))
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    bh = q.shape[0]
+    lse, delta = torch.zeros(bh, SL), torch.zeros(bh, SL)
+    args = (q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, case["scale"], case["g"])
+    counts = [(fn.launches, dict(fn.routes)) for fn in (tfa.flash_chunk_dq, tfa.flash_chunk_dkv)]
+    assert torch.equal(tfa.flash_chunk_dq(*args), tfa.flash_chunk_dq_reference(*args))
+    for a, b_ in zip(tfa.flash_chunk_dkv(*args), tfa.flash_chunk_dkv_reference(*args)):
+        assert torch.equal(a, b_)
+    assert counts == [(fn.launches, dict(fn.routes))
+                      for fn in (tfa.flash_chunk_dq, tfa.flash_chunk_dkv)]

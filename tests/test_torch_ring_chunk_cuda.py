@@ -19,11 +19,15 @@ final lse of the plain chain and zero dO on padded queries, as the models
 give it, and is compared everywhere.
 
 Tolerance, on max |kernel - plain| against the largest |plain| value M:
-float32 outputs in both input dtypes (the state, dq, dk, dv are float32
-and both sides convert bf16 inputs exactly) 1e-5 + 2e-4 * M, as the flash
-kernels' float32 outputs: the sums run in another order and ALiBi scores
-reach slope * S, whose float32 ulp P inherits; m, a maximum of scores,
-1e-5 + 2^-21 * M (four ulps).
+the forward state in both input dtypes, and dq, dk, dv from float32
+inputs (the FMA route), 1e-5 + 2e-4 * M, as the flash kernels' float32
+outputs: both sides convert bf16 inputs exactly, the sums run in another
+order and ALiBi scores reach slope * S, whose float32 ulp P inherits; m, a
+maximum of scores, 1e-5 + 2^-21 * M (four ulps). dq, dk and dv from bf16
+inputs take the tensor-core route (``chunk_bwd_plan``), which rounds P and
+dS once to bf16 (a relative 2^-9 each) before the second product, every
+sum in float32: 1e-5 + 2^-7 * M, as the flash kernels' bf16 outputs
+(``FLASH_RTOL[bfloat16]`` in chip_smoke.py).
 """
 import numpy as np
 import pytest
@@ -32,6 +36,8 @@ import torch
 from pipegoose_tpu_torch.ops import flash_attention as fa
 
 RTOL = 2e-4
+BWD_RTOL = {torch.float32: RTOL, torch.bfloat16: 2.0 ** -7}   # dq, dk, dv by input dtype
+ROUTE = {torch.float32: "fma", torch.bfloat16: "mma"}
 ATOL = 1e-5
 M_RTOL = 2.0 ** -21
 SEEN = fa.NEG_INF / 10   # m above this: the row has seen an unmasked key
@@ -72,11 +78,16 @@ def sp_case(dev, dtype, *, b=2, nh=4, nkv=4, s=256, hd=64, pad=None, seed=0):
 
 
 def chunk_args(case, sp, rank, kv_rank):
-    """(q, k, v, do, slopes, qpos, kpos, kneg) of one (rank, kv_rank) pair."""
+    """(q, k, v, do, slopes, qpos, kpos, kneg) of one (rank, kv_rank) pair.
+    With ``case["perm"]`` (a permutation of a chunk's indices) the positions
+    of each chunk are permuted, so no tile of positions is in order."""
     s = case["q"].shape[1]
     sl = s // sp
     qs, ks = slice(rank * sl, (rank + 1) * sl), slice(kv_rank * sl, (kv_rank + 1) * sl)
-    pos = lambda r, rows: (r * sl + torch.arange(sl, device=case["q"].device)).float()[None].expand(rows, sl).contiguous()  # noqa: E731
+    order = case.get("perm")
+    if order is None:
+        order = torch.arange(sl, device=case["q"].device)
+    pos = lambda r, rows: (r * sl + order).float()[None].expand(rows, sl).contiguous()  # noqa: E731
     c = lambda t, part: t[:, part].contiguous()  # noqa: E731
     bh, bkv = case["q"].shape[0], case["k"].shape[0]
     return (c(case["q"], qs), c(case["k"], ks), c(case["v"], ks), c(case["do"], qs),
@@ -96,6 +107,7 @@ def check_ring(case, sp):
     the worst error of each kernel."""
     bh, s, hd = case["q"].shape
     sl, g, scale = s // sp, case["g"], case["scale"]
+    bwd_rtol = BWD_RTOL[case["q"].dtype]
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     dev = case["q"].device
     finals = []
@@ -129,11 +141,12 @@ def check_ring(case, sp):
             q, k, v, do, slopes, qpos, kpos, kneg = chunk_args(case, sp, rank, kv_rank)
             delta = (do.float() * out.float()).sum(-1)
             args = (q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, scale, g)
-            err, tol = _err(fa.flash_chunk_dq(*args), fa.flash_chunk_dq_reference(*args), RTOL)
+            err, tol = _err(fa.flash_chunk_dq(*args), fa.flash_chunk_dq_reference(*args),
+                            bwd_rtol)
             assert err <= tol, f"B8 pair ({rank}, {kv_rank}): {err} > {tol}"
             worst["dq"] = max(worst["dq"], err)
             for got, want in zip(fa.flash_chunk_dkv(*args), fa.flash_chunk_dkv_reference(*args)):
-                err, tol = _err(got, want, RTOL)
+                err, tol = _err(got, want, bwd_rtol)
                 assert err <= tol, f"B9 pair ({rank}, {kv_rank}): {err} > {tol}"
                 worst["dkv"] = max(worst["dkv"], err)
     torch.cuda.synchronize()
@@ -159,10 +172,76 @@ def test_chunk_kernels_match_plain_versions_on_card(dtype, name):
     kw, sp = CASES[name]
     counts = [fn.launches for fn in (fa.flash_ring_chunk, fa.flash_chunk_dq,
                                      fa.flash_chunk_dkv)]
+    routes = [fn.routes[ROUTE[dtype]] for fn in (fa.flash_chunk_dq, fa.flash_chunk_dkv)]
     check_ring(sp_case(dev, dtype, **kw), sp)
     moved = [fn.launches - c for fn, c in zip(
         (fa.flash_ring_chunk, fa.flash_chunk_dq, fa.flash_chunk_dkv), counts)]
     assert moved == [sp * sp] * 3
+    assert [fn.routes[ROUTE[dtype]] - c for fn, c in zip(
+        (fa.flash_chunk_dq, fa.flash_chunk_dkv), routes)] == [sp * sp] * 2
+
+
+@pytest.mark.cuda
+def test_tensor_core_route_at_the_sp_training_shape():
+    """bf16 B*nh = 16, S = 8192, hd = 64, the diagonal chunk from the plain
+    forward's lse (the shape of chip_smoke.py's timed SP step), left-padded
+    with the ALiBi correction: B8 and B9 on the tensor cores against their
+    plain versions."""
+    dev = _needs_card()
+    case = sp_case(dev, torch.bfloat16, b=1, nh=16, nkv=16, s=8192, pad="left", seed=8)
+    before = [fn.routes["mma"] for fn in (fa.flash_chunk_dq, fa.flash_chunk_dkv)]
+    worst = check_ring(case, 1)
+    assert [fn.routes["mma"] - c for fn, c in zip(
+        (fa.flash_chunk_dq, fa.flash_chunk_dkv), before)] == [1, 1]
+    assert worst["dq"] > 0 and worst["dkv"] > 0   # bf16 operands: not bit for bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("sp", [1, 2])
+def test_skip_does_not_assume_ordered_positions(dtype, sp):
+    """Each chunk's positions permuted (so a tile's positions are neither
+    sorted nor contiguous): every kernel still equals its plain version,
+    which computes every pair, and a fully-future pair still leaves the
+    forward state as it was."""
+    dev = _needs_card()
+    case = sp_case(dev, dtype, s=384, pad="right", seed=11)
+    gen = torch.Generator().manual_seed(12)
+    case["perm"] = torch.randperm(384 // sp, generator=gen).to(dev)
+    check_ring(case, sp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_kernels_repeat_bit_for_bit(dtype):
+    """No atomics and a fixed order of every sum: two calls on the same
+    inputs give the same bits (GQA g = 2, ragged tiles, a padded mask)."""
+    dev = _needs_card()
+    case = sp_case(dev, dtype, nkv=2, s=200, pad="right", seed=13)
+    q, k, v, do, slopes, qpos, kpos, kneg = chunk_args(case, 1, 0, 0)
+    bh, s, _ = q.shape
+    gen = torch.Generator().manual_seed(14)
+    lse = (torch.rand(bh, s, generator=gen) * 4).to(dev)
+    delta = torch.randn(bh, s, generator=gen).to(dev)
+    args = (q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, case["scale"], case["g"])
+    first = (fa.flash_chunk_dq(*args), *fa.flash_chunk_dkv(*args))
+    second = (fa.flash_chunk_dq(*args), *fa.flash_chunk_dkv(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_float32_backward_stays_on_the_fma_route():
+    """float32 inputs never round to bf16: B8 and B9 launch the FMA kernels
+    (route counters) and keep 1e-5 + 2e-4 * M against the plain versions."""
+    dev = _needs_card()
+    before = {r: [fn.routes[r] for fn in (fa.flash_chunk_dq, fa.flash_chunk_dkv)]
+              for r in ("fma", "mma")}
+    check_ring(sp_case(dev, torch.float32, s=256, pad="left", seed=15), 2)
+    after = {r: [fn.routes[r] for fn in (fa.flash_chunk_dq, fa.flash_chunk_dkv)]
+             for r in ("fma", "mma")}
+    assert [a - b for a, b in zip(after["fma"], before["fma"])] == [4, 4]
+    assert after["mma"] == before["mma"]
 
 
 @pytest.mark.cuda
@@ -194,6 +273,14 @@ def test_chunk_wrappers_reject_what_the_kernels_do_not_take():
         fa.flash_chunk_dq(q, k, v, do, lse, lse, slopes, qpos, kpos, kneg, 0.125, 3)
     with pytest.raises(TypeError, match="lse"):
         fa.flash_chunk_dkv(q, k, v, do, lse.double(), lse, slopes, qpos, kpos, kneg, 0.125)
+    bf = [t.to(torch.bfloat16) for t in (q, k, v, do)]
+    shifted = torch.empty(bf[0].numel() + 8, dtype=torch.bfloat16, device=dev)[8:]
+    shifted = shifted.view(bf[0].shape).copy_(bf[0])   # contiguous, 16-byte offset + 16
+    odd = torch.empty(bf[0].numel() + 1, dtype=torch.bfloat16, device=dev)[1:]
+    odd = odd.view(bf[0].shape).copy_(bf[0])           # contiguous, 2 bytes off
+    fa.flash_chunk_dq(shifted, *bf[1:], lse, lse, slopes, qpos, kpos, kneg, 0.125)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_chunk_dq(odd, *bf[1:], lse, lse, slopes, qpos, kpos, kneg, 0.125)
 
 
 @pytest.mark.cuda
