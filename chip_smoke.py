@@ -2,6 +2,10 @@
 """Drive the PyTorch port's main path on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py          # from the repository root, one card
+    python3 chip_smoke.py --parent DIR
+        # DIR: a checkout of the parent revision; phases 9 and 21 also
+        # build its flash_attention.cu and flash_chunk.cu and time its
+        # bf16 forward kernels in turns with this revision's
 
 Three main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
 24 layers, 16 heads) with random weights made from seed 0:
@@ -46,16 +50,20 @@ Phases, each fatal on failure:
   6  the three flash-attention kernels against their plain versions at
      bloom-560m's attention shape (B=8, S=1024, nh=16, hd=64) in bf16 and
      float32, and on a right-padded mask, S=100, GQA g=2, window=64 and
-     causal=False;
+     causal=False; the bf16 forward must take the tensor-core route, the
+     float32 one the FMA route;
   7  the float32 train step on the card against the same step on the CPU
      (full width, depth cut to 2 layers): loss, every gradient, and the
      losses over 3 Adam steps;
   8  timed bf16 training steps exactly as ``bench.py``'s "flash" variant
      (24 layers, remat, flash, batch 8 x 1024, Adam 1e-4): step ms,
      tokens/s, MFU, peak memory, falling losses, the kernels' launch
-     counts, and where one profiled step's device time goes;
+     counts (the forwards B1 and B7 also by route: every bf16 launch on
+     the tensor cores), and where one profiled step's device time goes;
   9  each flash kernel's time at phase 8's shape beside its bound, its
-     plain version's time and PyTorch's SDPA forward or backward;
+     plain version's time and PyTorch's SDPA forward or backward, with the
+     forward's route and ptxas's registers and spills (with --parent, the
+     parent revision's forward kernel in turns with this one's);
  10  the three fused cross-entropy kernels (forward, d-hidden, d-weight)
      against their plain versions on the card: float32 and bf16, ragged T
      and V with a nonzero offset and valid_size < V, both weight layouts,
@@ -104,9 +112,9 @@ Phases, each fatal on failure:
      bf16, right- and left-padded masks (the latter with the ALiBi
      correction) and GQA g = 2, a fully-future pair leaving the state bit for
      bit; (c) the chain over the split against the whole-sequence flash
-     kernels B1-B3, unpadded and right-padded. bf16 B8/B9 must take the
-     tensor-core route (dq, dk, dv within 2^-7 of the largest value), float32
-     the FMA route (2e-4);
+     kernels B1-B3, unpadded and right-padded. bf16 B7-B9 must take the
+     tensor-core route (B7's acc, dq, dk, dv within 2^-7 of the largest
+     value), float32 the FMA route (2e-4); m within 2^-21, l 2e-4;
  19  the float32 SP loss at sp = 1 (``loss_fn_sp`` with flash) against the
      card's and the CPU's single-device ``loss_fn`` (2 layers, 2 x 512,
      right-padded, fused_ce off and on: the loss and every gradient), then 3
@@ -121,7 +129,13 @@ Phases, each fatal on failure:
      the same shape through ``train_step``;
  21  each chunk kernel's time at phase 20's shape beside its bound, its plain
      version's time and PyTorch's SDPA forward or backward, with its route
-     and ptxas's registers and spills.
+     and ptxas's registers and spills (with --parent, the parent revision's
+     B7 in turns with this one's);
+ 22  with --parent only, right after phase 20 in its context: phase 8's
+     "flash" step, phase 20's SP step and train_step at 1 x 8192, each timed
+     with this revision's kernels and with the parent's (its
+     flash_attention and flash_chunk libraries loaded in their place) in
+     turns: parent, this, this, parent.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a card, or
@@ -248,13 +262,39 @@ def phase0_card() -> str:
 
 # -- phase 1 -------------------------------------------------------------------
 
-def phase1_build() -> None:
+PARENT_SOURCES = ("flash_attention", "flash_chunk")   # their bf16 forwards were redesigned
+
+
+def phase1_build(parent=None) -> dict:
+    """Build every source of this checkout (and, given a checkout of the
+    parent revision, its PARENT_SOURCES into build/parent-kernels), one
+    nvcc per source, all at once. Returns the parent's loaded libraries by
+    source name (empty without a parent)."""
+    import ctypes
+    from pathlib import Path
+
     from pipegoose_tpu_torch.ops import _build
 
     names = sorted(p.stem for p in _build.SRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
+    out_dir = _build.BUILD_DIR.parent / "parent-kernels"
+    procs = {}
+    if parent:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        src = Path(parent) / _build.SRC_DIR.relative_to(_build.SRC_DIR.parents[2])
+        procs = {n: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                                      str(out_dir / f"{n}.so"), str(src / f"{n}.cu")],
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True) for n in PARENT_SOURCES}
     _build.build(names)
-    log(f"phase 1: built {names} in {time.perf_counter() - t0:.1f} s")
+    libs = {}
+    for n, proc in procs.items():
+        out, _ = proc.communicate(timeout=_build.BUILD_TIMEOUT_S)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the parent's {n}.cu:\n{out}")
+        libs[n] = ctypes.CDLL(str(out_dir / f"{n}.so"))
+    log(f"phase 1: built {names}" + (f" and the parent's {list(procs)} from {parent}"
+                                     if procs else "") + f" in {time.perf_counter() - t0:.1f} s")
     for name in names:
         fn = "?"
         for line in _build.build_log(name).splitlines():
@@ -262,6 +302,7 @@ def phase1_build() -> None:
                 fn = line.split("Function properties for")[-1].strip()[:72]
             elif "registers" in line or "spill" in line:
                 log(f"  {name} {fn}: {line.strip()}")
+    return libs
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -755,7 +796,7 @@ def phase5_kernel_time(dev, card, errs, launches) -> list:
                 f"{call_ms}, plain {t['plain'][1]}, SDPA {t['library'][1]}")
             rows.append({
                 "name": f"paged_attention ({fmt} pages, {kind}, {plan['route']} route)",
-                **KERNEL, "launches": launches[kv][plan["route"]],
+                **KERNEL, "kernel_route": plan["route"], "launches": launches[kv][plan["route"]],
                 "max_abs_err": errs[f"{fmt} {kind}"], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                 "call_ms": call_ms,
@@ -859,6 +900,8 @@ def check_flash(label, case, causal=True, window=None) -> dict:
     fwd, mode = flash_args(case, causal, window)
     dtype = case["q"].dtype
     counts = (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches)
+    route = fa.fwd_plan(dtype, case["q"].shape[2], 1, 1)["route"]
+    routed = fa.flash_fwd.routes[route]
     out, lse = fa.flash_fwd(*fwd, *mode)
     ref_out, ref_lse = fa.flash_fwd_reference(*fwd, *mode)
     delta = (case["do"].float() * ref_out.float()).sum(-1)
@@ -870,6 +913,8 @@ def check_flash(label, case, causal=True, window=None) -> dict:
         (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches), counts))
     if moved != (1, 1, 1):
         raise AssertionError(f"{label}: launch counters moved by {moved}")
+    if fa.flash_fwd.routes[route] - routed != 1:
+        raise AssertionError(f"{label}: the forward left the {route} route")
     ref_dk, ref_dv = fa.flash_dkv_reference(*bwd, *mode)
     checks = {
         "out": flash_err(out, ref_out, FLASH_RTOL[dtype]),
@@ -879,7 +924,7 @@ def check_flash(label, case, causal=True, window=None) -> dict:
         "dv": flash_err(dv, ref_dv, FLASH_RTOL[dtype]),
     }
     bad = [n for n, (err, tol) in checks.items() if err > tol]
-    log(f"phase 6: {label}: " + ", ".join(
+    log(f"phase 6: {label} (forward on the {route} route): " + ", ".join(
         f"{n} {err:.3g} (tol {tol:.3g})" for n, (err, tol) in checks.items())
         + (f" FAIL {bad}" if bad else " ok"))
     if bad:
@@ -1042,6 +1087,8 @@ def timed_training(np_tree, dev, card, cfg, label, variant, batch=8, seq=1024,
     counters = kernel_counters()
     for c in counters.values():
         c.launches = 0
+        for r in getattr(c, "routes", ()):
+            c.routes[r] = 0
     losses = [step() for _ in range(warm)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1051,6 +1098,7 @@ def timed_training(np_tree, dev, card, cfg, label, variant, batch=8, seq=1024,
     t1.record()
     torch.cuda.synchronize()
     counts = {name: c.launches for name, c in counters.items()}
+    routes = {name: dict(c.routes) for name, c in counters.items() if hasattr(c, "routes")}
     steps = warm + timed
     step_ms = t0.elapsed_time(t1) / timed
     tokens_per_s = batch * seq / (step_ms / 1e3)
@@ -1075,6 +1123,13 @@ def timed_training(np_tree, dev, card, cfg, label, variant, batch=8, seq=1024,
         f"{': remat recomputes the forward' if cfg.remat else ''})")
     if counts != want:
         raise AssertionError(f"{label}: the training step bypassed a kernel")
+    route = "mma" if cfg.dtype == torch.bfloat16 else "fma"
+    log(f"  launches by route over {steps} steps: B1 {routes['fwd']}, B7 "
+        f"{routes['chunk_fwd']}, B8 {routes['chunk_dq']}, B9 {routes['chunk_dkv']}; all "
+        f"must be {route}")
+    if any(routes[n][route] != counts[n] or sum(routes[n].values()) != counts[n]
+           for n in routes):
+        raise AssertionError(f"{label}: a kernel left the {route} route")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite and falling: {losses}")
     _, busy_ms, kernels = profile_device(step, 1, "one profiled train step",
@@ -1090,7 +1145,7 @@ def timed_training(np_tree, dev, card, cfg, label, variant, batch=8, seq=1024,
                        if "chunk_" in e.key) / 1e3
         log(f"  chunk kernels B7-B9: {chunk_ms} ms of the profiled step's {busy_ms} ms "
             f"device time ({100 * chunk_ms / busy_ms if busy_ms else float('nan'):.1f}%)")
-    run = {"launches": {k: v for k, v in counts.items() if want[k]},
+    run = {"launches": {k: v for k, v in counts.items() if want[k]}, "routes": routes,
            "step_ms": step_ms, "peak_gib": peak_gib, "losses": losses,
            "tokens_per_s": tokens_per_s, "mfu": mfu}
     del params, opt
@@ -1125,7 +1180,28 @@ def flash_bound_ms(kind, case, tensors, causal=True):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def phase9_flash_time(dev, card, errs, launches) -> list:
+def parent_turns(kernel, parent, calls, replays=20):
+    """Device ms per call of this revision's ``kernel`` and of ``parent``,
+    timed in turns (parent, kernel, kernel, parent) in one process:
+    (kernel's two, parent's two)."""
+    p0 = time_ms(parent, calls, replays)[0]
+    k0 = time_ms(kernel, calls, replays)[0]
+    k1 = time_ms(kernel, calls, replays)[0]
+    return [k0, k1], [p0, time_ms(parent, calls, replays)[0]]
+
+
+def parent_fn(lib, entry, n_ptr, n_int):
+    """A parent library's C entry with its ctypes signature."""
+    import ctypes
+
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def phase9_flash_time(dev, card, errs, launches, parent=None) -> list:
     from pipegoose_tpu_torch.models.bloom import NEG_INF
     from pipegoose_tpu_torch.ops import flash_attention as fa
 
@@ -1165,6 +1241,10 @@ def phase9_flash_time(dev, card, errs, launches) -> list:
         lambda: torch.autograd.grad(so, (qs, ks, vs), go, retain_graph=True), 8)
     log(f"phase 9: flash kernels at phase 8's shape (B*nh={b * nh}, S={s}, "
         f"hd={hd}, bf16, causal, no padding), device ms per call, on {card}")
+    routes = {"fwd": fa.fwd_plan(torch.bfloat16, hd, s, s)["route"], "dq": "fma", "dkv": "fma"}
+    mangled = {"fwd": f"flash_fwd_mma_kernelILi{hd}E",
+               "dq": f"flash_dq_kernelI13__nv_bfloat16Li{hd}E",
+               "dkv": f"flash_dkv_kernelI13__nv_bfloat16Li{hd}E"}
     rows = []
     for kind in ("fwd", "dq", "dkv"):
         kernel, plain = calls[kind]
@@ -1172,16 +1252,29 @@ def phase9_flash_time(dev, card, errs, launches) -> list:
         plain_ms, _ = time_ms(plain, 4)
         bound_ms, bound_by = flash_bound_ms(kind, case, io[kind])
         library_ms = lib_fwd_ms if kind == "fwd" else lib_bwd_ms
-        log(f"  flash_{kind}: kernel {ms} (eager {call_ms}), bound {bound_ms} "
+        regs, spills = ptxas_usage("flash_attention", mangled[kind])
+        turns = None
+        if kind == "fwd" and parent:
+            old = parent_fn(parent["flash_attention"], "flash_fwd_bf16", 8, 6)
+            p_out, p_lse = torch.empty_like(out), torch.empty_like(lse)
+            turns = parent_turns(kernel, lambda i: old(
+                *(t.data_ptr() for t in fwd + (p_out, p_lse)), b * nh, s, hd, 1, 1, 0,
+                case["scale"], torch.cuda.current_stream().cuda_stream), 8)
+            log(f"  flash_fwd in turns with the parent's kernel (parent, this, this, "
+                f"parent): this {turns[0]}, parent {turns[1]}")
+        log(f"  flash_{kind} ({routes[kind]} route, {regs} registers, {spills} bytes spilled): "
+            f"kernel {ms} (eager {call_ms}), bound {bound_ms} "
             f"({bound_by}), plain {plain_ms}, SDPA {'forward' if kind == 'fwd' else 'backward (dq, dk, dv in one call, eager)'} "
             f"{library_ms}")
         rows.append({
-            "name": f"flash_{kind} (bf16, B*nh=128, S=1024, hd=64, causal)",
+            "name": f"flash_{kind} (bf16, B*nh=128, S=1024, hd=64, causal, {routes[kind]} route)",
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[kind],
-            "route": "cuda", "launches": launches[kind],
+            "route": "cuda", "kernel_route": routes[kind], "launches": launches[kind],
             "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "call_ms": call_ms,
+            "library_ms": library_ms, "call_ms": call_ms, "registers": regs,
+            "spill_store_bytes": spills,
+            **({"turns_ms": turns[0], "parent_turns_ms": turns[1]} if turns else {}),
         })
     return rows
 
@@ -1400,7 +1493,8 @@ def phase13_fused_time(dev, card, errs, launches) -> list:
         rows.append({
             "name": f"fused_ce_{kind} (bf16, T={t}, H={hd}, V={v}, vh)",
             "source": FUSED_SOURCE, "replaces": FUSED_REPLACES[kind], "route": "cuda",
-            "launches": launches[f"fused_ce_{kind}"], "max_abs_err": errs[kind],
+            "kernel_route": "wmma", "launches": launches[f"fused_ce_{kind}"],
+            "max_abs_err": errs[kind],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms, "call_ms": call_ms,
         })
@@ -1740,7 +1834,7 @@ def phase17_quant_time(dev, card, errs, launches) -> list:
                 "name": f"quantized_matmul_{kind} (bf16, {shape} T={t}, one layer's "
                         f"qkv+out+up+down summed)",
                 "source": QUANT_SOURCE, "replaces": QUANT_REPLACES[kind], "route": "cuda",
-                "launches": launches[kind], "max_abs_err": errs[kind],
+                "kernel_route": "mma", "launches": launches[kind], "max_abs_err": errs[kind],
                 "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
                 "bound_by": "bytes" if tot["bytes"] >= tot["ops"] else "operations",
                 "library_ms": tot["library_ms"], "call_ms": tot["call_ms"],
@@ -1817,19 +1911,22 @@ def ring_walk(label, case, sp):
     the state the plain chain carries into the pair, on the rows that have
     seen an unmasked key (a fully-future pair must return its state bit for
     bit); then B8 and B9 with the chain's final lse against their plain
-    versions everywhere. The state is float32 in both dtypes and B7 sums
-    float32 products of the inputs, so float32's FLASH_RTOL holds it; m, a
-    maximum of scores, LSE_RTOL. dq, dk and dv hold to FLASH_RTOL of the
-    inputs' dtype: float32 inputs take B8/B9's FMA route (2e-4), bf16 inputs
-    the tensor-core route, which rounds P and dS once to bf16 before the
+    versions everywhere. The state is float32 in both dtypes: m, a maximum
+    of scores, holds to LSE_RTOL and l, a float32 sum of float32 p, to
+    float32's FLASH_RTOL. acc, dq, dk and dv hold to FLASH_RTOL of the
+    inputs' dtype: float32 inputs take the FMA route (2e-4), bf16 inputs
+    the tensor-core route, which rounds P (and dS) once to bf16 before the
     second product (2^-7); each call must launch that route. Returns each
     kernel's worst error."""
     from pipegoose_tpu_torch.ops import flash_attention as fa
 
     rtol = FLASH_RTOL[torch.float32]
-    bwd_rtol = FLASH_RTOL[case["q"].dtype]
+    tc_rtol = FLASH_RTOL[case["q"].dtype]
     route = fa.chunk_bwd_plan(case["q"].dtype, case["q"].shape[2], 1, 1)["route"]
-    routes = [fn.routes[route] for fn in (fa.flash_chunk_dq, fa.flash_chunk_dkv)]
+    if fa.fwd_plan(case["q"].dtype, case["q"].shape[2], 1, 1)["route"] != route:
+        raise AssertionError("the chunk forward and backward plans name other routes")
+    fns = (fa.flash_ring_chunk, fa.flash_chunk_dq, fa.flash_chunk_dkv)
+    routes = [fn.routes[route] for fn in fns]
     bh, s, hd = case["q"].shape
     sl, g, scale, dev = s // sp, case["g"], case["scale"], case["q"].device
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
@@ -1849,7 +1946,7 @@ def ring_walk(label, case, sp):
             seen = want[0] > NEG_INF_F / 10
             for name, a, b, tol_r in (("m", got[0], want[0], LSE_RTOL),
                                       ("l", got[1], want[1], rtol),
-                                      ("acc", got[2], want[2], rtol)):
+                                      ("acc", got[2], want[2], tc_rtol)):
                 err, tol = chunk_err(a[seen], b[seen], tol_r)
                 worst["fwd"] = max(worst["fwd"], err)
                 if err > tol:
@@ -1866,22 +1963,22 @@ def ring_walk(label, case, sp):
             delta = (do.float() * out.float()).sum(-1)
             args = (q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, scale, g)
             err, tol = chunk_err(fa.flash_chunk_dq(*args), fa.flash_chunk_dq_reference(*args),
-                                 bwd_rtol)
+                                 tc_rtol)
             worst["dq"] = max(worst["dq"], err)
             if err > tol:
                 bad.append(f"B8 ({rank}, {kv_rank}) {err:.3g} > {tol:.3g}")
             for name, a, b in zip(("dk", "dv"), fa.flash_chunk_dkv(*args),
                                   fa.flash_chunk_dkv_reference(*args)):
-                err, tol = chunk_err(a, b, bwd_rtol)
+                err, tol = chunk_err(a, b, tc_rtol)
                 worst["dkv"] = max(worst["dkv"], err)
                 if err > tol:
                     bad.append(f"B9 {name} ({rank}, {kv_rank}) {err:.3g} > {tol:.3g}")
     torch.cuda.synchronize()
-    moved = [fn.routes[route] - n for fn, n in zip((fa.flash_chunk_dq, fa.flash_chunk_dkv), routes)]
-    if moved != [sp * sp] * 2:
-        bad.append(f"B8/B9 launched the {route} route {moved} times, not {sp * sp}")
-    log(f"phase 18: {label}: worst errors {worst} (B8/B9 {route} route, dq/dk/dv rtol "
-        f"{bwd_rtol})" + (f" FAIL {bad[:6]}" if bad else " ok"))
+    moved = [fn.routes[route] - n for fn, n in zip(fns, routes)]
+    if moved != [sp * sp] * 3:
+        bad.append(f"B7/B8/B9 launched the {route} route {moved} times, not {sp * sp}")
+    log(f"phase 18: {label}: worst errors {worst} (B7-B9 {route} route, acc/dq/dk/dv "
+        f"rtol {tc_rtol})" + (f" FAIL {bad[:6]}" if bad else " ok"))
     if bad:
         raise AssertionError(f"{label}: chunk kernels disagree with plain: {bad[:6]}")
     return worst
@@ -2122,19 +2219,11 @@ def phase20_timed_sp_training(np_tree, dev, card) -> dict:
     from pipegoose_tpu_torch.models.bloom import BloomConfig
     from pipegoose_tpu_torch.trainer import sp_train_step
 
-    from pipegoose_tpu_torch.ops import flash_attention as fa
-
     cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16, remat=True, use_flash=True,
                                  fused_ce=True)
-    bwd = (fa.flash_chunk_dq, fa.flash_chunk_dkv)
-    routes = [dict(fn.routes) for fn in bwd]
     run = timed_training(np_tree, dev, card, cfg, "phase 20",
                          "sp_train_step at sp=1: remat, flash (the ring), fused_ce",
                          batch=1, seq=SP_SEQ, step_fn=sp_train_step)
-    moved = [{r: fn.routes[r] - before[r] for r in before} for fn, before in zip(bwd, routes)]
-    log(f"phase 20: B8, B9 launches by route over the SP run {moved}")
-    if any(m["fma"] or m["mma"] < 7 * cfg.n_layer for m in moved):
-        raise AssertionError("the bf16 SP step's B8/B9 left the tensor-core route")
     gc.collect()
     torch.cuda.empty_cache()
     single = timed_training(np_tree, dev, card, cfg, "phase 20",
@@ -2177,7 +2266,7 @@ def ptxas_usage(source, kernel):
     return regs, spills
 
 
-def phase21_chunk_time(dev, card, errs, launches) -> list:
+def phase21_chunk_time(dev, card, errs, launches, parent=None) -> list:
     from pipegoose_tpu_torch.models.bloom import NEG_INF
     from pipegoose_tpu_torch.ops import flash_attention as fa
 
@@ -2223,8 +2312,9 @@ def phase21_chunk_time(dev, card, errs, launches) -> list:
     log(f"phase 21: chunk kernels at phase 20's shape (B*nh={bh}, S={s}, hd={hd}, "
         f"bf16, the diagonal chunk, zero state), device ms per call, on {card}")
     plan = fa.chunk_bwd_plan(q.dtype, hd, s, s)
-    routes = {"fwd": "fma", "dq": plan["route"], "dkv": plan["route"]}
-    mangled = {"fwd": f"chunk_fwd_kernelI13__nv_bfloat16Li{hd}E",
+    routes = {"fwd": fa.fwd_plan(q.dtype, hd, s, s)["route"], "dq": plan["route"],
+              "dkv": plan["route"]}
+    mangled = {"fwd": f"chunk_fwd_mma_kernelILi{hd}E",
                "dq": f"chunk_dq_mma_kernelILi{hd}E", "dkv": f"chunk_dkv_mma_kernelILi{hd}E"}
     rows = []
     for kind in ("fwd", "dq", "dkv"):
@@ -2236,6 +2326,15 @@ def phase21_chunk_time(dev, card, errs, launches) -> list:
         bound_ms, bound_by = chunk_bound_ms(kind, case, io[kind])
         library_ms = lib_fwd_ms if kind == "fwd" else lib_bwd_ms
         regs, spills = ptxas_usage("flash_chunk", mangled[kind])
+        turns = None
+        if kind == "fwd" and parent:
+            old = parent_fn(parent["flash_chunk"], "flash_chunk_fwd_bf16", 13, 5)
+            p_state = tuple(torch.empty_like(t) for t in (m, l, acc))
+            turns = parent_turns(kernel, lambda i: old(
+                *(t.data_ptr() for t in fwd[:-1] + p_state), bh, s, s, hd, 1, case["scale"],
+                torch.cuda.current_stream().cuda_stream), 2, replays=5)
+            log(f"  flash_chunk_fwd in turns with the parent's kernel (parent, this, this, "
+                f"parent): this {turns[0]}, parent {turns[1]}")
         log(f"  flash_chunk_{kind} ({routes[kind]} route, {regs} registers, {spills} bytes "
             f"spilled): kernel {ms} (eager {call_ms}), bound {bound_ms} ({bound_by}), "
             f"plain {plain_ms}, SDPA "
@@ -2245,15 +2344,62 @@ def phase21_chunk_time(dev, card, errs, launches) -> list:
             "name": f"flash_chunk_{kind} (bf16, B*nh={bh}, S={s}, hd={hd}, diagonal chunk, "
                     f"{routes[kind]} route)",
             "source": CHUNK_SOURCE, "replaces": CHUNK_REPLACES[kind], "route": "cuda",
+            "kernel_route": routes[kind],
             "launches": launches[f"chunk_{kind}"], "max_abs_err": errs[kind], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "call_ms": call_ms, "registers": regs,
             "spill_store_bytes": spills,
+            **({"turns_ms": turns[0], "parent_turns_ms": turns[1]} if turns else {}),
         })
     return rows
 
 
-def main() -> int:
+# -- phase 22 ------------------------------------------------------------------
+
+def phase22_steps_vs_parent(np_tree, dev, card, parent) -> dict:
+    """The three steps whose attention the redesigned forwards run, with
+    this revision's kernels and the parent's in turns; returns the step ms
+    of each as {step: {"this": [...], "parent": [...]}}. The parent's
+    libraries take the place of this revision's for both flash sources, so
+    its dQ/dK/dV kernels run too (the same code as this revision's); the
+    route counters still name the route the plan picks."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.ops import _build
+    from pipegoose_tpu_torch.trainer import sp_train_step
+
+    flash = BloomConfig.bloom_560m(dtype=torch.bfloat16, remat=True, use_flash=True)
+    fused = BloomConfig.bloom_560m(dtype=torch.bfloat16, remat=True, use_flash=True,
+                                   fused_ce=True)
+    steps = {"phase 8 'flash' train_step, 8 x 1024": (flash, {}),
+             "phase 20 sp_train_step, 1 x 8192": (fused, dict(batch=1, seq=SP_SEQ,
+                                                               step_fn=sp_train_step)),
+             "phase 20 train_step 'flash+fusedce', 1 x 8192": (fused, dict(batch=1, seq=SP_SEQ))}
+    ours = {n: _build.load(n) for n in PARENT_SOURCES}
+    out = {}
+    for name, (cfg, kw) in steps.items():
+        out[name] = {"this": [], "parent": []}
+        for who in ("parent", "this", "this", "parent"):
+            _build._loaded.update(parent if who == "parent" else ours)
+            try:
+                run = timed_training(np_tree, dev, card, cfg, f"phase 22 ({who})", name, **kw)
+            finally:
+                _build._loaded.update(ours)
+            out[name][who].append(run["step_ms"])
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"phase 22: {name}: step ms this {out[name]['this']}, parent {out[name]['parent']} "
+            f"(in turns parent, this, this, parent) on {card}")
+    return out
+
+
+def main(argv) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port's main path on one H100.")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent revision: time its bf16 forward "
+                         "kernels in turns with this revision's (phases 9 and 21)")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     card = phase0_card()
     dev = torch.device("cuda")
@@ -2261,7 +2407,7 @@ def main() -> int:
     from pipegoose_tpu_torch.models.bloom import BloomConfig, init_params_numpy
 
     resolve_device(dev)   # float32 products without TF32
-    phase1_build()
+    parent = phase1_build(args.parent)
     errs = phase2_kernel_vs_plain(dev)
     t0 = time.perf_counter()
     np_tree = init_params_numpy(BloomConfig.bloom_560m(), seed=SEED)
@@ -2285,7 +2431,7 @@ def main() -> int:
     flash_run = phase8_timed_training(np_tree, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
-    rows += phase9_flash_time(dev, card, flash_errs, flash_run["launches"])
+    rows += phase9_flash_time(dev, card, flash_errs, flash_run["launches"], parent)
     gc.collect()
     torch.cuda.empty_cache()
     fused_errs = phase10_fused_vs_plain(dev)
@@ -2314,12 +2460,14 @@ def main() -> int:
     try:
         phase19_sp_loss_vs_single(np_tree, dev)
         sp_run = phase20_timed_sp_training(np_tree, dev, card)
+        if parent:
+            phase22_steps_vs_parent(np_tree, dev, card, parent)
     finally:
         ctx.destroy()
     del np_tree
     gc.collect()
     torch.cuda.empty_cache()
-    rows += phase21_chunk_time(dev, card, chunk_errs, sp_run["launches"])
+    rows += phase21_chunk_time(dev, card, chunk_errs, sp_run["launches"], parent)
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -2329,4 +2477,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

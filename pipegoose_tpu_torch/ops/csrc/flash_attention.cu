@@ -23,33 +23,65 @@
 // 4*HD flops, dQ 6*HD and dK/dV 8*HD, while each call reads q, k, v (and dO,
 // lse, delta) and writes its outputs once; at bloom-560m's attention (B*nh =
 // 128, S = 1024, HD = 64, bf16) the bf16 tensor-core time of those flops and
-// the device-memory time of those bytes are alike, 0.02-0.035 ms. These
-// kernels are the simple first version: float32 FMAs on the CUDA cores
-// (67 TFLOP/s peak, not the tensor cores' 989), so they sit far above that
-// bound, limited by the FMA rate and by shared-memory reads (one 4-byte load
-// per 2 FMAs in the 4 x 4 register micro-tiles). wgmma on bf16 tiles, TMA and
-// double buffering are later work.
+// the device-memory time of those bytes are alike, 0.02-0.035 ms.
 //
-// Design. The TPU's sequential grid axis becomes a loop inside one block:
-//   fwd, dq: one block per (row of BH, 64-query tile); it walks the 64-key
-//     tiles from the window's first key to the diagonal (the Pallas pl.when
-//     skip becomes the loop bound), carrying m, l and the accumulator in
-//     registers (fwd) or the dQ accumulator (dq);
-//   dkv: one block per (row of BH, 64-key tile); it walks the query tiles
-//     from the diagonal on, so each block owns its dK/dV rows: no atomics and
-//     no second pass.
-// 256 threads as 16 x 16; thread (ty, tx) owns rows ty + 16a and columns
-// tx + 16b (a, b < 4) of every 64 x 64 score tile, and columns tx + 16c of
-// the HD-wide accumulators. Tiles are staged in shared memory as float32
-// rows of stride HD + 1, so a column walk over 16 consecutive rows hits 16
-// distinct banks. Row max and row sum of the online softmax are reduced
-// across the 16 lanes that share a row with warp shuffles. Rows and keys past
-// S (the ragged last tile) are staged as zeros and masked to probability 0.
+// Two routes for the forward, picked by the wrapper (ops/flash_attention.py
+// fwd_plan); dQ and dK/dV take the first for both dtypes:
+//
+// 1. The FMA route (flash_fwd_kernel for float32 inputs; flash_dq_kernel and
+//    flash_dkv_kernel for both dtypes): the simple first version, float32
+//    FMAs on the CUDA cores (67 TFLOP/s peak, not the tensor cores' 989), so
+//    these sit far above that bound, limited by the FMA rate and by
+//    shared-memory reads (one 4-byte load per 2 FMAs in the 4 x 4 register
+//    micro-tiles). The TPU's sequential grid axis becomes a loop inside one
+//    block:
+//      fwd, dq: one block per (row of BH, 64-query tile); it walks the
+//        64-key tiles from the window's first key to the diagonal (the
+//        Pallas pl.when skip becomes the loop bound), carrying m, l and the
+//        accumulator in registers (fwd) or the dQ accumulator (dq);
+//      dkv: one block per (row of BH, 64-key tile); it walks the query
+//        tiles from the diagonal on, so each block owns its dK/dV rows: no
+//        atomics and no second pass.
+//    256 threads as 16 x 16; thread (ty, tx) owns rows ty + 16a and columns
+//    tx + 16b (a, b < 4) of every 64 x 64 score tile, and columns tx + 16c of
+//    the HD-wide accumulators. Tiles are staged in shared memory as float32
+//    rows of stride HD + 1, so a column walk over 16 consecutive rows hits
+//    16 distinct banks. Row max and row sum of the online softmax are
+//    reduced across the 16 lanes that share a row with warp shuffles. Rows
+//    and keys past S (the ragged last tile) are staged as zeros and masked
+//    to probability 0.
+// 2. The tensor-core route, flash_fwd_mma_kernel: the forward for bf16
+//    inputs, on the main loop it shares with the ring-chunk forward B7
+//    (attn_mma.cuh fwd_mma_walk). The same blocks and walk, the query tiles
+//    in reverse so that the longest walks start first, but 128 threads, four
+//    warps of 16 query rows each; both products are bf16 mma.sync.m16n8k16
+//    with float32 accumulators (S = Q K^T with the warp's Q fragments read
+//    from the staged Q tile at each k step, acc += P V with P packed from
+//    the score's C fragments into A fragments in registers); the K and V
+//    tiles with their kv_pos, kv_neg stream through a two-deep cp.async
+//    ring of 16-byte-padded bf16 rows; the online softmax runs in float32
+//    registers, reduced over the 4 lanes of a quad, exp as one ex2.approx
+//    (relative error ~2^-22). The causal and window tests run per element only on the
+//    tiles that straddle them. A GQA block reads kv row row / g. The
+//    epilogue divides by max(l, 1e-30), rounds to bf16 and writes lse.
+//    P is rounded once to bf16 before the PV product (a relative 2^-9, as
+//    the TPU's matrix unit rounds it at JAX's default precision); l sums
+//    the float32 p and every sum is float32. So out holds to 1e-5 + 2^-7 of
+//    the largest |plain| value, the bf16 output tolerance it had before,
+//    and lse to 2^-21 of the largest, which only the order of the score's
+//    sums moves. q, k and v must start on a 16-byte boundary. Each warp
+//    reads the whole K and V tile from shared memory for its 16 rows, so
+//    shared-memory traffic, not the tensor cores, bounds the loop: wgmma
+//    (one read a warpgroup) and TMA are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "attn_mma.cuh"
 
 namespace {
 
@@ -57,7 +89,7 @@ constexpr int kThreads = 256;    // 16 x 16
 constexpr int kTile = 64;        // queries per query tile = keys per key tile
 constexpr int kSub = kTile / 16; // rows (and score columns) per thread
 constexpr int kLdp = kTile + 1;  // row stride of a staged 64 x 64 score tile
-constexpr float kNegInf = -1e9f; // finite, as NEG_INF in the JAX package
+static_assert(kTile == kMmaTile, "both routes walk 64 x 64 tile pairs");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -240,6 +272,72 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kCw; ++c) orow[tx + 16 * c] = from_f32<T>(acc[a][c] / lv);
     if (tx == 0) lse[(int64_t)row * s + i] = m[a] + logf(lv);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward on the tensor cores: grid (BH, ceil(S / 64)), the query tiles in
+// reverse. Out bf16, lse float32 (BH, S).
+
+// The flash forward's score and walk for fwd_mma_walk: the key tiles of
+// key_range, in order; the causal and window tests on the index, per
+// element only on a tile that straddles one of them.
+struct FlashFwdPolicy {
+  int t_first, t_end, n_kt, q0, i0, causal, window;
+  float scale, slope;
+  __device__ int first() const { return t_first < t_end ? t_first : n_kt; }
+  __device__ int next(int t) const { return t + 1 < t_end ? t + 1 : n_kt; }
+  __device__ bool tested(int k0, const float*, int) const {
+    return (causal && k0 + kTile - 1 > q0) || (window > 0 && q0 + kTile - 1 - k0 >= window);
+  }
+  __device__ float score(float dot, int h, int j, float kp, float kn, bool test) const {
+    float bias = slope * kp + kn;
+    if (test) {
+      const int i = i0 + 8 * h;
+      bool keep = true;
+      if (causal) keep = keep && (j <= i);
+      if (window > 0) keep = keep && (i - j < window);
+      bias = keep ? bias : kNegInf;
+    }
+    return dot * scale + bias;
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads, FwdSmem<HD>::kMinBlocks)
+flash_fwd_mma_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                     const uint16_t* __restrict__ v, const float* __restrict__ slopes,
+                     const float* __restrict__ kpos, const float* __restrict__ kneg,
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int s, int g,
+                     int causal, int window, float scale) {
+  constexpr int ND = HD / 8;
+  const int row = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // longest walks first
+  const int kvr = row / g;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int c = lane % 4;
+  const int i0 = q0 + 16 * warp + lane / 4;   // this lane's rows: i0 and i0 + 8
+  int k_first, k_end;
+  key_range(q0, s, causal, window, &k_first, &k_end);
+  const FlashFwdPolicy pol{k_first / kTile, (k_end + kTile - 1) / kTile, (s + kTile - 1) / kTile,
+                           q0, i0, causal, window, scale, slopes[row]};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int64_t kvo = (int64_t)kvr * s;
+  fwd_mma_walk<HD>(m, l, acc, q + (int64_t)row * s * HD, q0, s, k + kvo * HD, v + kvo * HD,
+                   kpos + kvo, kneg + kvo, s, pol);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = i0 + 8 * h;
+    if (i >= s) continue;
+    const float lv = fmaxf(l[h], 1e-30f);
+    const int64_t r = (int64_t)row * s + i;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(out + r * HD + 8 * n + 2 * c) =
+          __floats2bfloat162_rn(acc[n][2 * h] / lv, acc[n][2 * h + 1] / lv);
+    if (c == 0) lse[r] = m[h] + logf(lv);
   }
 }
 
@@ -444,9 +542,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // graph capture among them) only queue the kernel.
 
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, bool* opted_in, size_t smem_floats, int bh, int s,
+int launch(Kernel kernel, bool* opted_in, size_t smem, int threads, int bh, int s,
            cudaStream_t stream, Args... args) {
-  const size_t smem = smem_floats * sizeof(float);
   if (!*opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -454,21 +551,30 @@ int launch(Kernel kernel, bool* opted_in, size_t smem_floats, int bh, int s,
     *opted_in = true;
   }
   const dim3 grid(bh, (s + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
+// The forward: float32 inputs on the FMA kernel, bf16 on the tensor cores.
 template <typename T, int HD>
 int fwd(const void* q, const void* k, const void* v, const void* slopes,
         const void* kpos, const void* kneg, void* out, void* lse, int bh, int s,
         int g, int causal, int window, float scale, cudaStream_t stream) {
   static bool opted_in = false;
-  return launch(flash_fwd_kernel<T, HD>, &opted_in, fwd_smem_floats<HD>(), bh, s,
-                stream, static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const float*>(slopes),
-                static_cast<const float*>(kpos), static_cast<const float*>(kneg),
-                static_cast<T*>(out), static_cast<float*>(lse), s, g, causal,
-                window, scale);
+  using cf = const float*;
+  if constexpr (std::is_same_v<T, float>)
+    return launch(flash_fwd_kernel<float, HD>, &opted_in, fwd_smem_floats<HD>() * sizeof(float),
+                  kThreads, bh, s, stream, static_cast<cf>(q), static_cast<cf>(k),
+                  static_cast<cf>(v), static_cast<cf>(slopes), static_cast<cf>(kpos),
+                  static_cast<cf>(kneg), static_cast<float*>(out), static_cast<float*>(lse), s,
+                  g, causal, window, scale);
+  else
+    return launch(flash_fwd_mma_kernel<HD>, &opted_in, FwdSmem<HD>::kBytes, kMmaThreads, bh, s,
+                  stream, static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+                  static_cast<const uint16_t*>(v), static_cast<cf>(slopes),
+                  static_cast<cf>(kpos), static_cast<cf>(kneg),
+                  static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), s, g, causal,
+                  window, scale);
 }
 
 template <typename T, int HD>
@@ -477,8 +583,8 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* kneg, void* dq_out, int bh, int s, int g, int causal,
        int window, float scale, cudaStream_t stream) {
   static bool opted_in = false;
-  return launch(flash_dq_kernel<T, HD>, &opted_in, dq_smem_floats<HD>(), bh, s,
-                stream, static_cast<const T*>(q), static_cast<const T*>(k),
+  return launch(flash_dq_kernel<T, HD>, &opted_in, dq_smem_floats<HD>() * sizeof(float),
+                kThreads, bh, s, stream, static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<const T*>(dout),
                 static_cast<const float*>(lse), static_cast<const float*>(delta),
                 static_cast<const float*>(slopes), static_cast<const float*>(kpos),
@@ -492,8 +598,8 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
         const void* kneg, void* dk, void* dv, int bh, int s, int g, int causal,
         int window, float scale, cudaStream_t stream) {
   static bool opted_in = false;
-  return launch(flash_dkv_kernel<T, HD>, &opted_in, dkv_smem_floats<HD>(), bh, s,
-                stream, static_cast<const T*>(q), static_cast<const T*>(k),
+  return launch(flash_dkv_kernel<T, HD>, &opted_in, dkv_smem_floats<HD>() * sizeof(float),
+                kThreads, bh, s, stream, static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<const T*>(dout),
                 static_cast<const float*>(lse), static_cast<const float*>(delta),
                 static_cast<const float*>(slopes), static_cast<const float*>(kpos),
@@ -504,8 +610,10 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // Entry points, one per kernel and dtype (float32, bf16), head_dim 32, 64 or
-// 128. causal is 0 or 1; window <= 0 means no window. Each returns the
-// launch's cudaError_t: 0 when the kernel was queued on `stream`.
+// 128. causal is 0 or 1; window <= 0 means no window. flash_fwd_bf16 launches
+// the tensor-core kernel, whose 16-byte copies need q, k and v to start on a
+// 16-byte boundary. Each returns the launch's cudaError_t: 0 when the kernel
+// was queued on `stream`.
 #define FLASH_ENTRIES(SUFFIX, T)                                                    \
   extern "C" int flash_fwd_##SUFFIX(                                                \
       const void* q, const void* k, const void* v, const void* slopes,              \

@@ -43,13 +43,13 @@
 // at 989 TFLOP/s bf16 take 0.14-0.28 ms and the bytes at 3.35 TB/s about a
 // tenth of that: the operations bound it.
 //
-// Two routes, picked by the wrapper (ops/flash_attention.py chunk_bwd_plan):
+// Two routes, picked by the wrapper (ops/flash_attention.py fwd_plan for the
+// forward, chunk_bwd_plan for dQ and dK/dV):
 //
-// 1. The FMA route: the forward in both dtypes, and dQ and dK/dV for
-//    float32 inputs, whose rounding to bf16 would change the function.
-//    float32 FMAs on the CUDA cores (67 TFLOP/s peak, not the tensor cores'
-//    989) from 64 x 64 tiles staged in shared memory, so these sit far above
-//    the bound.
+// 1. The FMA route: float32 inputs, whose rounding to bf16 would change the
+//    function. float32 FMAs on the CUDA cores (67 TFLOP/s peak, not the
+//    tensor cores' 989) from 64 x 64 tiles staged in shared memory, so these
+//    sit far above the bound.
 //    - The TPU's sequential grid axis becomes a loop inside one block. fwd,
 //      dq: one block per (row of BH, 64-query tile); it walks every 64-key
 //      tile of the chunk, skipping fully-future ones, with the state (fwd)
@@ -64,41 +64,57 @@
 //      column walk over 16 rows hits 16 distinct banks); row max and row
 //      sum are reduced over the 16 lanes of a row with warp shuffles.
 //      Ragged tiles are staged as zeros and masked.
-// 2. The tensor-core route, chunk_dq_mma_kernel and chunk_dkv_mma_kernel:
-//    dQ and dK/dV for bf16 inputs (B8, B9). Same blocks and walks as the FMA
-//    route, same skip and score order, but every product runs as bf16
-//    mma.sync.m16n8k16 with float32 accumulators (attn_mma.cuh):
+// 2. The tensor-core route, bf16 inputs: chunk_fwd_mma_kernel (B7),
+//    chunk_dq_mma_kernel (B8) and chunk_dkv_mma_kernel (B9). Same blocks and
+//    walks as the FMA route, same skip and score order, but every product
+//    runs as bf16 mma.sync.m16n8k16 with float32 accumulators (attn_mma.cuh):
 //    - 128 threads, four warps of 16 rows each of the block's own 64-row
-//      tile (dq: queries; dkv: keys). Those rows (dq: Q and dO; dkv: K and
-//      V) are staged once and read by ldmatrix as A fragments at each k
-//      step. Holding them in registers instead left 2 blocks an SM (~175
-//      registers a thread); read from shared memory, both kernels fit 128
-//      registers with no spills and an SM holds 4 blocks at HD <= 64 (2 at
-//      HD = 128, where shared memory allows no more): ~30% faster on an H100
-//      at bloom-560m's 8192-token ring chunk.
-//    - The walked tiles (dq: K, V, kpos, kneg; dkv: Q, dO, qpos, lse,
+//      tile (fwd, dq: queries; dkv: keys), staged once and read by ldmatrix
+//      as A fragments from shared memory at each k step (fwd: Q; dq: Q and
+//      dO; dkv: K and V): holding them in registers left dq and dkv 2
+//      blocks an SM (~175 registers a thread) and made the forward spill;
+//      read from shared memory the kernels fit 128 registers and an SM
+//      holds 4 blocks at HD <= 64 (2 at HD = 128, where shared memory allows
+//      no more): ~30% faster for dq and dkv, 2-4% for the forward, on an
+//      H100 at bloom-560m's 8192-token ring chunk.
+//    - The walked tiles (fwd, dq: K, V, kpos, kneg; dkv: Q, dO, qpos, lse,
 //      delta) stream through a two-deep cp.async ring: the next visible
 //      tile is in flight while the block computes on this one. bf16 rows
 //      are staged with 16 bytes of padding, so each ldmatrix reads 8 rows
 //      from 8 distinct bank quads.
+//    - fwd (the main loop fwd_mma_walk of attn_mma.cuh, shared with the
+//      flash forward B1): S = Q K^T, the score in float32 registers in the
+//      order above, the online softmax with the row max and sum over the 4
+//      lanes of a quad, alpha rescaling l and acc, and P packed straight
+//      into A fragments: acc += P V with V read by ldmatrix.trans. exp is
+//      one ex2.approx (relative error ~2^-22; expf cost 12% more). A
+//      full key tile wholly at or before every query of the block skips the
+//      per-element position test (its causal term is 0 everywhere): on the
+//      diagonal chunk every pair but the diagonal's. The carried (m, l,
+//      acc) is read into registers and written back.
 //    - dq: S = Q K^T and dP = dO V^T, then in registers and in float32 the
 //      score in the order above, P = exp(s - lse), dS = P (dP - delta), and
 //      dS packed straight into A fragments: dQ += dS K with K read by
 //      ldmatrix.trans. dkv: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T in
 //      registers, dV += P^T dO and dK += dS^T Q (dO, Q by ldmatrix.trans),
 //      in passes of 16 queries to bound the registers.
-//    - P and dS are rounded once to bf16 before the second product (a
-//      relative 2^-9 each, as the TPU's matrix unit rounds them at JAX's
-//      default precision); every sum is float32.
+//    - P (fwd, dq, dkv) and dS (dq, dkv) are rounded once to bf16 before the
+//      second product (a relative 2^-9 each, as the TPU's matrix unit
+//      rounds them at JAX's default precision); every sum is float32, and
+//      the forward's l sums the float32 p. So acc, dq, dk and dv hold to
+//      1e-5 + 2^-7 of the largest value of their plain versions, and m and
+//      l to the float32 bounds (m 2^-21 of the largest, l 2e-4), which only
+//      the order of the score's sums moves.
 //    - The skip test takes a tile's smallest or largest position from a
 //      warp reduction of its 64 positions read from device memory, four
 //      tiles a round: every warp reads the same values and reduces them in
 //      the same order, so the block agrees on the branch without a
 //      barrier, and a skipped tile is never staged. Positions need not be
 //      monotone.
-//    - On the diagonal chunk dq's query tile i walks i + 1 key tiles and
-//      dkv's key tile j walks n - j query tiles: dq's grid runs the query
-//      tiles in reverse, so on both kernels the longest blocks start first.
+//    - On the diagonal chunk the forward's and dq's query tile i walks
+//      i + 1 key tiles and dkv's key tile j walks n - j query tiles: the
+//      forward's and dq's grids run the query tiles in reverse, so on every
+//      kernel the longest blocks start first.
 //    - No atomics, no workspace: a repeat call gives the same bits.
 // Both routes write float32 outputs.
 
@@ -114,11 +130,10 @@
 namespace {
 
 constexpr int kThreads = 256;    // FMA route: 16 x 16
-constexpr int kMmaThreads = 128; // tensor-core route: four warps
 constexpr int kTile = 64;        // queries per query tile = keys per key tile
 constexpr int kSub = kTile / 16; // rows (and score columns) per thread
 constexpr int kLdp = kTile + 1;  // row stride of a staged 64 x 64 score tile
-constexpr float kNegInf = -1e9f; // finite, as NEG_INF in the JAX package
+static_assert(kTile == kMmaTile, "both routes walk 64 x 64 tile pairs");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -526,14 +541,12 @@ chunk_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 
 // ---------------------------------------------------------------------------
-// Tensor-core route (bf16 q, k, v, dO): shared memory, staging, the skip scan.
-
-constexpr int kScanTiles = 4;    // tiles a position scan tests per round
+// Tensor-core route (bf16 q, k, v, dO): the staging, the fragment loads and
+// the skip scan live in attn_mma.cuh, beside the forward main loop.
 
 template <int HD>
 struct BwdSmem {
-  static constexpr int kPitch = HD * 2 + 16;              // bytes a staged bf16 row
-  static constexpr int kMat = kTile * kPitch;             // one staged 64-row tile
+  static constexpr int kMat = MmaTile<HD>::kBytes;        // one staged 64-row tile
   static constexpr int kStage = 2 * kMat + 3 * kTile * 4; // two tiles + three vectors
   static constexpr int kBytes = 2 * kMat + 2 * kStage;    // resident tiles + the ring
   // blocks an SM holds: 4 (<= 128 registers a thread) where shared memory
@@ -541,110 +554,90 @@ struct BwdSmem {
   static constexpr int kMinBlocks = HD <= 64 ? 4 : 2;
 };
 
-// Queue rows [r0, r0 + 64) of a (rows, HD) bf16 matrix into a staged tile;
-// rows at or past `rows` are zero filled.
+// ---------------------------------------------------------------------------
+// Forward on the tensor cores: grid (BH, ceil(Sq / 64)), the query tiles in
+// reverse. Reads (m, l, acc) in, writes them out, all float32.
+
+// The ring step's score and walk for fwd_mma_walk: every visible key tile,
+// each element tested against the query row's position value.
+struct ChunkFwdPolicy {
+  const float* kpr;
+  int skv, lane;
+  float q_max, q_min, scale, slope, qp[2];
+  __device__ int first() const { return next_visible<true>(kpr, skv, 0, q_max, lane); }
+  __device__ int next(int t) const { return next_visible<true>(kpr, skv, t + 1, q_max, lane); }
+  // a full tile whose keys all lie at or before every query of the block
+  // adds 0 for the causal term everywhere, so it takes the untested score:
+  // on the diagonal chunk all but the 64 x 64 pairs on the diagonal (B7 at
+  // 8192 tokens on an H100: 0.85 ms, 1.11 without; scripts/sweep_attn_fwd.py)
+  __device__ bool tested(int, const float* KP, int ln) const {
+    float x = fmaxf(KP[ln], KP[ln + 32]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, shfl_xor(x, o));
+    return x > q_min;
+  }
+  __device__ float score(float dot, int h, int, float kp, float kn, bool test) const {
+    const float s = dot * scale + slope * kp + kn;
+    return test ? s + (kp <= qp[h] ? 0.f : kNegInf) : s;
+  }
+};
+
 template <int HD>
-__device__ __forceinline__ void stage_tile(uint8_t* dst, const uint16_t* __restrict__ src,
-                                           int r0, int rows, int tid) {
-  constexpr int kChunks = HD * 2 / 16;   // 16-byte pieces a row
-  for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
-    const int r = e / kChunks, j = e % kChunks;
-    const bool ok = r0 + r < rows;
-    cp_async16(dst + r * BwdSmem<HD>::kPitch + 16 * j,
-               src + (int64_t)(ok ? r0 + r : 0) * HD + 8 * j, ok);
-  }
-}
+__global__ void __launch_bounds__(kMmaThreads, FwdSmem<HD>::kMinBlocks)
+chunk_fwd_mma_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                     const uint16_t* __restrict__ v, const float* __restrict__ slopes,
+                     const float* __restrict__ qpos, const float* __restrict__ kpos,
+                     const float* __restrict__ kneg, const float* __restrict__ m_in,
+                     const float* __restrict__ l_in, const float* __restrict__ acc_in,
+                     float* __restrict__ m_out, float* __restrict__ l_out,
+                     float* __restrict__ acc_out, int sq, int skv, int g, float scale) {
+  constexpr int ND = HD / 8;
+  const int row = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // the longest walks first
+  const int q0 = qt * kTile;
+  const int kvr = row / g;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int c = lane % 4;
+  const int64_t rs = (int64_t)row * sq;
+  const float* kpr = kpos + (int64_t)kvr * skv;
 
-// Queue entries [r0, r0 + 64) of a float32 vector of n; past n zero filled.
-__device__ __forceinline__ void stage_vec_async(float* dst, const float* __restrict__ src,
-                                                int r0, int n, int tid) {
-  for (int e = tid; e < kTile; e += kMmaThreads) {
-    const bool ok = r0 + e < n;
-    cp_async4(dst + e, src + (ok ? r0 + e : 0), ok);
-  }
-}
-
-// The smallest (kMin) or largest position of 64-position tile t of the n
-// at `pos`, over the positions that exist; every lane gets the same value.
-template <bool kMin>
-__device__ __forceinline__ float tile_extreme(const float* __restrict__ pos, int n, int t,
-                                              int lane) {
-  const float fill = kMin ? INFINITY : -INFINITY;
-  const int i = t * kTile + lane;
-  const float a = i < n ? pos[i] : fill, b = i + 32 < n ? pos[i + 32] : fill;
-  float x = kMin ? fminf(a, b) : fmaxf(a, b);
+  // this lane's query rows: r0 (state elements 0, 1) and r0 + 8 (2, 3)
+  const int r0 = q0 + 16 * warp + lane / 4;
+  ChunkFwdPolicy pol{kpr, skv, lane, tile_extreme<false>(qpos + rs, sq, qt, lane),
+                     tile_extreme<true>(qpos + rs, sq, qt, lane), scale, slopes[row],
+                     {0.f, 0.f}};
+  float m[2], l[2], acc[ND][4];
+  bool ok[2];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float y = shfl_xor(x, o);
-    x = kMin ? fminf(x, y) : fmaxf(x, y);
-  }
-  return x;
-}
-
-// The first tile t >= from of the n positions at `pos` that the block must
-// visit, or the tile count if none: with kMin a key tile whose smallest
-// position is <= bound (the largest query position of the block: dq), else
-// a query tile whose largest position is >= bound (the smallest key
-// position of the block: dkv). The other tiles are fully future. Tests
-// kScanTiles tiles a round, their loads all in flight together.
-template <bool kMin>
-__device__ __forceinline__ int next_visible(const float* __restrict__ pos, int n, int from,
-                                            float bound, int lane) {
-  const int n_tiles = (n + kTile - 1) / kTile;
-  const float fill = kMin ? INFINITY : -INFINITY;
-  for (int t0 = from; t0 < n_tiles; t0 += kScanTiles) {
-    float x[kScanTiles];
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    ok[h] = r < sq;
+    pol.qp[h] = ok[h] ? qpos[rs + r] : 0.f;
+    m[h] = ok[h] ? m_in[rs + r] : kNegInf;
+    l[h] = ok[h] ? l_in[rs + r] : 0.f;
 #pragma unroll
-    for (int u = 0; u < kScanTiles; ++u) {
-      const int i = (t0 + u) * kTile + lane;
-      const float a = i < n ? pos[i] : fill, b = i + 32 < n ? pos[i + 32] : fill;
-      x[u] = kMin ? fminf(a, b) : fmaxf(a, b);
+    for (int n = 0; n < ND; ++n) {
+      const float2 a = ok[h] ? *reinterpret_cast<const float2*>(acc_in + (rs + r) * HD + 8 * n + 2 * c)
+                             : make_float2(0.f, 0.f);
+      acc[n][2 * h] = a.x;
+      acc[n][2 * h + 1] = a.y;
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-      for (int u = 0; u < kScanTiles; ++u) {
-        const float y = shfl_xor(x[u], o);
-        x[u] = kMin ? fminf(x[u], y) : fmaxf(x[u], y);
-      }
-#pragma unroll
-    for (int u = 0; u < kScanTiles; ++u)
-      if (t0 + u < n_tiles && (kMin ? x[u] <= bound : x[u] >= bound)) return t0 + u;
   }
-  return n_tiles;
-}
-
-// The A fragment of rows 16 w .. 16 w + 15 and k columns 16 kk .. 16 kk + 15
-// of a staged tile.
-template <int HD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint8_t* tile, int w, int kk,
-                                       int lane) {
-  const int mi = lane / 8, mr = lane % 8;
-  ldmatrix4<false>(a, tile + (16 * w + (mi % 2) * 8 + mr) * BwdSmem<HD>::kPitch +
-                          (16 * kk + (mi / 2) * 8) * 2);
-}
-
-// B fragments of n-tiles 2 np and 2 np + 1 for k step kk, where the
-// product's n runs over the staged tile's rows 16 np .. 16 np + 15 and its k
-// over their columns (A . tile^T): b[0], b[1] for n-tile 2 np, b[2], b[3]
-// for 2 np + 1.
-template <int HD>
-__device__ __forceinline__ void load_bt(uint32_t (&b)[4], const uint8_t* tile, int np, int kk,
-                                        int lane) {
-  const int mi = lane / 8, mr = lane % 8;
-  ldmatrix4<false>(b, tile + ((2 * np + mi / 2) * 8 + mr) * BwdSmem<HD>::kPitch +
-                          (16 * kk + (mi % 2) * 8) * 2);
-}
-
-// B fragments of n-tiles 2 np and 2 np + 1 for k step kk, where the
-// product's k runs over the staged tile's rows 16 kk .. 16 kk + 15 and its n
-// over their columns 16 np .. 16 np + 15 (A . tile), by ldmatrix.trans.
-template <int HD>
-__device__ __forceinline__ void load_b(uint32_t (&b)[4], const uint8_t* tile, int np, int kk,
-                                       int lane) {
-  const int mi = lane / 8, mr = lane % 8;
-  ldmatrix4<true>(b, tile + (16 * kk + (mi % 2) * 8 + mr) * BwdSmem<HD>::kPitch +
-                         (16 * np + (mi / 2) * 8) * 2);
+  fwd_mma_walk<HD>(m, l, acc, q + rs * HD, q0, sq, k + (int64_t)kvr * skv * HD,
+                   v + (int64_t)kvr * skv * HD, kpr, kneg + (int64_t)kvr * skv, skv, pol);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!ok[h]) continue;
+    const int64_t r = rs + r0 + 8 * h;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<float2*>(acc_out + r * HD + 8 * n + 2 * c) =
+          make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+    if (c == 0) {
+      m_out[r] = m[h];
+      l_out[r] = l[h];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -952,6 +945,7 @@ int launch(Kernel kernel, bool* opted_in, size_t smem, int threads, int bh, int 
 using cf = const float*;
 using cb = const uint16_t*;
 
+// Each kernel: float32 inputs on the FMA kernels, bf16 on the tensor cores.
 template <typename T, int HD>
 int fwd(const void* q, const void* k, const void* v, const void* slopes,
         const void* qpos, const void* kpos, const void* kneg, const void* m_in,
@@ -959,16 +953,23 @@ int fwd(const void* q, const void* k, const void* v, const void* slopes,
         void* acc_out, int bh, int sq, int skv, int g, float scale,
         cudaStream_t stream) {
   static bool opted_in = false;
-  return launch(chunk_fwd_kernel<T, HD>, &opted_in, fwd_smem_floats<HD>() * sizeof(float),
-                kThreads, bh, sq, stream, static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<cf>(slopes),
-                static_cast<cf>(qpos), static_cast<cf>(kpos), static_cast<cf>(kneg),
-                static_cast<cf>(m_in), static_cast<cf>(l_in), static_cast<cf>(acc_in),
-                static_cast<float*>(m_out), static_cast<float*>(l_out),
-                static_cast<float*>(acc_out), sq, skv, g, scale);
+  if constexpr (std::is_same_v<T, float>)
+    return launch(chunk_fwd_kernel<float, HD>, &opted_in,
+                  fwd_smem_floats<HD>() * sizeof(float), kThreads, bh, sq, stream,
+                  static_cast<cf>(q), static_cast<cf>(k), static_cast<cf>(v),
+                  static_cast<cf>(slopes), static_cast<cf>(qpos), static_cast<cf>(kpos),
+                  static_cast<cf>(kneg), static_cast<cf>(m_in), static_cast<cf>(l_in),
+                  static_cast<cf>(acc_in), static_cast<float*>(m_out),
+                  static_cast<float*>(l_out), static_cast<float*>(acc_out), sq, skv, g, scale);
+  else
+    return launch(chunk_fwd_mma_kernel<HD>, &opted_in, FwdSmem<HD>::kBytes, kMmaThreads, bh,
+                  sq, stream, static_cast<cb>(q), static_cast<cb>(k), static_cast<cb>(v),
+                  static_cast<cf>(slopes), static_cast<cf>(qpos), static_cast<cf>(kpos),
+                  static_cast<cf>(kneg), static_cast<cf>(m_in), static_cast<cf>(l_in),
+                  static_cast<cf>(acc_in), static_cast<float*>(m_out),
+                  static_cast<float*>(l_out), static_cast<float*>(acc_out), sq, skv, g, scale);
 }
 
-// dQ and dK/dV: float32 inputs on the FMA kernels, bf16 on the tensor cores.
 template <typename T, int HD>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, const void* slopes, const void* qpos,
@@ -1016,10 +1017,11 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // Entry points, one per kernel and dtype of q/k/v/dO (float32, bf16), head_dim
-// 32, 64 or 128; every other array is float32. The bf16 dq and dkv entries
-// launch the tensor-core kernels, whose 16-byte copies need q, k, v and dO to
-// start on a 16-byte boundary. Each returns the launch's cudaError_t: 0 when
-// the kernel was queued on `stream`.
+// 32, 64 or 128; every other array is float32. The bf16 entries launch the
+// tensor-core kernels, whose 16-byte copies need q, k, v (and dO) to start on
+// a 16-byte boundary, and whose float2 state reads need acc_in on an 8-byte
+// one. Each returns the launch's cudaError_t: 0 when the kernel was queued
+// on `stream`.
 
 template <typename Fn>
 int by_head_dim(int hd, Fn fn) {

@@ -14,7 +14,10 @@ Each is a wrapper over one hand-written CUDA kernel
 (``csrc/flash_attention.cu``): on CPU tensors it calls its plain PyTorch
 version (``flash_fwd_reference``, ``flash_dq_reference``,
 ``flash_dkv_reference``, the math of the Pallas bodies), on CUDA tensors
-it launches the kernel or raises; ``.launches`` counts the launches.
+it launches the kernel or raises; ``.launches`` counts the launches. The
+forward has two routes (:func:`fwd_plan`): bf16 inputs on the tensor
+cores, float32 inputs on float32 FMAs; ``flash_fwd.routes`` counts its
+launches by route.
 ``_Flash`` ties them together as a ``torch.autograd.Function``, the
 ``jax.custom_vjp`` of the JAX file.
 
@@ -23,8 +26,9 @@ the end of the file: :func:`flash_ring_chunk` (one ring step's update of
 the unnormalized online-softmax state), :func:`flash_chunk_dq` and
 :func:`flash_chunk_dkv`, each beside its plain version, with the causal
 test on position values and the NEG_INF added (``_flash_chunk_pallas``).
-The two backward kernels have two routes (:func:`chunk_bwd_plan`): bf16
-inputs on the tensor cores, float32 inputs on float32 FMAs.
+Each has two routes (:func:`fwd_plan` for the forward,
+:func:`chunk_bwd_plan` for the backward): bf16 inputs on the tensor cores,
+float32 inputs on float32 FMAs.
 
 Scores of the three whole-sequence kernels follow ``_bias_block``:
 ``q.k * scale + slope * kv_pos + kv_neg``, where the causal test
@@ -47,6 +51,9 @@ HEAD_DIMS = (32, 64, 128)   # head_dim values the source instantiates
 MAX_TILES = 65535           # grid.y limit: 64-position tiles per sequence
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+TILE = 64                  # queries of a query tile = keys of a key tile
+FMA_THREADS = 256          # a block of the FMA route, 16 x 16 threads
+MMA_THREADS = 128          # a block of the tensor-core route, four warps
 
 
 def mask_to_kv_bias(attention_mask: torch.Tensor):
@@ -146,6 +153,76 @@ def _check(q, k, v, slopes, kpos, kneg, g, window, **extra):
                      "kv_neg": (kneg, (bh // g, s), torch.float32), **extra})
 
 
+def _check_plan(dtype, hd, sq, skv):
+    """What every kernel of this file refuses: raises TypeError for a dtype
+    and ValueError for a head_dim or a length."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim={hd} not in the kernels' {HEAD_DIMS}")
+    if min(sq, skv) < 0 or max(-(-sq // TILE), -(-skv // TILE)) > MAX_TILES:
+        raise ValueError(f"Sq={sq} or Skv={skv} needs more than {MAX_TILES} tiles")
+
+
+def _mma_tile_bytes(hd):
+    """One staged 64-row bf16 tile of the tensor-core route: rows padded by
+    16 bytes, so that each ldmatrix reads 8 rows from 8 distinct bank quads."""
+    return TILE * (2 * hd + 16)
+
+
+def fwd_plan(dtype, hd: int, sq: int, skv: int) -> dict:
+    """The launch :func:`flash_fwd` (B1, ``sq == skv``) and
+    :func:`flash_ring_chunk` (B7) make for q/k/v of ``dtype``, head_dim
+    ``hd``, ``sq`` queries and ``skv`` keys. Pure Python, so the CPU tests
+    check it.
+
+    - "mma" (bf16): the tensor-core kernels on one main loop
+      (``attn_mma.cuh`` ``fwd_mma_walk``): bf16 ``mma.sync`` with float32
+      sums, four warps of 16 query rows each of the block's 64-query tile,
+      the staged Q tile read as A fragments at each k step, the walked K
+      and V tiles with their key positions and biases in a two-deep
+      ``cp.async`` ring of bf16 rows padded by 16 bytes, ``blocks_per_sm``
+      blocks an SM (128 registers a thread where shared memory holds 4).
+      P is rounded once to bf16 before the PV product; l sums the float32
+      p; exp is one ``ex2.approx``.
+    - "fma" (float32): the float32-FMA kernels, 16 x 16 threads, tiles
+      staged as float32 rows of stride hd + 1; exact in the inputs.
+
+    One block per (row, query tile). On the tensor-core route both kernels
+    run the query tiles in reverse, so that the longest walks start first;
+    on the FMA route only B1 does.
+    Raises TypeError for a dtype and ValueError for a head_dim or a length
+    the kernels do not take."""
+    _check_plan(dtype, hd, sq, skv)
+    if dtype == torch.bfloat16:
+        mat = _mma_tile_bytes(hd)
+        smem = mat + 2 * (2 * mat + 2 * TILE * 4)      # Q + two stages of K, V, kpos, kneg
+        route = {"route": "mma", "threads": MMA_THREADS,
+                 "smem_bytes": {"fwd": smem, "chunk_fwd": smem},
+                 "blocks_per_sm": 4 if hd <= 64 else 2,
+                 "q_tiles_reversed": {"fwd": True, "chunk_fwd": True}}
+    else:
+        rows = TILE * (hd + 1)                          # one staged float32 tile
+        score = TILE * (TILE + 1)
+        route = {"route": "fma", "threads": FMA_THREADS,
+                 "smem_bytes": {"fwd": 4 * (3 * rows + score + 2 * TILE),
+                                "chunk_fwd": 4 * (3 * rows + score + 3 * TILE)},
+                 "blocks_per_sm": None,
+                 "q_tiles_reversed": {"fwd": True, "chunk_fwd": False}}
+    return {**route, "tile": TILE, "grid_tiles": -(-sq // TILE)}
+
+
+def _check_aligned(plan, **tensors):
+    """The tensor-core route copies bf16 rows 16 bytes at a time (and reads
+    float32 state pairs 8 bytes at a time): each tensor named with its
+    boundary must start on it there."""
+    if plan["route"] != "mma":
+        return
+    for name, (t, boundary) in tensors.items():
+        if t.data_ptr() % boundary:
+            raise ValueError(f"{name} must start on a {boundary}-byte boundary")
+
+
 def _check_specs(q, specs):
     """Each ``name: (tensor, shape, dtype)`` of ``specs`` has that shape and
     dtype, and it and q lie on q's device, contiguous."""
@@ -190,11 +267,16 @@ def _device_of(q, name):
 def flash_fwd(q, k, v, slopes, kpos, kneg, scale, causal, g=1, window=None):
     """Forward kernel: q (BH, S, hd), k/v (BH/g, S, hd) float32 or bf16,
     slopes (BH,), kv_pos/kv_neg (BH/g, S) float32 -> (out (BH, S, hd) in
-    q's dtype, lse (BH, S) float32)."""
+    q's dtype, lse (BH, S) float32). On CUDA tensors it launches by the
+    route :func:`fwd_plan` picks (``.launches`` counts the launches,
+    ``.routes`` them by route); bf16 q, k and v must start on a 16-byte
+    boundary."""
     if _device_of(q, "flash_fwd") == "cpu":
         return flash_fwd_reference(q, k, v, slopes, kpos, kneg, scale, causal,
                                    g, window)
     _check(q, k, v, slopes, kpos, kneg, g, window)
+    plan = fwd_plan(q.dtype, q.shape[2], q.shape[1], q.shape[1])
+    _check_aligned(plan, q=(q, 16), k=(k, 16), v=(v, 16))
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     if q.numel() == 0:
@@ -203,6 +285,7 @@ def flash_fwd(q, k, v, slopes, kpos, kneg, scale, causal, g=1, window=None):
                        slopes.data_ptr(), kpos.data_ptr(), kneg.data_ptr(),
                        out.data_ptr(), lse.data_ptr()), g, causal, window, scale)
     flash_fwd.launches += 1
+    flash_fwd.routes[plan["route"]] += 1
     return out, lse
 
 
@@ -253,6 +336,7 @@ def flash_dkv(q, k, v, do, lse, delta, slopes, kpos, kneg, scale, causal, g=1,
 
 
 flash_fwd.launches = 0
+flash_fwd.routes = {"fma": 0, "mma": 0}    # launches by route
 flash_dq.launches = 0
 flash_dkv.launches = 0
 
@@ -446,9 +530,6 @@ def _check_chunk(q, k, v, slopes, qpos, kpos, kneg, g, **extra):
 
 
 _CHUNK_PTRS = {"fwd": 13, "dq": 11, "dkv": 12}
-CHUNK_TILE = 64            # queries of a query tile = keys of a key tile
-FMA_THREADS = 256          # a block of the FMA route, 16 x 16 threads
-MMA_THREADS = 128          # a block of the tensor-core route, four warps
 
 
 def chunk_bwd_plan(dtype, hd: int, sq: int, skv: int) -> dict:
@@ -473,27 +554,22 @@ def chunk_bwd_plan(dtype, hd: int, sq: int, skv: int) -> dict:
     starts the longest first.
     Raises TypeError for a dtype and ValueError for a head_dim or a length
     the kernels do not take."""
-    if dtype not in _SUFFIX:
-        raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim={hd} not in the kernels' {HEAD_DIMS}")
-    if min(sq, skv) < 0 or max(-(-sq // CHUNK_TILE), -(-skv // CHUNK_TILE)) > MAX_TILES:
-        raise ValueError(f"Sq={sq} or Skv={skv} needs more than {MAX_TILES} tiles")
+    _check_plan(dtype, hd, sq, skv)
     if dtype == torch.bfloat16:
-        mat = CHUNK_TILE * (2 * hd + 16)                 # one staged bf16 tile
-        smem = 2 * mat + 2 * (2 * mat + 3 * CHUNK_TILE * 4)
+        mat = _mma_tile_bytes(hd)
+        smem = 2 * mat + 2 * (2 * mat + 3 * TILE * 4)
         route = {"route": "mma", "threads": MMA_THREADS,
                  "smem_bytes": {"dq": smem, "dkv": smem},
                  "blocks_per_sm": 4 if hd <= 64 else 2, "dkv_pass_queries": 16}
     else:
-        rows = CHUNK_TILE * (hd + 1)                    # one staged float32 tile
-        score = CHUNK_TILE * (CHUNK_TILE + 1)
+        rows = TILE * (hd + 1)                    # one staged float32 tile
+        score = TILE * (TILE + 1)
         route = {"route": "fma", "threads": FMA_THREADS,
-                 "smem_bytes": {"dq": 4 * (4 * rows + score + 3 * CHUNK_TILE),
-                                "dkv": 4 * (4 * rows + 2 * score + 4 * CHUNK_TILE)},
-                 "blocks_per_sm": None, "dkv_pass_queries": CHUNK_TILE}
-    return {**route, "tile": CHUNK_TILE,
-            "grid_tiles": {"dq": -(-sq // CHUNK_TILE), "dkv": -(-skv // CHUNK_TILE)},
+                 "smem_bytes": {"dq": 4 * (4 * rows + score + 3 * TILE),
+                                "dkv": 4 * (4 * rows + 2 * score + 4 * TILE)},
+                 "blocks_per_sm": None, "dkv_pass_queries": TILE}
+    return {**route, "tile": TILE,
+            "grid_tiles": {"dq": -(-sq // TILE), "dkv": -(-skv // TILE)},
             "dq_tiles_reversed": route["route"] == "mma"}
 
 
@@ -516,7 +592,10 @@ def flash_ring_chunk(q, k, v, slopes, qpos, kpos, kneg, m, l, acc, scale, g=1):
     float32 or bf16; slopes (BH,), qpos (BH, Sq), kpos/kneg (BH/g, Skv),
     the state m, l (BH, Sq) and acc (BH, Sq, hd), all float32 -> the
     updated (m, l, acc), new tensors. Not differentiable on its own: the
-    ring owns the backward."""
+    ring owns the backward. On CUDA tensors it launches by the route
+    :func:`fwd_plan` picks (``.launches`` counts the launches, ``.routes``
+    them by route); bf16 q, k and v must start on a 16-byte boundary and
+    acc on an 8-byte one."""
     if _device_of(q, "flash_ring_chunk") == "cpu":
         return flash_ring_chunk_reference(q, k, v, slopes, qpos, kpos, kneg, m, l,
                                           acc, scale, g)
@@ -524,6 +603,8 @@ def flash_ring_chunk(q, k, v, slopes, qpos, kpos, kneg, m, l, acc, scale, g=1):
     _check_chunk(q, k, v, slopes, qpos, kpos, kneg, g,
                  m=(m, (bh, sq), torch.float32), l=(l, (bh, sq), torch.float32),
                  acc=(acc, (bh, sq, hd), torch.float32))
+    plan = fwd_plan(q.dtype, hd, sq, k.shape[1])
+    _check_aligned(plan, q=(q, 16), k=(k, 16), v=(v, 16), acc=(acc, 8))
     m_out, l_out, acc_out = torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc)
     if q.numel() == 0 or k.shape[1] == 0:
         return m.clone(), l.clone(), acc.clone()
@@ -531,6 +612,7 @@ def flash_ring_chunk(q, k, v, slopes, qpos, kpos, kneg, m, l, acc, scale, g=1):
                                         acc, m_out, l_out, acc_out))
     _chunk_launch("fwd", q, k, ptrs, g, scale)
     flash_ring_chunk.launches += 1
+    flash_ring_chunk.routes[plan["route"]] += 1
     return m_out, l_out, acc_out
 
 
@@ -544,10 +626,7 @@ def _check_chunk_bwd(q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, g):
                  lse=(lse, (bh, sq), torch.float32),
                  delta=(delta, (bh, sq), torch.float32))
     plan = chunk_bwd_plan(q.dtype, q.shape[2], sq, k.shape[1])
-    if plan["route"] == "mma":
-        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} must start on a 16-byte boundary")
+    _check_aligned(plan, q=(q, 16), k=(k, 16), v=(v, 16), do=(do, 16))
     return plan
 
 
@@ -589,6 +668,7 @@ def flash_chunk_dkv(q, k, v, do, lse, delta, slopes, qpos, kpos, kneg, scale, g=
 
 
 flash_ring_chunk.launches = 0
+flash_ring_chunk.routes = {"fma": 0, "mma": 0}    # launches by route
 flash_chunk_dq.launches = 0
 flash_chunk_dkv.launches = 0
 flash_chunk_dq.routes = {"fma": 0, "mma": 0}    # launches by route

@@ -11,6 +11,15 @@ Tolerance 2e-5 absolute: the two sides sum the same float32 products in
 another order (the Pallas bodies block by block, the plain versions over
 the whole row); with ALiBi scores of order 10 and outputs and gradients
 of order 1 that moves results by a few ulps of the scores.
+
+On the card, the bf16 forward takes the tensor-core route (``fwd_plan``),
+which walks 64-key tiles with the online softmax, sums l from the float32
+p and rounds P once to bf16 before the PV product, every sum in float32. A
+test-local emulation of exactly those roundings is held against the Pallas
+forward in interpret mode on bf16 inputs within the card tests' bound for
+that route, 1e-5 + 2^-7 of the largest |out| (lse 1e-5 + 2^-21 of the
+largest), so the tolerance is checked here before the card checks the
+kernel.
 """
 import jax
 import jax.numpy as jnp
@@ -36,10 +45,10 @@ CASES = {
 }
 
 
-def _inputs(name, seed=0):
+def _inputs(name, seed=0, cases=CASES):
     """Flattened kernel operands as numpy: q (BH, S, hd), k/v (BH/g, S,
     hd), slopes (BH,), kv_pos/kv_neg (BH/g, S), dO, and the config."""
-    b, s, nh, nkv, hd, causal, window, pad = CASES[name]
+    b, s, nh, nkv, hd, causal, window, pad = cases[name]
     rng = np.random.default_rng(seed)
     f = lambda *shape: rng.standard_normal(shape, dtype=np.float32)  # noqa: E731
     mask = np.ones((b, s), np.float32)
@@ -124,6 +133,7 @@ def test_dkv_reference_matches_pallas(case):
 def test_cpu_wrappers_take_the_plain_versions_and_count_nothing(case):
     x = case
     before = (tfa.flash_fwd.launches, tfa.flash_dq.launches, tfa.flash_dkv.launches)
+    routes = dict(tfa.flash_fwd.routes)
     out, lse = tfa.flash_fwd(*_torch(x, "q", "k", "v", "slopes", "kpos", "kneg"),
                              x["scale"], x["causal"], x["g"], x["window"])
     dq = tfa.flash_dq(*_bwd_args(x), x["scale"], x["causal"], x["g"], x["window"])
@@ -132,6 +142,7 @@ def test_cpu_wrappers_take_the_plain_versions_and_count_nothing(case):
     assert dq.shape == out.shape and dk.shape == out.shape   # dk per query head
     assert (tfa.flash_fwd.launches, tfa.flash_dq.launches,
             tfa.flash_dkv.launches) == before
+    assert tfa.flash_fwd.routes == routes
 
 
 # (B, S, nh, nkv, hd, causal, window, masked): the public function with
@@ -199,3 +210,115 @@ def test_gqa_head_count_must_divide():
     kv = torch.zeros(1, 8, 2, 32)
     with pytest.raises(ValueError, match="multiple of n_kv_head"):
         tfa.flash_attention(q, kv, kv)
+
+
+# -- the forward's routes ---------------------------------------------------
+
+@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+def test_fwd_plan_routes_bf16_to_the_tensor_cores(hd):
+    plan = tfa.fwd_plan(torch.bfloat16, hd, 200, 200)
+    assert plan["route"] == "mma" and plan["threads"] == 128
+    assert plan["grid_tiles"] == 4
+    assert plan["q_tiles_reversed"] == {"fwd": True, "chunk_fwd": True}
+    # Q + a two-deep ring of (K and V tiles, kpos and kneg), bf16 rows + 16 bytes
+    mat = 64 * (2 * hd + 16)
+    assert plan["smem_bytes"] == {"fwd": 5 * mat + 1024, "chunk_fwd": 5 * mat + 1024}
+    # the blocks an SM is built for fit its 228 KB (1 KB reserved a block)
+    assert plan["blocks_per_sm"] * (plan["smem_bytes"]["fwd"] + 1024) <= 228 * 1024
+    assert plan["blocks_per_sm"] == (4 if hd <= 64 else 2)
+
+
+@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+def test_fwd_plan_keeps_float32_on_the_fma_kernels(hd):
+    plan = tfa.fwd_plan(torch.float32, hd, 8192, 130)
+    assert plan["route"] == "fma" and plan["threads"] == 256
+    assert plan["grid_tiles"] == 128 and plan["blocks_per_sm"] is None
+    assert plan["q_tiles_reversed"] == {"fwd": True, "chunk_fwd": False}
+    rows, score = 64 * (hd + 1), 64 * 65
+    assert plan["smem_bytes"] == {"fwd": 4 * (3 * rows + score + 128),
+                                  "chunk_fwd": 4 * (3 * rows + score + 192)}
+    assert max(plan["smem_bytes"].values()) <= 227 * 1024
+
+
+def test_fwd_plan_rejects_what_the_kernels_do_not_take():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa.fwd_plan(torch.float16, 64, 64, 64)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.fwd_plan(torch.bfloat16, 48, 64, 64)
+    with pytest.raises(ValueError, match="tiles"):
+        tfa.fwd_plan(torch.bfloat16, 64, 64 * tfa.MAX_TILES + 1, 64 * tfa.MAX_TILES + 1)
+    with pytest.raises(ValueError, match="tiles"):
+        tfa.fwd_plan(torch.float32, 64, 64, 64 * tfa.MAX_TILES + 1)
+
+
+TC_RTOL = 2.0 ** -7     # the tensor-core route's bound on out, of the largest value
+LSE_RTOL = 2.0 ** -21
+
+# the bf16 forward's cases, as EMU_CASES[name] = CASES' tuple
+EMU_CASES = {
+    "causal": (2, 128, 2, 2, 32, True, None, 0),
+    "right_padded": (2, 128, 2, 2, 32, True, None, 29),
+    "s100": (1, 100, 2, 2, 64, True, None, 0),
+    "gqa_g2": (2, 128, 4, 2, 32, True, None, 0),
+    "window64": (1, 192, 2, 2, 32, True, 64, 0),
+    "noncausal": (2, 128, 2, 2, 32, False, None, 0),
+}
+
+
+def _tc_fwd_rounded(q, k, v, slopes, kpos, kneg, scale, causal, g, window):
+    """(out, lse) as the tensor-core forward rounds them: each 64-query
+    tile walks the 64-key tiles the kernel walks (from the window's first
+    tile to the diagonal's), with the online softmax in float32, l summing
+    the float32 p, and P rounded once to bf16 before the PV product."""
+    bh, s, hd = q.shape
+    sc = tfa._scores(q, k, slopes, kpos, kneg, scale, causal, g, window)
+    vf = tfa._expand(v, g).float()
+    out = torch.empty(bh, s, hd)
+    lse = torch.empty(bh, s)
+    for q0 in range(0, s, 64):
+        rows = slice(q0, min(q0 + 64, s))
+        end = min(q0 + 64, s) if causal else s
+        first = max(0, q0 - window + 1) // 64 * 64 if window else 0
+        m = torch.full((bh, rows.stop - q0), -1e9)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(bh, rows.stop - q0, hd)
+        for k0 in range(first, end, 64):
+            keys = slice(k0, min(k0 + 64, s))
+            t = sc[:, rows, keys]
+            m_new = torch.maximum(m, t.amax(-1))
+            p = torch.exp(t - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqk,bkd->bqd", p.to(torch.bfloat16).float(), vf[:, keys])
+            m = m_new
+        lv = torch.clamp_min(l, 1e-30)
+        out[:, rows] = acc / lv[..., None]
+        lse[:, rows] = m + torch.log(lv)
+    return out.to(q.dtype), lse
+
+
+@pytest.mark.parametrize("name", sorted(EMU_CASES))
+def test_tensor_core_forward_roundings_stay_within_tolerance_of_jax(name):
+    """bf16 inputs: the emulated tensor-core forward against
+    ``_flash_fwd_pallas`` in interpret mode, out within 1e-5 + 2^-7 and lse
+    within 1e-5 + 2^-21 of their largest values; and out not bit for bit,
+    so the check sees the rounding."""
+    x = _inputs(name, seed=3, cases=EMU_CASES)
+    bf = lambda a: np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))  # noqa: E731
+    for n in ("q", "k", "v"):
+        x[n] = bf(x[n])
+    want_out, want_lse = jfa._flash_fwd_pallas(
+        *(jnp.asarray(x[n], jnp.bfloat16) for n in ("q", "k", "v")),
+        *(jnp.asarray(x[n]) for n in ("slopes", "kpos", "kneg")),
+        x["scale"], x["causal"], *x["blocks"], True, x["g"], x["window"])
+    q, k, v = (torch.from_numpy(x[n]).to(torch.bfloat16) for n in ("q", "k", "v"))
+    got_out, got_lse = _tc_fwd_rounded(q, k, v, *_torch(x, "slopes", "kpos", "kneg"),
+                                       x["scale"], x["causal"], x["g"], x["window"])
+    want_out = np.asarray(want_out.astype(jnp.float32))
+    err = np.abs(got_out.float().numpy() - want_out).max()
+    tol = 1e-5 + TC_RTOL * np.abs(want_out).max()
+    assert 0 < err <= tol, f"out: {err} vs {tol}"
+    want_lse = np.asarray(want_lse)
+    err = np.abs(got_lse.numpy() - want_lse).max()
+    assert err <= 1e-5 + LSE_RTOL * np.abs(want_lse).max(), f"lse: {err}"

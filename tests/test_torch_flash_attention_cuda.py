@@ -14,7 +14,10 @@ Tolerance, on max |kernel - plain| against the largest |plain| value M:
   error; the backward multiplies it by dO.V (~8).
 - bf16 outputs: 1e-5 + 2^-7 * M. Each side rounds a float32 value that
   differs from the other's in its last bits, so the two may land one bf16
-  ulp apart, and a bf16 ulp is at most 2^-7 of the value.
+  ulp apart, and a bf16 ulp is at most 2^-7 of the value. The bf16 forward
+  runs on the tensor cores (``fwd_plan``), which also round P once to bf16
+  (a relative 2^-9) before the PV product, every sum in float32: out keeps
+  the same bound.
 - lse (float32 in both dtypes): 1e-5 + 2^-21 * M, four float32 ulps of
   the largest value.
 """
@@ -25,6 +28,7 @@ import torch
 from pipegoose_tpu_torch.ops import flash_attention as fa
 
 RTOL = {torch.float32: 2e-4, torch.bfloat16: 2.0 ** -7}
+ROUTE = {torch.float32: "fma", torch.bfloat16: "mma"}   # the forward's route
 ATOL = 1e-5
 LSE_RTOL = 2.0 ** -21
 
@@ -80,6 +84,7 @@ def test_kernels_match_plain_versions_on_card(dtype, s, variant):
     q, k, v, do, slopes, kpos, kneg, scale = _case(s, dtype, g, pad, dev)
     mode = (scale, causal, g, window)
     counts = (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches)
+    routes = dict(fa.flash_fwd.routes)
     out, lse = fa.flash_fwd(q, k, v, slopes, kpos, kneg, *mode)
     ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, slopes, kpos, kneg, *mode)
     delta = (do.float() * ref_out.float()).sum(-1)
@@ -89,6 +94,8 @@ def test_kernels_match_plain_versions_on_card(dtype, s, variant):
     torch.cuda.synchronize()
     assert (fa.flash_fwd.launches, fa.flash_dq.launches,
             fa.flash_dkv.launches) == tuple(c + 1 for c in counts)
+    assert {r: fa.flash_fwd.routes[r] - routes[r] for r in routes} == {
+        r: int(r == ROUTE[dtype]) for r in routes}
     assert out.dtype == dq.dtype == dk.dtype == dtype and lse.dtype == torch.float32
     _assert_close(out, ref_out, RTOL[dtype], "out")
     _assert_close(lse, ref_lse, LSE_RTOL, "lse")
@@ -96,6 +103,84 @@ def test_kernels_match_plain_versions_on_card(dtype, s, variant):
     ref_dk, ref_dv = fa.flash_dkv_reference(*bwd)
     _assert_close(dk, ref_dk, RTOL[dtype], "dk")
     _assert_close(dv, ref_dv, RTOL[dtype], "dv")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_tensor_core_forward_at_other_head_dims(variant, hd):
+    """The bf16 forward at head_dim 32 and 128 (S = 200, four tiles, the
+    last ragged) on the tensor-core route against its plain version."""
+    dev = _needs_card()
+    g, causal, window, pad = VARIANTS[variant]
+    q, k, v, _, slopes, kpos, kneg, scale = _case(200, torch.bfloat16, g, pad, dev, hd=hd,
+                                                  seed=hd)
+    mode = (hd ** -0.5, causal, g, window)
+    before = fa.flash_fwd.routes["mma"]
+    out, lse = fa.flash_fwd(q, k, v, slopes, kpos, kneg, *mode)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, slopes, kpos, kneg, *mode)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.routes["mma"] - before == 1
+    _assert_close(out, ref_out, RTOL[torch.bfloat16], "out")
+    _assert_close(lse, ref_lse, LSE_RTOL, "lse")
+
+
+@pytest.mark.cuda
+def test_tensor_core_forward_at_the_training_shape():
+    """bf16 B*nh = 128, S = 1024, hd = 64, causal with BLOOM's ALiBi (the
+    shape of chip_smoke.py's timed training step): on the tensor cores,
+    within the bf16 bound of its plain version, and not bit for bit."""
+    dev = _needs_card()
+    gen = torch.Generator().manual_seed(21)
+    bh, s, hd = 128, 1024, 64
+    q, k, v = (torch.randn(bh, s, hd, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
+    slopes = torch.tensor([2.0 ** -(8 * (h % 16 + 1) / 16) for h in range(bh)], device=dev)
+    kpos, kneg = (t.to(dev).contiguous() for t in fa.mask_to_kv_bias(torch.ones(bh, s)))
+    mode = (hd ** -0.5, True, 1, None)
+    before = fa.flash_fwd.routes["mma"]
+    out, lse = fa.flash_fwd(q, k, v, slopes, kpos, kneg, *mode)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, slopes, kpos, kneg, *mode)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.routes["mma"] - before == 1
+    _assert_close(out, ref_out, RTOL[torch.bfloat16], "out")
+    _assert_close(lse, ref_lse, LSE_RTOL, "lse")
+    assert not torch.equal(out, ref_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_tensor_core_forward_repeats_bit_for_bit(variant):
+    """No atomics and a fixed order of every sum: two bf16 forward calls on
+    the same inputs give the same bits."""
+    dev = _needs_card()
+    g, causal, window, pad = VARIANTS[variant]
+    q, k, v, _, slopes, kpos, kneg, scale = _case(200, torch.bfloat16, g, pad, dev, seed=22)
+    args = (q, k, v, slopes, kpos, kneg, scale, causal, g, window)
+    first, second = fa.flash_fwd(*args), fa.flash_fwd(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_forward_needs_16_byte_aligned_operands():
+    """The tensor-core route copies 16 bytes at a time: a bf16 q, k or v
+    that starts 2 bytes off raises before any launch; one 16 bytes off
+    launches."""
+    dev = _needs_card()
+    q, k, v, _, slopes, kpos, kneg, scale = _case(64, torch.bfloat16, 1, 0, dev)
+
+    def shifted(t, elems):
+        return torch.empty(t.numel() + elems, dtype=t.dtype, device=dev)[elems:].view(
+            t.shape).copy_(t)
+
+    args = {"q": q, "k": k, "v": v}
+    fa.flash_fwd(*{**args, "q": shifted(q, 8)}.values(), slopes, kpos, kneg, scale, True)
+    launches = fa.flash_fwd.launches
+    for name in args:
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_fwd(*{**args, name: shifted(args[name], 1)}.values(), slopes, kpos,
+                         kneg, scale, True)
+    assert fa.flash_fwd.launches == launches
 
 
 @pytest.mark.cuda

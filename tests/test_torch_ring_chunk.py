@@ -23,12 +23,15 @@ Tolerance 2e-5 absolute: both sides sum the same float32 products in
 another order (bf16 inputs are converted exactly), with scores, states
 and gradients of order 10 and below.
 
-On the card, bf16 dQ and dK/dV take the tensor-core route
-(``chunk_bwd_plan``), which rounds P and dS once to bf16 before the second
-product and sums in float32. A test-local emulation of exactly those
+On the card, bf16 inputs take the tensor-core route (``fwd_plan``,
+``chunk_bwd_plan``): the forward walks 64-key tiles with the online
+softmax, sums l from the float32 p and rounds P once to bf16 before the PV
+product; dQ and dK/dV round P and dS once to bf16 before the second
+product; every sum is float32. A test-local emulation of exactly those
 roundings is held against the same JAX kernels within the card tests'
-tolerance for that route, 1e-5 + 2^-7 of the largest |JAX| value, so the
-tolerance is checked here before the card checks the kernels.
+tolerance for that route, 1e-5 + 2^-7 of the largest |JAX| value (the
+forward's m and l to 2e-5, as the plain versions), so the tolerance is
+checked here before the card checks the kernels.
 """
 import functools
 
@@ -296,6 +299,79 @@ def test_chunk_bwd_plan_rejects_what_the_kernels_do_not_take():
         tfa.chunk_bwd_plan(torch.bfloat16, 64, 64 * tfa.MAX_TILES + 1, 64)
     with pytest.raises(ValueError, match="tiles"):
         tfa.chunk_bwd_plan(torch.float32, 64, 64, -1)
+
+
+def _tc_chunk_fwd_rounded(q, k, v, slopes, qpos, kpos, kneg, m, l, acc, scale, g):
+    """The state (m, l, acc) as the tensor-core forward rounds it: 64 x 64
+    tile pairs, a pair skipped when its smallest key position exceeds its
+    largest query position, the online softmax in float32 with l summing
+    the float32 p, and P rounded once to bf16 before the PV product."""
+    sc = tfa._chunk_scores(q, k, slopes, qpos, kpos, kneg, scale, g)
+    kp = tfa._expand(kpos, g)
+    vf = tfa._expand(v, g).float()
+    m, l, acc = m.clone(), l.clone(), acc.clone()
+    sq, skv = sc.shape[1:]
+    for q0 in range(0, sq, 64):
+        rows = slice(q0, min(q0 + 64, sq))
+        for k0 in range(0, skv, 64):
+            keys = slice(k0, min(k0 + 64, skv))
+            visit = kp[:, keys].amin(-1) <= qpos[:, rows].amax(-1)    # (BH,)
+            t = sc[:, rows, keys]
+            m_new = torch.maximum(m[:, rows], t.amax(-1))
+            p = torch.exp(t - m_new[..., None])
+            alpha = torch.exp(m[:, rows] - m_new)
+            l_new = l[:, rows] * alpha + p.sum(-1)
+            acc_new = acc[:, rows] * alpha[..., None] + torch.einsum(
+                "bqk,bkd->bqd", p.to(torch.bfloat16).float(), vf[:, keys])
+            m[:, rows] = torch.where(visit[:, None], m_new, m[:, rows])
+            l[:, rows] = torch.where(visit[:, None], l_new, l[:, rows])
+            acc[:, rows] = torch.where(visit[:, None, None], acc_new, acc[:, rows])
+    return m, l, acc
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_tensor_core_forward_roundings_stay_within_tolerance_of_jax(name):
+    """Every (rank, kv_rank) pair of the sp = 4 split in ring order, bf16
+    inputs, each step from the state JAX carried into it: the emulated
+    tensor-core forward against ``flash_ring_chunk`` in interpret mode on
+    the rows that have seen an unmasked key, acc within 1e-5 + 2^-7 of its
+    largest value, m and l within 2e-5; and acc not bit for bit, so the
+    check sees the rounding."""
+    case = _case(name, "bf16")
+    g, scale = case["g"], case["scale"]
+    j_fwd = _jax_fns(scale, g)[0]
+    bh = case["q"].shape[0]
+    worst = 0.0
+    for rank in range(SP):
+        state = (np.full((bh, SL), -1e9, np.float32), np.zeros((bh, SL), np.float32),
+                 np.zeros((bh, SL, HD), np.float32))
+        for t in range(SP):
+            kv_rank = (rank - t) % SP
+            q, k, v, _, slopes, qpos, kpos, kneg = _pair(case, rank, kv_rank)
+            want = [np.asarray(x) for x in j_fwd(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                                                 slopes, qpos, kpos, kneg, *state)]
+            got = _tc_chunk_fwd_rounded(*(_t(x).to(torch.bfloat16) for x in (q, k, v)),
+                                        *map(_t, (slopes, qpos, kpos, kneg, *state)), scale, g)
+            seen = want[0] > SEEN
+            _close(got[0].numpy()[seen], want[0][seen], f"m ({rank}, {kv_rank})")
+            _close(got[1].numpy()[seen], want[1][seen], f"l ({rank}, {kv_rank})")
+            worst = max(worst, _tc_close(got[2].numpy()[seen], want[2][seen],
+                                         f"acc ({rank}, {kv_rank})"))
+            state = want
+    assert worst > 0
+
+
+def test_chunk_forward_on_cpu_takes_the_plain_version_and_counts_nothing():
+    case = _case("gqa_g2", "bf16")
+    q, k, v, _, slopes, qpos, kpos, kneg = map(_t, _pair(case, 2, 1))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    bh = q.shape[0]
+    state = (torch.full((bh, SL), -1e9), torch.zeros(bh, SL), torch.zeros(bh, SL, HD))
+    args = (q, k, v, slopes, qpos, kpos, kneg, *state, case["scale"], case["g"])
+    before = (tfa.flash_ring_chunk.launches, dict(tfa.flash_ring_chunk.routes))
+    for a, b_ in zip(tfa.flash_ring_chunk(*args), tfa.flash_ring_chunk_reference(*args)):
+        assert torch.equal(a, b_)
+    assert (tfa.flash_ring_chunk.launches, dict(tfa.flash_ring_chunk.routes)) == before
 
 
 def test_chunk_backward_on_cpu_takes_the_plain_versions_and_counts_nothing():

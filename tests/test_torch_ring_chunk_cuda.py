@@ -19,15 +19,16 @@ final lse of the plain chain and zero dO on padded queries, as the models
 give it, and is compared everywhere.
 
 Tolerance, on max |kernel - plain| against the largest |plain| value M:
-the forward state in both input dtypes, and dq, dk, dv from float32
-inputs (the FMA route), 1e-5 + 2e-4 * M, as the flash kernels' float32
-outputs: both sides convert bf16 inputs exactly, the sums run in another
-order and ALiBi scores reach slope * S, whose float32 ulp P inherits; m, a
-maximum of scores, 1e-5 + 2^-21 * M (four ulps). dq, dk and dv from bf16
-inputs take the tensor-core route (``chunk_bwd_plan``), which rounds P and
-dS once to bf16 (a relative 2^-9 each) before the second product, every
-sum in float32: 1e-5 + 2^-7 * M, as the flash kernels' bf16 outputs
-(``FLASH_RTOL[bfloat16]`` in chip_smoke.py).
+m, a maximum of scores, 1e-5 + 2^-21 * M (four ulps) in both input dtypes;
+l and, from float32 inputs (the FMA route), acc, dq, dk and dv 1e-5 + 2e-4
+* M, as the flash kernels' float32 outputs: both sides sum float32 products
+in another order and ALiBi scores reach slope * S, whose float32 ulp P
+inherits. bf16 inputs take the tensor-core route (``fwd_plan``,
+``chunk_bwd_plan``), which rounds P (and dS) once to bf16 (a relative 2^-9
+each) before the second product, every sum in float32: acc, dq, dk and dv
+hold to 1e-5 + 2^-7 * M, as the flash kernels' bf16 outputs
+(``FLASH_RTOL[bfloat16]`` in chip_smoke.py); l sums the float32 p and keeps
+2e-4.
 """
 import numpy as np
 import pytest
@@ -36,7 +37,7 @@ import torch
 from pipegoose_tpu_torch.ops import flash_attention as fa
 
 RTOL = 2e-4
-BWD_RTOL = {torch.float32: RTOL, torch.bfloat16: 2.0 ** -7}   # dq, dk, dv by input dtype
+BWD_RTOL = {torch.float32: RTOL, torch.bfloat16: 2.0 ** -7}   # acc, dq, dk, dv by input dtype
 ROUTE = {torch.float32: "fma", torch.bfloat16: "mma"}
 ATOL = 1e-5
 M_RTOL = 2.0 ** -21
@@ -107,7 +108,7 @@ def check_ring(case, sp):
     the worst error of each kernel."""
     bh, s, hd = case["q"].shape
     sl, g, scale = s // sp, case["g"], case["scale"]
-    bwd_rtol = BWD_RTOL[case["q"].dtype]
+    bwd_rtol = BWD_RTOL[case["q"].dtype]   # also the forward's acc
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     dev = case["q"].device
     finals = []
@@ -128,7 +129,7 @@ def check_ring(case, sp):
             seen = want[0] > SEEN
             for name, a, b_, rtol in (("m", got[0], want[0], M_RTOL),
                                       ("l", got[1], want[1], RTOL),
-                                      ("acc", got[2], want[2], RTOL)):
+                                      ("acc", got[2], want[2], bwd_rtol)):
                 err, tol = _err(a[seen], b_[seen], rtol)
                 assert err <= tol, f"B7 {name} pair ({rank}, {kv_rank}): {err} > {tol}"
                 worst["fwd"] = max(worst["fwd"], err)
@@ -170,30 +171,28 @@ CASES = {   # name -> (sp_case kwargs, sp)
 def test_chunk_kernels_match_plain_versions_on_card(dtype, name):
     dev = _needs_card()
     kw, sp = CASES[name]
-    counts = [fn.launches for fn in (fa.flash_ring_chunk, fa.flash_chunk_dq,
-                                     fa.flash_chunk_dkv)]
-    routes = [fn.routes[ROUTE[dtype]] for fn in (fa.flash_chunk_dq, fa.flash_chunk_dkv)]
+    fns = (fa.flash_ring_chunk, fa.flash_chunk_dq, fa.flash_chunk_dkv)
+    counts = [fn.launches for fn in fns]
+    routes = [fn.routes[ROUTE[dtype]] for fn in fns]
     check_ring(sp_case(dev, dtype, **kw), sp)
-    moved = [fn.launches - c for fn, c in zip(
-        (fa.flash_ring_chunk, fa.flash_chunk_dq, fa.flash_chunk_dkv), counts)]
+    moved = [fn.launches - c for fn, c in zip(fns, counts)]
     assert moved == [sp * sp] * 3
-    assert [fn.routes[ROUTE[dtype]] - c for fn, c in zip(
-        (fa.flash_chunk_dq, fa.flash_chunk_dkv), routes)] == [sp * sp] * 2
+    assert [fn.routes[ROUTE[dtype]] - c for fn, c in zip(fns, routes)] == [sp * sp] * 3
 
 
 @pytest.mark.cuda
 def test_tensor_core_route_at_the_sp_training_shape():
-    """bf16 B*nh = 16, S = 8192, hd = 64, the diagonal chunk from the plain
-    forward's lse (the shape of chip_smoke.py's timed SP step), left-padded
-    with the ALiBi correction: B8 and B9 on the tensor cores against their
-    plain versions."""
+    """bf16 B*nh = 16, S = 8192, hd = 64, the diagonal chunk from zero state
+    and, for the backward, the plain forward's lse (the shape of
+    chip_smoke.py's timed SP step), left-padded with the ALiBi correction:
+    B7, B8 and B9 on the tensor cores against their plain versions."""
     dev = _needs_card()
     case = sp_case(dev, torch.bfloat16, b=1, nh=16, nkv=16, s=8192, pad="left", seed=8)
-    before = [fn.routes["mma"] for fn in (fa.flash_chunk_dq, fa.flash_chunk_dkv)]
+    fns = (fa.flash_ring_chunk, fa.flash_chunk_dq, fa.flash_chunk_dkv)
+    before = [fn.routes["mma"] for fn in fns]
     worst = check_ring(case, 1)
-    assert [fn.routes["mma"] - c for fn, c in zip(
-        (fa.flash_chunk_dq, fa.flash_chunk_dkv), before)] == [1, 1]
-    assert worst["dq"] > 0 and worst["dkv"] > 0   # bf16 operands: not bit for bit
+    assert [fn.routes["mma"] - c for fn, c in zip(fns, before)] == [1, 1, 1]
+    assert min(worst.values()) > 0   # bf16 operands: not bit for bit
 
 
 @pytest.mark.cuda
@@ -228,6 +227,41 @@ def test_backward_kernels_repeat_bit_for_bit(dtype):
     second = (fa.flash_chunk_dq(*args), *fa.flash_chunk_dkv(*args))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_forward_kernel_repeats_bit_for_bit(hd):
+    """B7 on the tensor cores: a fixed order of every sum, so two calls on
+    the same inputs and a carried random state give the same bits (GQA
+    g = 2, ragged tiles, queries ahead of the keys, a padded mask)."""
+    dev = _needs_card()
+    case = sp_case(dev, torch.bfloat16, nkv=2, s=200, hd=hd, pad="right", seed=16)
+    q, k, v, _, slopes, qpos, kpos, kneg = chunk_args(case, 2, 1, 0)
+    bh, sq, _ = q.shape
+    gen = torch.Generator().manual_seed(17)
+    state = ((torch.randn(bh, sq, generator=gen) * 0.5).to(dev),
+             (torch.rand(bh, sq, generator=gen) + 0.5).to(dev),
+             torch.randn(bh, sq, hd, generator=gen).to(dev))
+    args = (q, k, v, slopes, qpos, kpos, kneg, *state, case["scale"], case["g"])
+    before = fa.flash_ring_chunk.routes["mma"]
+    first, second = fa.flash_ring_chunk(*args), fa.flash_ring_chunk(*args)
+    assert fa.flash_ring_chunk.routes["mma"] - before == 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_float32_forward_stays_on_the_fma_route():
+    """float32 inputs never round to bf16: B7 launches the FMA kernel
+    (route counter) and keeps 1e-5 + 2e-4 * M on acc against the plain
+    version, on every pair of an sp = 2 split."""
+    dev = _needs_card()
+    before = dict(fa.flash_ring_chunk.routes)
+    worst = check_ring(sp_case(dev, torch.float32, s=256, pad="right", seed=18), 2)
+    assert fa.flash_ring_chunk.routes["fma"] - before["fma"] == 4
+    assert fa.flash_ring_chunk.routes["mma"] == before["mma"]
+    assert worst["fwd"] > 0
 
 
 @pytest.mark.cuda
@@ -281,6 +315,14 @@ def test_chunk_wrappers_reject_what_the_kernels_do_not_take():
     fa.flash_chunk_dq(shifted, *bf[1:], lse, lse, slopes, qpos, kpos, kneg, 0.125)
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_chunk_dq(odd, *bf[1:], lse, lse, slopes, qpos, kpos, kneg, 0.125)
+    # the bf16 forward: q, k, v on 16 bytes and acc on 8
+    fa.flash_ring_chunk(shifted, *bf[1:3], slopes, qpos, kpos, kneg, m, l, acc, 0.125)
+    for name in ("q", "k", "v"):
+        with pytest.raises(ValueError, match="16-byte"):
+            fwd(**{**dict(zip("qkv", bf[:3])), name: odd})
+    acc_odd = torch.empty(acc.numel() + 1, device=dev)[1:].view(acc.shape).copy_(acc)
+    with pytest.raises(ValueError, match="8-byte"):
+        fwd(q=bf[0], k=bf[1], v=bf[2], acc=acc_odd)
 
 
 @pytest.mark.cuda
