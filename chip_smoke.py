@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py          # from the repository root, one card
     python3 chip_smoke.py --parent DIR
-        # DIR: a checkout of the parent revision; phases 9 and 21 also
-        # build its flash_attention.cu and flash_chunk.cu and time its
-        # bf16 forward kernels in turns with this revision's
+        # DIR: a checkout of the parent revision; phase 1 also builds its
+        # flash_attention.cu and flash_chunk.cu, phases 9 and 21 time its
+        # bf16 attention kernels in turns with this revision's (phase 21
+        # also compares B8/B9's outputs bit for bit), and phase 22 times
+        # three training steps with its libraries in turns
 
 Three main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
 24 layers, 16 heads) with random weights made from seed 0:
@@ -50,7 +52,7 @@ Phases, each fatal on failure:
   6  the three flash-attention kernels against their plain versions at
      bloom-560m's attention shape (B=8, S=1024, nh=16, hd=64) in bf16 and
      float32, and on a right-padded mask, S=100, GQA g=2, window=64 and
-     causal=False; the bf16 forward must take the tensor-core route, the
+     causal=False; every bf16 launch must take the tensor-core route, every
      float32 one the FMA route;
   7  the float32 train step on the card against the same step on the CPU
      (full width, depth cut to 2 layers): loss, every gradient, and the
@@ -58,12 +60,12 @@ Phases, each fatal on failure:
   8  timed bf16 training steps exactly as ``bench.py``'s "flash" variant
      (24 layers, remat, flash, batch 8 x 1024, Adam 1e-4): step ms,
      tokens/s, MFU, peak memory, falling losses, the kernels' launch
-     counts (the forwards B1 and B7 also by route: every bf16 launch on
-     the tensor cores), and where one profiled step's device time goes;
+     counts (also by route: every bf16 launch of B1-B3 and B7-B9 on the
+     tensor cores), and where one profiled step's device time goes;
   9  each flash kernel's time at phase 8's shape beside its bound, its
-     plain version's time and PyTorch's SDPA forward or backward, with the
-     forward's route and ptxas's registers and spills (with --parent, the
-     parent revision's forward kernel in turns with this one's);
+     plain version's time and PyTorch's SDPA forward or backward, with its
+     route and ptxas's registers and spills (with --parent, the parent
+     revision's three kernels in turns with this one's);
  10  the three fused cross-entropy kernels (forward, d-hidden, d-weight)
      against their plain versions on the card: float32 and bf16, ragged T
      and V with a nonzero offset and valid_size < V, both weight layouts,
@@ -130,7 +132,8 @@ Phases, each fatal on failure:
  21  each chunk kernel's time at phase 20's shape beside its bound, its plain
      version's time and PyTorch's SDPA forward or backward, with its route
      and ptxas's registers and spills (with --parent, the parent revision's
-     B7 in turns with this one's);
+     B7-B9 in turns with this one's, and B8/B9's outputs equal to the
+     parent's bit for bit);
  22  with --parent only, right after phase 20 in its context: phase 8's
      "flash" step, phase 20's SP step and train_step at 1 x 8192, each timed
      with this revision's kernels and with the parent's (its
@@ -262,7 +265,7 @@ def phase0_card() -> str:
 
 # -- phase 1 -------------------------------------------------------------------
 
-PARENT_SOURCES = ("flash_attention", "flash_chunk")   # their bf16 forwards were redesigned
+PARENT_SOURCES = ("flash_attention", "flash_chunk")   # the attention kernels' sources
 
 
 def phase1_build(parent=None) -> dict:
@@ -899,9 +902,13 @@ def check_flash(label, case, causal=True, window=None) -> dict:
 
     fwd, mode = flash_args(case, causal, window)
     dtype = case["q"].dtype
-    counts = (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches)
-    route = fa.fwd_plan(dtype, case["q"].shape[2], 1, 1)["route"]
-    routed = fa.flash_fwd.routes[route]
+    kernels = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
+    counts = tuple(f.launches for f in kernels)
+    hd, s = case["q"].shape[2], case["q"].shape[1]
+    route = fa.fwd_plan(dtype, hd, s, s)["route"]
+    if fa.bwd_plan(dtype, hd, s)["route"] != route:
+        raise AssertionError(f"{label}: the backward's plan left the forward's route")
+    routed = tuple(f.routes[route] for f in kernels)
     out, lse = fa.flash_fwd(*fwd, *mode)
     ref_out, ref_lse = fa.flash_fwd_reference(*fwd, *mode)
     delta = (case["do"].float() * ref_out.float()).sum(-1)
@@ -909,12 +916,11 @@ def check_flash(label, case, causal=True, window=None) -> dict:
     dq = fa.flash_dq(*bwd, *mode)
     dk, dv = fa.flash_dkv(*bwd, *mode)
     torch.cuda.synchronize()
-    moved = tuple(n - c for n, c in zip(
-        (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches), counts))
+    moved = tuple(f.launches - c for f, c in zip(kernels, counts))
     if moved != (1, 1, 1):
         raise AssertionError(f"{label}: launch counters moved by {moved}")
-    if fa.flash_fwd.routes[route] - routed != 1:
-        raise AssertionError(f"{label}: the forward left the {route} route")
+    if tuple(f.routes[route] - r for f, r in zip(kernels, routed)) != (1, 1, 1):
+        raise AssertionError(f"{label}: a kernel left the {route} route")
     ref_dk, ref_dv = fa.flash_dkv_reference(*bwd, *mode)
     checks = {
         "out": flash_err(out, ref_out, FLASH_RTOL[dtype]),
@@ -924,7 +930,7 @@ def check_flash(label, case, causal=True, window=None) -> dict:
         "dv": flash_err(dv, ref_dv, FLASH_RTOL[dtype]),
     }
     bad = [n for n, (err, tol) in checks.items() if err > tol]
-    log(f"phase 6: {label} (forward on the {route} route): " + ", ".join(
+    log(f"phase 6: {label} (all three on the {route} route): " + ", ".join(
         f"{n} {err:.3g} (tol {tol:.3g})" for n, (err, tol) in checks.items())
         + (f" FAIL {bad}" if bad else " ok"))
     if bad:
@@ -1124,9 +1130,9 @@ def timed_training(np_tree, dev, card, cfg, label, variant, batch=8, seq=1024,
     if counts != want:
         raise AssertionError(f"{label}: the training step bypassed a kernel")
     route = "mma" if cfg.dtype == torch.bfloat16 else "fma"
-    log(f"  launches by route over {steps} steps: B1 {routes['fwd']}, B7 "
-        f"{routes['chunk_fwd']}, B8 {routes['chunk_dq']}, B9 {routes['chunk_dkv']}; all "
-        f"must be {route}")
+    log(f"  launches by route over {steps} steps: B1 {routes['fwd']}, B2 {routes['dq']}, B3 "
+        f"{routes['dkv']}, B7 {routes['chunk_fwd']}, B8 {routes['chunk_dq']}, B9 "
+        f"{routes['chunk_dkv']}; all must be {route}")
     if any(routes[n][route] != counts[n] or sum(routes[n].values()) != counts[n]
            for n in routes):
         raise AssertionError(f"{label}: a kernel left the {route} route")
@@ -1201,6 +1207,22 @@ def parent_fn(lib, entry, n_ptr, n_int):
     return fn
 
 
+def parent_calls(lib, prefix, ins, outs, ints, scale):
+    """For each kernel kind of ``ins``, a call of the parent library's bf16
+    entry ``{prefix}_{kind}_bf16`` on the tensors ``ins[kind]``, writing into
+    new tensors shaped as ``outs[kind]``. Returns ({kind: call}, {kind: the
+    tensors it writes})."""
+    calls, written = {}, {}
+    for kind, tensors in ins.items():
+        written[kind] = tuple(torch.empty_like(t) for t in outs[kind])
+        ptrs = tensors + written[kind]
+        fn = parent_fn(lib, f"{prefix}_{kind}_bf16", len(ptrs), len(ints))
+        calls[kind] = (lambda i, fn=fn, ptrs=ptrs: fn(
+            *(t.data_ptr() for t in ptrs), *ints, scale,
+            torch.cuda.current_stream().cuda_stream))
+    return calls, written
+
+
 def phase9_flash_time(dev, card, errs, launches, parent=None) -> list:
     from pipegoose_tpu_torch.models.bloom import NEG_INF
     from pipegoose_tpu_torch.ops import flash_attention as fa
@@ -1213,7 +1235,8 @@ def phase9_flash_time(dev, card, errs, launches, parent=None) -> list:
     bwd = flash_bwd_args(case, lse, delta)
     dq = fa.flash_dq(*bwd, *mode)
     dk, dv = fa.flash_dkv(*bwd, *mode)
-    io = {"fwd": fwd + (out, lse), "dq": bwd + (dq,), "dkv": bwd + (dk, dv)}
+    io_out = {"fwd": (out, lse), "dq": (dq,), "dkv": (dk, dv)}
+    io = {"fwd": fwd + io_out["fwd"], "dq": bwd + io_out["dq"], "dkv": bwd + io_out["dkv"]}
     calls = {
         "fwd": (lambda i: fa.flash_fwd(*fwd, *mode),
                 lambda i: fa.flash_fwd_reference(*fwd, *mode)),
@@ -1241,10 +1264,15 @@ def phase9_flash_time(dev, card, errs, launches, parent=None) -> list:
         lambda: torch.autograd.grad(so, (qs, ks, vs), go, retain_graph=True), 8)
     log(f"phase 9: flash kernels at phase 8's shape (B*nh={b * nh}, S={s}, "
         f"hd={hd}, bf16, causal, no padding), device ms per call, on {card}")
-    routes = {"fwd": fa.fwd_plan(torch.bfloat16, hd, s, s)["route"], "dq": "fma", "dkv": "fma"}
-    mangled = {"fwd": f"flash_fwd_mma_kernelILi{hd}E",
-               "dq": f"flash_dq_kernelI13__nv_bfloat16Li{hd}E",
-               "dkv": f"flash_dkv_kernelI13__nv_bfloat16Li{hd}E"}
+    bwd_route = fa.bwd_plan(torch.bfloat16, hd, s)["route"]
+    routes = {"fwd": fa.fwd_plan(torch.bfloat16, hd, s, s)["route"], "dq": bwd_route,
+              "dkv": bwd_route}
+    mangled = {kind: f"flash_{kind}_mma_kernelILi{hd}E" for kind in ("fwd", "dq", "dkv")}
+    old = {}   # a call of the parent's kernel of each kind on this run's inputs
+    if parent:
+        old, _ = parent_calls(parent["flash_attention"], "flash",
+                              {"fwd": fwd, "dq": bwd, "dkv": bwd}, io_out,
+                              (b * nh, s, hd, 1, 1, 0), case["scale"])
     rows = []
     for kind in ("fwd", "dq", "dkv"):
         kernel, plain = calls[kind]
@@ -1254,13 +1282,9 @@ def phase9_flash_time(dev, card, errs, launches, parent=None) -> list:
         library_ms = lib_fwd_ms if kind == "fwd" else lib_bwd_ms
         regs, spills = ptxas_usage("flash_attention", mangled[kind])
         turns = None
-        if kind == "fwd" and parent:
-            old = parent_fn(parent["flash_attention"], "flash_fwd_bf16", 8, 6)
-            p_out, p_lse = torch.empty_like(out), torch.empty_like(lse)
-            turns = parent_turns(kernel, lambda i: old(
-                *(t.data_ptr() for t in fwd + (p_out, p_lse)), b * nh, s, hd, 1, 1, 0,
-                case["scale"], torch.cuda.current_stream().cuda_stream), 8)
-            log(f"  flash_fwd in turns with the parent's kernel (parent, this, this, "
+        if kind in old:
+            turns = parent_turns(kernel, old[kind], 8)
+            log(f"  flash_{kind} in turns with the parent's kernel (parent, this, this, "
                 f"parent): this {turns[0]}, parent {turns[1]}")
         log(f"  flash_{kind} ({routes[kind]} route, {regs} registers, {spills} bytes spilled): "
             f"kernel {ms} (eager {call_ms}), bound {bound_ms} "
@@ -2314,8 +2338,23 @@ def phase21_chunk_time(dev, card, errs, launches, parent=None) -> list:
     plan = fa.chunk_bwd_plan(q.dtype, hd, s, s)
     routes = {"fwd": fa.fwd_plan(q.dtype, hd, s, s)["route"], "dq": plan["route"],
               "dkv": plan["route"]}
-    mangled = {"fwd": f"chunk_fwd_mma_kernelILi{hd}E",
-               "dq": f"chunk_dq_mma_kernelILi{hd}E", "dkv": f"chunk_dkv_mma_kernelILi{hd}E"}
+    mangled = {kind: f"chunk_{kind}_mma_kernelILi{hd}E" for kind in ("fwd", "dq", "dkv")}
+    old = {}   # a call of the parent's kernel of each kind on this run's inputs
+    if parent:
+        old, theirs = parent_calls(parent["flash_chunk"], "flash_chunk",
+                                   {"fwd": fwd[:-1], "dq": bwd[:-1], "dkv": bwd[:-1]},
+                                   {"fwd": (m, l, acc), "dq": (dq,), "dkv": (dk, dv)},
+                                   (bh, s, s, hd, 1), case["scale"])
+        # the backward kernels run on the shared loops now: their outputs must
+        # not move
+        old["dq"](0)
+        old["dkv"](0)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b_) for a, b_ in zip((dq, dk, dv), theirs["dq"] + theirs["dkv"])]
+        log(f"phase 21: B8/B9 outputs equal to the parent's bit for bit: dq {same[0]}, "
+            f"dk {same[1]}, dv {same[2]}")
+        if not all(same):
+            raise AssertionError("B8/B9's outputs moved from the parent's")
     rows = []
     for kind in ("fwd", "dq", "dkv"):
         kernel, plain = calls[kind]
@@ -2327,13 +2366,9 @@ def phase21_chunk_time(dev, card, errs, launches, parent=None) -> list:
         library_ms = lib_fwd_ms if kind == "fwd" else lib_bwd_ms
         regs, spills = ptxas_usage("flash_chunk", mangled[kind])
         turns = None
-        if kind == "fwd" and parent:
-            old = parent_fn(parent["flash_chunk"], "flash_chunk_fwd_bf16", 13, 5)
-            p_state = tuple(torch.empty_like(t) for t in (m, l, acc))
-            turns = parent_turns(kernel, lambda i: old(
-                *(t.data_ptr() for t in fwd[:-1] + p_state), bh, s, s, hd, 1, case["scale"],
-                torch.cuda.current_stream().cuda_stream), 2, replays=5)
-            log(f"  flash_chunk_fwd in turns with the parent's kernel (parent, this, this, "
+        if kind in old:
+            turns = parent_turns(kernel, old[kind], 2, replays=5)
+            log(f"  flash_chunk_{kind} in turns with the parent's kernel (parent, this, this, "
                 f"parent): this {turns[0]}, parent {turns[1]}")
         log(f"  flash_chunk_{kind} ({routes[kind]} route, {regs} registers, {spills} bytes "
             f"spilled): kernel {ms} (eager {call_ms}), bound {bound_ms} ({bound_by}), "
@@ -2357,12 +2392,12 @@ def phase21_chunk_time(dev, card, errs, launches, parent=None) -> list:
 # -- phase 22 ------------------------------------------------------------------
 
 def phase22_steps_vs_parent(np_tree, dev, card, parent) -> dict:
-    """The three steps whose attention the redesigned forwards run, with
-    this revision's kernels and the parent's in turns; returns the step ms
-    of each as {step: {"this": [...], "parent": [...]}}. The parent's
-    libraries take the place of this revision's for both flash sources, so
-    its dQ/dK/dV kernels run too (the same code as this revision's); the
-    route counters still name the route the plan picks."""
+    """Three steps through the attention kernels (the flash kernels B1-B3,
+    the ring-chunk kernels B7-B9), with this revision's kernels and the
+    parent's in turns; returns the step ms of each as {step: {"this":
+    [...], "parent": [...]}}. The parent's libraries take the place of this
+    revision's for both sources; the route counters still name the route
+    this revision's plan picks."""
     from pipegoose_tpu_torch.models.bloom import BloomConfig
     from pipegoose_tpu_torch.ops import _build
     from pipegoose_tpu_torch.trainer import sp_train_step
@@ -2397,8 +2432,9 @@ def main(argv) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port's main path on one H100.")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent revision: time its bf16 forward "
-                         "kernels in turns with this revision's (phases 9 and 21)")
+                    help="a checkout of the parent revision: time its bf16 attention "
+                         "kernels and three training steps in turns with this revision's "
+                         "(phases 9, 21 and 22)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     card = phase0_card()

@@ -2,9 +2,9 @@
 // mma.sync with float32 accumulators, ldmatrix, cp.async staging with a
 // zero-fill predicate, the pack of float32 accumulator (C) fragments into
 // bf16 operand (A) fragments, the staging and fragment loads of 64-row bf16
-// tiles, the skip scan over positions, and the forward main loop that the
-// flash forward (flash_attention.cu, B1) and the ring-chunk forward
-// (flash_chunk.cu, B7) share.
+// tiles, the skip scan over positions, and the main loops that the flash
+// kernels (flash_attention.cu) and the ring-chunk kernels (flash_chunk.cu)
+// share: the forward (B1, B7), dQ (B2, B8) and dK/dV (B3, B9).
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4 g + c, g < 8, c < 4):
 //   A (16 x 16, row-major), four b16x2 registers: rows g | g + 8, columns
@@ -407,6 +407,309 @@ __device__ __forceinline__ void fwd_mma_walk(float (&m)[2], float (&l)[2],
         mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
       }
     }
+    __syncthreads();   // `slot` is free for the tile after next
+    cur = nxt;
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// The backward main loops (B2 + B3, B8 + B9), both from the final lse, so
+// that the pairs' contributions simply add:
+//   dq_mma_walk: one block of four warps takes the 64 queries at q0 against
+//     the key tiles its policy names, S = Q K^T and dP = dO V^T, then in
+//     float32 registers P = exp(s - lse) and dS = P (dP - delta), and
+//     dQ += dS K (the caller scales it);
+//   dkv_mma_walk: one block takes the 64 keys at k0 against the query tiles
+//     its policy names, S^T = K Q^T and dP^T = V dO^T, P^T and dS^T in
+//     registers, dV += P^T dO and dK += dS^T Q, in passes of 16 queries.
+// Every product is bf16 mma.sync with float32 accumulators. The block's
+// own two tiles (dq: Q, dO; dkv: K, V) are staged once and read by ldmatrix
+// as A fragments at each k step: holding them in registers left both 2
+// blocks an SM (~175 registers a thread); read from shared memory they fit
+// 128 registers and an SM holds 4 blocks at HD <= 64 (2 at HD = 128, where
+// shared memory allows no more), ~30% faster on an H100 at bloom-560m's
+// 8192-token ring chunk. The walked tiles (dq: K, V, kpos, kneg; dkv: Q,
+// dO, qpos, lse, delta) stream through a two-deep cp.async ring: the next
+// one is in flight while the block computes on this one. P and dS go from
+// the C fragments straight into A fragments (pack_a), rounded once to bf16
+// (a relative 2^-9 each, as the TPU's matrix unit rounds them at JAX's
+// default precision); every sum is float32. So dq, dk and dv hold to 1e-5
+// + 2^-7 of the largest value of their plain versions. The dK/dV pass loop
+// stays rolled, so that one pass's scores never share registers with the
+// next's and the kernel fits 128 registers with no spills. Rows past sq
+// and keys past skv get probability exactly 0. No atomics, no workspace: a
+// repeat call gives the same bits.
+//
+// Lane (g = lane / 4, c = lane % 4) of warp w holds the accumulator rows
+// (queries for dq, keys for dkv) r0 + 16 w + g (h = 0) and + 8 (h = 1), at
+// columns 8 n + 2 c, 8 n + 2 c + 1 of acc[n][2 h], acc[n][2 h + 1].
+//
+// The policy P gives, as for fwd_mma_walk, first() / next(t) over the
+// walked tiles, and
+//   bool tested(int q0, int k0): whether the pair of the query tile at q0
+//     and the key tile at k0 needs the per-element test;
+//   float score(float dot, int i, int j, float kp, float kn, float qp,
+//     bool test): the score of query i and key j (indices in the call; kp,
+//     kn the key's position and bias, qp the query's position) from the raw
+//     product q . k;
+//   static float prob(float x): e^x, for P = e^(s - lse);
+//   static constexpr bool kQueryPos: whether the score reads query
+//     positions (the walks then load and stage them from qpr).
+
+template <int HD>
+struct BwdSmem {
+  static constexpr int kMat = MmaTile<HD>::kBytes;             // one staged 64-row tile
+  static constexpr int kStage = 2 * kMat + 3 * kMmaTile * 4;   // two tiles + three vectors
+  static constexpr int kBytes = 2 * kMat + 2 * kStage;         // resident tiles + the ring
+  // blocks an SM holds: 4 (<= 128 registers a thread) where shared memory
+  // allows it (HD <= 64, ~57 KB a block), else 2
+  static constexpr int kMinBlocks = HD <= 64 ? 4 : 2;
+};
+
+// dQ of the queries [q0, q0 + 64) of one row: qr, dor the row's (sq, HD)
+// q and dO, lser, dlr, qpr its (sq,) lse, delta and query positions (qpr
+// read only with P::kQueryPos); kr, vr the kv row's (skv, HD) k and v, kpr,
+// knr its (skv,) key positions and biases. acc comes out unscaled.
+template <int HD, class P>
+__device__ __forceinline__ void dq_mma_walk(float (&acc)[HD / 8][4],
+                                            const uint16_t* __restrict__ qr,
+                                            const uint16_t* __restrict__ dor,
+                                            const float* __restrict__ lser,
+                                            const float* __restrict__ dlr,
+                                            const float* __restrict__ qpr, int q0, int sq,
+                                            const uint16_t* __restrict__ kr,
+                                            const uint16_t* __restrict__ vr,
+                                            const float* __restrict__ kpr,
+                                            const float* __restrict__ knr, int skv,
+                                            const P& pol) {
+  using S = BwdSmem<HD>;
+  constexpr int KS = HD / 16;   // k steps of a product over HD
+  constexpr int ND = HD / 8;    // n-tiles of the dQ accumulator
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, c = lane % 4;
+  uint8_t* Qs = dyn_smem();                // [64][pitch] the block's Q rows
+  uint8_t* Os = Qs + S::kMat;              // [64][pitch] its dO rows
+  uint8_t* ring = Qs + 2 * S::kMat;        // two stages of K, V, kpos, kneg
+  const int n_kt = (skv + kMmaTile - 1) / kMmaTile;
+
+  stage_tile<HD>(Qs, qr, q0, sq, tid);
+  stage_tile<HD>(Os, dor, q0, sq, tid);
+  cp_async_commit();
+  auto stage_keys = [&](int t, int slot) {
+    uint8_t* st = ring + slot * S::kStage;
+    stage_tile<HD>(st, kr, t * kMmaTile, skv, tid);
+    stage_tile<HD>(st + S::kMat, vr, t * kMmaTile, skv, tid);
+    float* vec = reinterpret_cast<float*>(st + 2 * S::kMat);
+    stage_vec_async(vec, kpr, t * kMmaTile, skv, tid);
+    stage_vec_async(vec + kMmaTile, knr, t * kMmaTile, skv, tid);
+  };
+
+  const int r0 = q0 + 16 * warp + lane / 4;
+  float lse_r[2], dl_r[2], qp_r[2];
+  bool ok_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    ok_r[h] = r < sq;
+    lse_r[h] = ok_r[h] ? lser[r] : 0.f;
+    dl_r[h] = ok_r[h] ? dlr[r] : 0.f;
+    qp_r[h] = P::kQueryPos && ok_r[h] ? qpr[r] : 0.f;
+  }
+
+  int cur = pol.first();
+  if (cur < n_kt) stage_keys(cur, 0);
+  cp_async_commit();
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int slot = 0; cur < n_kt; slot ^= 1) {
+    const int nxt = pol.next(cur);
+    if (nxt < n_kt) stage_keys(nxt, slot ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // key tile `cur` has landed in `slot` (and Q, dO before it)
+    const uint8_t* Ks = ring + slot * S::kStage;
+    const uint8_t* Vs = Ks + S::kMat;
+    const float* KP = reinterpret_cast<const float*>(Ks + 2 * S::kMat);
+    const float* KN = KP + kMmaTile;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t aq[4], ao[4];
+      load_a<HD>(aq, Qs, warp, kk, lane);
+      load_a<HD>(ao, Os, warp, kk, lane);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        load_bt<HD>(b, Ks, np, kk, lane);
+        mma_bf16(s[2 * np], aq, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], aq, b[2], b[3]);
+        load_bt<HD>(b, Vs, np, kk, lane);
+        mma_bf16(dp[2 * np], ao, b[0], b[1]);
+        mma_bf16(dp[2 * np + 1], ao, b[2], b[3]);
+      }
+    }
+    const int k0 = cur * kMmaTile;
+    // one flag for the tile, read per element (B2 on an H100 at bloom-560m's
+    // training shape: 6-7% faster than a copy of this loop for each value)
+    const bool test = pol.tested(q0, k0);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {   // s <- dS, in float32
+        const int j = 8 * n + 2 * c + (e & 1), h = e >> 1;
+        float p = 0.f;
+        if (ok_r[h] && k0 + j < skv)
+          p = P::prob(pol.score(s[n][e], r0 + 8 * h, k0 + j, KP[j], KN[j], qp_r[h], test) -
+                      lse_r[h]);
+        s[n][e] = p * (dp[n][e] - dl_r[h]);
+      }
+#pragma unroll
+    for (int kp = 0; kp < 4; ++kp) {   // dQ += dS K, 16 keys a k step
+      uint32_t a[4];
+      pack_a(a, s[2 * kp], s[2 * kp + 1]);
+#pragma unroll
+      for (int np = 0; np < ND / 2; ++np) {
+        uint32_t b[4];
+        load_b<HD>(b, Ks, np, kp, lane);
+        mma_bf16(acc[2 * np], a, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();   // `slot` is free for the tile after next
+    cur = nxt;
+  }
+  cp_async_wait<0>();
+}
+
+// dK and dV (per query head) of the keys [k0, k0 + 64) of one kv row,
+// against one query row: the arguments as dq_mma_walk's. dk_acc comes out
+// unscaled.
+template <int HD, class P>
+__device__ __forceinline__ void dkv_mma_walk(float (&dk_acc)[HD / 8][4],
+                                             float (&dv_acc)[HD / 8][4],
+                                             const uint16_t* __restrict__ kr,
+                                             const uint16_t* __restrict__ vr,
+                                             const float* __restrict__ kpr,
+                                             const float* __restrict__ knr, int k0, int skv,
+                                             const uint16_t* __restrict__ qr,
+                                             const uint16_t* __restrict__ dor,
+                                             const float* __restrict__ lser,
+                                             const float* __restrict__ dlr,
+                                             const float* __restrict__ qpr, int sq,
+                                             const P& pol) {
+  using S = BwdSmem<HD>;
+  constexpr int KS = HD / 16;
+  constexpr int ND = HD / 8;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, c = lane % 4;
+  uint8_t* Ks = dyn_smem();                // [64][pitch] the block's K rows
+  uint8_t* Vs = Ks + S::kMat;              // [64][pitch] its V rows
+  uint8_t* ring = Ks + 2 * S::kMat;        // two stages of Q, dO, qpos, lse, delta
+  const int n_qt = (sq + kMmaTile - 1) / kMmaTile;
+
+  stage_tile<HD>(Ks, kr, k0, skv, tid);
+  stage_tile<HD>(Vs, vr, k0, skv, tid);
+  cp_async_commit();
+  auto stage_queries = [&](int t, int slot) {
+    uint8_t* st = ring + slot * S::kStage;
+    stage_tile<HD>(st, qr, t * kMmaTile, sq, tid);
+    stage_tile<HD>(st + S::kMat, dor, t * kMmaTile, sq, tid);
+    float* vec = reinterpret_cast<float*>(st + 2 * S::kMat);
+    if (P::kQueryPos) stage_vec_async(vec, qpr, t * kMmaTile, sq, tid);
+    stage_vec_async(vec + kMmaTile, lser, t * kMmaTile, sq, tid);
+    stage_vec_async(vec + 2 * kMmaTile, dlr, t * kMmaTile, sq, tid);
+  };
+
+  const int j0 = k0 + 16 * warp + lane / 4;
+  float kp_r[2], kn_r[2];
+  bool ok_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = j0 + 8 * h;
+    ok_r[h] = j < skv;
+    kp_r[h] = ok_r[h] ? kpr[j] : 0.f;
+    kn_r[h] = ok_r[h] ? knr[j] : 0.f;
+  }
+
+  int cur = pol.first();
+  if (cur < n_qt) stage_queries(cur, 0);
+  cp_async_commit();
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  for (int slot = 0; cur < n_qt; slot ^= 1) {
+    const int nxt = pol.next(cur);
+    if (nxt < n_qt) stage_queries(nxt, slot ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // query tile `cur` has landed in `slot` (and K, V before it)
+    const uint8_t* Qt = ring + slot * S::kStage;
+    const uint8_t* Ot = Qt + S::kMat;
+    const float* QP = reinterpret_cast<const float*>(Qt + 2 * S::kMat);
+    const float* LS = QP + kMmaTile;
+    const float* DL = LS + kMmaTile;
+    const int q0 = cur * kMmaTile;
+    // 16 queries a pass (one k step of the second products): the pass loop
+    // stays rolled so that its scores never share registers with the next
+    // pass's, and the kernel fits 128 registers; one copy of it for a tested
+    // tile pair and one for an untested one (B3 on an H100 at bloom-560m's
+    // training shape: 5% faster than the test's branch inside the loop)
+    auto passes = [&](bool test) {
+#pragma unroll 1
+      for (int pass = 0; pass < kMmaTile / 16; ++pass) {
+        float st[2][4], dpt[2][4];   // S^T, dP^T: key rows, query columns
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t ak[4], av[4], b[4];
+          load_a<HD>(ak, Ks, warp, kk, lane);
+          load_a<HD>(av, Vs, warp, kk, lane);
+          load_bt<HD>(b, Qt, pass, kk, lane);
+          mma_bf16(st[0], ak, b[0], b[1]);
+          mma_bf16(st[1], ak, b[2], b[3]);
+          load_bt<HD>(b, Ot, pass, kk, lane);
+          mma_bf16(dpt[0], av, b[0], b[1]);
+          mma_bf16(dpt[1], av, b[2], b[3]);
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {   // st <- P^T, dpt <- dS^T, in float32
+            const int i = 16 * pass + 8 * n + 2 * c + (e & 1), h = e >> 1;
+            float p = 0.f;
+            if (ok_r[h] && q0 + i < sq)
+              p = P::prob(pol.score(st[n][e], q0 + i, j0 + 8 * h, kp_r[h], kn_r[h],
+                                    P::kQueryPos ? QP[i] : 0.f, test) -
+                          LS[i]);
+            st[n][e] = p;
+            dpt[n][e] = p * (dpt[n][e] - DL[i]);
+          }
+        uint32_t ap[4], as[4];   // dV += P^T dO, dK += dS^T Q
+        pack_a(ap, st[0], st[1]);
+        pack_a(as, dpt[0], dpt[1]);
+#pragma unroll
+        for (int np = 0; np < ND / 2; ++np) {
+          uint32_t b[4];
+          load_b<HD>(b, Ot, np, pass, lane);
+          mma_bf16(dv_acc[2 * np], ap, b[0], b[1]);
+          mma_bf16(dv_acc[2 * np + 1], ap, b[2], b[3]);
+          load_b<HD>(b, Qt, np, pass, lane);
+          mma_bf16(dk_acc[2 * np], as, b[0], b[1]);
+          mma_bf16(dk_acc[2 * np + 1], as, b[2], b[3]);
+        }
+      }
+    };
+    if (pol.tested(q0, k0))
+      passes(true);
+    else
+      passes(false);
     __syncthreads();   // `slot` is free for the tile after next
     cur = nxt;
   }

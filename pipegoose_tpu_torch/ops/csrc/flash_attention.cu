@@ -25,16 +25,16 @@
 // 128, S = 1024, HD = 64, bf16) the bf16 tensor-core time of those flops and
 // the device-memory time of those bytes are alike, 0.02-0.035 ms.
 //
-// Two routes for the forward, picked by the wrapper (ops/flash_attention.py
-// fwd_plan); dQ and dK/dV take the first for both dtypes:
+// Two routes for each kernel, picked by the wrapper (ops/flash_attention.py
+// fwd_plan for the forward, bwd_plan for dQ and dK/dV): float32 inputs take
+// the first, bf16 inputs the second.
 //
-// 1. The FMA route (flash_fwd_kernel for float32 inputs; flash_dq_kernel and
-//    flash_dkv_kernel for both dtypes): the simple first version, float32
-//    FMAs on the CUDA cores (67 TFLOP/s peak, not the tensor cores' 989), so
-//    these sit far above that bound, limited by the FMA rate and by
-//    shared-memory reads (one 4-byte load per 2 FMAs in the 4 x 4 register
-//    micro-tiles). The TPU's sequential grid axis becomes a loop inside one
-//    block:
+// 1. The FMA route (flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel):
+//    the simple first version, float32 FMAs on the CUDA cores (67 TFLOP/s
+//    peak, not the tensor cores' 989), so these sit far above that bound,
+//    limited by the FMA rate and by shared-memory reads (one 4-byte load per
+//    2 FMAs in the 4 x 4 register micro-tiles). The TPU's sequential grid
+//    axis becomes a loop inside one block:
 //      fwd, dq: one block per (row of BH, 64-query tile); it walks the
 //        64-key tiles from the window's first key to the diagonal (the
 //        Pallas pl.when skip becomes the loop bound), carrying m, l and the
@@ -50,29 +50,36 @@
 //    reduced across the 16 lanes that share a row with warp shuffles. Rows
 //    and keys past S (the ragged last tile) are staged as zeros and masked
 //    to probability 0.
-// 2. The tensor-core route, flash_fwd_mma_kernel: the forward for bf16
-//    inputs, on the main loop it shares with the ring-chunk forward B7
-//    (attn_mma.cuh fwd_mma_walk). The same blocks and walk, the query tiles
-//    in reverse so that the longest walks start first, but 128 threads, four
-//    warps of 16 query rows each; both products are bf16 mma.sync.m16n8k16
-//    with float32 accumulators (S = Q K^T with the warp's Q fragments read
-//    from the staged Q tile at each k step, acc += P V with P packed from
-//    the score's C fragments into A fragments in registers); the K and V
-//    tiles with their kv_pos, kv_neg stream through a two-deep cp.async
-//    ring of 16-byte-padded bf16 rows; the online softmax runs in float32
-//    registers, reduced over the 4 lanes of a quad, exp as one ex2.approx
-//    (relative error ~2^-22). The causal and window tests run per element only on the
-//    tiles that straddle them. A GQA block reads kv row row / g. The
-//    epilogue divides by max(l, 1e-30), rounds to bf16 and writes lse.
-//    P is rounded once to bf16 before the PV product (a relative 2^-9, as
-//    the TPU's matrix unit rounds it at JAX's default precision); l sums
-//    the float32 p and every sum is float32. So out holds to 1e-5 + 2^-7 of
-//    the largest |plain| value, the bf16 output tolerance it had before,
-//    and lse to 2^-21 of the largest, which only the order of the score's
-//    sums moves. q, k and v must start on a 16-byte boundary. Each warp
-//    reads the whole K and V tile from shared memory for its 16 rows, so
-//    shared-memory traffic, not the tensor cores, bounds the loop: wgmma
-//    (one read a warpgroup) and TMA are later work.
+// 2. The tensor-core route (flash_fwd_mma_kernel, flash_dq_mma_kernel,
+//    flash_dkv_mma_kernel): thin shells over the main loops they share with
+//    the ring-chunk kernels B7-B9 (attn_mma.cuh fwd_mma_walk, dq_mma_walk,
+//    dkv_mma_walk), with the flash walk and score of the policies below. The
+//    same blocks and walks, the forward's and dq's query tiles in reverse so
+//    that the longest walks start first, but 128 threads, four warps of 16
+//    rows each of the block's own tile (fwd, dq: queries; dkv: keys); every
+//    product is bf16 mma.sync.m16n8k16 with float32 accumulators, the
+//    block's own tiles read from shared memory at each k step, the walked
+//    tiles with their kv_pos, kv_neg (fwd, dq) or lse, delta (dkv) streaming
+//    through a two-deep cp.async ring of 16-byte-padded bf16 rows. The
+//    forward runs the online softmax in float32 registers, reduced over the
+//    4 lanes of a quad, and packs P from the score's C fragments into A
+//    fragments for acc += P V; dq and dkv recompute P = exp(s - lse) and dS
+//    = P (dP - delta) in float32 registers and pack them the same way for
+//    dQ += dS K, dV += P^T dO and dK += dS^T Q (dkv in passes of 16 queries).
+//    exp is one ex2.approx (relative error ~2^-22). The causal and window
+//    tests run per element only on the tiles that straddle them. A GQA block
+//    reads kv row row / g. The forward's epilogue divides by max(l, 1e-30),
+//    rounds to bf16 and writes lse; dq, dk and dv are scaled (dq and dk by
+//    scale) and rounded to bf16. P and dS are rounded once to bf16 before
+//    the second product (a relative 2^-9, as the TPU's matrix unit rounds
+//    them at JAX's default precision); l sums the float32 p and every sum is
+//    float32. So out, dq, dk and dv hold to 1e-5 + 2^-7 of the largest
+//    |plain| value, the bf16 output tolerance they had before, and lse to
+//    2^-21 of the largest, which only the order of the score's sums moves.
+//    q, k, v and dO must start on a 16-byte boundary. Each warp reads the
+//    whole walked tile from shared memory for its 16 rows, so shared-memory
+//    traffic, not the tensor cores, bounds the loops: wgmma (one read a
+//    warpgroup) and TMA are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,13 +99,9 @@ constexpr int kLdp = kTile + 1;  // row stride of a staged 64 x 64 score tile
 static_assert(kTile == kMmaTile, "both routes walk 64 x 64 tile pairs");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype(bf16)
-}
 
 // Stage rows [r0, r0 + kTile) of one (S, HD) matrix as float32 rows of
 // stride HD + 1; rows past S read as zero.
@@ -279,6 +282,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Forward on the tensor cores: grid (BH, ceil(S / 64)), the query tiles in
 // reverse. Out bf16, lse float32 (BH, S).
 
+// Whether the pair of the query tile at q0 and the key tile at k0 holds a
+// pair (i, j) that the causal test (j > i) or the window test (i - j >=
+// window) masks: only such a tile needs the per-element test.
+__device__ __forceinline__ bool straddles(int q0, int k0, int causal, int window) {
+  return (causal && k0 + kTile - 1 > q0) || (window > 0 && q0 + kTile - 1 - k0 >= window);
+}
+
 // The flash forward's score and walk for fwd_mma_walk: the key tiles of
 // key_range, in order; the causal and window tests on the index, per
 // element only on a tile that straddles one of them.
@@ -288,18 +298,11 @@ struct FlashFwdPolicy {
   __device__ int first() const { return t_first < t_end ? t_first : n_kt; }
   __device__ int next(int t) const { return t + 1 < t_end ? t + 1 : n_kt; }
   __device__ bool tested(int k0, const float*, int) const {
-    return (causal && k0 + kTile - 1 > q0) || (window > 0 && q0 + kTile - 1 - k0 >= window);
+    return straddles(q0, k0, causal, window);
   }
   __device__ float score(float dot, int h, int j, float kp, float kn, bool test) const {
-    float bias = slope * kp + kn;
-    if (test) {
-      const int i = i0 + 8 * h;
-      bool keep = true;
-      if (causal) keep = keep && (j <= i);
-      if (window > 0) keep = keep && (i - j < window);
-      bias = keep ? bias : kNegInf;
-    }
-    return dot * scale + bias;
+    return dot * scale +
+           (test ? bias_of(i0 + 8 * h, j, slope, kp, kn, causal, window) : slope * kp + kn);
   }
 };
 
@@ -537,6 +540,104 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// dQ and dK/dV on the tensor cores, on the backward main loops of
+// attn_mma.cuh.
+
+// The flash backward's walk and score for dq_mma_walk and dkv_mma_walk: the
+// walked tiles [t_first, t_end) in order (dq: the key tiles of key_range;
+// dkv: the query tiles from the key tile's diagonal to the window's far
+// edge); the causal and window tests on the index, per element only on a
+// tile pair that straddles one of them.
+struct FlashBwdPolicy {
+  int t_first, t_end, n_t, causal, window;
+  float scale, slope;
+  static constexpr bool kQueryPos = false;
+  __device__ int first() const { return t_first < t_end ? t_first : n_t; }
+  __device__ int next(int t) const { return t + 1 < t_end ? t + 1 : n_t; }
+  __device__ bool tested(int q0, int k0) const { return straddles(q0, k0, causal, window); }
+  __device__ float score(float dot, int i, int j, float kp, float kn, float, bool test) const {
+    return dot * scale +
+           (test ? bias_of(i, j, slope, kp, kn, causal, window) : slope * kp + kn);
+  }
+  __device__ static float prob(float x) { return exp_approx(x); }
+};
+
+// dQ: grid (BH, ceil(S / 64)), the query tiles in reverse (query tile t
+// walks t + 1 key tiles under the causal mask). dq bf16 (BH, S, HD).
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads, BwdSmem<HD>::kMinBlocks)
+flash_dq_mma_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                    const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    const float* __restrict__ slopes, const float* __restrict__ kpos,
+                    const float* __restrict__ kneg, __nv_bfloat16* __restrict__ dq, int s,
+                    int g, int causal, int window, float scale) {
+  constexpr int ND = HD / 8;
+  const int row = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;   // longest walks first
+  int k_first, k_end;
+  key_range(q0, s, causal, window, &k_first, &k_end);
+  const FlashBwdPolicy pol{k_first / kTile, (k_end + kTile - 1) / kTile, (s + kTile - 1) / kTile,
+                           causal, window, scale, slopes[row]};
+  const int64_t rs = (int64_t)row * s, kvo = (int64_t)(row / g) * s;
+  float acc[ND][4];
+  dq_mma_walk<HD>(acc, q + rs * HD, dout + rs * HD, lse + rs, delta + rs, nullptr, q0, s,
+                  k + kvo * HD, v + kvo * HD, kpos + kvo, kneg + kvo, s, pol);
+  const int lane = threadIdx.x % 32, c = lane % 4;
+  const int i0 = q0 + 16 * (threadIdx.x / 32) + lane / 4;   // this lane's rows: i0, i0 + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (i0 + 8 * h >= s) continue;
+    __nv_bfloat16* out = dq + (rs + i0 + 8 * h) * HD + 2 * c;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
+          __floats2bfloat162_rn(scale * acc[n][2 * h], scale * acc[n][2 * h + 1]);
+  }
+}
+
+// dK/dV: grid (BH, ceil(S / 64)), one block per 64-key tile of one query
+// head (key tile t walks the n - t query tiles from its diagonal on under
+// the causal mask). dk, dv bf16 (BH, S, HD).
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads, BwdSmem<HD>::kMinBlocks)
+flash_dkv_mma_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                     const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const float* __restrict__ slopes, const float* __restrict__ kpos,
+                     const float* __restrict__ kneg, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int s, int g, int causal, int window,
+                     float scale) {
+  constexpr int ND = HD / 8;
+  const int row = blockIdx.x;
+  const int k0 = blockIdx.y * kTile;
+  // queries that can see a key of the tile: [q_first, q_end)
+  const int k_last = min(k0 + kTile, s) - 1;
+  const int q_first = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(s, k_last + window) : s;
+  const FlashBwdPolicy pol{q_first / kTile, (q_end + kTile - 1) / kTile, (s + kTile - 1) / kTile,
+                           causal, window, scale, slopes[row]};
+  const int64_t rs = (int64_t)row * s, kvo = (int64_t)(row / g) * s;
+  float dk_acc[ND][4], dv_acc[ND][4];
+  dkv_mma_walk<HD>(dk_acc, dv_acc, k + kvo * HD, v + kvo * HD, kpos + kvo, kneg + kvo, k0, s,
+                   q + rs * HD, dout + rs * HD, lse + rs, delta + rs, nullptr, s, pol);
+  const int lane = threadIdx.x % 32, c = lane % 4;
+  const int j0 = k0 + 16 * (threadIdx.x / 32) + lane / 4;   // this lane's keys: j0, j0 + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (j0 + 8 * h >= s) continue;
+    const int64_t at = (rs + j0 + 8 * h) * HD + 2 * c;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * n) =
+          __floats2bfloat162_rn(scale * dk_acc[n][2 * h], scale * dk_acc[n][2 * h + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * n) =
+          __floats2bfloat162_rn(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launch: the opt-in to more than 48 KB of dynamic shared memory is set once
 // per instantiation, at its first launch, so that later launches (a CUDA
 // graph capture among them) only queue the kernel.
@@ -555,13 +656,15 @@ int launch(Kernel kernel, bool* opted_in, size_t smem, int threads, int bh, int 
   return (int)cudaGetLastError();
 }
 
+using cf = const float*;
+using cb = const uint16_t*;
+
 // The forward: float32 inputs on the FMA kernel, bf16 on the tensor cores.
 template <typename T, int HD>
 int fwd(const void* q, const void* k, const void* v, const void* slopes,
         const void* kpos, const void* kneg, void* out, void* lse, int bh, int s,
         int g, int causal, int window, float scale, cudaStream_t stream) {
   static bool opted_in = false;
-  using cf = const float*;
   if constexpr (std::is_same_v<T, float>)
     return launch(flash_fwd_kernel<float, HD>, &opted_in, fwd_smem_floats<HD>() * sizeof(float),
                   kThreads, bh, s, stream, static_cast<cf>(q), static_cast<cf>(k),
@@ -570,26 +673,32 @@ int fwd(const void* q, const void* k, const void* v, const void* slopes,
                   g, causal, window, scale);
   else
     return launch(flash_fwd_mma_kernel<HD>, &opted_in, FwdSmem<HD>::kBytes, kMmaThreads, bh, s,
-                  stream, static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-                  static_cast<const uint16_t*>(v), static_cast<cf>(slopes),
-                  static_cast<cf>(kpos), static_cast<cf>(kneg),
+                  stream, static_cast<cb>(q), static_cast<cb>(k), static_cast<cb>(v),
+                  static_cast<cf>(slopes), static_cast<cf>(kpos), static_cast<cf>(kneg),
                   static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), s, g, causal,
                   window, scale);
 }
 
+// dQ and dK/dV: float32 inputs on the FMA kernels, bf16 on the tensor cores.
 template <typename T, int HD>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, const void* slopes, const void* kpos,
        const void* kneg, void* dq_out, int bh, int s, int g, int causal,
        int window, float scale, cudaStream_t stream) {
   static bool opted_in = false;
-  return launch(flash_dq_kernel<T, HD>, &opted_in, dq_smem_floats<HD>() * sizeof(float),
-                kThreads, bh, s, stream, static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout),
-                static_cast<const float*>(lse), static_cast<const float*>(delta),
-                static_cast<const float*>(slopes), static_cast<const float*>(kpos),
-                static_cast<const float*>(kneg), static_cast<T*>(dq_out), s, g,
-                causal, window, scale);
+  if constexpr (std::is_same_v<T, float>)
+    return launch(flash_dq_kernel<float, HD>, &opted_in, dq_smem_floats<HD>() * sizeof(float),
+                  kThreads, bh, s, stream, static_cast<cf>(q), static_cast<cf>(k),
+                  static_cast<cf>(v), static_cast<cf>(dout), static_cast<cf>(lse),
+                  static_cast<cf>(delta), static_cast<cf>(slopes), static_cast<cf>(kpos),
+                  static_cast<cf>(kneg), static_cast<float*>(dq_out), s, g, causal, window,
+                  scale);
+  else
+    return launch(flash_dq_mma_kernel<HD>, &opted_in, BwdSmem<HD>::kBytes, kMmaThreads, bh, s,
+                  stream, static_cast<cb>(q), static_cast<cb>(k), static_cast<cb>(v),
+                  static_cast<cb>(dout), static_cast<cf>(lse), static_cast<cf>(delta),
+                  static_cast<cf>(slopes), static_cast<cf>(kpos), static_cast<cf>(kneg),
+                  static_cast<__nv_bfloat16*>(dq_out), s, g, causal, window, scale);
 }
 
 template <typename T, int HD>
@@ -598,22 +707,29 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
         const void* kneg, void* dk, void* dv, int bh, int s, int g, int causal,
         int window, float scale, cudaStream_t stream) {
   static bool opted_in = false;
-  return launch(flash_dkv_kernel<T, HD>, &opted_in, dkv_smem_floats<HD>() * sizeof(float),
-                kThreads, bh, s, stream, static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout),
-                static_cast<const float*>(lse), static_cast<const float*>(delta),
-                static_cast<const float*>(slopes), static_cast<const float*>(kpos),
-                static_cast<const float*>(kneg), static_cast<T*>(dk),
-                static_cast<T*>(dv), s, g, causal, window, scale);
+  if constexpr (std::is_same_v<T, float>)
+    return launch(flash_dkv_kernel<float, HD>, &opted_in, dkv_smem_floats<HD>() * sizeof(float),
+                  kThreads, bh, s, stream, static_cast<cf>(q), static_cast<cf>(k),
+                  static_cast<cf>(v), static_cast<cf>(dout), static_cast<cf>(lse),
+                  static_cast<cf>(delta), static_cast<cf>(slopes), static_cast<cf>(kpos),
+                  static_cast<cf>(kneg), static_cast<float*>(dk), static_cast<float*>(dv), s,
+                  g, causal, window, scale);
+  else
+    return launch(flash_dkv_mma_kernel<HD>, &opted_in, BwdSmem<HD>::kBytes, kMmaThreads, bh, s,
+                  stream, static_cast<cb>(q), static_cast<cb>(k), static_cast<cb>(v),
+                  static_cast<cb>(dout), static_cast<cf>(lse), static_cast<cf>(delta),
+                  static_cast<cf>(slopes), static_cast<cf>(kpos), static_cast<cf>(kneg),
+                  static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), s, g,
+                  causal, window, scale);
 }
 
 }  // namespace
 
 // Entry points, one per kernel and dtype (float32, bf16), head_dim 32, 64 or
-// 128. causal is 0 or 1; window <= 0 means no window. flash_fwd_bf16 launches
-// the tensor-core kernel, whose 16-byte copies need q, k and v to start on a
-// 16-byte boundary. Each returns the launch's cudaError_t: 0 when the kernel
-// was queued on `stream`.
+// 128. causal is 0 or 1; window <= 0 means no window. The bf16 entries launch
+// the tensor-core kernels, whose 16-byte copies need q, k, v (and dO) to
+// start on a 16-byte boundary. Each returns the launch's cudaError_t: 0 when
+// the kernel was queued on `stream`.
 #define FLASH_ENTRIES(SUFFIX, T)                                                    \
   extern "C" int flash_fwd_##SUFFIX(                                                \
       const void* q, const void* k, const void* v, const void* slopes,              \

@@ -65,39 +65,26 @@
 //      sum are reduced over the 16 lanes of a row with warp shuffles.
 //      Ragged tiles are staged as zeros and masked.
 // 2. The tensor-core route, bf16 inputs: chunk_fwd_mma_kernel (B7),
-//    chunk_dq_mma_kernel (B8) and chunk_dkv_mma_kernel (B9). Same blocks and
-//    walks as the FMA route, same skip and score order, but every product
-//    runs as bf16 mma.sync.m16n8k16 with float32 accumulators (attn_mma.cuh):
+//    chunk_dq_mma_kernel (B8) and chunk_dkv_mma_kernel (B9), thin shells over
+//    the main loops of attn_mma.cuh (fwd_mma_walk, dq_mma_walk,
+//    dkv_mma_walk), which the flash kernels B1-B3 of flash_attention.cu
+//    share; the policies below give the ring's walk and score. Same blocks
+//    and walks as the FMA route, same skip and score order, but every
+//    product runs as bf16 mma.sync.m16n8k16 with float32 accumulators:
 //    - 128 threads, four warps of 16 rows each of the block's own 64-row
 //      tile (fwd, dq: queries; dkv: keys), staged once and read by ldmatrix
-//      as A fragments from shared memory at each k step (fwd: Q; dq: Q and
-//      dO; dkv: K and V): holding them in registers left dq and dkv 2
-//      blocks an SM (~175 registers a thread) and made the forward spill;
-//      read from shared memory the kernels fit 128 registers and an SM
-//      holds 4 blocks at HD <= 64 (2 at HD = 128, where shared memory allows
-//      no more): ~30% faster for dq and dkv, 2-4% for the forward, on an
-//      H100 at bloom-560m's 8192-token ring chunk.
-//    - The walked tiles (fwd, dq: K, V, kpos, kneg; dkv: Q, dO, qpos, lse,
-//      delta) stream through a two-deep cp.async ring: the next visible
-//      tile is in flight while the block computes on this one. bf16 rows
-//      are staged with 16 bytes of padding, so each ldmatrix reads 8 rows
-//      from 8 distinct bank quads.
-//    - fwd (the main loop fwd_mma_walk of attn_mma.cuh, shared with the
-//      flash forward B1): S = Q K^T, the score in float32 registers in the
-//      order above, the online softmax with the row max and sum over the 4
-//      lanes of a quad, alpha rescaling l and acc, and P packed straight
-//      into A fragments: acc += P V with V read by ldmatrix.trans. exp is
-//      one ex2.approx (relative error ~2^-22; expf cost 12% more). A
-//      full key tile wholly at or before every query of the block skips the
+//      as A fragments from shared memory at each k step, so that the
+//      kernels fit 128 registers and an SM holds 4 blocks at HD <= 64.
+//    - The walked tiles stream through a two-deep cp.async ring: the next
+//      visible tile is in flight while the block computes on this one.
+//    - fwd: the online softmax in float32 registers, exp as one
+//      ex2.approx (relative error ~2^-22; expf cost 12% more). A full key
+//      tile wholly at or before every query of the block skips the
 //      per-element position test (its causal term is 0 everywhere): on the
 //      diagonal chunk every pair but the diagonal's. The carried (m, l,
 //      acc) is read into registers and written back.
-//    - dq: S = Q K^T and dP = dO V^T, then in registers and in float32 the
-//      score in the order above, P = exp(s - lse), dS = P (dP - delta), and
-//      dS packed straight into A fragments: dQ += dS K with K read by
-//      ldmatrix.trans. dkv: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T in
-//      registers, dV += P^T dO and dK += dS^T Q (dO, Q by ldmatrix.trans),
-//      in passes of 16 queries to bound the registers.
+//    - dq, dkv: P = expf(s - lse) and dS = P (dP - delta) in float32
+//      registers, every element tested against the position values.
 //    - P (fwd, dq, dkv) and dS (dq, dkv) are rounded once to bf16 before the
 //      second product (a relative 2^-9 each, as the TPU's matrix unit
 //      rounds them at JAX's default precision); every sum is float32, and
@@ -541,18 +528,8 @@ chunk_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 
 // ---------------------------------------------------------------------------
-// Tensor-core route (bf16 q, k, v, dO): the staging, the fragment loads and
-// the skip scan live in attn_mma.cuh, beside the forward main loop.
-
-template <int HD>
-struct BwdSmem {
-  static constexpr int kMat = MmaTile<HD>::kBytes;        // one staged 64-row tile
-  static constexpr int kStage = 2 * kMat + 3 * kTile * 4; // two tiles + three vectors
-  static constexpr int kBytes = 2 * kMat + 2 * kStage;    // resident tiles + the ring
-  // blocks an SM holds: 4 (<= 128 registers a thread) where shared memory
-  // allows it (HD <= 64, ~57 KB a block), else 2
-  static constexpr int kMinBlocks = HD <= 64 ? 4 : 2;
-};
+// Tensor-core route (bf16 q, k, v, dO): the staging, the fragment loads, the
+// skip scan and the main loops live in attn_mma.cuh.
 
 // ---------------------------------------------------------------------------
 // Forward on the tensor cores: grid (BH, ceil(Sq / 64)), the query tiles in
@@ -641,9 +618,31 @@ chunk_fwd_mma_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// dQ on the tensor cores: grid (BH, ceil(Sq / 64)), the query tiles in
-// reverse. dq float32 (BH, Sq, HD).
+// dQ and dK/dV on the tensor cores, on the backward main loops of
+// attn_mma.cuh.
 
+// The ring step's backward walk and score for dq_mma_walk (kMin: the key
+// tiles whose smallest position is at or before the block's largest query
+// position) and dkv_mma_walk (the query tiles whose largest position is at
+// or after the block's smallest key position), with the barrier-free skip
+// scan of next_visible; every element tested against the position values.
+template <bool kMin>
+struct ChunkBwdPolicy {
+  const float* pos;   // positions of the walked tiles: keys (dq) or queries (dkv)
+  int n, lane;
+  float bound, scale, slope;
+  static constexpr bool kQueryPos = true;
+  __device__ int first() const { return next_visible<kMin>(pos, n, 0, bound, lane); }
+  __device__ int next(int t) const { return next_visible<kMin>(pos, n, t + 1, bound, lane); }
+  __device__ bool tested(int, int) const { return true; }
+  __device__ float score(float dot, int, int, float kp, float kn, float qp, bool) const {
+    return ::score(dot, scale, slope, kp, kn, qp);   // the FMA route's score, in its order
+  }
+  __device__ static float prob(float x) { return expf(x); }
+};
+
+// dQ: grid (BH, ceil(Sq / 64)), the query tiles in reverse. dq float32
+// (BH, Sq, HD).
 template <int HD>
 __global__ void __launch_bounds__(kMmaThreads, BwdSmem<HD>::kMinBlocks)
 chunk_dq_mma_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
@@ -652,122 +651,22 @@ chunk_dq_mma_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__
                     const float* __restrict__ slopes, const float* __restrict__ qpos,
                     const float* __restrict__ kpos, const float* __restrict__ kneg,
                     float* __restrict__ dq, int sq, int skv, int g, float scale) {
-  using S = BwdSmem<HD>;
-  constexpr int KS = HD / 16;        // k steps of a product over HD
-  constexpr int ND = HD / 8;         // n-tiles of the dQ accumulator
+  constexpr int ND = HD / 8;
   const int row = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;   // the longest walks first
   const int q0 = qt * kTile;
-  const int kvr = row / g;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gr = lane / 4, c = lane % 4;
-  uint8_t* smem = dyn_smem();
-  uint8_t* Qs = smem;                  // [64][pitch] this block's Q rows
-  uint8_t* Os = smem + S::kMat;        // [64][pitch] its dO rows
-  uint8_t* ring = smem + 2 * S::kMat;  // two stages of K, V, kpos, kneg
-
-  const int64_t rs = (int64_t)row * sq;
-  const uint16_t* kr = k + (int64_t)kvr * skv * HD;
-  const uint16_t* vr = v + (int64_t)kvr * skv * HD;
-  const float* kpr = kpos + (int64_t)kvr * skv;
-  const float* knr = kneg + (int64_t)kvr * skv;
-  const float slope = slopes[row];
-  const int n_kt = (skv + kTile - 1) / kTile;
-
-  stage_tile<HD>(Qs, q + rs * HD, q0, sq, tid);
-  stage_tile<HD>(Os, dout + rs * HD, q0, sq, tid);
-  cp_async_commit();
-  auto stage_keys = [&](int t, int slot) {
-    uint8_t* st = ring + slot * S::kStage;
-    stage_tile<HD>(st, kr, t * kTile, skv, tid);
-    stage_tile<HD>(st + S::kMat, vr, t * kTile, skv, tid);
-    float* vec = reinterpret_cast<float*>(st + 2 * S::kMat);
-    stage_vec_async(vec, kpr, t * kTile, skv, tid);
-    stage_vec_async(vec + kTile, knr, t * kTile, skv, tid);
-  };
-
-  // this lane's query rows: r0 (accumulator elements 0, 1) and r0 + 8 (2, 3)
-  const int r0 = q0 + 16 * warp + gr;
-  float lse_r[2], dl_r[2], qp_r[2];
-  bool ok_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + 8 * h;
-    ok_r[h] = r < sq;
-    lse_r[h] = ok_r[h] ? lse[rs + r] : 0.f;
-    dl_r[h] = ok_r[h] ? delta[rs + r] : 0.f;
-    qp_r[h] = ok_r[h] ? qpos[rs + r] : 0.f;
-  }
-  const float q_max = tile_extreme<false>(qpos + rs, sq, qt, lane);
-
-  int cur = next_visible<true>(kpr, skv, 0, q_max, lane);
-  if (cur < n_kt) stage_keys(cur, 0);
-  cp_async_commit();
-
+  const int lane = threadIdx.x % 32, c = lane % 4;
+  const int64_t rs = (int64_t)row * sq, kvo = (int64_t)(row / g) * skv;
+  const ChunkBwdPolicy<true> pol{kpos + kvo, skv, lane,
+                                 tile_extreme<false>(qpos + rs, sq, qt, lane), scale,
+                                 slopes[row]};
   float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int slot = 0; cur < n_kt; slot ^= 1) {
-    const int nxt = next_visible<true>(kpr, skv, cur + 1, q_max, lane);
-    if (nxt < n_kt) stage_keys(nxt, slot ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();   // key tile `cur` has landed in `slot` (and Q, dO before it)
-    const uint8_t* Ks = ring + slot * S::kStage;
-    const uint8_t* Vs = Ks + S::kMat;
-    const float* KP = reinterpret_cast<const float*>(Ks + 2 * S::kMat);
-    const float* KN = KP + kTile;
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t aq[4], ao[4];
-      load_a<HD>(aq, Qs, warp, kk, lane);
-      load_a<HD>(ao, Os, warp, kk, lane);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];
-        load_bt<HD>(b, Ks, np, kk, lane);
-        mma_bf16(s[2 * np], aq, b[0], b[1]);
-        mma_bf16(s[2 * np + 1], aq, b[2], b[3]);
-        load_bt<HD>(b, Vs, np, kk, lane);
-        mma_bf16(dp[2 * np], ao, b[0], b[1]);
-        mma_bf16(dp[2 * np + 1], ao, b[2], b[3]);
-      }
-    }
-    const int k0 = cur * kTile;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 8 * n + 2 * c + (e & 1), h = e >> 1;
-        float p = 0.f;
-        if (ok_r[h] && k0 + j < skv)
-          p = expf(score(s[n][e], scale, slope, KP[j], KN[j], qp_r[h]) - lse_r[h]);
-        s[n][e] = p * (dp[n][e] - dl_r[h]);   // dS
-      }
-#pragma unroll
-    for (int kp = 0; kp < 4; ++kp) {   // dQ += dS . K, 16 keys a k step
-      uint32_t a[4];
-      pack_a(a, s[2 * kp], s[2 * kp + 1]);
-#pragma unroll
-      for (int np = 0; np < ND / 2; ++np) {
-        uint32_t b[4];
-        load_b<HD>(b, Ks, np, kp, lane);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();   // `slot` is free for the tile after next
-    cur = nxt;
-  }
-  cp_async_wait<0>();
+  dq_mma_walk<HD>(acc, q + rs * HD, dout + rs * HD, lse + rs, delta + rs, qpos + rs, q0, sq,
+                  k + kvo * HD, v + kvo * HD, kpos + kvo, kneg + kvo, skv, pol);
+  const int r0 = q0 + 16 * (threadIdx.x / 32) + lane / 4;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (!ok_r[h]) continue;
+    if (r0 + 8 * h >= sq) continue;
     float* out = dq + (rs + r0 + 8 * h) * HD + 2 * c;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
@@ -776,10 +675,8 @@ chunk_dq_mma_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__
   }
 }
 
-// ---------------------------------------------------------------------------
-// dK/dV on the tensor cores: grid (BH, ceil(Skv / 64)), one block per 64-key
-// tile of one query head. dk, dv float32 (BH, Skv, HD).
-
+// dK/dV: grid (BH, ceil(Skv / 64)), one block per 64-key tile of one query
+// head. dk, dv float32 (BH, Skv, HD).
 template <int HD>
 __global__ void __launch_bounds__(kMmaThreads, BwdSmem<HD>::kMinBlocks)
 chunk_dkv_mma_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
@@ -789,129 +686,23 @@ chunk_dkv_mma_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict_
                      const float* __restrict__ kpos, const float* __restrict__ kneg,
                      float* __restrict__ dk, float* __restrict__ dv, int sq, int skv,
                      int g, float scale) {
-  using S = BwdSmem<HD>;
-  constexpr int KS = HD / 16;
   constexpr int ND = HD / 8;
   const int row = blockIdx.x;
   const int kt = blockIdx.y;
   const int k0 = kt * kTile;
-  const int kvr = row / g;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gr = lane / 4, c = lane % 4;
-  uint8_t* smem = dyn_smem();
-  uint8_t* Ks = smem;                  // [64][pitch] this block's K rows
-  uint8_t* Vs = smem + S::kMat;        // [64][pitch] its V rows
-  uint8_t* ring = smem + 2 * S::kMat;  // two stages of Q, dO, qpos, lse, delta
-
-  const int64_t rs = (int64_t)row * sq;
-  const uint16_t* qr = q + rs * HD;
-  const uint16_t* dor = dout + rs * HD;
-  const float* kpr = kpos + (int64_t)kvr * skv;
-  const float* knr = kneg + (int64_t)kvr * skv;
-  const float slope = slopes[row];
-  const int n_qt = (sq + kTile - 1) / kTile;
-
-  stage_tile<HD>(Ks, k + (int64_t)kvr * skv * HD, k0, skv, tid);
-  stage_tile<HD>(Vs, v + (int64_t)kvr * skv * HD, k0, skv, tid);
-  cp_async_commit();
-  auto stage_queries = [&](int t, int slot) {
-    uint8_t* st = ring + slot * S::kStage;
-    stage_tile<HD>(st, qr, t * kTile, sq, tid);
-    stage_tile<HD>(st + S::kMat, dor, t * kTile, sq, tid);
-    float* vec = reinterpret_cast<float*>(st + 2 * S::kMat);
-    stage_vec_async(vec, qpos + rs, t * kTile, sq, tid);
-    stage_vec_async(vec + kTile, lse + rs, t * kTile, sq, tid);
-    stage_vec_async(vec + 2 * kTile, delta + rs, t * kTile, sq, tid);
-  };
-
-  // this lane's key rows: j0 (accumulator elements 0, 1) and j0 + 8 (2, 3)
-  const int j0 = k0 + 16 * warp + gr;
-  float kp_r[2], kn_r[2];
-  bool ok_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int j = j0 + 8 * h;
-    ok_r[h] = j < skv;
-    kp_r[h] = ok_r[h] ? kpr[j] : 0.f;
-    kn_r[h] = ok_r[h] ? knr[j] : 0.f;
-  }
-  const float k_min = tile_extreme<true>(kpr, skv, kt, lane);
-
-  int cur = next_visible<false>(qpos + rs, sq, 0, k_min, lane);
-  if (cur < n_qt) stage_queries(cur, 0);
-  cp_async_commit();
+  const int lane = threadIdx.x % 32, c = lane % 4;
+  const int64_t rs = (int64_t)row * sq, kvo = (int64_t)(row / g) * skv;
+  const ChunkBwdPolicy<false> pol{qpos + rs, sq, lane,
+                                  tile_extreme<true>(kpos + kvo, skv, kt, lane), scale,
+                                  slopes[row]};
   float dk_acc[ND][4], dv_acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-  for (int slot = 0; cur < n_qt; slot ^= 1) {
-    const int nxt = next_visible<false>(qpos + rs, sq, cur + 1, k_min, lane);
-    if (nxt < n_qt) stage_queries(nxt, slot ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();   // query tile `cur` has landed in `slot` (and K, V before it)
-    const uint8_t* Qt = ring + slot * S::kStage;
-    const uint8_t* Ot = Qt + S::kMat;
-    const float* QP = reinterpret_cast<const float*>(Qt + 2 * S::kMat);
-    const float* LS = QP + kTile;
-    const float* DL = LS + kTile;
-    const int q0 = cur * kTile;
-    // 16 queries a pass (one k step of the second products): the pass loop
-    // stays rolled so that its scores never share registers with the next
-    // pass's, and the kernel fits 128 registers with no spills
-#pragma unroll 1
-    for (int pass = 0; pass < kTile / 16; ++pass) {
-      float st[2][4], dpt[2][4];   // S^T, dP^T: key rows, query columns
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t ak[4], av[4], b[4];
-        load_a<HD>(ak, Ks, warp, kk, lane);
-        load_a<HD>(av, Vs, warp, kk, lane);
-        load_bt<HD>(b, Qt, pass, kk, lane);
-        mma_bf16(st[0], ak, b[0], b[1]);
-        mma_bf16(st[1], ak, b[2], b[3]);
-        load_bt<HD>(b, Ot, pass, kk, lane);
-        mma_bf16(dpt[0], av, b[0], b[1]);
-        mma_bf16(dpt[1], av, b[2], b[3]);
-      }
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 16 * pass + 8 * n + 2 * c + (e & 1), h = e >> 1;
-          float p = 0.f;
-          if (ok_r[h] && q0 + i < sq)
-            p = expf(score(st[n][e], scale, slope, kp_r[h], kn_r[h], QP[i]) - LS[i]);
-          st[n][e] = p;                         // P^T
-          dpt[n][e] = p * (dpt[n][e] - DL[i]);  // dS^T
-        }
-      uint32_t ap[4], as[4];   // dV += P^T dO, dK += dS^T Q
-      pack_a(ap, st[0], st[1]);
-      pack_a(as, dpt[0], dpt[1]);
-#pragma unroll
-      for (int np = 0; np < ND / 2; ++np) {
-        uint32_t b[4];
-        load_b<HD>(b, Ot, np, pass, lane);
-        mma_bf16(dv_acc[2 * np], ap, b[0], b[1]);
-        mma_bf16(dv_acc[2 * np + 1], ap, b[2], b[3]);
-        load_b<HD>(b, Qt, np, pass, lane);
-        mma_bf16(dk_acc[2 * np], as, b[0], b[1]);
-        mma_bf16(dk_acc[2 * np + 1], as, b[2], b[3]);
-      }
-    }
-    __syncthreads();   // `slot` is free for the tile after next
-    cur = nxt;
-  }
-  cp_async_wait<0>();
+  dkv_mma_walk<HD>(dk_acc, dv_acc, k + kvo * HD, v + kvo * HD, kpos + kvo, kneg + kvo, k0, skv,
+                   q + rs * HD, dout + rs * HD, lse + rs, delta + rs, qpos + rs, sq, pol);
   const int64_t ks = (int64_t)row * skv;
+  const int j0 = k0 + 16 * (threadIdx.x / 32) + lane / 4;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (!ok_r[h]) continue;
+    if (j0 + 8 * h >= skv) continue;
     const int64_t at = (ks + j0 + 8 * h) * HD + 2 * c;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {

@@ -14,10 +14,10 @@ Each is a wrapper over one hand-written CUDA kernel
 (``csrc/flash_attention.cu``): on CPU tensors it calls its plain PyTorch
 version (``flash_fwd_reference``, ``flash_dq_reference``,
 ``flash_dkv_reference``, the math of the Pallas bodies), on CUDA tensors
-it launches the kernel or raises; ``.launches`` counts the launches. The
-forward has two routes (:func:`fwd_plan`): bf16 inputs on the tensor
-cores, float32 inputs on float32 FMAs; ``flash_fwd.routes`` counts its
-launches by route.
+it launches the kernel or raises; ``.launches`` counts the launches. Each
+has two routes (:func:`fwd_plan` for the forward, :func:`bwd_plan` for dQ
+and dK/dV): bf16 inputs on the tensor cores, float32 inputs on float32
+FMAs; ``.routes`` counts the launches by route.
 ``_Flash`` ties them together as a ``torch.autograd.Function``, the
 ``jax.custom_vjp`` of the JAX file.
 
@@ -212,6 +212,50 @@ def fwd_plan(dtype, hd: int, sq: int, skv: int) -> dict:
     return {**route, "tile": TILE, "grid_tiles": -(-sq // TILE)}
 
 
+def _mma_bwd_route(hd):
+    """The tensor-core route of the four backward kernels (B2, B3, B8, B9):
+    the block's own two bf16 tiles resident, then a two-deep ring of stages,
+    each two walked bf16 tiles and three float32 vectors."""
+    mat = _mma_tile_bytes(hd)
+    smem = 2 * mat + 2 * (2 * mat + 3 * TILE * 4)
+    return {"route": "mma", "threads": MMA_THREADS, "smem_bytes": {"dq": smem, "dkv": smem},
+            "blocks_per_sm": 4 if hd <= 64 else 2, "dkv_pass_queries": 16}
+
+
+def bwd_plan(dtype, hd: int, s: int) -> dict:
+    """The launches :func:`flash_dq` (B2) and :func:`flash_dkv` (B3) make
+    for q/k/v/dO of ``dtype``, head_dim ``hd`` and ``s`` positions. Pure
+    Python, so the CPU tests check it.
+
+    - "mma" (bf16): the tensor-core kernels on the backward main loops they
+      share with B8/B9 (``attn_mma.cuh`` ``dq_mma_walk``/``dkv_mma_walk``),
+      as :func:`chunk_bwd_plan` describes them, with the flash walk: dq's
+      block walks the key tiles from the window's first to the diagonal's,
+      dkv's the query tiles from the diagonal to the window's far edge; the
+      causal and window tests run per element only on a tile pair that
+      straddles them. P and dS are rounded once to bf16 before the second
+      product; exp is one ``ex2.approx``; dq, dk, dv come out in bf16.
+    - "fma" (float32): the float32-FMA kernels, 16 x 16 threads, tiles
+      staged as float32 rows of stride hd + 1; exact in the inputs.
+
+    One block per (row, 64-position tile); dq runs the query tiles in
+    reverse on both routes, so that the longest walks start first (dkv's
+    natural order already does).
+    Raises TypeError for a dtype and ValueError for a head_dim or a length
+    the kernels do not take."""
+    _check_plan(dtype, hd, s, s)
+    if dtype == torch.bfloat16:
+        route = _mma_bwd_route(hd)
+    else:
+        rows = TILE * (hd + 1)                    # one staged float32 tile
+        score = TILE * (TILE + 1)
+        route = {"route": "fma", "threads": FMA_THREADS,
+                 "smem_bytes": {"dq": 4 * (4 * rows + score + 2 * TILE),
+                                "dkv": 4 * (4 * rows + 2 * score + 2 * TILE)},
+                 "blocks_per_sm": None, "dkv_pass_queries": TILE}
+    return {**route, "tile": TILE, "grid_tiles": -(-s // TILE), "dq_tiles_reversed": True}
+
+
 def _check_aligned(plan, **tensors):
     """The tensor-core route copies bf16 rows 16 bytes at a time (and reads
     float32 state pairs 8 bytes at a time): each tensor named with its
@@ -290,11 +334,17 @@ def flash_fwd(q, k, v, slopes, kpos, kneg, scale, causal, g=1, window=None):
 
 
 def _check_bwd(q, k, v, do, lse, delta, slopes, kpos, kneg, g, window):
-    bh, s = q.shape[:2]
+    """The forward's checks plus dO, lse and delta; returns the backward
+    plan. The tensor-core route copies bf16 rows 16 bytes at a time, so q,
+    k, v and dO must start on a 16-byte boundary there."""
+    bh, s, hd = q.shape
     _check(q, k, v, slopes, kpos, kneg, g, window,
            do=(do, tuple(q.shape), q.dtype),
            lse=(lse, (bh, s), torch.float32),
            delta=(delta, (bh, s), torch.float32))
+    plan = bwd_plan(q.dtype, hd, s)
+    _check_aligned(plan, q=(q, 16), k=(k, 16), v=(v, 16), do=(do, 16))
+    return plan
 
 
 def _bwd_ptrs(q, k, v, do, lse, delta, slopes, kpos, kneg):
@@ -304,27 +354,32 @@ def _bwd_ptrs(q, k, v, do, lse, delta, slopes, kpos, kneg):
 def flash_dq(q, k, v, do, lse, delta, slopes, kpos, kneg, scale, causal, g=1,
              window=None):
     """dQ kernel: + do (BH, S, hd) in q's dtype, lse and delta (BH, S)
-    float32 -> dq (BH, S, hd) in q's dtype."""
+    float32 -> dq (BH, S, hd) in q's dtype. On CUDA tensors it launches by
+    the route :func:`bwd_plan` picks (``.launches`` counts the launches,
+    ``.routes`` them by route); bf16 q, k, v and dO must start on a 16-byte
+    boundary."""
     args = (q, k, v, do, lse, delta, slopes, kpos, kneg)
     if _device_of(q, "flash_dq") == "cpu":
         return flash_dq_reference(*args, scale, causal, g, window)
-    _check_bwd(*args, g, window)
+    plan = _check_bwd(*args, g, window)
     dq = torch.empty_like(q)
     if q.numel() == 0:
         return dq
     _launch("dq", q, _bwd_ptrs(*args) + (dq.data_ptr(),), g, causal, window, scale)
     flash_dq.launches += 1
+    flash_dq.routes[plan["route"]] += 1
     return dq
 
 
 def flash_dkv(q, k, v, do, lse, delta, slopes, kpos, kneg, scale, causal, g=1,
               window=None):
     """dK/dV kernel: the dq kernel's inputs -> (dk, dv), each (BH, S, hd)
-    in k's dtype, PER QUERY HEAD (the caller sums the g heads of a group)."""
+    in k's dtype, PER QUERY HEAD (the caller sums the g heads of a group).
+    Routes and counters as :func:`flash_dq`."""
     args = (q, k, v, do, lse, delta, slopes, kpos, kneg)
     if _device_of(q, "flash_dkv") == "cpu":
         return flash_dkv_reference(*args, scale, causal, g, window)
-    _check_bwd(*args, g, window)
+    plan = _check_bwd(*args, g, window)
     dk = torch.empty_like(q)
     dv = torch.empty_like(q)
     if q.numel() == 0:
@@ -332,6 +387,7 @@ def flash_dkv(q, k, v, do, lse, delta, slopes, kpos, kneg, scale, causal, g=1,
     _launch("dkv", q, _bwd_ptrs(*args) + (dk.data_ptr(), dv.data_ptr()), g,
             causal, window, scale)
     flash_dkv.launches += 1
+    flash_dkv.routes[plan["route"]] += 1
     return dk, dv
 
 
@@ -339,6 +395,8 @@ flash_fwd.launches = 0
 flash_fwd.routes = {"fma": 0, "mma": 0}    # launches by route
 flash_dq.launches = 0
 flash_dkv.launches = 0
+flash_dq.routes = {"fma": 0, "mma": 0}
+flash_dkv.routes = {"fma": 0, "mma": 0}
 
 
 class _Flash(torch.autograd.Function):
@@ -556,11 +614,7 @@ def chunk_bwd_plan(dtype, hd: int, sq: int, skv: int) -> dict:
     the kernels do not take."""
     _check_plan(dtype, hd, sq, skv)
     if dtype == torch.bfloat16:
-        mat = _mma_tile_bytes(hd)
-        smem = 2 * mat + 2 * (2 * mat + 3 * TILE * 4)
-        route = {"route": "mma", "threads": MMA_THREADS,
-                 "smem_bytes": {"dq": smem, "dkv": smem},
-                 "blocks_per_sm": 4 if hd <= 64 else 2, "dkv_pass_queries": 16}
+        route = _mma_bwd_route(hd)
     else:
         rows = TILE * (hd + 1)                    # one staged float32 tile
         score = TILE * (TILE + 1)

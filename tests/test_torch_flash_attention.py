@@ -19,7 +19,12 @@ test-local emulation of exactly those roundings is held against the Pallas
 forward in interpret mode on bf16 inputs within the card tests' bound for
 that route, 1e-5 + 2^-7 of the largest |out| (lse 1e-5 + 2^-21 of the
 largest), so the tolerance is checked here before the card checks the
-kernel.
+kernel. The bf16 backward takes the tensor-core route too (``bwd_plan``):
+its blocks walk the tiles a test-local mirror of the kernels' walk names,
+test the causal and window masks per element only on the tiles that
+straddle them, and round P and dS once to bf16 before the second product;
+that emulation is held against the Pallas dQ and dK/dV kernels within the
+same bound, and the walk itself against the visible pairs.
 """
 import jax
 import jax.numpy as jnp
@@ -133,7 +138,7 @@ def test_dkv_reference_matches_pallas(case):
 def test_cpu_wrappers_take_the_plain_versions_and_count_nothing(case):
     x = case
     before = (tfa.flash_fwd.launches, tfa.flash_dq.launches, tfa.flash_dkv.launches)
-    routes = dict(tfa.flash_fwd.routes)
+    routes = [dict(f.routes) for f in (tfa.flash_fwd, tfa.flash_dq, tfa.flash_dkv)]
     out, lse = tfa.flash_fwd(*_torch(x, "q", "k", "v", "slopes", "kpos", "kneg"),
                              x["scale"], x["causal"], x["g"], x["window"])
     dq = tfa.flash_dq(*_bwd_args(x), x["scale"], x["causal"], x["g"], x["window"])
@@ -142,7 +147,7 @@ def test_cpu_wrappers_take_the_plain_versions_and_count_nothing(case):
     assert dq.shape == out.shape and dk.shape == out.shape   # dk per query head
     assert (tfa.flash_fwd.launches, tfa.flash_dq.launches,
             tfa.flash_dkv.launches) == before
-    assert tfa.flash_fwd.routes == routes
+    assert [f.routes for f in (tfa.flash_fwd, tfa.flash_dq, tfa.flash_dkv)] == routes
 
 
 # (B, S, nh, nkv, hd, causal, window, masked): the public function with
@@ -322,3 +327,169 @@ def test_tensor_core_forward_roundings_stay_within_tolerance_of_jax(name):
     want_lse = np.asarray(want_lse)
     err = np.abs(got_lse.numpy() - want_lse).max()
     assert err <= 1e-5 + LSE_RTOL * np.abs(want_lse).max(), f"lse: {err}"
+
+
+# -- the backward's routes -------------------------------------------------
+
+@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+def test_bwd_plan_routes_bf16_to_the_tensor_cores(hd):
+    plan = tfa.bwd_plan(torch.bfloat16, hd, 200)
+    assert plan["route"] == "mma" and plan["threads"] == 128
+    assert plan["grid_tiles"] == 4 and plan["dq_tiles_reversed"]
+    # resident tiles + a two-deep ring of (two bf16 tiles, three float32 vectors)
+    mat = 64 * (2 * hd + 16)
+    assert plan["smem_bytes"] == {"dq": 6 * mat + 1536, "dkv": 6 * mat + 1536}
+    # the blocks an SM is built for fit its 228 KB (1 KB reserved a block)
+    assert plan["blocks_per_sm"] * (plan["smem_bytes"]["dq"] + 1024) <= 228 * 1024
+    assert plan["blocks_per_sm"] == (4 if hd <= 64 else 2)
+    assert plan["dkv_pass_queries"] == 16
+    # the launch of the ring-chunk backward, whose main loops it shares
+    assert plan == {**tfa.chunk_bwd_plan(torch.bfloat16, hd, 200, 200), "grid_tiles": 4}
+
+
+@pytest.mark.parametrize("hd", tfa.HEAD_DIMS)
+def test_bwd_plan_keeps_float32_on_the_fma_kernels(hd):
+    plan = tfa.bwd_plan(torch.float32, hd, 8192)
+    assert plan["route"] == "fma" and plan["threads"] == 256
+    assert plan["grid_tiles"] == 128 and plan["dq_tiles_reversed"]
+    assert plan["blocks_per_sm"] is None and plan["dkv_pass_queries"] == 64
+    rows, score = 64 * (hd + 1), 64 * 65
+    assert plan["smem_bytes"] == {"dq": 4 * (4 * rows + score + 128),
+                                  "dkv": 4 * (4 * rows + 2 * score + 128)}
+    assert max(plan["smem_bytes"].values()) <= 227 * 1024
+
+
+def test_bwd_plan_rejects_what_the_kernels_do_not_take():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa.bwd_plan(torch.float16, 64, 64)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.bwd_plan(torch.bfloat16, 96, 64)
+    with pytest.raises(ValueError, match="tiles"):
+        tfa.bwd_plan(torch.bfloat16, 64, 64 * tfa.MAX_TILES + 1)
+    with pytest.raises(ValueError, match="tiles"):
+        tfa.bwd_plan(torch.float32, 64, -1)
+
+
+def _bwd_walk(kind, own0, s, causal, window):
+    """The tiles a tensor-core backward block walks, as (tile start,
+    tested), mirroring flash_attention.cu: dq's block at query tile own0
+    walks the key tiles of ``key_range``; dkv's block at key tile own0 the
+    query tiles [q_first, q_end); a pair is tested per element when it
+    ``straddles`` the causal or the window mask."""
+    last = min(own0 + 64, s) - 1
+    if kind == "dq":
+        first = max(0, own0 - window + 1) if window else 0
+        end = last + 1 if causal else s
+    else:
+        first = own0 if causal else 0
+        end = min(s, last + window) if window else s
+    walk = []
+    for t0 in range(first // 64 * 64, end, 64):
+        q0, k0 = (own0, t0) if kind == "dq" else (t0, own0)
+        tested = (causal and k0 + 63 > q0) or bool(window and q0 + 63 - k0 >= window)
+        walk.append((t0, tested))
+    return walk
+
+
+def _keep(s, causal, window):
+    """(S, S) bool: query i may see key j under the index tests."""
+    i = torch.arange(s)[:, None]
+    j = torch.arange(s)[None, :]
+    keep = torch.ones(s, s, dtype=torch.bool)
+    if causal:
+        keep &= j <= i
+    if window:
+        keep &= i - j < window
+    return keep
+
+
+@pytest.mark.parametrize("name", sorted(EMU_CASES))
+def test_bwd_walk_visits_exactly_the_visible_tiles(name):
+    """For every block of both backward kernels: the walk visits exactly
+    the tiles that hold a visible (query, key) pair, in order, and every
+    tile it does not test per element is visible throughout."""
+    _, s, _, _, _, causal, window, _ = EMU_CASES[name]
+    keep = _keep(s, causal, window)
+    for kind in ("dq", "dkv"):
+        for own0 in range(0, s, 64):
+            walk = _bwd_walk(kind, own0, s, causal, window)
+            own = keep[own0:own0 + 64] if kind == "dq" else keep[:, own0:own0 + 64].T
+            want = [t0 for t0 in range(0, s, 64) if own[:, t0:t0 + 64].any()]
+            assert [t0 for t0, _ in walk] == want, (kind, own0)
+            for t0, tested in walk:
+                assert tested or own[:, t0:t0 + 64].all(), (kind, own0, t0)
+
+
+def _tc_bwd_rounded(q, k, v, do, lse, delta, slopes, kpos, kneg, scale, causal, g,
+                    window):
+    """(dq, dk, dv) as the tensor-core backward rounds them: each kernel's
+    blocks take the pairs of the tiles ``_bwd_walk`` names (the mask on the
+    index only on a tested tile, the plain ALiBi + padding term elsewhere),
+    P and dS come from float32 scores and are rounded once to bf16 before
+    the second product, every sum is float32, and each result is rounded
+    to bf16 as the kernels write it."""
+    s = q.shape[1]
+    masked = tfa._scores(q, k, slopes, kpos, kneg, scale, causal, g, window)
+    plain = tfa._scores(q, k, slopes, kpos, kneg, scale, False, g, None)
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), tfa._expand(v, g).float())
+
+    def rounded(kind):
+        visit = torch.zeros(s, s, dtype=torch.bool)
+        test = torch.zeros(s, s, dtype=torch.bool)
+        for own0 in range(0, s, 64):
+            for t0, tested in _bwd_walk(kind, own0, s, causal, window):
+                q0, k0 = (own0, t0) if kind == "dq" else (t0, own0)
+                visit[q0:q0 + 64, k0:k0 + 64] = True
+                test[q0:q0 + 64, k0:k0 + 64] = tested
+        p = torch.where(visit, torch.exp(torch.where(test, masked, plain) - lse[..., None]), 0.0)
+        ds = p * (dp - delta[..., None])
+        return p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+
+    _, ds = rounded("dq")
+    dq = scale * torch.einsum("bqk,bkd->bqd", ds, tfa._expand(k, g).float())
+    p, ds = rounded("dkv")
+    dk = scale * torch.einsum("bqk,bqd->bkd", ds, q.float())
+    dv = torch.einsum("bqk,bqd->bkd", p, do.float())
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+@pytest.fixture(scope="module", params=sorted(EMU_CASES))
+def bf16_case(request):
+    """A bf16 case with the Pallas forward's lse and delta = rowsum(dO *
+    out), out rounded to bf16 as the forward writes it."""
+    x = _inputs(request.param, seed=5, cases=EMU_CASES)
+    for n in ("q", "k", "v", "do"):
+        x[n] = np.array(jnp.asarray(x[n], jnp.bfloat16).astype(jnp.float32))
+    bf = {n: jnp.asarray(x[n], jnp.bfloat16) for n in ("q", "k", "v", "do")}
+    out, lse = jfa._flash_fwd_pallas(
+        bf["q"], bf["k"], bf["v"], *(jnp.asarray(x[n]) for n in ("slopes", "kpos", "kneg")),
+        x["scale"], x["causal"], *x["blocks"], True, x["g"], x["window"])
+    x["lse"] = np.array(lse)
+    x["delta"] = (x["do"] * np.asarray(out.astype(jnp.float32))).sum(-1)
+    x["bf"] = bf
+    return x
+
+
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+def test_tensor_core_backward_roundings_stay_within_tolerance_of_jax(bf16_case, kind):
+    """bf16 inputs: the emulated tensor-core dQ or dK/dV against
+    ``_flash_dq_pallas`` / ``_flash_dkv_pallas`` in interpret mode, each
+    output within 1e-5 + 2^-7 of its largest value; and not bit for bit,
+    so the check sees the rounding."""
+    x = bf16_case
+    rest = tuple(jnp.asarray(x[n]) for n in ("lse", "delta", "slopes", "kpos", "kneg"))
+    jax_args = (x["bf"]["q"], x["bf"]["k"], x["bf"]["v"], x["bf"]["do"], *rest, x["scale"],
+                x["causal"], *x["blocks"], True, x["g"], x["window"])
+    if kind == "dq":
+        want = {"dq": jfa._flash_dq_pallas(*jax_args)}
+    else:
+        want = dict(zip(("dk", "dv"), jfa._flash_dkv_pallas(*jax_args)))
+    q, k, v, do = (torch.from_numpy(x[n]).to(torch.bfloat16) for n in ("q", "k", "v", "do"))
+    got = dict(zip(("dq", "dk", "dv"), _tc_bwd_rounded(
+        q, k, v, do, *_torch(x, "lse", "delta", "slopes", "kpos", "kneg"), x["scale"],
+        x["causal"], x["g"], x["window"])))
+    for what, w in want.items():
+        w = np.asarray(w.astype(jnp.float32))
+        err = np.abs(got[what].float().numpy() - w).max()
+        tol = 1e-5 + TC_RTOL * np.abs(w).max()
+        assert 0 < err <= tol, f"{what}: {err} vs {tol}"

@@ -14,10 +14,11 @@ Tolerance, on max |kernel - plain| against the largest |plain| value M:
   error; the backward multiplies it by dO.V (~8).
 - bf16 outputs: 1e-5 + 2^-7 * M. Each side rounds a float32 value that
   differs from the other's in its last bits, so the two may land one bf16
-  ulp apart, and a bf16 ulp is at most 2^-7 of the value. The bf16 forward
-  runs on the tensor cores (``fwd_plan``), which also round P once to bf16
-  (a relative 2^-9) before the PV product, every sum in float32: out keeps
-  the same bound.
+  ulp apart, and a bf16 ulp is at most 2^-7 of the value. The bf16 kernels
+  run on the tensor cores (``fwd_plan``, ``bwd_plan``), which also round P
+  (and, in the backward, dS) once to bf16 (a relative 2^-9) before the
+  second product, every sum in float32: out, dq, dk and dv keep the same
+  bound.
 - lse (float32 in both dtypes): 1e-5 + 2^-21 * M, four float32 ulps of
   the largest value.
 """
@@ -28,7 +29,7 @@ import torch
 from pipegoose_tpu_torch.ops import flash_attention as fa
 
 RTOL = {torch.float32: 2e-4, torch.bfloat16: 2.0 ** -7}
-ROUTE = {torch.float32: "fma", torch.bfloat16: "mma"}   # the forward's route
+ROUTE = {torch.float32: "fma", torch.bfloat16: "mma"}   # every kernel's route
 ATOL = 1e-5
 LSE_RTOL = 2.0 ** -21
 
@@ -84,7 +85,8 @@ def test_kernels_match_plain_versions_on_card(dtype, s, variant):
     q, k, v, do, slopes, kpos, kneg, scale = _case(s, dtype, g, pad, dev)
     mode = (scale, causal, g, window)
     counts = (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches)
-    routes = dict(fa.flash_fwd.routes)
+    kernels = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
+    routes = [dict(f.routes) for f in kernels]
     out, lse = fa.flash_fwd(q, k, v, slopes, kpos, kneg, *mode)
     ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, slopes, kpos, kneg, *mode)
     delta = (do.float() * ref_out.float()).sum(-1)
@@ -94,8 +96,9 @@ def test_kernels_match_plain_versions_on_card(dtype, s, variant):
     torch.cuda.synchronize()
     assert (fa.flash_fwd.launches, fa.flash_dq.launches,
             fa.flash_dkv.launches) == tuple(c + 1 for c in counts)
-    assert {r: fa.flash_fwd.routes[r] - routes[r] for r in routes} == {
-        r: int(r == ROUTE[dtype]) for r in routes}
+    for f, before in zip(kernels, routes):
+        assert {r: f.routes[r] - before[r] for r in before} == {
+            r: int(r == ROUTE[dtype]) for r in before}
     assert out.dtype == dq.dtype == dk.dtype == dtype and lse.dtype == torch.float32
     _assert_close(out, ref_out, RTOL[dtype], "out")
     _assert_close(lse, ref_lse, LSE_RTOL, "lse")
@@ -181,6 +184,105 @@ def test_bf16_forward_needs_16_byte_aligned_operands():
             fa.flash_fwd(*{**args, name: shifted(args[name], 1)}.values(), slopes, kpos,
                          kneg, scale, True)
     assert fa.flash_fwd.launches == launches
+
+
+def _bwd_case(s, g, causal, window, pad, dev, hd, seed):
+    """bf16 backward operands with the plain forward's lse and delta."""
+    q, k, v, do, slopes, kpos, kneg, scale = _case(s, torch.bfloat16, g, pad, dev, hd=hd,
+                                                   seed=seed)
+    mode = (scale, causal, g, window)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, slopes, kpos, kneg, *mode)
+    delta = (do.float() * ref_out.float()).sum(-1)
+    return (q, k, v, do, ref_lse, delta, slopes, kpos, kneg, *mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_tensor_core_backward_at_other_head_dims(variant, hd):
+    """The bf16 dQ and dK/dV at head_dim 32 and 128 (S = 200, four tiles,
+    the last ragged) on the tensor-core route against their plain versions."""
+    dev = _needs_card()
+    g, causal, window, pad = VARIANTS[variant]
+    bwd = _bwd_case(200, g, causal, window, pad, dev, hd, seed=hd + 1)
+    before = (fa.flash_dq.routes["mma"], fa.flash_dkv.routes["mma"])
+    dq = fa.flash_dq(*bwd)
+    dk, dv = fa.flash_dkv(*bwd)
+    torch.cuda.synchronize()
+    assert (fa.flash_dq.routes["mma"], fa.flash_dkv.routes["mma"]) == tuple(
+        b + 1 for b in before)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    _assert_close(dq, fa.flash_dq_reference(*bwd), RTOL[torch.bfloat16], "dq")
+    ref_dk, ref_dv = fa.flash_dkv_reference(*bwd)
+    _assert_close(dk, ref_dk, RTOL[torch.bfloat16], "dk")
+    _assert_close(dv, ref_dv, RTOL[torch.bfloat16], "dv")
+
+
+@pytest.mark.cuda
+def test_tensor_core_backward_at_the_training_shape():
+    """bf16 B*nh = 128, S = 1024, hd = 64, causal with BLOOM's ALiBi (the
+    shape of chip_smoke.py's timed training step): dQ and dK/dV on the
+    tensor cores, within the bf16 bound of their plain versions, and not
+    bit for bit."""
+    dev = _needs_card()
+    gen = torch.Generator().manual_seed(23)
+    bh, s, hd = 128, 1024, 64
+    q, k, v, do = (torch.randn(bh, s, hd, generator=gen).to(dev, torch.bfloat16)
+                   for _ in range(4))
+    slopes = torch.tensor([2.0 ** -(8 * (h % 16 + 1) / 16) for h in range(bh)], device=dev)
+    kpos, kneg = (t.to(dev).contiguous() for t in fa.mask_to_kv_bias(torch.ones(bh, s)))
+    mode = (hd ** -0.5, True, 1, None)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, slopes, kpos, kneg, *mode)
+    bwd = (q, k, v, do, ref_lse, (do.float() * ref_out.float()).sum(-1), slopes, kpos, kneg,
+           *mode)
+    before = (fa.flash_dq.routes["mma"], fa.flash_dkv.routes["mma"])
+    dq = fa.flash_dq(*bwd)
+    dk, dv = fa.flash_dkv(*bwd)
+    torch.cuda.synchronize()
+    assert (fa.flash_dq.routes["mma"], fa.flash_dkv.routes["mma"]) == tuple(
+        b + 1 for b in before)
+    ref_dq = fa.flash_dq_reference(*bwd)
+    _assert_close(dq, ref_dq, RTOL[torch.bfloat16], "dq")
+    ref_dk, ref_dv = fa.flash_dkv_reference(*bwd)
+    _assert_close(dk, ref_dk, RTOL[torch.bfloat16], "dk")
+    _assert_close(dv, ref_dv, RTOL[torch.bfloat16], "dv")
+    assert not torch.equal(dq, ref_dq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_tensor_core_backward_repeats_bit_for_bit(variant):
+    """No atomics and a fixed order of every sum: two bf16 dQ and two dK/dV
+    calls on the same inputs give the same bits."""
+    dev = _needs_card()
+    g, causal, window, pad = VARIANTS[variant]
+    bwd = _bwd_case(200, g, causal, window, pad, dev, 64, seed=24)
+    assert torch.equal(fa.flash_dq(*bwd), fa.flash_dq(*bwd))
+    for a, b in zip(fa.flash_dkv(*bwd), fa.flash_dkv(*bwd)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_needs_16_byte_aligned_operands():
+    """The tensor-core backward copies 16 bytes at a time: a bf16 q, k, v
+    or dO that starts 2 bytes off raises before any launch of dQ or dK/dV;
+    one 16 bytes off launches."""
+    dev = _needs_card()
+    q, k, v, do, *rest = _bwd_case(64, 1, True, None, 0, dev, 64, seed=25)
+
+    def shifted(t, elems):
+        return torch.empty(t.numel() + elems, dtype=t.dtype, device=dev)[elems:].view(
+            t.shape).copy_(t)
+
+    args = {"q": q, "k": k, "v": v, "do": do}
+    fa.flash_dq(*{**args, "do": shifted(do, 8)}.values(), *rest)
+    fa.flash_dkv(*{**args, "do": shifted(do, 8)}.values(), *rest)
+    counts = (fa.flash_dq.launches, fa.flash_dkv.launches)
+    for name in args:
+        for kernel in (fa.flash_dq, fa.flash_dkv):
+            with pytest.raises(ValueError, match="16-byte"):
+                kernel(*{**args, name: shifted(args[name], 1)}.values(), *rest)
+    assert (fa.flash_dq.launches, fa.flash_dkv.launches) == counts
 
 
 @pytest.mark.cuda
