@@ -4,10 +4,11 @@
     python3 chip_smoke.py          # from the repository root, one card
     python3 chip_smoke.py --parent DIR
         # DIR: a checkout of the parent revision; phase 1 also builds its
-        # flash_attention.cu and flash_chunk.cu, phases 9 and 21 time its
-        # bf16 attention kernels in turns with this revision's (phase 21
-        # also compares B8/B9's outputs bit for bit), and phase 22 times
-        # three training steps with its libraries in turns
+        # flash_attention.cu, flash_chunk.cu and fused_ce.cu, phases 9, 13
+        # and 21 time its bf16 attention and fused CE backward kernels in
+        # turns with this revision's (phase 21 also compares B8/B9's
+        # outputs bit for bit), and phase 22 times four training steps
+        # with its libraries in turns
 
 Three main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
 24 layers, 16 heads) with random weights made from seed 0:
@@ -21,7 +22,8 @@ Three main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
   Adam), its attention going through the hand-written CUDA flash-attention
   forward, dQ and dK/dV kernels, and with ``fused_ce`` its loss through the
   hand-written CUDA fused cross-entropy forward, d-hidden and d-weight
-  kernels;
+  kernels (in bf16 the latter two on the tensor cores, a thread-block
+  cluster splitting H);
 - sequence-parallel training: ``pipegoose_tpu_torch.trainer.sp_train_step``
   over a ``ParallelContext`` (one rank over NCCL, sp = 1: the driver's
   machine has one card), its attention the ring of ``ring_flash_attention``
@@ -69,7 +71,9 @@ Phases, each fatal on failure:
  10  the three fused cross-entropy kernels (forward, d-hidden, d-weight)
      against their plain versions on the card: float32 and bf16, ragged T
      and V with a nonzero offset and valid_size < V, both weight layouts,
-     and bench.py's shape in bf16 (T = 8 x 1023, H = 1024, V = 250880);
+     and bench.py's shape in bf16 (T = 8 x 1023, H = 1024, V = 250880),
+     both layouts; every bf16 d-hidden and d-weight launch must take the
+     tensor-core route ("mma"), every float32 one the WMMA route;
  11  phase 7's float32 train step, card vs CPU, with fused_ce=True,
      ce_chunks=8, remat_policy="dots" and remat_policy="attn"; on the card
      the fused loss also equals the full-logits loss of the same weights;
@@ -80,7 +84,10 @@ Phases, each fatal on failure:
      device time with the fused kernels' share;
  13  each fused kernel's time at phase 12's shape beside its bound, its
      plain version's time and a composite of PyTorch calls that computes
-     the same function through the full logits;
+     the same function through the full logits, with its route and
+     ptxas's registers and spills; the d-hidden and d-weight kernels also
+     with an (H, V) weight (with --parent, the parent revision's bf16
+     d-hidden and d-weight kernels in turns with this one's);
  14  the int8 and int4 (G = 32) quantized-matmul kernels against their plain
      version at bloom-560m's four products (qkv, out, up, down) and T in
      {1, 8, 128, 512}: the tensor-core route with bf16 x, the float32
@@ -135,10 +142,11 @@ Phases, each fatal on failure:
      B7-B9 in turns with this one's, and B8/B9's outputs equal to the
      parent's bit for bit);
  22  with --parent only, right after phase 20 in its context: phase 8's
-     "flash" step, phase 20's SP step and train_step at 1 x 8192, each timed
-     with this revision's kernels and with the parent's (its
-     flash_attention and flash_chunk libraries loaded in their place) in
-     turns: parent, this, this, parent.
+     "flash" step, phase 12's "flash+fusedce" step, phase 20's SP step and
+     train_step at 1 x 8192, each timed with this revision's kernels and
+     with the parent's (its flash_attention, flash_chunk and fused_ce
+     libraries loaded in their place, the fused CE backward on the route
+     the parent had) in turns: parent, this, this, parent.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a card, or
@@ -192,6 +200,7 @@ LSE_RTOL = 2.0 ** -21
 # Adam steps the losses to 1e-3, since Adam moves a weight whose gradient
 # is near zero by up to lr whatever the gradient's rounding
 FUSED_SOURCE = "pipegoose_tpu_torch/ops/csrc/fused_ce.cu"
+FUSED_MMA_SOURCE = "pipegoose_tpu_torch/ops/csrc/fused_ce_mma.cu"   # bf16 dh, dw
 FUSED_REPLACES = {
     "fwd": "pipegoose_tpu/ops/fused_ce.py:63",
     "dh": "pipegoose_tpu/ops/fused_ce.py:163",
@@ -205,7 +214,7 @@ FUSED_REPLACES = {
 # product); float32 dh, dw 1e-4 M (split-TF32 products summed over the
 # vocabulary or the tokens in another order); bf16 dh, dw 2^-6 M, two bf16
 # ulps: the final rounding, and the dlogits tile that the kernels round to
-# bf16 before the second product
+# bf16 before the second product (on both routes)
 FUSED_STAT_RTOL = 2.0 ** -18
 FUSED_GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 QUANT_SOURCE = "pipegoose_tpu_torch/ops/csrc/quant_matmul.cu"
@@ -265,7 +274,8 @@ def phase0_card() -> str:
 
 # -- phase 1 -------------------------------------------------------------------
 
-PARENT_SOURCES = ("flash_attention", "flash_chunk")   # the attention kernels' sources
+# the sources of the attention and fused CE kernels
+PARENT_SOURCES = ("flash_attention", "flash_chunk", "fused_ce")
 
 
 def phase1_build(parent=None) -> dict:
@@ -1065,14 +1075,15 @@ def kernel_counters():
 
 
 def timed_training(np_tree, dev, card, cfg, label, variant, batch=8, seq=1024,
-                   step_fn=None) -> dict:
+                   step_fn=None, ce_route=None) -> dict:
     """Timed bf16 train steps (by default at bench.py's shape, batch 8 x 1024)
     of RandomState(0) ids, labels = ids, no mask, Adam 1e-4, 2 warm-up and 5
     timed steps between CUDA events, every launch counter set to 0 just
     before the steps and read just after; then one profiled step.
     ``step_fn`` is ``train_step`` unless given (``sp_train_step`` runs the
     ring: its chunk kernels take the flash kernels' launches). Fails unless
-    the kernels launch as ``cfg`` asks and the losses fall."""
+    the kernels launch as ``cfg`` asks, the fused CE backward on
+    ``ce_route`` (default: the route its plan picks), and the losses fall."""
     from pipegoose_tpu_torch.models.weights import param_leaves, params_from_jax
     from pipegoose_tpu_torch.trainer import make_optimizer, sp_train_step, train_step
 
@@ -1093,8 +1104,9 @@ def timed_training(np_tree, dev, card, cfg, label, variant, batch=8, seq=1024,
     counters = kernel_counters()
     for c in counters.values():
         c.launches = 0
-        for r in getattr(c, "routes", ()):
-            c.routes[r] = 0
+        for by in (getattr(c, "routes", {}), getattr(c, "layouts", {})):
+            for r in by:
+                by[r] = 0
     losses = [step() for _ in range(warm)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1105,6 +1117,7 @@ def timed_training(np_tree, dev, card, cfg, label, variant, batch=8, seq=1024,
     torch.cuda.synchronize()
     counts = {name: c.launches for name, c in counters.items()}
     routes = {name: dict(c.routes) for name, c in counters.items() if hasattr(c, "routes")}
+    layouts = {name: dict(c.layouts) for name, c in counters.items() if hasattr(c, "layouts")}
     steps = warm + timed
     step_ms = t0.elapsed_time(t1) / timed
     tokens_per_s = batch * seq / (step_ms / 1e3)
@@ -1129,13 +1142,22 @@ def timed_training(np_tree, dev, card, cfg, label, variant, batch=8, seq=1024,
         f"{': remat recomputes the forward' if cfg.remat else ''})")
     if counts != want:
         raise AssertionError(f"{label}: the training step bypassed a kernel")
+    from pipegoose_tpu_torch.ops import fused_ce as fce
+
     route = "mma" if cfg.dtype == torch.bfloat16 else "fma"
+    # the fused CE backward's route by its plan (the WMMA kernel in float32)
+    ce_route = ce_route or fce.bwd_plan(cfg.dtype, batch * (seq - 1), cfg.hidden_size,
+                                        cfg.vocab_size, "dh")["route"]
+    want_route = {n: ce_route if n.startswith("fused_ce") else route for n in routes}
     log(f"  launches by route over {steps} steps: B1 {routes['fwd']}, B2 {routes['dq']}, B3 "
-        f"{routes['dkv']}, B7 {routes['chunk_fwd']}, B8 {routes['chunk_dq']}, B9 "
-        f"{routes['chunk_dkv']}; all must be {route}")
-    if any(routes[n][route] != counts[n] or sum(routes[n].values()) != counts[n]
+        f"{routes['dkv']}, B5 {routes['fused_ce_dh']}, B6 {routes['fused_ce_dw']}, B7 "
+        f"{routes['chunk_fwd']}, B8 {routes['chunk_dq']}, B9 {routes['chunk_dkv']}; all must "
+        f"be {route}, B5/B6 {ce_route}")
+    if any(routes[n][want_route[n]] != counts[n] or sum(routes[n].values()) != counts[n]
            for n in routes):
-        raise AssertionError(f"{label}: a kernel left the {route} route")
+        raise AssertionError(f"{label}: a kernel left its route")
+    if any(sum(n.values()) != counts[name] for name, n in layouts.items()):
+        raise AssertionError(f"{label}: fused CE launches by layout {layouts} do not add up")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite and falling: {losses}")
     _, busy_ms, kernels = profile_device(step, 1, "one profiled train step",
@@ -1152,7 +1174,7 @@ def timed_training(np_tree, dev, card, cfg, label, variant, batch=8, seq=1024,
         log(f"  chunk kernels B7-B9: {chunk_ms} ms of the profiled step's {busy_ms} ms "
             f"device time ({100 * chunk_ms / busy_ms if busy_ms else float('nan'):.1f}%)")
     run = {"launches": {k: v for k, v in counts.items() if want[k]}, "routes": routes,
-           "step_ms": step_ms, "peak_gib": peak_gib, "losses": losses,
+           "layouts": layouts, "step_ms": step_ms, "peak_gib": peak_gib, "losses": losses,
            "tokens_per_s": tokens_per_s, "mfu": mfu}
     del params, opt
     return run
@@ -1335,15 +1357,22 @@ def fused_err(got, want, rtol):
 
 def check_fused(label, case) -> dict:
     """Each fused kernel once against its plain version on one case; every
-    launch counter must move by exactly one. Returns each kernel's max abs
-    error."""
+    launch counter must move by exactly one, and the backward kernels' on
+    their dtype's route (bf16 "mma", float32 "wmma"). Returns each kernel's
+    max abs error."""
     from pipegoose_tpu_torch.ops import fused_ce as fce
 
     dtype = case["h"].dtype
     fwd = (case["h"], case["w"], case["targets"], case["offset"], case["valid"],
            case["vh"])
+    t, hd = case["h"].shape
+    v = case["w"].shape[0] if case["vh"] else case["w"].shape[1]
+    route = fce.bwd_plan(dtype, t, hd, v, "dh")["route"]
+    if route != ("mma" if dtype == torch.bfloat16 else "wmma"):
+        raise AssertionError(f"{label}: the backward plan names the {route} route")
     counters = (fce.fused_ce_fwd, fce.fused_ce_dh, fce.fused_ce_dw)
     before = tuple(c.launches for c in counters)
+    routed = tuple(c.routes[route] for c in counters[1:])
     lse, tl = fce.fused_ce_fwd(*fwd)
     ref_lse, ref_tl = fce.fused_ce_fwd_reference(*fwd)
     bwd = (case["h"], case["w"], case["targets"], ref_lse, case["g"],
@@ -1354,13 +1383,15 @@ def check_fused(label, case) -> dict:
     moved = tuple(c.launches - b for c, b in zip(counters, before))
     if moved != (1, 1, 1):
         raise AssertionError(f"{label}: launch counters moved by {moved}")
+    if tuple(c.routes[route] - r for c, r in zip(counters[1:], routed)) != (1, 1):
+        raise AssertionError(f"{label}: a backward launch left the {route} route")
     checks = {"lse": fused_err(lse, ref_lse, FUSED_STAT_RTOL),
               "target logit": fused_err(tl, ref_tl, FUSED_STAT_RTOL)}
     del ref_lse, ref_tl
     checks["dh"] = fused_err(dh, fce.fused_ce_dh_reference(*bwd), FUSED_GRAD_RTOL[dtype])
     checks["dw"] = fused_err(dw, fce.fused_ce_dw_reference(*bwd), FUSED_GRAD_RTOL[dtype])
     bad = [n for n, (err, tol) in checks.items() if err > tol]
-    log(f"phase 10: {label}: " + ", ".join(
+    log(f"phase 10: {label} (dh/dw {route} route): " + ", ".join(
         f"{n} {err:.3g} (tol {tol:.3g})" for n, (err, tol) in checks.items())
         + (f" FAIL {bad}" if bad else " ok"))
     if bad:
@@ -1371,18 +1402,21 @@ def check_fused(label, case) -> dict:
 
 def phase10_fused_vs_plain(dev) -> dict:
     """Returns the max abs errors at bench.py's shape in bf16, the shape
-    and dtype of phase 12's calls."""
+    and dtype of phase 12's calls, by layout ("vh", "hv")."""
     for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for vh in (True, False):
             check_fused(f"{name} T=100 H=1024 V=1000 offset=300 valid=1283 "
                         f"{'vh' if vh else 'hv'}",
                         fused_case(dev, dtype, t=100, hd=1024, v=1000, offset=300,
                                    valid=1283, vh=vh, seed=SEED + 10))
-    errs = check_fused("bf16 T=8184 H=1024 V=250880 vh (bench.py's shape)",
-                       fused_case(dev, torch.bfloat16, t=8 * 1023, hd=1024,
-                                  v=250880, seed=SEED + 11))
-    gc.collect()
-    torch.cuda.empty_cache()
+    errs = {}
+    for vh in (True, False):
+        layout = "vh" if vh else "hv"
+        errs[layout] = check_fused(f"bf16 T=8184 H=1024 V=250880 {layout} (bench.py's shape)",
+                                   fused_case(dev, torch.bfloat16, t=8 * 1023, hd=1024,
+                                              v=250880, vh=vh, seed=SEED + 11))
+        gc.collect()
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -1466,62 +1500,120 @@ def fused_bound_ms(kind, case, tensors):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def phase13_fused_time(dev, card, errs, launches) -> list:
+def parent_fused_calls(lib, case, lse, g):
+    """The parent library's bf16 d-hidden and d-weight kernels (the WMMA
+    kernel, entries ``fused_ce_{dh,dw}_bf16``) on ``case``'s inputs, each
+    writing into a new tensor: ({kind: call}, {kind: its output})."""
+    import ctypes
+
+    h, w, targets = case["h"], case["w"], case["targets"]
+    t, hd = h.shape
+    v = w.shape[0] if case["vh"] else w.shape[1]
+    calls, outs = {}, {}
+    for kind, like in (("dh", h), ("dw", w)):
+        fn = getattr(lib, f"fused_ce_{kind}_bf16")
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        outs[kind] = out = torch.empty_like(like)
+        ptrs = tuple(x.data_ptr() for x in (h, w, targets, lse, g, out))
+        calls[kind] = (lambda i, fn=fn, ptrs=ptrs: fn(
+            *ptrs, t, hd, v, 0, 2 ** 31 - 1, int(case["vh"]),
+            torch.cuda.current_stream().cuda_stream))
+    return calls, outs
+
+
+def phase13_fused_time(dev, card, errs, run, parent=None) -> list:
+    """Each fused kernel at phase 12's shape ("vh", bench.py's tied
+    embedding), and the backward kernels also with an (H, V) weight. A
+    row's launches are phase 12's ``run``'s, the backward's by layout: the
+    (H, V) kernels' are that step's (H, V) launches, which BLOOM's tied
+    (V, H) embedding never makes."""
     from pipegoose_tpu_torch.ops import fused_ce as fce
 
     t, hd, v = 8 * 1023, 1024, 250880
-    case = fused_case(dev, torch.bfloat16, t=t, hd=hd, v=v, seed=SEED + 13)
-    h, w, targets, g = case["h"], case["w"], case["targets"], case["g"]
-    lse, tl = fce.fused_ce_fwd(h, w, targets)
-    bwd = (h, w, targets, lse, g)
-    dh = fce.fused_ce_dh(*bwd)
-    dw = fce.fused_ce_dw(*bwd)
-    io = {"fwd": (h, w, targets, lse, tl), "dh": bwd + (dh,), "dw": bwd + (dw,)}
-    calls = {
-        "fwd": (lambda i: fce.fused_ce_fwd(h, w, targets),
-                lambda: fce.fused_ce_fwd_reference(h, w, targets)),
-        "dh": (lambda i: fce.fused_ce_dh(*bwd), lambda: fce.fused_ce_dh_reference(*bwd)),
-        "dw": (lambda i: fce.fused_ce_dw(*bwd), lambda: fce.fused_ce_dw_reference(*bwd)),
-    }
-    # the library yardstick, a composite: the full-logits path's PyTorch
-    # calls for the same function. fwd: the bf16 cuBLAS logits, logsumexp
-    # and a gather; dh and dw: softmax minus one-hot from the saved float32
-    # logits, times g, in bf16, then one cuBLAS product each
-    rows_t = torch.arange(t, device=dev)
-    tg = targets.long()
-
-    def lib_fwd():
-        lg = torch.matmul(h, w.t()).float()
-        return torch.logsumexp(lg, dim=-1), lg.gather(1, tg[:, None])
-
-    saved = torch.matmul(h, w.t()).float()
-
-    def lib_dl():
-        p = torch.softmax(saved, dim=-1)
-        p[rows_t, tg] -= 1.0
-        return (p * g[:, None]).to(torch.bfloat16)
-
-    library = {"fwd": lib_fwd, "dh": lambda: torch.matmul(lib_dl(), w),
-               "dw": lambda: torch.matmul(lib_dl().t(), h)}
-    log(f"phase 13: fused CE kernels at phase 12's shape (T={t}, H={hd}, V={v}, "
-        f"bf16, vh), device ms per call, on {card}")
     rows = []
-    for kind in ("fwd", "dh", "dw"):
-        kernel, plain = calls[kind]
-        ms, call_ms = time_ms(kernel, 2, replays=5)
-        plain_ms = time_eager_ms(plain, 2)
-        library_ms = time_eager_ms(library[kind], 2)
-        bound_ms, bound_by = fused_bound_ms(kind, case, io[kind])
-        log(f"  fused_ce_{kind}: kernel {ms} (eager {call_ms}), bound {bound_ms} "
-            f"({bound_by}), plain {plain_ms}, full-logits composite {library_ms}")
-        rows.append({
-            "name": f"fused_ce_{kind} (bf16, T={t}, H={hd}, V={v}, vh)",
-            "source": FUSED_SOURCE, "replaces": FUSED_REPLACES[kind], "route": "cuda",
-            "kernel_route": "wmma", "launches": launches[f"fused_ce_{kind}"],
-            "max_abs_err": errs[kind],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms, "call_ms": call_ms,
-        })
+    for vh in (True, False):
+        layout = "vh" if vh else "hv"
+        case = fused_case(dev, torch.bfloat16, t=t, hd=hd, v=v, vh=vh, seed=SEED + 13)
+        h, w, targets, g = case["h"], case["w"], case["targets"], case["g"]
+        lse, tl = fce.fused_ce_fwd(h, w, targets, 0, None, vh)
+        bwd = (h, w, targets, lse, g, 0, None, vh)
+        dh = fce.fused_ce_dh(*bwd)
+        dw = fce.fused_ce_dw(*bwd)
+        io = {"fwd": (h, w, targets, lse, tl), "dh": bwd[:5] + (dh,), "dw": bwd[:5] + (dw,)}
+        calls = {
+            "fwd": (lambda i: fce.fused_ce_fwd(h, w, targets, 0, None, vh),
+                    lambda: fce.fused_ce_fwd_reference(h, w, targets, 0, None, vh)),
+            "dh": (lambda i: fce.fused_ce_dh(*bwd), lambda: fce.fused_ce_dh_reference(*bwd)),
+            "dw": (lambda i: fce.fused_ce_dw(*bwd), lambda: fce.fused_ce_dw_reference(*bwd)),
+        }
+        # the library yardstick, a composite: the full-logits path's PyTorch
+        # calls for the same function. fwd: the bf16 cuBLAS logits, logsumexp
+        # and a gather; dh and dw: softmax minus one-hot from the saved
+        # float32 logits, times g, in bf16, then one cuBLAS product each
+        rows_t = torch.arange(t, device=dev)
+        tg = targets.long()
+        wv = w.t() if vh else w                      # (H, V) view
+
+        def lib_fwd():
+            lg = torch.matmul(h, wv).float()
+            return torch.logsumexp(lg, dim=-1), lg.gather(1, tg[:, None])
+
+        saved = torch.matmul(h, wv).float()
+
+        def lib_dl():
+            p = torch.softmax(saved, dim=-1)
+            p[rows_t, tg] -= 1.0
+            return (p * g[:, None]).to(torch.bfloat16)
+
+        library = {"fwd": lib_fwd, "dh": lambda: torch.matmul(lib_dl(), wv.t()),
+                   "dw": (lambda: torch.matmul(lib_dl().t(), h)) if vh
+                   else (lambda: torch.matmul(h.t(), lib_dl()))}
+        # the parent's calls write into old_outs, kept alive with them
+        old, old_outs = parent_fused_calls(parent["fused_ce"], case, lse, g) if parent else ({}, {})
+        log(f"phase 13: fused CE kernels at phase 12's shape (T={t}, H={hd}, V={v}, "
+            f"bf16, {layout}), device ms per call, on {card}")
+        for kind in ("fwd", "dh", "dw") if vh else ("dh", "dw"):
+            kernel, plain = calls[kind]
+            ms, call_ms = time_ms(kernel, 2, replays=5)
+            plain_ms = time_eager_ms(plain, 2)
+            library_ms = time_eager_ms(library[kind], 2)
+            bound_ms, bound_by = fused_bound_ms(kind, case, io[kind])
+            name = f"fused_ce_{kind}"
+            row = {"name": f"{name} (bf16, T={t}, H={hd}, V={v}, {layout})", "route": "cuda",
+                   "launches": (run["layouts"][name][layout] if name in run["layouts"]
+                                else run["launches"][name]),
+                   "max_abs_err": errs[layout][kind], "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                   "call_ms": call_ms}
+            if kind == "fwd":
+                row.update(source=FUSED_SOURCE, replaces=FUSED_REPLACES[kind],
+                           kernel_route="wmma")
+                extra = ""
+            else:
+                plan = fce.card_plan(h, w, kind, vh)
+                mangled = (f"fused_ce_bwd_mma_kernelILb{int(kind == 'dw')}ELb{int(not vh)}"
+                           f"ELi{plan['bm']}E")
+                regs, spills = ptxas_usage("fused_ce_mma", mangled)
+                row.update(source=FUSED_MMA_SOURCE, replaces=FUSED_REPLACES[kind],
+                           kernel_route=plan["route"], cluster=plan["cluster"],
+                           bm=plan["bm"], splits=plan["splits"], registers=regs,
+                           spill_store_bytes=spills)
+                extra = (f"{plan['route']} route, cluster {plan['cluster']}, BM {plan['bm']}, "
+                         f"{plan['splits']} split(s), {regs} registers, {spills} bytes "
+                         f"spilled; ")
+                if kind in old:
+                    turns = parent_turns(kernel, old[kind], 2, replays=5)
+                    log(f"  fused_ce_{kind} in turns with the parent's kernel (parent, this, "
+                        f"this, parent): this {turns[0]}, parent {turns[1]}")
+                    row.update(turns_ms=turns[0], parent_turns_ms=turns[1])
+            log(f"  fused_ce_{kind} ({extra}kernel {ms} (eager {call_ms}), bound {bound_ms} "
+                f"({bound_by}), plain {plain_ms}, full-logits composite {library_ms}; "
+                f"{row['launches']} launches in phase 12's 'flash+fusedce' steps")
+            rows.append(row)
+            gc.collect()
+            torch.cuda.empty_cache()
+        del saved, case, calls, library, io, old, old_outs
         gc.collect()
         torch.cuda.empty_cache()
     return rows
@@ -2391,34 +2483,75 @@ def phase21_chunk_time(dev, card, errs, launches, parent=None) -> list:
 
 # -- phase 22 ------------------------------------------------------------------
 
+def parent_ce_bwd(lib, kind):
+    """``fused_ce_{kind}`` as the parent revision ran it in bf16 and float32:
+    the WMMA entry ``fused_ce_{kind}_{dtype}`` of its ``fused_ce`` library
+    ``lib``, called directly, with the wrapper's counters (all on "wmma")."""
+    import ctypes
+
+    from pipegoose_tpu_torch.ops import fused_ce as fce
+
+    def run(h, w, targets, lse, g, offset=0, valid=None, vh=True):
+        t, hd = h.shape
+        out = torch.empty_like(h if kind == "dh" else w)
+        fn = getattr(lib, f"fused_ce_{kind}_{'bf16' if h.dtype == torch.bfloat16 else 'f32'}")
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(*(x.data_ptr() for x in (h, w, targets, lse, g, out)), t, hd,
+                 w.shape[0] if vh else w.shape[1], offset,
+                 fce.NO_VALID if valid is None else valid, int(bool(vh)),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the parent's fused_ce_{kind}: cudaError {err}")
+        run.launches += 1
+        run.routes["wmma"] += 1
+        run.layouts["vh" if vh else "hv"] += 1
+        return out
+
+    run.launches, run.routes, run.layouts = 0, {"mma": 0, "wmma": 0}, {"vh": 0, "hv": 0}
+    return run
+
+
 def phase22_steps_vs_parent(np_tree, dev, card, parent) -> dict:
-    """Three steps through the attention kernels (the flash kernels B1-B3,
-    the ring-chunk kernels B7-B9), with this revision's kernels and the
-    parent's in turns; returns the step ms of each as {step: {"this":
-    [...], "parent": [...]}}. The parent's libraries take the place of this
-    revision's for both sources; the route counters still name the route
-    this revision's plan picks."""
+    """Four steps through the attention kernels (the flash kernels B1-B3,
+    the ring-chunk kernels B7-B9) and, with fused CE, its kernels (B4-B6),
+    with this revision's kernels and the parent's in turns; returns the
+    step ms of each as {step: {"this": [...], "parent": [...]}}. The
+    parent's libraries take the place of this revision's for its three
+    sources, and its fused CE backward is called as the parent called it:
+    the bf16 WMMA entries of its ``fused_ce`` library (``parent_ce_bwd``);
+    the attention route counters still name the route this revision's
+    plan picks."""
     from pipegoose_tpu_torch.models.bloom import BloomConfig
     from pipegoose_tpu_torch.ops import _build
+    from pipegoose_tpu_torch.ops import fused_ce as fce
     from pipegoose_tpu_torch.trainer import sp_train_step
 
     flash = BloomConfig.bloom_560m(dtype=torch.bfloat16, remat=True, use_flash=True)
     fused = BloomConfig.bloom_560m(dtype=torch.bfloat16, remat=True, use_flash=True,
                                    fused_ce=True)
     steps = {"phase 8 'flash' train_step, 8 x 1024": (flash, {}),
+             "phase 12 'flash+fusedce' train_step, 8 x 1024": (fused, {}),
              "phase 20 sp_train_step, 1 x 8192": (fused, dict(batch=1, seq=SP_SEQ,
                                                                step_fn=sp_train_step)),
              "phase 20 train_step 'flash+fusedce', 1 x 8192": (fused, dict(batch=1, seq=SP_SEQ))}
     ours = {n: _build.load(n) for n in PARENT_SOURCES}
+    this_bwd = {"dh": fce.fused_ce_dh, "dw": fce.fused_ce_dw}
+    old_bwd = {kind: parent_ce_bwd(parent["fused_ce"], kind) for kind in this_bwd}
     out = {}
     for name, (cfg, kw) in steps.items():
         out[name] = {"this": [], "parent": []}
         for who in ("parent", "this", "this", "parent"):
             _build._loaded.update(parent if who == "parent" else ours)
+            for kind, fn in (old_bwd if who == "parent" else this_bwd).items():
+                setattr(fce, f"fused_ce_{kind}", fn)
             try:
-                run = timed_training(np_tree, dev, card, cfg, f"phase 22 ({who})", name, **kw)
+                run = timed_training(np_tree, dev, card, cfg, f"phase 22 ({who})", name,
+                                     ce_route="wmma" if who == "parent" else None, **kw)
             finally:
                 _build._loaded.update(ours)
+                for kind, fn in this_bwd.items():
+                    setattr(fce, f"fused_ce_{kind}", fn)
             out[name][who].append(run["step_ms"])
             gc.collect()
             torch.cuda.empty_cache()
@@ -2477,8 +2610,7 @@ def main(argv) -> int:
     fused_runs = phase12_timed_variants(np_tree, dev, card, flash_run["peak_gib"])
     gc.collect()
     torch.cuda.empty_cache()
-    rows += phase13_fused_time(dev, card, fused_errs,
-                               fused_runs["flash+fusedce"]["launches"])
+    rows += phase13_fused_time(dev, card, fused_errs, fused_runs["flash+fusedce"], parent)
     gc.collect()
     torch.cuda.empty_cache()
     quant_errs = phase14_quant_vs_plain(np_tree, dev)

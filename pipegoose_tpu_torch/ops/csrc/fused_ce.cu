@@ -6,6 +6,9 @@
 //   fused_ce_fwd_*  <- _fwd_pallas :63  (pallas_call :108)
 //   fused_ce_dh_*   <- _dh_pallas  :163 (pallas_call :194)
 //   fused_ce_dw_*   <- _dw_pallas  :221 (pallas_call :258)
+// The wrapper runs dh and dw here for float32 inputs and for bf16 with H
+// above 4096; bf16 with H <= 4096 goes to fused_ce_mma.cu's tensor-core
+// kernel (ops/fused_ce.py bwd_plan).
 //
 // Inputs: h (T, H); w (V, H) when vh = 1 (the tied embedding) or (H, V) when
 // vh = 0 (an untied head), read in place in either layout; targets int32

@@ -2,7 +2,8 @@
 weight): the (T, V) logits never exist in device memory.
 
 The counterpart of ``pipegoose_tpu/ops/fused_ce.py``. Three kernels, each
-a wrapper over one hand-written CUDA entry point (``csrc/fused_ce.cu``):
+a wrapper over hand-written CUDA entry points (``csrc/fused_ce.cu``, and
+``csrc/fused_ce_mma.cu`` for the bf16 backward):
 
 - :func:`fused_ce_fwd` -> (lse, target_logit), float32 (T,): the online
   log-sum-exp and the target's logit over vocab tiles;
@@ -14,7 +15,12 @@ On CPU tensors a wrapper calls its plain PyTorch version
 (``fused_ce_fwd_reference``, ``fused_ce_dh_reference``,
 ``fused_ce_dw_reference``: the math of the Pallas bodies over the whole
 (T, V) at once); on CUDA tensors it launches its kernel or raises.
-``.launches`` counts the launches. ``_FusedCE`` ties them together as a
+``.launches`` counts the launches; the backward wrappers' ``.routes`` count
+them by route (:func:`bwd_plan`): "mma", the bf16 tensor-core kernel of
+``fused_ce_mma.cu`` (a thread-block cluster splits H), or "wmma", the
+WMMA kernel of ``fused_ce.cu`` (float32 in split TF32, and bf16 with H
+above 4096); their ``.layouts`` count them by weight layout ("vh",
+"hv"). ``_FusedCE`` ties them together as a
 ``torch.autograd.Function``, the ``_fused_ce`` custom_vjp of the JAX file.
 
 Semantics of ``_dlogits_tile``: logits in float32; columns whose global
@@ -45,6 +51,19 @@ FWD_TILE_V = 128    # vocab columns per forward tile (kBS)
 FWD_BLOCKS_PER_SM = 2   # forward blocks resident on one SM (its launch bounds)
 FWD_WAVES = 16      # waves of forward blocks: the last, partial one costs <= 1/16
 NO_VALID = 2 ** 31 - 1   # valid_size=None: no column is masked
+# bf16 backward on the tensor cores (csrc/fused_ce_mma.cu): a block keeps
+# BM resident rows and the float32 accumulator of an H slice of at most
+# 32768 / BM columns (128 registers a thread); a cluster of up to 8 blocks
+# splits H. (BM, widest slice), in the order tried:
+MMA_CONFIGS = ((128, 256), (64, 512))
+MAX_CLUSTER = 8          # the portable thread-block cluster size
+# clusters of 1, 2, 4, 8 such blocks an H100 SXM holds at once (one block
+# an SM; a cluster's blocks share a GPC), as fused_ce_mma.cu's
+# fused_ce_mma_resident_clusters reports them there: bwd_plan's figures
+# when no card is asked (a launch asks its card, card_plan)
+RESIDENT_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
+MAX_SPLITS = 8           # dh: splits of the vocab walk, summed by a second kernel
+WAVE_FILL = 0.95         # dh: the fewest splits whose waves are this full
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -148,22 +167,30 @@ def _check(h, w, targets, offset, vh, **extra):
     return t, hd, v
 
 
-def _kernel_fn(kind: str, dtype):
-    fn = getattr(_build.load("fused_ce"), f"fused_ce_{kind}_{_SUFFIX[dtype]}")
+def _kernel_fn(source: str, entry: str, n_ptr: int, n_int: int):
+    fn = getattr(_build.load(source), entry)
     if fn.argtypes is None:
-        n_int = 7 if kind == "fwd" else 6   # the forward also takes its splits
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int + [
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(kind, h, ptrs, ints):
+def _launch(kind, h, ptrs, ints, route="wmma"):
+    """Launch ``fused_ce_{kind}_{dtype}`` of fused_ce.cu (route "wmma"; the
+    forward also takes its splits), or ``fused_ce_{kind}_mma`` of
+    fused_ce_mma.cu (route "mma": a workspace pointer follows the usual
+    pointers, bm, cluster and splits the usual ints)."""
+    if route == "mma":
+        fn = _kernel_fn("fused_ce_mma", f"fused_ce_{kind}_mma", len(ptrs), len(ints))
+    else:
+        fn = _kernel_fn("fused_ce", f"fused_ce_{kind}_{_SUFFIX[h.dtype]}", len(ptrs),
+                        len(ints))
     with torch.cuda.device(h.device):
-        err = _kernel_fn(kind, h.dtype)(
-            *ptrs, *ints, torch.cuda.current_stream().cuda_stream)
+        err = fn(*ptrs, *ints, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"fused_ce_{kind} kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"fused_ce_{kind} kernel launch failed ({route} route): "
+                           f"cudaError {err}")
 
 
 def fwd_splits(t: int, v: int) -> int:
@@ -173,6 +200,63 @@ def fwd_splits(t: int, v: int) -> int:
     v_tiles = -(-v // FWD_TILE_V)
     wave = FWD_BLOCKS_PER_SM * SMS
     return max(1, min(v_tiles, -(-FWD_WAVES * wave // t_tiles)))
+
+
+def bwd_plan(dtype, t: int, hd: int, v: int, kind: str, resident=None) -> dict:
+    """How the ``kind`` ("dh" or "dw") backward kernel runs on the card:
+    ``route`` "mma" for bf16 with H <= MAX_CLUSTER x 512, else "wmma" (the
+    plan has no other key then). On "mma": ``bm`` resident rows a block
+    (tokens for dh, vocab rows for dw); ``bn`` streamed rows a tile;
+    ``cluster`` blocks a cluster; ``slices`` the (first column, width) of
+    each cluster rank's H slice, covering H exactly; ``splits`` the parts
+    of the streamed rows that run as separate clusters (dh; their float32
+    sums, ``ws_bytes`` of workspace, are added in split order by a second
+    kernel); ``grid`` the blocks of the launch. "mma" takes the first of
+    MMA_CONFIGS whose widest slice, times the smallest power-of-two
+    cluster that covers H, needs at most MAX_CLUSTER blocks; H splits into
+    16-column chunks dealt out evenly over the ranks. dh takes the fewest
+    splits (at most MAX_SPLITS, and a streamed tile each) whose clusters
+    fill their waves to WAVE_FILL on average, else the fullest: a wave is
+    ``resident(bm, cluster)`` clusters, the count the card holds at once
+    (default: RESIDENT_CLUSTERS, an H100 SXM's)."""
+    if kind not in ("dh", "dw"):
+        raise ValueError(f"kind must be 'dh' or 'dw', got {kind!r}")
+    rows = t if kind == "dh" else v
+    if dtype == torch.bfloat16:
+        for bm, width in MMA_CONFIGS:
+            cluster = 1
+            while cluster * width < hd:
+                cluster *= 2
+            if cluster <= MAX_CLUSTER:
+                n16 = hd // H_MULTIPLE
+                edges = [r * n16 // cluster * H_MULTIPLE for r in range(cluster + 1)]
+                clusters = -(-rows // bm)
+                splits = 1
+                if kind == "dh":
+                    held = (resident(bm, cluster) if resident
+                            else RESIDENT_CLUSTERS[cluster])
+                    splits = _wave_splits(clusters, held, -(-v // (bm // 2)))
+                return {"route": "mma", "bm": bm, "bn": bm // 2, "cluster": cluster,
+                        "slices": [(a, b - a) for a, b in zip(edges, edges[1:])],
+                        "splits": splits, "grid": cluster * clusters * splits,
+                        "ws_bytes": 4 * splits * t * hd if splits > 1 else 0}
+    return {"route": "wmma"}
+
+
+def _wave_splits(clusters: int, resident: int, tiles: int) -> int:
+    """Splits of the streamed rows for ``clusters`` clusters of which the
+    card holds ``resident`` at once: the fewest whose waves are at least
+    WAVE_FILL full on average, else the fullest; at most MAX_SPLITS and
+    ``tiles``."""
+    best, best_fill = 1, 0.0
+    for splits in range(1, min(MAX_SPLITS, tiles) + 1):
+        n = clusters * splits
+        fill = n / (-(-n // resident) * resident)
+        if fill >= WAVE_FILL:
+            return splits
+        if fill > best_fill:
+            best, best_fill = splits, fill
+    return best
 
 
 def fused_ce_fwd(h, w, targets, offset=0, valid=None, vh=True):
@@ -203,8 +287,54 @@ def _check_bwd(h, w, targets, lse, g, offset, vh):
                   lse=(lse, (t,), torch.float32), g=(g, (t,), torch.float32))
 
 
-def _bwd_ptrs(h, w, targets, lse, g, out):
-    return tuple(x.data_ptr() for x in (h, w, targets, lse, g, out))
+_RESIDENT = {}   # (device index, vh, bm, cluster) -> resident clusters of dh
+
+
+def _resident_on(device, vh):
+    """``resident(bm, cluster)`` for :func:`bwd_plan`: how many clusters of
+    the dh kernel for layout ``vh`` the card ``device`` holds at once, read
+    from ``fused_ce_mma_resident_clusters`` once per device, layout and
+    configuration. Raises if the card holds none or the query fails."""
+    def resident(bm, cluster):
+        key = (device.index, bool(vh), bm, cluster)
+        if key not in _RESIDENT:
+            fn = _build.load("fused_ce_mma").fused_ce_mma_resident_clusters
+            fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+            with torch.cuda.device(device):
+                n = fn(0, int(bool(vh)), bm, cluster)
+            if n < 1:
+                raise RuntimeError(
+                    f"fused_ce_dh: no cluster of {cluster} blocks (BM {bm}) can be resident "
+                    f"on {device}" + (f" (cudaError {-n})" if n < 0 else ""))
+            _RESIDENT[key] = n
+        return _RESIDENT[key]
+    return resident
+
+
+def card_plan(h, w, kind: str, vh=True) -> dict:
+    """The :func:`bwd_plan` that ``fused_ce_{kind}`` launches for h (T, H)
+    and w on h's card: dh's waves are the resident clusters the card
+    reports."""
+    t, hd = h.shape
+    v = w.shape[0] if vh else w.shape[1]
+    resident = _resident_on(h.device, vh) if h.device.type == "cuda" else None
+    return bwd_plan(h.dtype, t, hd, v, kind, resident)
+
+
+def _launch_bwd(kind, fn, h, w, targets, lse, g, out, t, hd, v, offset, valid, vh):
+    plan = card_plan(h, w, kind, vh)
+    ints = (t, hd, v, offset, NO_VALID if valid is None else valid, int(bool(vh)))
+    ptrs = tuple(x.data_ptr() for x in (h, w, targets, lse, g, out))
+    if plan["route"] == "mma":
+        ws = None
+        if plan["splits"] > 1:
+            ws = torch.empty((plan["splits"], t, hd), dtype=torch.float32, device=h.device)
+        ptrs += (0 if ws is None else ws.data_ptr(),)
+        ints += (plan["bm"], plan["cluster"], plan["splits"])
+    _launch(kind, h, ptrs, ints, plan["route"])
+    fn.launches += 1
+    fn.routes[plan["route"]] += 1
+    fn.layouts["vh" if vh else "hv"] += 1
 
 
 def fused_ce_dh(h, w, targets, lse, g, offset=0, valid=None, vh=True):
@@ -217,9 +347,7 @@ def fused_ce_dh(h, w, targets, lse, g, offset=0, valid=None, vh=True):
     dh = torch.empty_like(h)
     if t == 0 or v == 0:
         return dh.zero_()
-    _launch("dh", h, _bwd_ptrs(*args, dh),
-            (t, hd, v, offset, NO_VALID if valid is None else valid, int(bool(vh))))
-    fused_ce_dh.launches += 1
+    _launch_bwd("dh", fused_ce_dh, *args, dh, t, hd, v, offset, valid, vh)
     return dh
 
 
@@ -233,15 +361,17 @@ def fused_ce_dw(h, w, targets, lse, g, offset=0, valid=None, vh=True):
     dw = torch.empty_like(w)
     if t == 0 or v == 0:
         return dw.zero_()
-    _launch("dw", h, _bwd_ptrs(*args, dw),
-            (t, hd, v, offset, NO_VALID if valid is None else valid, int(bool(vh))))
-    fused_ce_dw.launches += 1
+    _launch_bwd("dw", fused_ce_dw, *args, dw, t, hd, v, offset, valid, vh)
     return dw
 
 
 fused_ce_fwd.launches = 0
 fused_ce_dh.launches = 0
 fused_ce_dw.launches = 0
+fused_ce_dh.routes = {"mma": 0, "wmma": 0}
+fused_ce_dw.routes = {"mma": 0, "wmma": 0}
+fused_ce_dh.layouts = {"vh": 0, "hv": 0}
+fused_ce_dw.layouts = {"vh": 0, "hv": 0}
 
 
 # -- autograd and the public sums ----------------------------------------------

@@ -112,18 +112,23 @@ def test_dw_reference_matches_pallas(case):
     _close(got, want)
 
 
+def _counters():
+    """Every launch counter of the three wrappers, by route and layout too."""
+    return (tce.fused_ce_fwd.launches, tce.fused_ce_dh.launches, tce.fused_ce_dw.launches,
+            *(dict(getattr(f, c)) for f in (tce.fused_ce_dh, tce.fused_ce_dw)
+              for c in ("routes", "layouts")))
+
+
 def test_cpu_wrappers_take_the_plain_versions_and_count_nothing(case):
     x = case
-    before = (tce.fused_ce_fwd.launches, tce.fused_ce_dh.launches,
-              tce.fused_ce_dw.launches)
+    before = _counters()
     args = _torch_args(x, "h", "w", "targets")
     lse, tl = tce.fused_ce_fwd(*args, x["offset"], x["valid"], x["vh"])
     bwd = args + (lse, torch.from_numpy(x["g"]), x["offset"], x["valid"], x["vh"])
     dh, dw = tce.fused_ce_dh(*bwd), tce.fused_ce_dw(*bwd)
     _close(lse, x["lse"])
     assert dh.shape == x["h"].shape and dw.shape == x["w"].shape
-    assert (tce.fused_ce_fwd.launches, tce.fused_ce_dh.launches,
-            tce.fused_ce_dw.launches) == before
+    assert _counters() == before
 
 
 # -- the public sums ---------------------------------------------------------------
@@ -228,3 +233,164 @@ def test_weight_layout_and_axis_name_probes():
         tce.fused_ce_sums(*args, weight_layout="vhv")
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
         tce.fused_ce_sums(*args, axis_name="tensor")
+
+
+# -- the bf16 backward's plan and summation order ------------------------------------
+
+@pytest.mark.parametrize("hd,bm,cluster", [
+    (16, 128, 1), (32, 128, 1), (48, 128, 1), (256, 128, 1), (272, 128, 2),
+    (1024, 128, 4), (1040, 128, 8), (2048, 128, 8), (2064, 64, 8), (4096, 64, 8)])
+def test_bwd_plan_splits_h_over_a_cluster(hd, bm, cluster):
+    """bf16: the first configuration whose widest slice, times a power-of-two
+    cluster of at most 8 blocks, covers H; the ranks' slices are contiguous
+    16-column multiples that cover H exactly, each within the widest slice
+    and at most 16 columns apart."""
+    for kind in ("dh", "dw"):
+        plan = tce.bwd_plan(torch.bfloat16, 8184, hd, 250880, kind)
+        assert plan["route"] == "mma"
+        assert (plan["bm"], plan["cluster"], plan["bn"]) == (bm, cluster, bm // 2)
+        widest = dict(tce.MMA_CONFIGS)[bm]
+        starts = [s for s, _ in plan["slices"]]
+        widths = [n for _, n in plan["slices"]]
+        assert len(plan["slices"]) == cluster and starts[0] == 0
+        assert all(a + n == b for (a, n), b in zip(plan["slices"], starts[1:] + [hd]))
+        assert all(n % 16 == 0 and 0 < n <= widest for n in widths)
+        assert max(widths) - min(widths) <= 16
+        rows = 8184 if kind == "dh" else 250880
+        assert plan["splits"] >= 1 and (kind == "dh" or plan["splits"] == 1)
+        assert plan["grid"] == cluster * -(-rows // bm) * plan["splits"]
+
+
+def test_bwd_plan_at_the_bench_shape_and_the_wmma_route():
+    """Phase 13's shape (T = 8184, H = 1024, V = 250880): dh 64 row clusters
+    of 4 in 5 splits of the vocabulary (320 clusters, 10.7 waves of the 30
+    an H100 holds, with 5 float32 (T, H) sums for the combine), dw 1960 in
+    one. float32, and bf16 above H = 4096, keep the WMMA kernel: a plan of
+    its route alone."""
+    dh = tce.bwd_plan(torch.bfloat16, 8184, 1024, 250880, "dh")
+    dw = tce.bwd_plan(torch.bfloat16, 8184, 1024, 250880, "dw")
+    assert (dh["route"], dh["grid"], dh["cluster"], dh["splits"]) == ("mma", 1280, 4, 5)
+    assert dh["ws_bytes"] == 5 * 8184 * 1024 * 4
+    assert (dw["route"], dw["grid"], dw["cluster"], dw["splits"]) == ("mma", 7840, 4, 1)
+    assert dw["ws_bytes"] == 0
+    assert dh["slices"] == [(0, 256), (256, 256), (512, 256), (768, 256)]
+    assert tce.bwd_plan(torch.float32, 8184, 1024, 250880, "dh") == {"route": "wmma"}
+    assert tce.bwd_plan(torch.bfloat16, 100, 4112, 1000, "dw") == {"route": "wmma"}
+    with pytest.raises(ValueError, match="kind"):
+        tce.bwd_plan(torch.bfloat16, 1, 16, 1, "fwd")
+
+
+@pytest.mark.parametrize("held,splits", [(30, 5), (33, 1), (16, 1), (40, 3)])
+def test_bwd_plan_sizes_dh_splits_by_the_clusters_the_card_holds(held, splits):
+    """dh's splits fill the waves of as many clusters as ``resident`` says
+    the card holds at once (a card with another SM count reports another
+    count), asked once for the chosen configuration; dw never asks."""
+    asked = []
+
+    def resident(bm, cluster):
+        asked.append((bm, cluster))
+        return held
+
+    dh = tce.bwd_plan(torch.bfloat16, 8184, 1024, 250880, "dh", resident)
+    dw = tce.bwd_plan(torch.bfloat16, 8184, 1024, 250880, "dw", resident)
+    assert (dh["splits"], dw["splits"]) == (splits, 1)
+    assert dh["grid"] == 4 * 64 * splits
+    assert asked == [(128, 4)]
+
+
+@pytest.mark.parametrize("layout", ["vh", "hv"])
+@pytest.mark.parametrize("kind", ["dh", "dw"])
+def test_card_plan_of_cpu_tensors_is_the_default_plan(kind, layout):
+    """Without a card, the wrapper's plan is bwd_plan's with an H100 SXM's
+    resident clusters (RESIDENT_CLUSTERS)."""
+    h = torch.zeros(300, 1024, dtype=torch.bfloat16)
+    w = torch.zeros((1000, 1024) if layout == "vh" else (1024, 1000), dtype=torch.bfloat16)
+    want = tce.bwd_plan(torch.bfloat16, 300, 1024, 1000, kind)
+    assert tce.card_plan(h, w, kind, layout == "vh") == want
+    assert tce.card_plan(h.float(), w.float(), kind, layout == "vh") == {"route": "wmma"}
+
+
+@pytest.mark.parametrize("clusters,resident,tiles,splits", [
+    (64, 30, 3920, 5),    # dh at the bench shape: 64 / 90 full in one split, 320 / 330 in 5
+    (1960, 30, 128, 1),   # dw there: the last of 66 waves 1960 / 1980 full
+    (128, 66, 3920, 1),   # 64 resident rows, clusters of 2
+    (1, 30, 2, 2),        # a tiny T: as many splits as tiles, the fullest
+    (2, 132, 100, 8),     # ... at most MAX_SPLITS
+    (15, 15, 10, 1)])
+def test_wave_splits_fill_the_last_wave(clusters, resident, tiles, splits):
+    assert tce._wave_splits(clusters, resident, tiles) == splits
+
+
+def _mma_order(kind, h, w, targets, lse, g, offset, valid, vh):
+    """The bf16 tensor-core route's arithmetic, written out: the float32
+    partial logits of each cluster rank's H slice, summed in rank order;
+    dl from them, rounded once to bf16; then its product with the streamed
+    operand in float32 (dh: one sum for each split of the vocabulary, by
+    whole streamed tiles, added in split order), rounded to bf16."""
+    t, hd = h.shape
+    wf = (w if vh else w.t()).float()           # (V, H)
+    hf = h.float()
+    plan = tce.bwd_plan(torch.bfloat16, t, hd, wf.shape[0], kind)
+    logits = None
+    for a, n in plan["slices"]:
+        part = hf[:, a:a + n] @ wf[:, a:a + n].t()
+        logits = part if logits is None else logits + part
+    col = offset + torch.arange(wf.shape[0])
+    if valid is not None:
+        logits = torch.where(col[None, :] >= valid, tce.NEG_INF, logits)
+    hit = (targets.long()[:, None] == col[None, :]).float()
+    dl = (g[:, None] * (torch.exp(logits - lse[:, None]) - hit)).bfloat16().float()
+    if kind == "dh":
+        tiles = -(-wf.shape[0] // plan["bn"])
+        dh = None
+        for sp in range(plan["splits"]):
+            a = sp * tiles // plan["splits"] * plan["bn"]
+            b = (sp + 1) * tiles // plan["splits"] * plan["bn"]
+            part = dl[:, a:b] @ wf[a:b]
+            dh = part if dh is None else dh + part
+        return dh.bfloat16()
+    dw = (dl.t() @ hf).bfloat16()
+    return dw if vh else dw.t().contiguous()
+
+
+# name -> (T, H, V, offset, valid, block_t, block_v): H = 48 (one block),
+# 272 (two ranks of 144 and 128 columns), 1024 (four ranks, the bench
+# width) and 1040 (eight), T and V ragged against the kernel's tiles (BM
+# 128, BN 64), a target past the shard and masked columns
+MMA_CASES = {
+    "t37_h48_v70": (37, 48, 70, 5, 60, 37, 70),
+    "t100_h272_v150_valid": (100, 272, 150, 300, 420, 20, 50),
+    "t130_h1024_v150": (130, 1024, 150, 0, None, 26, 50),
+    "t64_h1040_v96": (64, 1040, 96, 0, 90, 32, 48),
+}
+
+
+@pytest.mark.parametrize("layout", ["vh", "hv"])
+@pytest.mark.parametrize("kind", ["dh", "dw"])
+@pytest.mark.parametrize("name", sorted(MMA_CASES))
+def test_mma_summation_order_holds_the_bf16_bound(name, kind, layout):
+    """The tensor-core route's order of sums and roundings stays within
+    1e-5 + 2^-6 of the largest value of the plain version and of the
+    Pallas kernel in interpret mode, on bf16 inputs."""
+    t, hd, v, offset, valid, block_t, block_v = MMA_CASES[name]
+    vh = layout == "vh"
+    rng = np.random.default_rng(hd + t)
+    h = torch.from_numpy(rng.standard_normal((t, hd), dtype=np.float32) * 0.5).bfloat16()
+    w = torch.from_numpy(rng.standard_normal((v, hd), dtype=np.float32) * 0.5).bfloat16()
+    if not vh:
+        w = w.t().contiguous()
+    targets = torch.from_numpy(rng.integers(0, offset + v, t).astype(np.int32))
+    g = torch.from_numpy(rng.standard_normal(t, dtype=np.float32))
+    lse, _ = tce.fused_ce_fwd_reference(h, w, targets, offset, valid, vh)
+    got = _mma_order(kind, h, w, targets, lse, g, offset, valid, vh)
+    ref = {"dh": tce.fused_ce_dh_reference, "dw": tce.fused_ce_dw_reference}[kind]
+    plain = ref(h, w, targets, lse, g, offset, valid, vh)
+    pallas_fn = {"dh": jce._dh_pallas, "dw": jce._dw_pallas}[kind]
+    as_j = lambda x: jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)  # noqa: E731
+    pallas = pallas_fn(as_j(h), as_j(w), jnp.asarray(targets.numpy()),
+                       jnp.asarray(lse.numpy()), jnp.asarray(g.numpy()),
+                       jnp.asarray([offset], jnp.int32), valid, block_t, block_v, True, vh)
+    assert got.shape == plain.shape and got.dtype == torch.bfloat16
+    for want, what in ((plain.float().numpy(), "plain"),
+                       (np.asarray(pallas, dtype=np.float32), "pallas")):
+        _close(got, want, atol=1e-5 + 2.0 ** -6 * np.abs(want).max(), err_msg=what)

@@ -20,6 +20,11 @@ the same tolerance but are left out of M):
   the final rounding of float32 values that differ in their last bits, one
   for the dlogits tile that the kernels round to bf16 (2^-9 of each term)
   before the second product.
+
+Routes (``fused_ce_dh.routes`` / ``fused_ce_dw.routes``, by ``card_plan``):
+bf16 with H <= 4096 on "mma" (``csrc/fused_ce_mma.cu``, a cluster splits
+H), float32, and bf16 above H = 4096, on "wmma" (``csrc/fused_ce.cu``);
+``.layouts`` count the launches by weight layout.
 """
 import pytest
 import torch
@@ -33,12 +38,20 @@ GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 # name -> (T, H, V, offset, valid): ragged token and vocab tiles, a shard
 # that starts at a nonzero offset with its last columns masked, an H that
 # is not a multiple of the staging chunk (64 bf16 or 32 float32 columns),
-# and one above the kernels' 1024-wide H slice
+# and one above the WMMA kernel's 1024-wide H slice (on "mma": a cluster
+# of 8 ranks of 128-144 columns); BLOOM's width with T and V ragged against
+# the "mma" tiles (128 resident rows, 64 streamed) and the target of some
+# rows in another rank's H slice; Llama-3 8B's width, 4096 (on "mma": a
+# cluster of 8 ranks of 512 columns, 64 resident rows); and 4112, above the
+# "mma" route's 4096 (bf16 on "wmma")
 CASES = {
     "t24_v128": (24, 32, 128, 0, None),
     "t100_v1000_offset_valid": (100, 64, 1000, 300, 1283),
     "t37_h48_v70": (37, 48, 70, 5, 60),
     "t64_h1040_v300": (64, 1040, 300, 0, None),
+    "t300_h1024_v1000_offset_valid": (300, 1024, 1000, 7, 990),
+    "t200_h4096_v300": (200, 4096, 300, 0, None),
+    "t40_h4112_v100": (40, 4112, 100, 0, None),
 }
 
 
@@ -76,6 +89,14 @@ def _counts():
             fce.fused_ce_dw.launches)
 
 
+def _routes():
+    return {k: (fce.fused_ce_dh.routes[k], fce.fused_ce_dw.routes[k]) for k in ("mma", "wmma")}
+
+
+def _layouts():
+    return {k: (fce.fused_ce_dh.layouts[k], fce.fused_ce_dw.layouts[k]) for k in ("vh", "hv")}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["vh", "hv"])
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -83,7 +104,10 @@ def _counts():
 def test_kernels_match_plain_versions_on_card(dtype, name, layout):
     dev = _needs_card()
     h, w, targets, g, offset, valid, vh = _case(name, dtype, layout == "vh", dev)
-    before = _counts()
+    t, hd = h.shape
+    route = fce.card_plan(h, w, "dh", vh)["route"]
+    assert route == ("mma" if dtype == torch.bfloat16 and hd <= 4096 else "wmma")
+    before, routes, layouts = _counts(), _routes(), _layouts()
     lse, tl = fce.fused_ce_fwd(h, w, targets, offset, valid, vh)
     ref_lse, ref_tl = fce.fused_ce_fwd_reference(h, w, targets, offset, valid, vh)
     bwd = (h, w, targets, ref_lse, g, offset, valid, vh)
@@ -91,6 +115,8 @@ def test_kernels_match_plain_versions_on_card(dtype, name, layout):
     dw = fce.fused_ce_dw(*bwd)
     torch.cuda.synchronize()
     assert _counts() == tuple(c + 1 for c in before)
+    assert _routes() == {k: tuple(c + (k == route) for c in n) for k, n in routes.items()}
+    assert _layouts() == {k: tuple(c + (k == layout) for c in n) for k, n in layouts.items()}
     assert lse.dtype == tl.dtype == torch.float32 and dh.dtype == dw.dtype == dtype
     _assert_close(lse, ref_lse, STAT_RTOL, "lse")
     _assert_close(tl, ref_tl, STAT_RTOL, "target logit")
@@ -111,6 +137,41 @@ def test_float32_kernels_repeat_exactly():
         runs.append((lse, tl, fce.fused_ce_dh(*bwd), fce.fused_ce_dw(*bwd)))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["t300_h1024_v1000_offset_valid", "t200_h4096_v300"])
+@pytest.mark.parametrize("layout", ["vh", "hv"])
+def test_bf16_backward_kernels_repeat_exactly(name, layout):
+    """The tensor-core route sums the cluster's partial logits in rank
+    order and the streamed tiles in a fixed order, with no atomics: two
+    calls give the same bits."""
+    dev = _needs_card()
+    h, w, targets, g, offset, valid, vh = _case(name, torch.bfloat16, layout == "vh", dev)
+    lse, _ = fce.fused_ce_fwd(h, w, targets, offset, valid, vh)
+    bwd = (h, w, targets, lse, g, offset, valid, vh)
+    routes = _routes()["mma"]
+    runs = [(fce.fused_ce_dh(*bwd), fce.fused_ce_dw(*bwd)) for _ in range(2)]
+    assert _routes()["mma"] == (routes[0] + 2, routes[1] + 2)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["vh", "hv"])
+def test_card_plan_sizes_dh_by_the_clusters_the_card_holds(layout):
+    """On the card, dh's plan takes the count of clusters the card holds at
+    once from the kernel's own query (fused_ce_mma_resident_clusters), at
+    least one; dw's plan does not depend on it."""
+    dev = _needs_card()
+    vh = layout == "vh"
+    h = torch.zeros(300, 1024, dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((1000, 1024) if vh else (1024, 1000), dtype=torch.bfloat16, device=dev)
+    held = fce._resident_on(h.device, vh)(128, 4)
+    assert held >= 1
+    for kind in ("dh", "dw"):
+        want = fce.bwd_plan(torch.bfloat16, 300, 1024, 1000, kind, lambda bm, c: held)
+        assert fce.card_plan(h, w, kind, vh) == want
 
 
 @pytest.mark.cuda
