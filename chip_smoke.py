@@ -5,10 +5,10 @@
     python3 chip_smoke.py --parent DIR
         # DIR: a checkout of the parent revision; phase 1 also builds its
         # flash_attention.cu, flash_chunk.cu and fused_ce.cu, phases 9, 13
-        # and 21 time its bf16 attention and fused CE backward kernels in
-        # turns with this revision's (phase 21 also compares B8/B9's
-        # outputs bit for bit), and phase 22 times four training steps
-        # with its libraries in turns
+        # and 21 time its bf16 attention kernels and its bf16 fused CE
+        # forward in turns with this revision's (phase 21 also compares
+        # B8/B9's outputs bit for bit), and phase 22 times four training
+        # steps with its kernels in turns
 
 Three main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
 24 layers, 16 heads) with random weights made from seed 0:
@@ -22,8 +22,8 @@ Three main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
   Adam), its attention going through the hand-written CUDA flash-attention
   forward, dQ and dK/dV kernels, and with ``fused_ce`` its loss through the
   hand-written CUDA fused cross-entropy forward, d-hidden and d-weight
-  kernels (in bf16 the latter two on the tensor cores, a thread-block
-  cluster splitting H);
+  kernels (in bf16 the forward on warpgroup MMAs fed by TMA, the latter two
+  on the tensor cores, a thread-block cluster splitting H);
 - sequence-parallel training: ``pipegoose_tpu_torch.trainer.sp_train_step``
   over a ``ParallelContext`` (one rank over NCCL, sp = 1: the driver's
   machine has one card), its attention the ring of ``ring_flash_attention``
@@ -33,7 +33,8 @@ Phases, each fatal on failure:
 
   0  the card: name and power limit (nvidia-smi), torch and CUDA versions;
   1  build every kernel from the sources in this checkout (nvcc, in
-     parallel) and print ptxas's registers / shared memory / spills;
+     parallel) and print ptxas's registers / shared memory / spills, and
+     the shared memory of the bf16 fused CE forward's blocks;
   2  the paged kernel against its plain PyTorch version on the card at
      bloom-560m's shapes (decode B=8 C=1, chunked prefill B=1 C=128, one
      long decode row whose keys split over a cluster; float32, bf16 and
@@ -72,22 +73,26 @@ Phases, each fatal on failure:
      against their plain versions on the card: float32 and bf16, ragged T
      and V with a nonzero offset and valid_size < V, both weight layouts,
      and bench.py's shape in bf16 (T = 8 x 1023, H = 1024, V = 250880),
-     both layouts; every bf16 d-hidden and d-weight launch must take the
-     tensor-core route ("mma"), every float32 one the WMMA route;
+     both layouts, and a bf16 (H, V) weight with V not a multiple of 8;
+     every bf16 forward launch must take the "wgmma" route
+     (fused_ce_fwd_wgmma.cu) but that last one, which TMA cannot address,
+     on "wmma", every float32 one "wmma"; every bf16 d-hidden and d-weight
+     launch the tensor-core route ("mma"), every float32 one "wmma";
  11  phase 7's float32 train step, card vs CPU, with fused_ce=True,
      ce_chunks=8, remat_policy="dots" and remat_policy="attn"; on the card
      the fused loss also equals the full-logits loss of the same weights;
  12  timed bf16 training as phase 8 in bench.py's "flash+fusedce",
      "noremat+flash+fusedce" and "flash+ce8" variants: step ms, tokens/s,
      MFU, peak memory (below phase 8's for the fused variants), falling
-     losses, every kernel's launches per step, and one profiled step's
+     losses, every kernel's launches per step (the fused CE forward's by
+     route and layout: all on "wgmma", "vh"), and one profiled step's
      device time with the fused kernels' share;
  13  each fused kernel's time at phase 12's shape beside its bound, its
      plain version's time and a composite of PyTorch calls that computes
-     the same function through the full logits, with its route and
-     ptxas's registers and spills; the d-hidden and d-weight kernels also
-     with an (H, V) weight (with --parent, the parent revision's bf16
-     d-hidden and d-weight kernels in turns with this one's);
+     the same function through the full logits, with its route, plan and
+     ptxas's registers and spills, each also with an (H, V) weight (with
+     --parent, the parent revision's bf16 forward, fused_ce.cu's WMMA
+     kernel, in turns with this one's);
  14  the int8 and int4 (G = 32) quantized-matmul kernels against their plain
      version at bloom-560m's four products (qkv, out, up, down) and T in
      {1, 8, 128, 512}: the tensor-core route with bf16 x, the float32
@@ -144,9 +149,11 @@ Phases, each fatal on failure:
  22  with --parent only, right after phase 20 in its context: phase 8's
      "flash" step, phase 12's "flash+fusedce" step, phase 20's SP step and
      train_step at 1 x 8192, each timed with this revision's kernels and
-     with the parent's (its flash_attention, flash_chunk and fused_ce
-     libraries loaded in their place, the fused CE backward on the route
-     the parent had) in turns: parent, this, this, parent.
+     with the parent's (its flash_attention and flash_chunk libraries
+     loaded in their place, its bf16 fused CE forward, fused_ce.cu's WMMA
+     kernel, called directly; the fused CE backward on fused_ce_mma.cu as
+     the parent ran it: that source is unchanged, so this revision's build
+     serves both) in turns: parent, this, this, parent.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a card, or
@@ -199,7 +206,7 @@ LSE_RTOL = 2.0 ** -21
 # entries, taken in another order by cuBLAS and the CPU's BLAS); after
 # Adam steps the losses to 1e-3, since Adam moves a weight whose gradient
 # is near zero by up to lr whatever the gradient's rounding
-FUSED_SOURCE = "pipegoose_tpu_torch/ops/csrc/fused_ce.cu"
+FUSED_FWD_SOURCE = "pipegoose_tpu_torch/ops/csrc/fused_ce_fwd_wgmma.cu"   # bf16 forward
 FUSED_MMA_SOURCE = "pipegoose_tpu_torch/ops/csrc/fused_ce_mma.cu"   # bf16 dh, dw
 FUSED_REPLACES = {
     "fwd": "pipegoose_tpu/ops/fused_ce.py:63",
@@ -315,6 +322,12 @@ def phase1_build(parent=None) -> dict:
                 fn = line.split("Function properties for")[-1].strip()[:72]
             elif "registers" in line or "spill" in line:
                 log(f"  {name} {fn}: {line.strip()}")
+    from pipegoose_tpu_torch.ops import fused_ce as fce
+
+    for hd in (1024, 4096):
+        plan = fce.fwd_plan(torch.bfloat16, 8184, hd, 250880, True)
+        log(f"  fused_ce_fwd_wgmma at H={hd}: BN {plan['bn']}, {plan['stages']} stages, "
+            f"{plan['smem_bytes']} bytes of dynamic shared memory a block")
     return libs
 
 
@@ -1075,15 +1088,16 @@ def kernel_counters():
 
 
 def timed_training(np_tree, dev, card, cfg, label, variant, batch=8, seq=1024,
-                   step_fn=None, ce_route=None) -> dict:
+                   step_fn=None, fwd_route=None) -> dict:
     """Timed bf16 train steps (by default at bench.py's shape, batch 8 x 1024)
     of RandomState(0) ids, labels = ids, no mask, Adam 1e-4, 2 warm-up and 5
     timed steps between CUDA events, every launch counter set to 0 just
     before the steps and read just after; then one profiled step.
     ``step_fn`` is ``train_step`` unless given (``sp_train_step`` runs the
     ring: its chunk kernels take the flash kernels' launches). Fails unless
-    the kernels launch as ``cfg`` asks, the fused CE backward on
-    ``ce_route`` (default: the route its plan picks), and the losses fall."""
+    the kernels launch as ``cfg`` asks, each fused CE kernel on the route its
+    plan picks (the forward on ``fwd_route`` when given) with the (V, H)
+    weight, and the losses fall."""
     from pipegoose_tpu_torch.models.weights import param_leaves, params_from_jax
     from pipegoose_tpu_torch.trainer import make_optimizer, sp_train_step, train_step
 
@@ -1145,19 +1159,25 @@ def timed_training(np_tree, dev, card, cfg, label, variant, batch=8, seq=1024,
     from pipegoose_tpu_torch.ops import fused_ce as fce
 
     route = "mma" if cfg.dtype == torch.bfloat16 else "fma"
-    # the fused CE backward's route by its plan (the WMMA kernel in float32)
-    ce_route = ce_route or fce.bwd_plan(cfg.dtype, batch * (seq - 1), cfg.hidden_size,
-                                        cfg.vocab_size, "dh")["route"]
+    # the fused CE kernels' routes by their plans (the WMMA kernels in float32)
+    t_ce = batch * (seq - 1)
+    ce_route = fce.bwd_plan(cfg.dtype, t_ce, cfg.hidden_size, cfg.vocab_size, "dh")["route"]
+    fwd_route = fwd_route or fce.fwd_plan(cfg.dtype, t_ce, cfg.hidden_size, cfg.vocab_size,
+                                          True)["route"]
     want_route = {n: ce_route if n.startswith("fused_ce") else route for n in routes}
+    want_route["fused_ce_fwd"] = fwd_route
     log(f"  launches by route over {steps} steps: B1 {routes['fwd']}, B2 {routes['dq']}, B3 "
-        f"{routes['dkv']}, B5 {routes['fused_ce_dh']}, B6 {routes['fused_ce_dw']}, B7 "
-        f"{routes['chunk_fwd']}, B8 {routes['chunk_dq']}, B9 {routes['chunk_dkv']}; all must "
-        f"be {route}, B5/B6 {ce_route}")
+        f"{routes['dkv']}, B4 {routes['fused_ce_fwd']}, B5 {routes['fused_ce_dh']}, B6 "
+        f"{routes['fused_ce_dw']}, B7 {routes['chunk_fwd']}, B8 {routes['chunk_dq']}, B9 "
+        f"{routes['chunk_dkv']}; all must be {route}, B4 {fwd_route}, B5/B6 {ce_route}; "
+        f"fused CE by layout {layouts} (all (V, H), 'vh')")
     if any(routes[n][want_route[n]] != counts[n] or sum(routes[n].values()) != counts[n]
            for n in routes):
         raise AssertionError(f"{label}: a kernel left its route")
-    if any(sum(n.values()) != counts[name] for name, n in layouts.items()):
-        raise AssertionError(f"{label}: fused CE launches by layout {layouts} do not add up")
+    if any(n["vh"] != counts[name] or sum(n.values()) != counts[name]
+           for name, n in layouts.items()):
+        raise AssertionError(f"{label}: fused CE launches by layout {layouts} are not all "
+                             f"(V, H)")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite and falling: {losses}")
     _, busy_ms, kernels = profile_device(step, 1, "one profiled train step",
@@ -1355,9 +1375,10 @@ def fused_err(got, want, rtol):
     return (got - want).abs().max().item(), rtol * scale
 
 
-def check_fused(label, case) -> dict:
+def check_fused(label, case, fwd_route=None) -> dict:
     """Each fused kernel once against its plain version on one case; every
-    launch counter must move by exactly one, and the backward kernels' on
+    launch counter must move by exactly one, the forward's on ``fwd_route``
+    (default: bf16 "wgmma", float32 "wmma") and the backward kernels' on
     their dtype's route (bf16 "mma", float32 "wmma"). Returns each kernel's
     max abs error."""
     from pipegoose_tpu_torch.ops import fused_ce as fce
@@ -1370,9 +1391,15 @@ def check_fused(label, case) -> dict:
     route = fce.bwd_plan(dtype, t, hd, v, "dh")["route"]
     if route != ("mma" if dtype == torch.bfloat16 else "wmma"):
         raise AssertionError(f"{label}: the backward plan names the {route} route")
+    fwd_route = fwd_route or ("wgmma" if dtype == torch.bfloat16 else "wmma")
+    planned = fce.card_fwd_plan(case["h"], case["w"], case["vh"])["route"]
+    if planned != fwd_route:
+        raise AssertionError(f"{label}: the forward plan names the {planned} route, "
+                             f"not {fwd_route}")
     counters = (fce.fused_ce_fwd, fce.fused_ce_dh, fce.fused_ce_dw)
     before = tuple(c.launches for c in counters)
-    routed = tuple(c.routes[route] for c in counters[1:])
+    routed = (fce.fused_ce_fwd.routes[fwd_route],) + tuple(
+        c.routes[route] for c in counters[1:])
     lse, tl = fce.fused_ce_fwd(*fwd)
     ref_lse, ref_tl = fce.fused_ce_fwd_reference(*fwd)
     bwd = (case["h"], case["w"], case["targets"], ref_lse, case["g"],
@@ -1383,16 +1410,19 @@ def check_fused(label, case) -> dict:
     moved = tuple(c.launches - b for c, b in zip(counters, before))
     if moved != (1, 1, 1):
         raise AssertionError(f"{label}: launch counters moved by {moved}")
-    if tuple(c.routes[route] - r for c, r in zip(counters[1:], routed)) != (1, 1):
-        raise AssertionError(f"{label}: a backward launch left the {route} route")
+    if (fce.fused_ce_fwd.routes[fwd_route] - routed[0],) + tuple(
+            c.routes[route] - r for c, r in zip(counters[1:], routed[1:])) != (1, 1, 1):
+        raise AssertionError(f"{label}: a launch left its route (fwd {fwd_route}, "
+                             f"dh/dw {route})")
     checks = {"lse": fused_err(lse, ref_lse, FUSED_STAT_RTOL),
               "target logit": fused_err(tl, ref_tl, FUSED_STAT_RTOL)}
     del ref_lse, ref_tl
     checks["dh"] = fused_err(dh, fce.fused_ce_dh_reference(*bwd), FUSED_GRAD_RTOL[dtype])
     checks["dw"] = fused_err(dw, fce.fused_ce_dw_reference(*bwd), FUSED_GRAD_RTOL[dtype])
     bad = [n for n, (err, tol) in checks.items() if err > tol]
-    log(f"phase 10: {label} (dh/dw {route} route): " + ", ".join(
-        f"{n} {err:.3g} (tol {tol:.3g})" for n, (err, tol) in checks.items())
+    log(f"phase 10: {label} (fwd {fwd_route}, dh/dw {route} route): " + ", ".join(
+        f"{n} {err:.3g} (tol {tol:.3g}, {err / tol if tol else float('inf'):.2f} of it)"
+        for n, (err, tol) in checks.items())
         + (f" FAIL {bad}" if bad else " ok"))
     if bad:
         raise AssertionError(f"{label}: fused kernels disagree with plain on {bad}")
@@ -1409,6 +1439,10 @@ def phase10_fused_vs_plain(dev) -> dict:
                         f"{'vh' if vh else 'hv'}",
                         fused_case(dev, dtype, t=100, hd=1024, v=1000, offset=300,
                                    valid=1283, vh=vh, seed=SEED + 10))
+    # an (H, V) weight whose rows TMA cannot address (V % 8 != 0): "wmma"
+    check_fused("bf16 T=100 H=1024 V=1001 offset=300 valid=1283 hv",
+                fused_case(dev, torch.bfloat16, t=100, hd=1024, v=1001, offset=300,
+                           valid=1283, vh=False, seed=SEED + 10), fwd_route="wmma")
     errs = {}
     for vh in (True, False):
         layout = "vh" if vh else "hv"
@@ -1500,34 +1534,12 @@ def fused_bound_ms(kind, case, tensors):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def parent_fused_calls(lib, case, lse, g):
-    """The parent library's bf16 d-hidden and d-weight kernels (the WMMA
-    kernel, entries ``fused_ce_{dh,dw}_bf16``) on ``case``'s inputs, each
-    writing into a new tensor: ({kind: call}, {kind: its output})."""
-    import ctypes
-
-    h, w, targets = case["h"], case["w"], case["targets"]
-    t, hd = h.shape
-    v = w.shape[0] if case["vh"] else w.shape[1]
-    calls, outs = {}, {}
-    for kind, like in (("dh", h), ("dw", w)):
-        fn = getattr(lib, f"fused_ce_{kind}_bf16")
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        outs[kind] = out = torch.empty_like(like)
-        ptrs = tuple(x.data_ptr() for x in (h, w, targets, lse, g, out))
-        calls[kind] = (lambda i, fn=fn, ptrs=ptrs: fn(
-            *ptrs, t, hd, v, 0, 2 ** 31 - 1, int(case["vh"]),
-            torch.cuda.current_stream().cuda_stream))
-    return calls, outs
-
-
 def phase13_fused_time(dev, card, errs, run, parent=None) -> list:
-    """Each fused kernel at phase 12's shape ("vh", bench.py's tied
-    embedding), and the backward kernels also with an (H, V) weight. A
-    row's launches are phase 12's ``run``'s, the backward's by layout: the
-    (H, V) kernels' are that step's (H, V) launches, which BLOOM's tied
-    (V, H) embedding never makes."""
+    """Each fused kernel at phase 12's shape, with a (V, H) weight (bench.py's
+    tied embedding) and with an (H, V) one. A row's launches are phase 12's
+    ``run``'s by layout: the (H, V) kernels' are that step's (H, V)
+    launches, which BLOOM's tied (V, H) embedding never makes. With the
+    parent, its bf16 forward in turns with this one."""
     from pipegoose_tpu_torch.ops import fused_ce as fce
 
     t, hd, v = 8 * 1023, 1024, 250880
@@ -1569,11 +1581,10 @@ def phase13_fused_time(dev, card, errs, run, parent=None) -> list:
         library = {"fwd": lib_fwd, "dh": lambda: torch.matmul(lib_dl(), wv.t()),
                    "dw": (lambda: torch.matmul(lib_dl().t(), h)) if vh
                    else (lambda: torch.matmul(h.t(), lib_dl()))}
-        # the parent's calls write into old_outs, kept alive with them
-        old, old_outs = parent_fused_calls(parent["fused_ce"], case, lse, g) if parent else ({}, {})
+        old = parent_ce_fwd(parent["fused_ce"]) if parent else None
         log(f"phase 13: fused CE kernels at phase 12's shape (T={t}, H={hd}, V={v}, "
             f"bf16, {layout}), device ms per call, on {card}")
-        for kind in ("fwd", "dh", "dw") if vh else ("dh", "dw"):
+        for kind in ("fwd", "dh", "dw"):
             kernel, plain = calls[kind]
             ms, call_ms = time_ms(kernel, 2, replays=5)
             plain_ms = time_eager_ms(plain, 2)
@@ -1581,15 +1592,32 @@ def phase13_fused_time(dev, card, errs, run, parent=None) -> list:
             bound_ms, bound_by = fused_bound_ms(kind, case, io[kind])
             name = f"fused_ce_{kind}"
             row = {"name": f"{name} (bf16, T={t}, H={hd}, V={v}, {layout})", "route": "cuda",
-                   "launches": (run["layouts"][name][layout] if name in run["layouts"]
-                                else run["launches"][name]),
+                   "launches": run["layouts"][name][layout],
                    "max_abs_err": errs[layout][kind], "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                    "call_ms": call_ms}
             if kind == "fwd":
-                row.update(source=FUSED_SOURCE, replaces=FUSED_REPLACES[kind],
-                           kernel_route="wmma")
-                extra = ""
+                plan = fce.card_fwd_plan(h, w, vh)
+                if plan["route"] != "wgmma":
+                    raise AssertionError(f"phase 13: the bf16 forward planned {plan['route']}")
+                regs, spills = ptxas_usage(
+                    "fused_ce_fwd_wgmma", f"fused_ce_fwd_wgmma_kernelILi{plan['bn']}ELb{int(not vh)}E")
+                row.update(source=FUSED_FWD_SOURCE, replaces=FUSED_REPLACES[kind],
+                           kernel_route=plan["route"], bn=plan["bn"], splits=plan["splits"],
+                           stages=plan["stages"], smem_bytes=plan["smem_bytes"],
+                           registers=regs, spill_store_bytes=spills,
+                           tflops=2 * t * v * hd / (ms * 1e9))
+                extra = (f"{plan['route']} route, BM {plan['bm']}, BN {plan['bn']}, "
+                         f"{plan['stages']} stages, {plan['splits']} splits, "
+                         f"{plan['smem_bytes']} bytes of shared memory, {regs} registers "
+                         f"(launch bound; setmaxnreg moves them), {spills} bytes spilled, "
+                         f"{row['tflops']:.1f} TFLOP/s; ")
+                if old is not None:
+                    turns = parent_turns(kernel, lambda i: old(h, w, targets, 0, None, vh),
+                                         2, replays=5)
+                    log(f"  fused_ce_fwd in turns with the parent's kernel (fused_ce.cu WMMA; "
+                        f"parent, this, this, parent): this {turns[0]}, parent {turns[1]}")
+                    row.update(turns_ms=turns[0], parent_turns_ms=turns[1])
             else:
                 plan = fce.card_plan(h, w, kind, vh)
                 mangled = (f"fused_ce_bwd_mma_kernelILb{int(kind == 'dw')}ELb{int(not vh)}"
@@ -1602,18 +1630,13 @@ def phase13_fused_time(dev, card, errs, run, parent=None) -> list:
                 extra = (f"{plan['route']} route, cluster {plan['cluster']}, BM {plan['bm']}, "
                          f"{plan['splits']} split(s), {regs} registers, {spills} bytes "
                          f"spilled; ")
-                if kind in old:
-                    turns = parent_turns(kernel, old[kind], 2, replays=5)
-                    log(f"  fused_ce_{kind} in turns with the parent's kernel (parent, this, "
-                        f"this, parent): this {turns[0]}, parent {turns[1]}")
-                    row.update(turns_ms=turns[0], parent_turns_ms=turns[1])
             log(f"  fused_ce_{kind} ({extra}kernel {ms} (eager {call_ms}), bound {bound_ms} "
                 f"({bound_by}), plain {plain_ms}, full-logits composite {library_ms}; "
-                f"{row['launches']} launches in phase 12's 'flash+fusedce' steps")
+                f"{row['launches']} {layout} launches in phase 12's 'flash+fusedce' steps")
             rows.append(row)
             gc.collect()
             torch.cuda.empty_cache()
-        del saved, case, calls, library, io, old, old_outs
+        del saved, case, calls, library, io, old
         gc.collect()
         torch.cuda.empty_cache()
     return rows
@@ -2483,32 +2506,36 @@ def phase21_chunk_time(dev, card, errs, launches, parent=None) -> list:
 
 # -- phase 22 ------------------------------------------------------------------
 
-def parent_ce_bwd(lib, kind):
-    """``fused_ce_{kind}`` as the parent revision ran it in bf16 and float32:
-    the WMMA entry ``fused_ce_{kind}_{dtype}`` of its ``fused_ce`` library
-    ``lib``, called directly, with the wrapper's counters (all on "wmma")."""
+def parent_ce_fwd(lib):
+    """``fused_ce_fwd`` as the parent revision ran it in bf16 and float32: the
+    WMMA entry ``fused_ce_fwd_{dtype}`` of its ``fused_ce`` library ``lib``,
+    called directly with the splits and partials its wrapper gave it, with
+    the wrapper's counters (all on "wmma")."""
     import ctypes
 
     from pipegoose_tpu_torch.ops import fused_ce as fce
 
-    def run(h, w, targets, lse, g, offset=0, valid=None, vh=True):
+    def run(h, w, targets, offset=0, valid=None, vh=True):
         t, hd = h.shape
-        out = torch.empty_like(h if kind == "dh" else w)
-        fn = getattr(lib, f"fused_ce_{kind}_{'bf16' if h.dtype == torch.bfloat16 else 'f32'}")
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        v = w.shape[0] if vh else w.shape[1]
+        splits = fce.fwd_plan(torch.float32, t, hd, v, vh)["splits"]   # the WMMA plan
+        part = torch.empty((3, splits, t), dtype=torch.float32, device=h.device)
+        lse = torch.empty(t, dtype=torch.float32, device=h.device)
+        tl = torch.empty(t, dtype=torch.float32, device=h.device)
+        fn = getattr(lib, f"fused_ce_fwd_{'bf16' if h.dtype == torch.bfloat16 else 'f32'}")
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = fn(*(x.data_ptr() for x in (h, w, targets, lse, g, out)), t, hd,
-                 w.shape[0] if vh else w.shape[1], offset,
-                 fce.NO_VALID if valid is None else valid, int(bool(vh)),
+        err = fn(*(x.data_ptr() for x in (h, w, targets, part, lse, tl)), t, hd, v, offset,
+                 fce.NO_VALID if valid is None else valid, int(bool(vh)), splits,
                  torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"the parent's fused_ce_{kind}: cudaError {err}")
+            raise RuntimeError(f"the parent's fused_ce_fwd: cudaError {err}")
         run.launches += 1
         run.routes["wmma"] += 1
         run.layouts["vh" if vh else "hv"] += 1
-        return out
+        return lse, tl
 
-    run.launches, run.routes, run.layouts = 0, {"mma": 0, "wmma": 0}, {"vh": 0, "hv": 0}
+    run.launches, run.routes, run.layouts = 0, {"wgmma": 0, "wmma": 0}, {"vh": 0, "hv": 0}
     return run
 
 
@@ -2517,11 +2544,13 @@ def phase22_steps_vs_parent(np_tree, dev, card, parent) -> dict:
     the ring-chunk kernels B7-B9) and, with fused CE, its kernels (B4-B6),
     with this revision's kernels and the parent's in turns; returns the
     step ms of each as {step: {"this": [...], "parent": [...]}}. The
-    parent's libraries take the place of this revision's for its three
-    sources, and its fused CE backward is called as the parent called it:
-    the bf16 WMMA entries of its ``fused_ce`` library (``parent_ce_bwd``);
-    the attention route counters still name the route this revision's
-    plan picks."""
+    parent's flash_attention and flash_chunk libraries take the place of
+    this revision's, and its fused CE forward is called as the parent
+    called it: the WMMA entries of its ``fused_ce`` library
+    (``parent_ce_fwd``). Its fused CE backward ran on fused_ce_mma.cu, which
+    this revision leaves byte for byte as it was, so this revision's build
+    of it serves both sides. The attention route counters still name the
+    route this revision's plan picks."""
     from pipegoose_tpu_torch.models.bloom import BloomConfig
     from pipegoose_tpu_torch.ops import _build
     from pipegoose_tpu_torch.ops import fused_ce as fce
@@ -2536,22 +2565,19 @@ def phase22_steps_vs_parent(np_tree, dev, card, parent) -> dict:
                                                                step_fn=sp_train_step)),
              "phase 20 train_step 'flash+fusedce', 1 x 8192": (fused, dict(batch=1, seq=SP_SEQ))}
     ours = {n: _build.load(n) for n in PARENT_SOURCES}
-    this_bwd = {"dh": fce.fused_ce_dh, "dw": fce.fused_ce_dw}
-    old_bwd = {kind: parent_ce_bwd(parent["fused_ce"], kind) for kind in this_bwd}
+    this_fwd, old_fwd = fce.fused_ce_fwd, parent_ce_fwd(parent["fused_ce"])
     out = {}
     for name, (cfg, kw) in steps.items():
         out[name] = {"this": [], "parent": []}
         for who in ("parent", "this", "this", "parent"):
             _build._loaded.update(parent if who == "parent" else ours)
-            for kind, fn in (old_bwd if who == "parent" else this_bwd).items():
-                setattr(fce, f"fused_ce_{kind}", fn)
+            fce.fused_ce_fwd = old_fwd if who == "parent" else this_fwd
             try:
                 run = timed_training(np_tree, dev, card, cfg, f"phase 22 ({who})", name,
-                                     ce_route="wmma" if who == "parent" else None, **kw)
+                                     fwd_route="wmma" if who == "parent" else None, **kw)
             finally:
                 _build._loaded.update(ours)
-                for kind, fn in this_bwd.items():
-                    setattr(fce, f"fused_ce_{kind}", fn)
+                fce.fused_ce_fwd = this_fwd
             out[name][who].append(run["step_ms"])
             gc.collect()
             torch.cuda.empty_cache()

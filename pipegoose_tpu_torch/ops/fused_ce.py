@@ -2,8 +2,9 @@
 weight): the (T, V) logits never exist in device memory.
 
 The counterpart of ``pipegoose_tpu/ops/fused_ce.py``. Three kernels, each
-a wrapper over hand-written CUDA entry points (``csrc/fused_ce.cu``, and
-``csrc/fused_ce_mma.cu`` for the bf16 backward):
+a wrapper over hand-written CUDA entry points (``csrc/fused_ce.cu``;
+``csrc/fused_ce_fwd_wgmma.cu`` for the bf16 forward, ``csrc/fused_ce_mma.cu``
+for the bf16 backward):
 
 - :func:`fused_ce_fwd` -> (lse, target_logit), float32 (T,): the online
   log-sum-exp and the target's logit over vocab tiles;
@@ -15,12 +16,15 @@ On CPU tensors a wrapper calls its plain PyTorch version
 (``fused_ce_fwd_reference``, ``fused_ce_dh_reference``,
 ``fused_ce_dw_reference``: the math of the Pallas bodies over the whole
 (T, V) at once); on CUDA tensors it launches its kernel or raises.
-``.launches`` counts the launches; the backward wrappers' ``.routes`` count
-them by route (:func:`bwd_plan`): "mma", the bf16 tensor-core kernel of
-``fused_ce_mma.cu`` (a thread-block cluster splits H), or "wmma", the
-WMMA kernel of ``fused_ce.cu`` (float32 in split TF32, and bf16 with H
-above 4096); their ``.layouts`` count them by weight layout ("vh",
-"hv"). ``_FusedCE`` ties them together as a
+``.launches`` counts the launches, ``.routes`` by route and ``.layouts``
+by weight layout ("vh", "hv"). The forward's routes (:func:`fwd_plan`):
+"wgmma", the bf16 kernel of ``fused_ce_fwd_wgmma.cu`` (warpgroup MMAs on
+TMA-loaded tiles) wherever TMA can address the operands, or "wmma", the
+WMMA kernel of ``fused_ce.cu`` (float32 in split TF32, and bf16 that TMA
+cannot address). The backward's (:func:`bwd_plan`): "mma", the bf16
+tensor-core kernel of ``fused_ce_mma.cu`` (a thread-block cluster splits
+H), or "wmma", the WMMA kernel of ``fused_ce.cu`` (float32, and bf16 with
+H above 4096). ``_FusedCE`` ties them together as a
 ``torch.autograd.Function``, the ``_fused_ce`` custom_vjp of the JAX file.
 
 Semantics of ``_dlogits_tile``: logits in float32; columns whose global
@@ -46,10 +50,17 @@ from pipegoose_tpu_torch.ops import _build
 NEG_INF = -1e9      # finite, as in the JAX package
 H_MULTIPLE = 16     # the kernels' product depth: H must be a multiple of it
 SMS = 132           # H100 SXM streaming multiprocessors
-FWD_TILE_T = 64     # token rows per forward block (csrc/fused_ce.cu kFwdBR)
-FWD_TILE_V = 128    # vocab columns per forward tile (kBS)
-FWD_BLOCKS_PER_SM = 2   # forward blocks resident on one SM (its launch bounds)
+FWD_TILE_T = 64     # "wmma" forward: token rows per block (csrc/fused_ce.cu kFwdBR)
+FWD_TILE_V = 128    # vocab columns per tile (kBS)
+FWD_BLOCKS_PER_SM = 2   # blocks resident on one SM (its launch bounds)
 FWD_WAVES = 16      # waves of forward blocks: the last, partial one costs <= 1/16
+# "wgmma" forward (csrc/fused_ce_fwd_wgmma.cu): one block an SM of BM token
+# rows; a ring of FWD_STAGES stages of BK H columns; vocab tiles of 256
+# columns, or 128 above FWD_CHAIN_H, where the kernel adds accumulator chains
+# of FWD_CHAIN_H columns in float32
+FWD_BM, FWD_BK, FWD_STAGES = 128, 64, 4
+FWD_CHAIN_H = 1024
+MAX_SMEM = 232448   # the shared memory a block may use on an H100
 NO_VALID = 2 ** 31 - 1   # valid_size=None: no column is masked
 # bf16 backward on the tensor cores (csrc/fused_ce_mma.cu): a block keeps
 # BM resident rows and the float32 accumulator of an H slice of at most
@@ -178,11 +189,15 @@ def _kernel_fn(source: str, entry: str, n_ptr: int, n_int: int):
 
 def _launch(kind, h, ptrs, ints, route="wmma"):
     """Launch ``fused_ce_{kind}_{dtype}`` of fused_ce.cu (route "wmma"; the
-    forward also takes its splits), or ``fused_ce_{kind}_mma`` of
-    fused_ce_mma.cu (route "mma": a workspace pointer follows the usual
-    pointers, bm, cluster and splits the usual ints)."""
+    forward also takes its splits), ``fused_ce_fwd_wgmma`` of
+    fused_ce_fwd_wgmma.cu (route "wgmma": splits and bn follow the usual
+    ints), or ``fused_ce_{kind}_mma`` of fused_ce_mma.cu (route "mma": a
+    workspace pointer follows the usual pointers, bm, cluster and splits
+    the usual ints)."""
     if route == "mma":
         fn = _kernel_fn("fused_ce_mma", f"fused_ce_{kind}_mma", len(ptrs), len(ints))
+    elif route == "wgmma":
+        fn = _kernel_fn("fused_ce_fwd_wgmma", "fused_ce_fwd_wgmma", len(ptrs), len(ints))
     else:
         fn = _kernel_fn("fused_ce", f"fused_ce_{kind}_{_SUFFIX[h.dtype]}", len(ptrs),
                         len(ints))
@@ -193,13 +208,36 @@ def _launch(kind, h, ptrs, ints, route="wmma"):
                            f"cudaError {err}")
 
 
-def fwd_splits(t: int, v: int) -> int:
-    """Vocab splits of the forward grid: enough blocks for FWD_WAVES waves
-    of FWD_BLOCKS_PER_SM per SM, and at least one vocab tile per split."""
+def fwd_plan(dtype, t: int, hd: int, v: int, vh: bool, aligned: bool = True,
+             sms: int = SMS) -> dict:
+    """How the forward kernel runs on the card. ``route`` "wgmma" for bf16
+    operands that TMA can address: ``aligned`` (h and w start on 16 bytes)
+    and, for an (H, V) weight, V a multiple of 8 (rows of a multiple of 16
+    bytes); else "wmma" (float32 always). Both routes split the vocabulary
+    into ``splits`` ranges, combined per token in split order, so that the
+    blocks fill FWD_WAVES waves of the ``sms`` SMs (one "wgmma" block an
+    SM, two "wmma" ones; "wmma" always counts an H100 SXM's 132, so its
+    splits, and its float32 bits, do not depend on the card). On "wgmma"
+    also: ``bm`` token rows a block, ``bn`` vocab columns a tile (256, or
+    128 above H = FWD_CHAIN_H), ``bk`` H columns a stage, ``stages`` of the
+    ring, ``grid`` (token tiles, splits), ``smem_bytes`` of shared memory a
+    block and ``part_bytes`` of float32 partials."""
+    if dtype == torch.bfloat16 and aligned and (vh or v % 8 == 0):
+        bn = 256 if hd <= FWD_CHAIN_H else 128
+        t_tiles = -(-t // FWD_BM)
+        splits = max(1, min(-(-v // bn), -(-FWD_WAVES * sms // t_tiles)))
+        return {"route": "wgmma", "bm": FWD_BM, "bn": bn, "bk": FWD_BK,
+                "stages": FWD_STAGES, "splits": splits, "grid": (t_tiles, splits),
+                "smem_bytes": FWD_STAGES * (FWD_BM + bn) * FWD_BK * 2 + 16 * FWD_STAGES + 1024,
+                "part_bytes": 3 * 4 * splits * t}
     t_tiles = -(-t // FWD_TILE_T)
     v_tiles = -(-v // FWD_TILE_V)
     wave = FWD_BLOCKS_PER_SM * SMS
-    return max(1, min(v_tiles, -(-FWD_WAVES * wave // t_tiles)))
+    return {"route": "wmma", "splits": max(1, min(v_tiles, -(-FWD_WAVES * wave // t_tiles)))}
+
+
+def _aligned(*xs) -> bool:
+    return all(x.data_ptr() % 16 == 0 for x in xs)
 
 
 def bwd_plan(dtype, t: int, hd: int, v: int, kind: str, resident=None) -> dict:
@@ -259,6 +297,16 @@ def _wave_splits(clusters: int, resident: int, tiles: int) -> int:
     return best
 
 
+def card_fwd_plan(h, w, vh=True) -> dict:
+    """The :func:`fwd_plan` that ``fused_ce_fwd`` launches for h (T, H) and w
+    on h's card: its alignment, and the card's SM count."""
+    t, hd = h.shape
+    v = w.shape[0] if vh else w.shape[1]
+    sms = (torch.cuda.get_device_properties(h.device).multi_processor_count
+           if h.device.type == "cuda" else SMS)
+    return fwd_plan(h.dtype, t, hd, v, vh, _aligned(h, w), sms)
+
+
 def fused_ce_fwd(h, w, targets, offset=0, valid=None, vh=True):
     """Forward kernel: h (T, H), w (V, H) "vh" or (H, V) "hv", both float32
     or bf16, targets int32 (T,) -> (lse, target_logit) float32 (T,)."""
@@ -271,13 +319,17 @@ def fused_ce_fwd(h, w, targets, offset=0, valid=None, vh=True):
         return lse, tl
     if v == 0:
         raise ValueError("w has no vocab columns")
-    splits = fwd_splits(t, v)
-    part = torch.empty((3, splits, t), dtype=torch.float32, device=h.device)
-    _launch("fwd", h, (h.data_ptr(), w.data_ptr(), targets.data_ptr(),
-                       part.data_ptr(), lse.data_ptr(), tl.data_ptr()),
-            (t, hd, v, offset, NO_VALID if valid is None else valid,
-             int(bool(vh)), splits))
+    plan = card_fwd_plan(h, w, vh)
+    part = torch.empty((3, plan["splits"], t), dtype=torch.float32, device=h.device)
+    ints = (t, hd, v, offset, NO_VALID if valid is None else valid, int(bool(vh)),
+            plan["splits"])
+    if plan["route"] == "wgmma":
+        ints += (plan["bn"],)
+    _launch("fwd", h, (h.data_ptr(), w.data_ptr(), targets.data_ptr(), part.data_ptr(),
+                       lse.data_ptr(), tl.data_ptr()), ints, plan["route"])
     fused_ce_fwd.launches += 1
+    fused_ce_fwd.routes[plan["route"]] += 1
+    fused_ce_fwd.layouts["vh" if vh else "hv"] += 1
     return lse, tl
 
 
@@ -366,6 +418,8 @@ def fused_ce_dw(h, w, targets, lse, g, offset=0, valid=None, vh=True):
 
 
 fused_ce_fwd.launches = 0
+fused_ce_fwd.routes = {"wgmma": 0, "wmma": 0}
+fused_ce_fwd.layouts = {"vh": 0, "hv": 0}
 fused_ce_dh.launches = 0
 fused_ce_dw.launches = 0
 fused_ce_dh.routes = {"mma": 0, "wmma": 0}

@@ -394,3 +394,185 @@ def test_mma_summation_order_holds_the_bf16_bound(name, kind, layout):
     for want, what in ((plain.float().numpy(), "plain"),
                        (np.asarray(pallas, dtype=np.float32), "pallas")):
         _close(got, want, atol=1e-5 + 2.0 ** -6 * np.abs(want).max(), err_msg=what)
+
+
+# -- the bf16 forward's plan and order of sums (fused_ce_fwd_wgmma.cu) ----------------
+
+@pytest.mark.parametrize("dtype,vh,v,aligned,route", [
+    (torch.bfloat16, True, 250880, True, "wgmma"),
+    (torch.bfloat16, False, 250880, True, "wgmma"),
+    (torch.bfloat16, True, 1001, True, "wgmma"),      # (V, H): rows are H, any V
+    (torch.bfloat16, False, 1001, True, "wmma"),      # (H, V) rows of 2002 bytes: not TMA's
+    (torch.bfloat16, False, 1004, True, "wmma"),
+    (torch.bfloat16, False, 1008, True, "wgmma"),
+    (torch.bfloat16, True, 250880, False, "wmma"),    # a base off 16 bytes
+    (torch.float32, True, 250880, True, "wmma"),
+    (torch.float32, False, 250880, True, "wmma")])
+def test_fwd_plan_route_by_dtype_layout_and_alignment(dtype, vh, v, aligned, route):
+    """bf16 goes to the TMA-fed kernel wherever TMA can address the operands
+    (16-byte aligned bases; an (H, V) weight's rows a multiple of 16 bytes);
+    everything else, float32 always, to the WMMA kernel, whose plan holds
+    only its splits."""
+    plan = tce.fwd_plan(dtype, 8184, 1024, v, vh, aligned)
+    assert plan["route"] == route
+    if route == "wmma":
+        assert set(plan) == {"route", "splits"}
+
+
+def test_fwd_plan_at_the_bench_shape():
+    """bench.py's shape (T = 8 x 1023, H = 1024, V = 250880): 64 token tiles
+    of 128 by 33 vocab ranges of 256-column tiles, 2112 blocks, exactly 16
+    waves of an H100 SXM's 132 SMs; a 4-deep ring of 48 KB stages within
+    the 232,448 bytes a block may use."""
+    plan = tce.fwd_plan(torch.bfloat16, 8184, 1024, 250880, True)
+    assert (plan["bm"], plan["bn"], plan["bk"], plan["stages"]) == (128, 256, 64, 4)
+    assert plan["splits"] == 33 and plan["grid"] == (64, 33)
+    assert 64 * 33 == 16 * tce.SMS
+    assert plan["smem_bytes"] == 4 * (128 + 256) * 64 * 2 + 4 * 16 + 1024 == 197696
+    assert plan["smem_bytes"] <= tce.MAX_SMEM
+    assert plan["part_bytes"] == 3 * 4 * 33 * 8184
+    assert tce.fwd_plan(torch.bfloat16, 8184, 1024, 250880, False) == plan
+
+
+@pytest.mark.parametrize("t", [1, 100, 128, 129, 4096, 8184, 8191, 65536])
+@pytest.mark.parametrize("hd", [16, 1024, 1040, 4096])
+def test_fwd_plan_splits_fill_waves(t, hd):
+    """The fewest splits whose blocks fill FWD_WAVES waves of the SMs (the
+    last, partial wave then costs at most 1/16), at most one a vocab tile;
+    256-column tiles up to H = 1024, 128 above (the kernel adds chains of
+    1024 columns in float32), each within the shared memory a block may
+    use."""
+    for sms in (132, 114):
+        plan = tce.fwd_plan(torch.bfloat16, t, hd, 250880, True, sms=sms)
+        assert plan["bn"] == (256 if hd <= 1024 else 128)
+        t_tiles, v_tiles = -(-t // 128), -(-250880 // plan["bn"])
+        splits = plan["splits"]
+        assert plan["grid"] == (t_tiles, splits) and 1 <= splits <= v_tiles
+        assert splits == v_tiles or t_tiles * splits >= tce.FWD_WAVES * sms
+        assert splits == 1 or t_tiles * (splits - 1) < tce.FWD_WAVES * sms
+        assert plan["smem_bytes"] <= tce.MAX_SMEM
+    small = tce.fwd_plan(torch.bfloat16, t, hd, 100, True)
+    assert small["splits"] == 1
+
+
+def test_fwd_plan_wmma_splits_are_the_parents():
+    """The WMMA route keeps its splits (64-token blocks, 128-column tiles,
+    two blocks an SM of 132), so its float32 outputs keep their bits."""
+    assert tce.fwd_plan(torch.float32, 8184, 1024, 250880, True)["splits"] == 33
+    assert tce.fwd_plan(torch.float32, 100, 64, 1000, True)["splits"] == 8
+    assert tce.fwd_plan(torch.float32, 100, 64, 1000, True, sms=1)["splits"] == 8
+
+
+@pytest.mark.parametrize("layout", ["vh", "hv"])
+def test_card_fwd_plan_of_cpu_tensors(layout):
+    """Without a card, the wrapper's plan is fwd_plan's with an H100 SXM's
+    SMs and the operands' own alignment: a view 2 bytes in is not TMA's."""
+    vh = layout == "vh"
+    h = torch.zeros(300, 1024, dtype=torch.bfloat16)
+    w = torch.zeros((1000, 1024) if vh else (1024, 1000), dtype=torch.bfloat16)
+    assert tce.card_fwd_plan(h, w, vh) == tce.fwd_plan(torch.bfloat16, 300, 1024, 1000, vh)
+    off = torch.zeros(300 * 1024 + 1, dtype=torch.bfloat16)[1:].view(300, 1024)
+    assert tce.card_fwd_plan(off, w, vh)["route"] == "wmma"
+
+
+def test_cpu_forward_counts_no_route_or_layout():
+    x = _sums_inputs()
+    before = (dict(tce.fused_ce_fwd.routes), dict(tce.fused_ce_fwd.layouts))
+    tce.fused_ce_fwd(torch.from_numpy(x["h"]).bfloat16(), torch.from_numpy(x["w"]).bfloat16(),
+                     torch.from_numpy(x["targets"]))
+    assert (tce.fused_ce_fwd.routes, tce.fused_ce_fwd.layouts) == before
+
+
+def _wgmma_order(h, w, targets, offset, valid, vh, splits=None):
+    """The "wgmma" route's arithmetic, written out: 128-row token tiles; per
+    split, its range of BN-column vocab tiles in order; a tile's float32
+    logits as chains of FWD_CHAIN_H H columns added in float32; the mask,
+    then the target pick, then the online (m, l) update with exp2; then the
+    splits combined per token in split order (max, rescaled sum, log)."""
+    t, hd = h.shape
+    wf = (w if vh else w.t()).float()                # (V, H)
+    v = wf.shape[0]
+    plan = tce.fwd_plan(torch.bfloat16, t, hd, v, vh)
+    bn, splits = plan["bn"], splits or plan["splits"]
+    n_tiles = -(-v // bn)
+    log2e = 1.4426950408889634
+    lse, tl = torch.empty(t), torch.empty(t)
+    for t0 in range(0, t, plan["bm"]):
+        hf = h[t0:t0 + plan["bm"]].float()
+        tg = targets[t0:t0 + plan["bm"]].long()
+        parts = []
+        for s in range(splits):
+            m = torch.full((hf.shape[0],), tce.NEG_INF)
+            l, ts = torch.zeros(hf.shape[0]), torch.zeros(hf.shape[0])
+            for tile in range(s * n_tiles // splits, (s + 1) * n_tiles // splits):
+                wt = wf[tile * bn:(tile + 1) * bn]
+                x = None
+                for c0 in range(0, hd, tce.FWD_CHAIN_H):
+                    chain = hf[:, c0:c0 + tce.FWD_CHAIN_H] @ wt[:, c0:c0 + tce.FWD_CHAIN_H].t()
+                    x = chain if x is None else x + chain
+                col = offset + tile * bn + torch.arange(wt.shape[0])
+                if valid is not None:
+                    x = torch.where(col[None, :] >= valid, torch.tensor(tce.NEG_INF), x)
+                ts = ts + torch.where(tg[:, None] == col[None, :], x, 0.0).sum(1)
+                mn = torch.maximum(m, x.amax(1))
+                l = l * torch.exp2((m - mn) * log2e) + torch.exp2((x - mn[:, None]) * log2e).sum(1)
+                m = mn
+            parts.append((m, l, ts))
+        mx = torch.full((hf.shape[0],), tce.NEG_INF)
+        for m, _, _ in parts:
+            mx = torch.maximum(mx, m)
+        lsum = sum(l * torch.exp(m - mx) for m, l, _ in parts)
+        lse[t0:t0 + hf.shape[0]] = mx + torch.log(torch.clamp_min(lsum, 1e-30))
+        tl[t0:t0 + hf.shape[0]] = sum(ts for _, _, ts in parts)
+    return lse, tl
+
+
+# name -> (T, H, V, offset, valid, block_t, block_v): H = 16 (one k step)
+# and 64 (one stage); 1024, the widest single chain, with T and V ragged
+# against the 128 x 256 tiles; 1040 and 4096, chains added in float32 (BN
+# = 128); a shard at an offset with masked columns, targets past it
+WGMMA_CASES = {
+    "t37_h16_v72": (37, 16, 72, 5, 60, 37, 72),
+    "t100_h64_v1000_offset_valid": (100, 64, 1000, 300, 1283, 20, 200),
+    "t130_h1024_v600": (130, 1024, 600, 0, None, 26, 120),
+    "t64_h1040_v304_offset_valid": (64, 1040, 304, 7, 290, 32, 152),
+    "t40_h4096_v264": (40, 4096, 264, 0, None, 40, 88),
+}
+
+
+@pytest.fixture(scope="module", params=[(c, vh) for c in sorted(WGMMA_CASES)
+                                        for vh in (True, False)],
+                ids=lambda p: f"{p[0]}-{'vh' if p[1] else 'hv'}")
+def wgmma_case(request):
+    """bf16 inputs of one case with the Pallas forward's (lse, target logit)
+    in interpret mode."""
+    name, vh = request.param
+    t, hd, v, offset, valid, block_t, block_v = WGMMA_CASES[name]
+    rng = np.random.default_rng(hd + v)
+    h = torch.from_numpy(rng.standard_normal((t, hd), dtype=np.float32) * 0.5).bfloat16()
+    w = torch.from_numpy(rng.standard_normal((v, hd), dtype=np.float32) * 0.5).bfloat16()
+    if not vh:
+        w = w.t().contiguous()
+    targets = torch.from_numpy(rng.integers(0, offset + v, t).astype(np.int32))
+    as_j = lambda x: jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)  # noqa: E731
+    lse, tl = jce._fwd_pallas(as_j(h), as_j(w), jnp.asarray(targets.numpy()),
+                              jnp.asarray([offset], jnp.int32), valid, block_t, block_v, True, vh)
+    return h, w, targets, offset, valid, vh, np.array(lse), np.array(tl)
+
+
+@pytest.mark.parametrize("splits", ["plan", 1, 2])
+def test_wgmma_order_holds_the_stat_bound(wgmma_case, splits):
+    """The route's tiles, chains, splits and combine keep lse and the target
+    logit within 1e-5 + 2^-18 of the largest value of the Pallas forward in
+    interpret mode and of the plain version (on the card the tensor cores'
+    truncating sums add to this; the card tests hold the kernel itself)."""
+    h, w, targets, offset, valid, vh, p_lse, p_tl = wgmma_case
+    assert tce.fwd_plan(torch.bfloat16, *h.shape, w.shape[0 if vh else 1], vh)["route"] == "wgmma"
+    lse, tl = _wgmma_order(h, w, targets, offset, valid, vh,
+                           None if splits == "plan" else splits)
+    r_lse, r_tl = tce.fused_ce_fwd_reference(h, w, targets, offset, valid, vh)
+    for got, want, what in ((lse, p_lse, "lse pallas"), (tl, p_tl, "tl pallas"),
+                            (lse, r_lse.numpy(), "lse plain"), (tl, r_tl.numpy(), "tl plain")):
+        finite = np.abs(want) < 1e8
+        scale = np.abs(want[finite]).max() if finite.any() else 0.0
+        _close(got, want, atol=1e-5 + 2.0 ** -18 * scale, err_msg=what)

@@ -10,7 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "pipegoose_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("sweep_attn_*.py")) + sorted(
+    (ROOT / "scripts").glob("sweep_fused_ce_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "pipegoose_tpu")
 
 
@@ -33,6 +34,7 @@ def test_port_imports_without_jax_or_a_card():
     code = (
         "import sys\n"
         "import pipegoose_tpu_torch.serving, pipegoose_tpu_torch.ops.paged_attention\n"
+        "import pipegoose_tpu_torch.ops.fused_ce\n"
         "import pipegoose_tpu_torch.models.weights\n"
         "import pipegoose_tpu_torch.distributed, pipegoose_tpu_torch.nn.sequence_parallel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
