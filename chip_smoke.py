@@ -17,7 +17,9 @@ Three main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
   prefill over a paged KV pool, every attention read going through the
   hand-written CUDA paged-attention kernel, and with int8 or int4 weights
   (``weight_dtype``) every block product through the hand-written CUDA
-  quantized-matmul kernels, chunked or with the monolithic prefill;
+  quantized-matmul kernels, chunked or with the monolithic prefill; with
+  the prefix cache and self-speculative decoding, whose draft steps,
+  verifications and copied-on-write tails read through the same kernel;
 - training: ``pipegoose_tpu_torch.trainer.train_step`` (loss, backward,
   Adam), its attention going through the hand-written CUDA flash-attention
   forward, dQ and dK/dV kernels, and with ``fused_ce`` its loss through the
@@ -153,7 +155,43 @@ Phases, each fatal on failure:
      loaded in their place, its bf16 fused CE forward, fused_ce.cu's WMMA
      kernel, called directly; the fused CE backward on fused_ce_mma.cu as
      the parent ran it: that source is unchanged, so this revision's build
-     serves both) in turns: parent, this, this, parent.
+     serves both) in turns: parent, this, this, parent;
+ 23  the float32 engine with the prefix cache on a skewed prefix-reuse
+     trace (``make_skewed_replay``: 6 requests over 2 prefixes of 200
+     tokens, so every hit copies a page on write; 16 new tokens, 4 slots,
+     chunk 128), over weights drawn with init std 0.06 (HF's is 0.02,
+     under which every stream repeats one token) so that the greedy
+     streams vary and drafts are rejected, on the card against the CPU:
+     (a) fp and int8 KV; (b) with speculative decoding (1, 3) and (12,
+     3); (c) behind three requests that open the admission ledger's
+     hole, a 41-page pool that evicts cache pages and retracts a request.
+     Greedy tokens of the fp KV runs equal under the near-tie rule; for
+     (a) each block of the fp and int8 KV forwards on the card from the
+     CPU's inputs (a prefill and a decode step): its output over the
+     CPU's pages and the values it writes within 1e-5 of their max, but
+     for int8 values one step off at most 1e-3 of them (whole int8 runs
+     part under float32 noise, each rounding flip growing layer by
+     layer); the hit tokens, prefill
+     tokens, chunks, steps, COW copies, evictions, retractions, drafts,
+     acceptances and cycles equal; more than one token id in every stream
+     and a rejected draft in every speculative run; the paged kernel's
+     launches by route and by query count equal what the run's counts
+     imply (n_layer per decode step and chunk, k per draft step, n_layer
+     per verification); the speculative card engines give the plain card
+     engine's tokens;
+ 24  timed bf16 serving of a larger skewed trace (24 requests over 3
+     prefixes of 392 tokens, 64 new tokens, 8 slots, context 1024, chunk
+     128) over phase 23's weights, through ``prefix_replay_benchmark``,
+     each arm measured on its third run on the same engine: chunked
+     without the cache, cache + chunked (fp, then int8 KV), and with
+     speculation (1, 3) and (12, 3): tokens/s, mean and p99 TTFT, mean
+     step or cycle ms, prefill tokens, hit rate, COW copies, acceptance,
+     tokens a cycle, launches by route and by query count (checked as in
+     23); then the paged kernel at the verification's shape (B = 8, C =
+     4, bf16 pages, FMA route) against its plain version, and its time
+     beside its bound, the plain version's and SDPA's.
+
+Every phase's seconds are logged as "seconds: <phase> <s>".
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a card, or
@@ -460,14 +498,14 @@ def prefill_logits(params, config, prompt, dev, kv_dtype=None, chunk=None):
 
 def make_engine(params, config, dev, *, num_slots, kv_dtype=None, **knobs):
     """The main path's engine: page size 16, 1024-token context, 128-token
-    prefill chunks unless ``knobs`` say otherwise, enough pages for every
-    slot's worst case."""
+    prefill chunks and enough pages for every slot's worst case unless
+    ``knobs`` say otherwise."""
     from pipegoose_tpu_torch.serving import ServingEngine
 
-    knobs = {"prefill_chunk": 128, **knobs}
-    return ServingEngine(params, config, num_slots=num_slots,
-                         num_pages=num_slots * (1024 // 16) + 1, page_size=16,
-                         max_context=1024, kv_dtype=kv_dtype, device=dev, **knobs)
+    knobs = {"prefill_chunk": 128, "num_pages": num_slots * (1024 // 16) + 1,
+             "max_context": 1024, **knobs}
+    return ServingEngine(params, config, num_slots=num_slots, page_size=16,
+                         kv_dtype=kv_dtype, device=dev, **knobs)
 
 
 def as_requests(requests):
@@ -612,8 +650,7 @@ def phase4_timed_serving(np_tree, dev) -> dict:
         serve(params, cfg, requests, dev, num_slots=8, kv_dtype=kv)   # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        pa.paged_attention.launches = 0
-        pa.paged_attention.routes = {"fma": 0, "mma": 0}
+        paged_counters_zero()
         _, outs, m = serve(params, cfg, requests, dev, num_slots=8, kv_dtype=kv)
         launches[kv or "fp"] = {"all": pa.paged_attention.launches,
                                 **pa.paged_attention.routes}
@@ -2586,6 +2623,398 @@ def phase22_steps_vs_parent(np_tree, dev, card, parent) -> dict:
     return out
 
 
+# -- phases 23-24 --------------------------------------------------------------
+
+# make_skewed_replay's arguments (beside vocab) of phase 23's trace: two
+# prefixes of 12.5 pages, so every hit ends in a copy-on-write
+PHASE23_TRACE = dict(n_requests=6, n_prefixes=2, prefix_len=200, suffix_lens=(8, 24, 40),
+                     max_new=16, seed=SEED)
+# phases 23-24's weights: drawn with a wider init than HF's 0.02, under
+# which every greedy stream repeats one token and every draft is accepted,
+# so that the streams vary and the verification rejects drafts
+VARIED_INIT_STD = 0.06
+# phase 24's trace: 24 requests over three Zipf-drawn prefixes of 392 tokens
+PHASE24_TRACE = dict(n_requests=24, n_prefixes=3, prefix_len=392, suffix_lens=(32, 64, 96),
+                     max_new=64, seed=SEED, zipf_a=1.2)
+LEDGER_HOLE_PAGES = 41         # phase 23 (c)'s pool: 40 pages besides the NULL page
+# phase 23's context: its longest request (300 + 16 tokens) rounded up to a
+# page. A narrower page table than phase 3's 1024 keeps the CPU engine's
+# plain attention, which reads every key of the table, three times cheaper.
+PHASE23_CONTEXT = 320
+
+
+def paged_counters_zero():
+    from pipegoose_tpu_torch.ops import paged_attention as pa
+
+    pa.paged_attention.launches = 0
+    pa.paged_attention.routes = {"fma": 0, "mma": 0}
+    pa.paged_attention.queries = {}
+
+
+def paged_counts():
+    from pipegoose_tpu_torch.ops import paged_attention as pa
+
+    return {"all": pa.paged_attention.launches, **pa.paged_attention.routes,
+            "queries": dict(pa.paged_attention.queries)}
+
+
+def expected_launches(eng, metrics):
+    """The paged kernel's launches that a run's own counts imply, by query
+    count C and by route: n_layer per plain decode step (C = 1) and per
+    prefill chunk (C = prefill_chunk), and per speculative cycle n draft
+    steps of k layers (C = 1) plus one n_layer verification (C = n + 1);
+    a fully cached prefix launches nothing. Each route as ``paged_route``
+    picks it for the engine's q and page dtypes."""
+    from pipegoose_tpu_torch.ops import paged_attention as pa
+
+    pages = eng.k_pages["q"] if isinstance(eng.k_pages, dict) else eng.k_pages
+    n_layer = eng.config.n_layer
+    cycles = metrics.get("speculative", {}).get("cycles", 0)
+    by_c = {}
+
+    def add(c, launches):
+        if launches:
+            by_c[c] = by_c.get(c, 0) + launches
+
+    add(1, n_layer * (metrics["decode_steps"] - cycles))
+    add(eng.prefill_chunk, n_layer * metrics["prefill_chunks"])
+    if cycles:
+        k, n = eng.speculative
+        add(1, cycles * k * n)
+        add(n + 1, cycles * n_layer)
+    want = {"all": sum(by_c.values()), "fma": 0, "mma": 0, "queries": by_c}
+    for c, launches in by_c.items():
+        want[pa.paged_route(c, eng.config.dtype, pages.dtype)] += launches
+    return want
+
+
+def check_routes(label, eng, metrics, got):
+    want = expected_launches(eng, metrics)
+    cycles = metrics.get("speculative", {}).get("cycles", 0)
+    log(f"  {label}: paged kernel launches {got}, want {want} (decode steps "
+        f"{metrics['decode_steps'] - cycles}, speculative cycles {cycles}, prefill "
+        f"chunks {metrics['prefill_chunks']})")
+    if got != want or got["all"] == 0:
+        raise AssertionError(f"{label}: paged launches disagree with the run's counts")
+
+
+def run_counts(eng, metrics):
+    """The host-side counts a run must reproduce on any device."""
+    out = {"prefill_tokens": metrics["prefill_tokens"],
+           "prefill_chunks": metrics["prefill_chunks"],
+           "decode_steps": metrics["decode_steps"],
+           "hit_tokens": metrics["prefix_cache"]["hit_tokens"],
+           "cow_copies": metrics["prefix_cache"]["cow_copies"],
+           "evictions": eng.prefix_cache.evictions,
+           "retractions": eng.sched.retractions}
+    if "speculative" in metrics:
+        s = metrics["speculative"]
+        out.update(drafted=s["draft_tokens"], accepted=s["accepted_tokens"],
+                   cycles=s["cycles"])
+    return out
+
+
+def ledger_hole_requests(trace, vocab):
+    """Three requests that open the admission ledger's one hole, ahead of
+    ``trace``: A (prefix 1 + 8 tokens, 1 new token) and B (prefix 1 + 100
+    tokens) prefill prefix 1 side by side; A publishes it and finishes two
+    ticks before B's last chunk, so C (prefix 2 + 40 tokens), blocked until
+    then, is admitted on A's now evictable pages; then B publishes a page
+    under them, C's growth finds them pinned, and the scheduler retracts
+    B. Later requests of the trace then evict cache pages."""
+    prefixes = []
+    for prompt, _ in trace:
+        if not any(np.array_equal(prompt[:200], p) for p in prefixes):
+            prefixes.append(prompt[:200])
+    rng = np.random.default_rng(SEED + 23)
+    tail = lambda n: rng.integers(1, vocab, n)  # noqa: E731
+    return [(np.concatenate([prefixes[0], tail(8)]), 1),
+            (np.concatenate([prefixes[0], tail(100)]), 16),
+            (np.concatenate([prefixes[1], tail(40)]), 16)]
+
+
+# each block on the card from the CPU's inputs: its output (over the CPU's
+# pages) and the values it writes are float32 noise apart, except that an
+# int8 value within that noise of a rounding boundary lands one step off
+LAYER_REL_ERR = 1e-5    # of the block output's max; of each written plane's max
+LAYER_FLIPS = 1e-3      # int8 values written one step off, a share of those written
+
+
+def layers_vs_cpu(label, cpu_params, gpu_params, cfg, prompt, dev, kv):
+    """The paged forward one block at a time: a prefill of ``prompt`` (C =
+    len, from 0), then one decode step (C = 1), each block run on the CPU
+    and twice on the card from the CPU's input and pages. The first card
+    run writes its own k/v: the values must equal the CPU's within
+    LAYER_REL_ERR (fp; int8 scales) or, for int8 values, but for a
+    LAYER_FLIPS share one step off. The second starts from the CPU's
+    pages after its write and sends its own write to the NULL page: the
+    output must equal the CPU's within LAYER_REL_ERR. Whole int8 runs
+    cannot be held token for token: each one-step flip changes a key the
+    next layer reads, and the flips grow layer by layer."""
+    from pipegoose_tpu_torch.serving import kv_pool as kp
+
+    n, ps = len(prompt), 16
+    width = -(-(n + 1) // ps)
+    pools = {d: kp.init_pages(cfg, width + 1, ps, kv_dtype=kv, device=d) for d in ("cpu", dev)}
+    planes = lambda bank: bank.items() if isinstance(bank, dict) else [("fp", bank)]  # noqa: E731
+    out_err = write_err = 0.0
+    flips = steps = written = 0
+    token = None
+    for c, start in ((n, 0), (1, n)):
+        args = {}
+        for d in ("cpu", dev):
+            i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=d)  # noqa: E731
+            pos = torch.arange(start, start + c, device=d)[None, :]
+            args[d] = dict(tokens=i32([list(prompt)]) if c > 1 else i32([[token]]),
+                           page=1 + pos // ps, off=pos % ps, null=torch.zeros_like(pos),
+                           table=i32([list(range(1, width + 1))]), start=i32([start]),
+                           qmask=torch.ones((1, c), dtype=torch.bool, device=d) if c > 1 else None,
+                           slopes=kp._local_slopes(cfg, d))
+        a, g = args["cpu"], args[dev]
+        at = (a["page"][0], a["off"][0])                 # the positions this pass writes
+        x = kp._embed(cpu_params, a["tokens"], cfg)
+        for i, blk in enumerate(cpu_params["blocks"]):
+            cpu_banks = [kp.layer_bank(pools["cpu"][j], i) for j in (0, 1)]
+            card_banks = [kp.layer_bank(pools[dev][j], i) for j in (0, 1)]
+
+            def card_pages_from_cpu():
+                for src, dst in zip(cpu_banks, card_banks):
+                    for (_, s), (_, t) in zip(planes(src), planes(dst)):
+                        t.copy_(s)
+
+            card_block = lambda page, off: kp._block(  # noqa: E731
+                gpu_params["blocks"][i], x.to(dev), *card_banks, page, off, g["table"],
+                g["start"], g["slopes"], g["qmask"], cfg)
+            card_pages_from_cpu()
+            y = kp._block(blk, x, *cpu_banks, a["page"], a["off"], a["table"], a["start"],
+                          a["slopes"], a["qmask"], cfg)
+            card_block(g["page"], g["off"])
+            for src, dst in zip(cpu_banks, card_banks):
+                for (name, s), (_, t) in zip(planes(src), planes(dst)):
+                    s, t = s[at], t.cpu()[at]
+                    if name == "q":
+                        d = (s.int() - t.int()).abs()
+                        flips += int((d > 0).sum())
+                        steps = max(steps, int(d.max()))
+                        written += s.numel()
+                    else:
+                        write_err = max(write_err,
+                                        ((t - s).abs().max() / s.abs().max()).item())
+            card_pages_from_cpu()
+            yg = card_block(g["null"], g["null"])
+            out_err = max(out_err, ((yg.cpu() - y).abs().max() / y.abs().max()).item())
+            x = y
+        x = kp.layer_norm(cpu_params["ln_f"], x, cfg.layer_norm_epsilon)
+        token = int(kp.logits_fn(cpu_params, x)[0, -1].argmax())
+    share = flips / max(written, 1)
+    log(f"  {label}: each block on the card from the CPU's inputs ({n}-token prefill, one "
+        f"decode step): output over the CPU's pages {out_err} of its max, written "
+        f"{'scales' if kv else 'values'} {write_err} of their max (limit {LAYER_REL_ERR})"
+        + (f", int8 values one step off {flips} of {written} ({share}; limit {LAYER_FLIPS}), "
+           f"largest step {steps}" if kv else ""))
+    if out_err > LAYER_REL_ERR or write_err > LAYER_REL_ERR or share > LAYER_FLIPS or steps > 1:
+        raise AssertionError(f"{label}: a block on the card disagrees with the CPU's")
+
+
+def phase23_cache_spec_vs_cpu(np_tree, dev) -> None:
+    """The float32 engine with the prefix cache, speculative decoding and
+    a pool small enough to evict and retract, on the card against the
+    CPU, over weights of init std VARIED_INIT_STD: greedy tokens of the
+    fp KV runs (check_flip's near-tie rule), each block of the fp and
+    int8 KV forwards from the CPU's inputs (``layers_vs_cpu``), and every
+    host-side count equal (the
+    speculative counts follow the tokens, so they are held equal where
+    the tokens are); the paged kernel's launches by route and by query
+    count equal to what the card run's counts imply; more than one
+    distinct token in every stream and a rejected draft in every
+    speculative run; the cached and speculative card engines give the
+    plain card engine's tokens."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+    from pipegoose_tpu_torch.serving import make_skewed_replay
+
+    cfg = BloomConfig.bloom_560m()
+    trace = make_skewed_replay(vocab=cfg.vocab_size, **PHASE23_TRACE)
+    log(f"phase 23: bloom-560m float32, init std {VARIED_INIT_STD}, make_skewed_replay "
+        f"{PHASE23_TRACE}: prompts {[len(p) for p, _ in trace]}, 4 slots, pages of 16, "
+        f"chunk 128, context {PHASE23_CONTEXT}")
+    cpu_params = params_from_jax(np_tree, cfg, device="cpu")
+    gpu_params = params_from_jax(np_tree, cfg, device=dev)
+    hole = ledger_hole_requests(trace, cfg.vocab_size) + trace
+    ctx = dict(max_context=PHASE23_CONTEXT)
+    arms = [("(a) cache, fp KV", trace, dict(prefix_cache=True, **ctx)),
+            ("(a) cache, int8 KV", trace, dict(prefix_cache=True, kv_dtype="int8", **ctx)),
+            ("(b) cache + speculative (1, 3)", trace,
+             dict(prefix_cache=True, speculative=(1, 3), **ctx)),
+            ("(b) cache + speculative (12, 3)", trace,
+             dict(prefix_cache=True, speculative=(12, 3), **ctx)),
+            ("(c) cache, 41-page pool", hole,
+             dict(prefix_cache=True, num_pages=LEDGER_HOLE_PAGES, **ctx))]
+    card_tokens = {}
+    for label, requests, knobs in arms:
+        t0 = time.perf_counter()
+        cpu_eng, cpu_outs, cpu_m = serve(cpu_params, cfg, requests, "cpu", num_slots=4,
+                                         **knobs)
+        t1 = time.perf_counter()
+        paged_counters_zero()
+        gpu_eng, gpu_outs, gpu_m = serve(gpu_params, cfg, requests, dev, num_slots=4,
+                                         **knobs)
+        got = paged_counts()
+        log(f"  {label}: cpu engine {t1 - t0:.1f} s, card engine "
+            f"{time.perf_counter() - t1:.1f} s")
+        check_routes(label, gpu_eng, gpu_m, got)
+        kv = knobs.get("kv_dtype")
+        for (prompt, _), c, g in zip(requests, cpu_outs, gpu_outs):
+            if kv is None:
+                check_flip(f"{label} request {c.uid}", cpu_eng.params, cfg, prompt,
+                           c.generated, g.generated)
+                continue
+            diff = np.nonzero(c.generated != g.generated)[0]
+            log(f"  {label} request {c.uid}: card tokens " + (
+                f"first differ from the cpu's at step {int(diff[0])}" if diff.size
+                else "identical to the cpu's") + " (int8 runs are held block by block)")
+        if label.startswith("(a)"):
+            layers_vs_cpu(label, cpu_params, gpu_params, cfg, requests[0][0], dev, kv)
+        distinct = [len(set(g.generated.tolist())) for g in gpu_outs]
+        log(f"  {label}: distinct token ids per request {distinct}")
+        if any(d < 2 for d, (_, n) in zip(distinct, requests) if n > 1):
+            raise AssertionError(f"{label}: a stream repeats one token id")
+        cc, gc_ = run_counts(cpu_eng, cpu_m), run_counts(gpu_eng, gpu_m)
+        log(f"  {label}: card counts {gc_}")
+        identical = all(np.array_equal(c.generated, g.generated)
+                        for c, g in zip(cpu_outs, gpu_outs))
+        if cc != gc_ and (identical or "speculative" not in knobs):
+            raise AssertionError(f"{label}: card counts {gc_} != cpu counts {cc}")
+        if cc != gc_:
+            log(f"  {label}: after a near-tie flip the cpu counts are {cc}")
+        if "speculative" in knobs and gc_["accepted"] >= gc_["drafted"]:
+            raise AssertionError(f"{label}: the verification rejected no draft")
+        if label.startswith("(c)"):
+            log(f"  {label}: {gc_['evictions']} LRU evictions, {gc_['retractions']} "
+                f"retractions")
+            if gc_["evictions"] < 1 or gc_["retractions"] < 1:
+                raise AssertionError(f"{label}: the run neither evicted nor retracted")
+        if gpu_m["prefix_cache"]["cow_copies"] < 1:
+            raise AssertionError(f"{label}: no copy-on-write ran")
+        card_tokens[label] = [g.generated for g in gpu_outs]
+        del cpu_eng, gpu_eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    paged_counters_zero()
+    plain_eng, plain_outs, plain_m = serve(gpu_params, cfg, trace, dev, num_slots=4, **ctx)
+    check_routes("plain card engine", plain_eng, plain_m, paged_counts())
+    del plain_eng
+    for label in ("(b) cache + speculative (1, 3)", "(b) cache + speculative (12, 3)"):
+        for (prompt, _), p, s in zip(trace, plain_outs, card_tokens[label]):
+            check_flip(f"plain card engine vs {label}, request {p.uid}", cpu_params, cfg,
+                       prompt, p.generated, s)
+    del cpu_params, gpu_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def verify_case(dev, n_layer):
+    """The verification's call at phase 24's geometry: 8 rows of C = 4
+    queries from seeded starts inside its prompts' span, 24 layer banks."""
+    rng = np.random.default_rng(SEED + 24)
+    starts = [int(s) for s in rng.integers(392 + 32, 392 + 96 + 60, 8)]
+    return make_case(rng, dev, rows=8, c=4, width=64, starts=starts, layers=n_layer)
+
+
+def phase24_timed_cache_spec(np_tree, dev, card) -> list:
+    """Timed bf16 serving of a skewed prefix-reuse trace in five arms,
+    over phase 23's weights, through ``prefix_replay_benchmark`` (each arm measured on its third
+    run, after a cold and a warm one, so the cached arms are measured
+    warm): per arm tokens/s, TTFT, step ms, prefill tokens, hit rate, COW
+    copies, acceptance, tokens a cycle and the paged kernel's launches by
+    route and by query count in the measured run (equal to what its
+    counts imply). Then the paged kernel at the verification's shape
+    beside its bound, its plain version and SDPA. Returns that kernel
+    row, whose launches are the C = 4 launches counted in the measured
+    run of the (1, 3) arm."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+    from pipegoose_tpu_torch.ops import paged_attention as pa
+    from pipegoose_tpu_torch.serving import prefix_replay_benchmark
+    from pipegoose_tpu_torch.serving.engine import _quantile
+
+    cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16)
+    params = params_from_jax(np_tree, cfg, device=dev)
+    log(f"phase 24: bloom-560m bf16, init std {VARIED_INIT_STD}, make_skewed_replay "
+        f"{PHASE24_TRACE}, 8 slots, pages of 16, context 1024, chunk 128, on {card}")
+    chunk = dict(prefill_chunk=128)
+    cached = dict(prefix_cache=True, **chunk)
+    arms = {"chunked": chunk,
+            "cache+chunked": cached,
+            "cache+chunked, int8 KV": dict(kv_dtype="int8", **cached),
+            "cache+chunked+spec (1, 3)": dict(speculative=(1, 3), **cached),
+            "cache+chunked+spec (12, 3)": dict(speculative=(12, 3), **cached)}
+    counted = {}
+
+    def measure(label, eng, run):
+        torch.cuda.synchronize()
+        paged_counters_zero()
+        outs, m = run()
+        counted[label] = got = paged_counts()
+        ttft = [o.ttft_s for o in outs]
+        pc = m.get("prefix_cache", {})
+        sp = m.get("speculative")
+        log(f"  {label}: {m['decode_tokens_per_s']} tokens/s, TTFT mean "
+            f"{np.mean(ttft) * 1e3} ms, p99 {_quantile(ttft, 0.99) * 1e3} ms, mean decode "
+            f"{'cycle' if sp else 'step'} {m['decode_step_time_s'] / m['decode_steps'] * 1e3} "
+            f"ms over {m['decode_steps']}, {m['generated_tokens']} tokens in "
+            f"{m['wall_time_s']} s [{card}]")
+        log(f"  {label}: prefill tokens {m['prefill_tokens']} in {m['prefill_chunks']} "
+            f"chunks, hit rate {pc.get('hit_rate', 0.0)}, hit tokens "
+            f"{pc.get('hit_tokens', 0)}, COW copies {pc.get('cow_copies', 0)}"
+            + (f", acceptance {sp['acceptance_rate']} ({sp['accepted_tokens']} of "
+               f"{sp['draft_tokens']} drafts), {sp['tokens'] / sp['cycles']} tokens a "
+               f"cycle over {sp['cycles']} cycles" if sp else ""))
+        log(f"  {label}: distinct token ids per request "
+            f"{[len(set(o.generated.tolist())) for o in outs]}")
+        want = PHASE24_TRACE["max_new"]
+        if m["generated_tokens"] != want * len(outs) or any(len(o.generated) != want
+                                                            for o in outs):
+            raise AssertionError(f"{label}: not every request got its tokens")
+        check_routes(label, eng, m, got)
+        return outs, m
+
+    rows = prefix_replay_benchmark(params, cfg, **PHASE24_TRACE, num_slots=8,
+                                   num_pages=8 * (1024 // 16) + 1, page_size=16,
+                                   max_context=1024, arms=arms, measure=measure, device=dev)
+    for label, row in rows.items():
+        log(f"  {label}: prefix_replay_benchmark row {row}")
+    verify_launches = counted["cache+chunked+spec (1, 3)"]["queries"].get(4, 0)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    case = verify_case(dev, cfg.n_layer)
+    k, v = (layer_of(p, 0) for p in pages_as(case, "bf16"))
+    q = case["q"].to(torch.bfloat16)
+    args = (q, k, v, case["table"], case["start"])
+    plan = pa.paged_plan(8, 4, 16, 64, 16, 64, torch.bfloat16, torch.bfloat16)
+    out = pa.paged_attention(*args, slopes=case["slopes"])
+    ref = pa.paged_attention_reference(*args, slopes=case["slopes"])
+    err = (out - ref).abs().max().item()
+    log(f"  verify shape B=8 C=4 bf16 pages ({plan['route']} route, {plan['splits']} "
+        f"splits): kernel vs plain max_abs_err={err} (atol {ATOL['bf16']})")
+    if plan["route"] != "fma" or err > ATOL["bf16"] or not torch.isfinite(out).all():
+        raise AssertionError("verify shape: kernel disagrees with plain or left the FMA route")
+    t = paged_time(case, "bf16", cfg.n_layer, dev)
+    bound_ms, bound_by = paged_bound_ms(case, "bf16", plan["route"])
+    (ms, call_ms), (plain_ms, _), (library_ms, _) = t["kernel"], t["plain"], t["library"]
+    log(f"  verify shape, starts {case['start'].tolist()}, device ms per call: kernel {ms}, "
+        f"bound {bound_ms} ({bound_by}), plain {plain_ms}, SDPA {library_ms}; eager: kernel "
+        f"{call_ms} [{card}]")
+    del case
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [{"name": "paged_attention (bf16 pages, speculative verification C=4, fma route)",
+             **KERNEL, "kernel_route": plan["route"], "launches": verify_launches,
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms, "call_ms": call_ms}]
+
+
 def main(argv) -> int:
     import argparse
 
@@ -2596,72 +3025,86 @@ def main(argv) -> int:
                          "(phases 9, 21 and 22)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(name):
+        """Log the seconds since the last lap, so every second of the run
+        is charged to a phase."""
+        now = time.perf_counter()
+        log(f"seconds: {name} {now - laps[-1]:.1f}")
+        laps.append(now)
+        gc.collect()
+        torch.cuda.empty_cache()
+
     card = phase0_card()
     dev = torch.device("cuda")
     from pipegoose_tpu_torch import resolve_device
     from pipegoose_tpu_torch.models.bloom import BloomConfig, init_params_numpy
 
     resolve_device(dev)   # float32 products without TF32
+    lap("phase 0")
     parent = phase1_build(args.parent)
+    lap("phase 1")
     errs = phase2_kernel_vs_plain(dev)
-    t0 = time.perf_counter()
+    lap("phase 2")
     np_tree = init_params_numpy(BloomConfig.bloom_560m(), seed=SEED)
-    log(f"weights: bloom-560m from seed {SEED} in {time.perf_counter() - t0:.1f} s")
+    lap(f"weights: bloom-560m from seed {SEED}")
     phase3_engine_vs_cpu(np_tree, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("phase 3")
     launches = phase4_timed_serving(np_tree, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("phase 4")
     rows = phase5_kernel_time(dev, card, errs, launches)
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("phase 5")
     paged_prefill_vs_plain(np_tree, dev)
-    gc.collect()
-    torch.cuda.empty_cache()   # the serving state is gone before training
+    lap("paged prefill vs plain")   # the serving state is gone before training
     flash_errs = phase6_flash_vs_plain(dev)
+    lap("phase 6")
     phase7_train_vs_cpu(np_tree, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("phase 7")
     flash_run = phase8_timed_training(np_tree, dev, card)
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("phase 8")
     rows += phase9_flash_time(dev, card, flash_errs, flash_run["launches"], parent)
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("phase 9")
     fused_errs = phase10_fused_vs_plain(dev)
+    lap("phase 10")
     phase11_train_options_vs_cpu(np_tree, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("phase 11")
     fused_runs = phase12_timed_variants(np_tree, dev, card, flash_run["peak_gib"])
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("phase 12")
     rows += phase13_fused_time(dev, card, fused_errs, fused_runs["flash+fusedce"], parent)
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("phase 13")
     quant_errs = phase14_quant_vs_plain(np_tree, dev)
+    lap("phase 14")
     phase15_quant_engine_vs_cpu(np_tree, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("phase 15")
     quant_launches = phase16_quant_serving(np_tree, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("phase 16")
     rows += phase17_quant_time(dev, card, quant_errs, quant_launches)
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("phase 17")
     chunk_errs = phase18_chunk_vs_plain(dev)
+    lap("phase 18")
     ctx = sp_context()
     try:
         phase19_sp_loss_vs_single(np_tree, dev)
+        lap("phase 19")
         sp_run = phase20_timed_sp_training(np_tree, dev, card)
+        lap("phase 20")
         if parent:
             phase22_steps_vs_parent(np_tree, dev, card, parent)
+            lap("phase 22")
     finally:
         ctx.destroy()
-    del np_tree
-    gc.collect()
-    torch.cuda.empty_cache()
     rows += phase21_chunk_time(dev, card, chunk_errs, sp_run["launches"], parent)
+    lap("phase 21")
+    del np_tree
+    varied = init_params_numpy(BloomConfig.bloom_560m(initializer_range=VARIED_INIT_STD),
+                               seed=SEED)
+    lap(f"weights: bloom-560m, init std {VARIED_INIT_STD}, from seed {SEED}")
+    phase23_cache_spec_vs_cpu(varied, dev)
+    lap("phase 23")
+    rows += phase24_timed_cache_spec(varied, dev, card)
+    lap("phase 24")
+    del varied
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

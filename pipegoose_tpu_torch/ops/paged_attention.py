@@ -259,7 +259,7 @@ def paged_attention(q, k_pages, v_pages, page_table, start, *, slopes):
     Returns float32 (B, C, nh, hd). CPU tensors take the plain version;
     CUDA tensors launch the kernel by the route ``paged_plan`` picks
     (``paged_attention.launches`` counts the launches, ``.routes`` them by
-    route) or raise.
+    route, ``.queries`` by C) or raise.
     """
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, page_table,
@@ -281,8 +281,10 @@ def paged_attention(q, k_pages, v_pages, page_table, start, *, slopes):
                     start, slopes, out, plan, torch.cuda.current_stream().cuda_stream)
     paged_attention.launches += 1
     paged_attention.routes[plan["route"]] += 1
+    paged_attention.queries[c] = paged_attention.queries.get(c, 0) + 1
     return out
 
 
 paged_attention.launches = 0
 paged_attention.routes = {"fma": 0, "mma": 0}   # launches by route
+paged_attention.queries = {}                     # launches by query count C

@@ -1,33 +1,60 @@
 """Synchronous continuous-batching serving engine over the paged pool.
 
 The counterpart of ``pipegoose_tpu/serving/engine.py`` with
-``attn_kernel="paged"``, the configuration in which every decode step
-and prefill chunk reads attention through the paged-attention kernel.
-``ServingEngine.run(requests)`` drives the host-side loop:
+``attn_kernel="paged"``, the configuration in which every decode step,
+prefill chunk, speculative draft and verification reads attention
+through the paged-attention kernel. ``ServingEngine.run(requests)``
+drives the host-side loop:
 
     while work remains:
-        admit queued requests into free slots        (scheduler.admit)
-        prefill: one CHUNK per prefilling request    (paged_prefill_chunk)
-          per tick, or with prefill_chunk=None the
-          whole prompt at admission                  (forward_cached +
+        shed queued requests past their deadline,
+        admit queued requests into free slots        (scheduler.admit;
+                                                      prefix-cache hits
+                                                      share KV pages)
+        prefill: one CHUNK per prefilling request    (paged_prefill_chunk,
+          per tick, after a copy-on-write of a        copy_page)
+          partly shared page; or with neither the
+          cache nor prefill_chunk, the whole prompt
+          at admission                               (forward_cached +
                                                       write_prompt_pages)
-        one decode step over ALL decoding slots      (paged_decode_step)
+        one decode step over ALL decoding slots      (paged_decode_step),
+          or a draft + verify speculative cycle
         record tokens; evict finished, reclaim pages (scheduler)
+
+Opt-in modes, all off by default:
+
+- ``prefix_cache=True``: content-addressed page sharing
+  (``serving/prefix_cache.py``); a request whose prompt prefix is cached
+  skips prefill for the shared pages and forwards only its tail, after a
+  copy-on-write when the tail starts inside a shared page. Without
+  ``prefill_chunk`` the tail is forwarded as one page-multiple bucket.
+- ``prefill_chunk=N``: prompts advance N tokens a tick through the page
+  tables, between decode steps.
+- ``speculative=(k, n)``: self-speculative decoding. The first ``k``
+  blocks plus the final LN and tied head (the same weights) draft up to
+  ``n`` tokens a slot; one full-model pass over the bundle
+  (``paged_prefill_chunk(all_logits=True)``) verifies them. Accepted
+  tokens are the full model's greedy tokens.
+- ``continuous=False``: padded batching (a batch drains before the next
+  is admitted), the baseline of an A/B.
+- ``stall_patience``: ticks without admission, prefill, shedding or
+  decode before the watchdog raises.
 
 ``weight_dtype="int8"|"int4"`` quantizes the block kernels at
 construction (``quant.quantize_params``); every dense product of a block
 then runs the dequant-fused matmul kernels. Greedy decoding only: the
 contract is token identity with the JAX engine and with per-request
-``generate()``. The KV pool lives in place on the device. The prefix
-cache, speculative decoding, tensor parallelism, disaggregation, KV
-tiers and the telemetry hooks wait for later slices of the port
-(ROADMAP.md queue A).
+``generate()``. The KV pool lives in place on the device. Sampling,
+tensor parallelism, the fleet API (``submit_request``, ``take_finished``,
+faults), disaggregation, KV tiers and the telemetry hooks (registry,
+tracer, flight recorder, memory ledger) wait for later slices of the
+port (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,11 +71,13 @@ from pipegoose_tpu_torch.quant.weights import (
 from pipegoose_tpu_torch.serving.kv_pool import (
     PagePool,
     check_kv_dtype,
+    copy_page,
     init_pages,
     paged_decode_step,
     paged_prefill_chunk,
     write_prompt_pages,
 )
+from pipegoose_tpu_torch.serving.prefix_cache import PrefixCache
 from pipegoose_tpu_torch.serving.scheduler import Request, Scheduler, Status
 
 
@@ -59,20 +88,43 @@ class RequestOutput:
     generated: np.ndarray
     finish_reason: str
     queue_latency_s: float
-    ttft_s: float
+    # None for a shed request: it never got a first token
+    ttft_s: Optional[float]
+    decode_tokens_per_s: Optional[float]
+    e2e_latency_s: float = 0.0          # submit -> done
+    tenant: Optional[str] = None
 
 
 class _RunState:
     """Accumulators of one serving run (``start_run`` .. ``finish_run``)."""
 
-    def __init__(self, now):
+    def __init__(self, now, tick_hook):
         self.now = now
+        self.tick_hook = tick_hook
         self.t0 = 0.0
         self.done: List[Request] = []
-        self.steps = 0
-        self.chunks = 0                 # prefill forwards; chunks when chunked
+        self.tick = 0
+        self.steps = 0                  # decode steps and speculative cycles
+        self.chunks = 0                 # paged prefill forwards
         self.prefills = 0               # prefills completed
         self.step_time = 0.0            # summed decode-step wall time
+        self.stalled = 0
+        self.t_last_decode: Optional[float] = None
+        self.max_gap = 0.0
+        self.prefill_tokens = 0         # prompt tokens forwarded
+        self.hit_tokens = 0             # prompt tokens served by the cache
+        self.cow_copies = 0
+        self.spec_cycles = self.spec_drafted = self.spec_accepted = 0
+        self.spec_tokens = 0            # tokens the cycles emitted
+
+
+def _quantile(values, q: float) -> float:
+    """The JAX registry histogram's rule: the sorted sample at
+    ``min(int(q * n), n - 1)``."""
+    sample = sorted(values)
+    if not sample:
+        return float("nan")
+    return sample[min(int(q * len(sample)), len(sample) - 1)]
 
 
 class ServingEngine:
@@ -82,11 +134,14 @@ class ServingEngine:
     pooled KV capacity, ``max_context`` the per-request prompt+new budget
     (it fixes the page-table width). ``prefill_chunk`` (a page multiple)
     is how many prompt tokens each prefilling request forwards per tick;
-    None prefills each prompt whole at admission through the contiguous
-    cache, in a bucket of ``pages_for(len) * page_size`` left-padded
-    positions. ``kv_dtype="int8"`` stores int8 pages with a per-(position,
-    head) scale. ``weight_dtype`` ("int8" | "int4"; "fp" is an alias for
-    None) quantizes the block kernels at construction, on ``device``;
+    with neither it nor ``prefix_cache`` each prompt is prefilled whole
+    at admission through the contiguous cache, in a bucket of
+    ``pages_for(len) * page_size`` left-padded positions.
+    ``prefix_cache``, ``speculative=(k, n)``, ``continuous`` and
+    ``stall_patience`` are the modes of the module docstring.
+    ``kv_dtype="int8"`` stores int8 pages with a per-(position, head)
+    scale. ``weight_dtype`` ("int8" | "int4"; "fp" is an alias for None)
+    quantizes the block kernels at construction, on ``device``;
     ``weight_group_size`` is the int4 contraction-group width. With
     neither knob set the engine serves ``params`` as given (the same
     object). ``params`` come from ``models.weights.params_from_jax`` on
@@ -94,12 +149,25 @@ class ServingEngine:
 
     def __init__(self, params, config, *, num_slots: int = 4,
                  num_pages: int = 64, page_size: int = 16,
-                 max_context: int = 256, prefill_chunk: Optional[int] = None,
+                 max_context: int = 256, continuous: bool = True,
+                 stall_patience: int = 100, prefix_cache: bool = False,
+                 prefill_chunk: Optional[int] = None,
+                 speculative: Optional[Tuple[int, int]] = None,
                  kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None,
                  weight_group_size: int = 32, device="cuda"):
         if max_context % page_size:
             raise ValueError("max_context must be a multiple of page_size")
+        if stall_patience < 1:
+            raise ValueError(f"stall_patience must be >= 1, got {stall_patience}")
+        if speculative is not None:
+            k, n = speculative
+            if not 1 <= k < config.n_layer:
+                raise ValueError(
+                    f"speculative draft depth {k} must be in "
+                    f"[1, n_layer={config.n_layer})")
+            if n < 1:
+                raise ValueError(f"speculative draft length {n} must be >= 1")
         self.device = resolve_device(device)
         if params["embed"]["weight"].device.type != self.device.type:
             raise ValueError(
@@ -116,12 +184,21 @@ class ServingEngine:
         self.params = params
         self.config = config
         self.num_slots = num_slots
+        self.page_size = page_size
         self.table_width = max_context // page_size
         self.prefill_chunk = prefill_chunk
+        self.speculative = speculative
+        self.stall_patience = stall_patience
         self.kv_dtype = check_kv_dtype(kv_dtype)
         self.pool = PagePool(num_pages, page_size)
+        self.prefix_cache = PrefixCache(self.pool) if prefix_cache else None
         self.sched = Scheduler(num_slots, self.pool, max_context,
+                               continuous=continuous,
+                               prefix_cache=self.prefix_cache,
                                chunk_tokens=prefill_chunk)
+        # the cache's tails attend to shared pages, so they take the paged
+        # prefill too; the monolithic path stays the default otherwise
+        self._paged_prefill = prefix_cache or prefill_chunk is not None
         self.k_pages, self.v_pages = init_pages(
             config, num_pages, page_size, kv_dtype=self.kv_dtype,
             device=self.device)
@@ -131,15 +208,37 @@ class ServingEngine:
     def _tensor(self, arr) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr, np.int32)).to(self.device)
 
-    def _prefill_chunk_tick(self, req: Request, now) -> None:
-        """Advance one prefill chunk through the page tables; on reaching
-        the target, record the first token."""
+    def _start_prefill(self, req: Request, rs: _RunState) -> None:
+        """Paged-path admission follow-up: account the cache hit, then run
+        the pending copy-on-write (the shared page whose tail this request
+        will write gets a private copy) and drop the admission's pin on
+        the source right after it."""
+        if self.prefix_cache is not None:
+            rs.hit_tokens += req.hit_tokens
+        if req.cow is not None:
+            src, m = req.cow
+            dst = req.pages[req.prefilled_len // self.page_size]
+            copy_page(self.k_pages, self.v_pages, src, dst)
+            self.pool.release([src])   # the PrefixCache.acquire pin
+            req.cow = None
+            req.prefilled_len += m
+            rs.cow_copies += 1
+
+    def _prefill_chunk_tick(self, req: Request, rs: _RunState) -> None:
+        """Advance one prefill chunk through the page tables. On reaching
+        the target: publish the full prompt pages to the cache, then
+        record the first token, or for a preempted request resume
+        decoding (its pending token is already in ``generated``)."""
         target = req.target_len
         begin = req.prefilled_len
-        end = min(begin + self.prefill_chunk, target)
+        end = min(begin + (self.prefill_chunk or target - begin), target)
         n = end - begin
+        # one width when chunking (the last chunk pads), else a
+        # page-multiple bucket
+        prog = (self.prefill_chunk if self.prefill_chunk is not None
+                else self.pool.pages_for(n) * self.page_size)
         self.sched.ensure_pages(req, end)
-        ids = np.zeros((1, self.prefill_chunk), np.int32)
+        ids = np.zeros((1, prog), np.int32)
         ids[0, :n] = req.tokens[begin:end]
         table = np.zeros((1, self.table_width), np.int32)
         table[0, :len(req.pages)] = req.pages
@@ -149,13 +248,30 @@ class ServingEngine:
             self.config)
         tok = int(greedy_token(logits, self._mask_fn)[0])  # syncs the device
         req.prefilled_len = end
-        if end == target:
-            self.sched.record_token(req, tok, now())
+        rs.prefill_tokens += n
+        if end < target:
+            return
+        if self.prefix_cache is not None:
+            n_full = req.prompt_len // self.page_size
+            self.prefix_cache.insert(
+                np.asarray(req.prompt)[:n_full * self.page_size],
+                req.pages[:n_full])
+        if req.generated:
+            # resumed after preemption: the last logits re-derive the
+            # pending token (greedy); decode picks up where it left off
+            req.status = Status.DECODE
+            return
+        self.sched.record_token(req, tok, rs.now())
 
-    def _prefill_request(self, req: Request, now) -> None:
+    def _prefill_request(self, req: Request, rs: _RunState) -> None:
         """Monolithic prefill: forward the whole prompt through a
         contiguous cache in a page-multiple bucket, left-padded, scatter
         its k/v into the request's pages and record the first token."""
+        if req.generated:
+            raise RuntimeError(
+                "re-admitting a preempted request requires the paged "
+                "prefill path — construct the engine with prefix_cache "
+                "and/or prefill_chunk")
         s = req.prompt_len
         ps = self.pool.page_size
         bucket = self.pool.pages_for(s) * ps
@@ -175,7 +291,8 @@ class ServingEngine:
                            self._tensor(phys), pad, ps)
         tok = int(tok[0])                                  # syncs the device
         req.prefilled_len = s
-        self.sched.record_token(req, tok, now())
+        rs.prefill_tokens += s
+        self.sched.record_token(req, tok, rs.now())
 
     def _decode_step(self, active: List[Request]) -> np.ndarray:
         """One decode step over the decoding slots; returns each slot's
@@ -191,6 +308,83 @@ class ServingEngine:
             self.params, self._tensor(tokens), self.k_pages, self.v_pages,
             self._tensor(table), self._tensor(seq_lens), self.config)
         return greedy_token(logits, self._mask_fn).cpu().numpy()  # syncs
+
+    def _spec_cycle(self, rows: List[Request], rs: _RunState):
+        """One speculative cycle over the decoding slots: draft up to n
+        tokens a slot with the k-block shallow exit, verify the bundle in
+        one full-model pass, emit the longest verified prefix plus the
+        correction token. Drafts and verified ids stay on the device until
+        one fetch each after the verification. A row's draft writes past
+        its bound go to the NULL page; the verification rewrites every
+        layer at positions ``seq .. seq + g``, so no draft KV of a
+        rejected token survives. Returns (emitted, drafted, accepted,
+        surviving rows: lazy growth may retract a neighbour)."""
+        spec_k, n_spec = self.speculative
+        table = np.zeros((self.num_slots, self.table_width), np.int32)
+        seq = np.zeros((self.num_slots,), np.int32)
+        tok0 = np.zeros((self.num_slots,), np.int32)
+        g = np.zeros((self.num_slots,), np.int32)
+        for r in rows:
+            if r.status is not Status.DECODE:
+                continue  # retracted by an earlier row's lazy growth
+            # bound the draft depth so verified writes stay inside the
+            # admission's worst case: positions <= cached + remaining - 1
+            g_i = min(n_spec, r.max_new_tokens - len(r.generated) - 1)
+            self.sched.ensure_pages(r, r.cached_len + g_i + 1)
+        rows = [r for r in rows if r.status is Status.DECODE]
+        for r in rows:
+            table[r.slot, :len(r.pages)] = r.pages
+            seq[r.slot] = r.cached_len
+            tok0[r.slot] = r.generated[-1]
+            g[r.slot] = min(n_spec, r.max_new_tokens - len(r.generated) - 1)
+        d_table, d_seq, d_tok0, d_g = (self._tensor(a) for a in (table, seq, tok0, g))
+        cur = d_tok0
+        drafts = []
+        for j in range(n_spec):
+            logits = paged_decode_step(
+                self.params, cur, self.k_pages, self.v_pages, d_table, d_seq + j,
+                self.config, write_ok=d_g > j, draft_layers=spec_k)
+            cur = greedy_token(logits, self._mask_fn).to(torch.int32)
+            drafts.append(cur)
+        ids = torch.stack([d_tok0, *drafts], dim=1)
+        logits = paged_prefill_chunk(
+            self.params, ids, self.k_pages, self.v_pages, d_table, d_seq,
+            d_g + 1, self.config, all_logits=True)
+        verified = greedy_token(logits, self._mask_fn)
+        drafts = ids[:, 1:].cpu().numpy()
+        toks = verified.cpu().numpy()            # syncs the device
+        t = rs.now()
+        emitted = accepted = 0
+        for r in rows:
+            i = r.slot
+            m = 0
+            while m < g[i] and int(drafts[i, m]) == int(toks[i, m]):
+                m += 1
+            accepted += m
+            # m matched drafts + the correction (or bonus) token
+            for j in range(m + 1):
+                self.sched.record_token(r, int(toks[i, j]), t)
+                emitted += 1
+                if r.status is Status.DONE:
+                    rs.done.append(r)
+                    break
+        return emitted, int(g.sum()), accepted, rows
+
+    def _stall(self, rs: _RunState) -> None:
+        """The no-progress watchdog tripped: end the run and raise rather
+        than loop forever. (The JAX engine also dumps a flight-recorder
+        black box here; the port's recorder waits for its telemetry.)"""
+        queued = len(self.sched.queue)
+        head = self.sched.queue[0] if queued else None
+        reason = (
+            f"no decode progress for {self.stall_patience} scheduler "
+            f"iterations: {queued} queued, 0 active, "
+            f"{self.pool.free_count}/{self.pool.capacity} pages free")
+        if head is not None:
+            worst = self.pool.pages_for(self.sched._worst_tokens(head))
+            reason += f"; queue head uid={head.uid} needs {worst} pages worst-case"
+        self._run = None   # the stall is terminal for this run
+        raise RuntimeError(f"serving decode stall: {reason}")
 
     # -- API ---------------------------------------------------------------
 
@@ -224,13 +418,16 @@ class ServingEngine:
             },
         }
 
-    def run(self, requests: Sequence[Request], now=time.perf_counter):
+    def run(self, requests: Sequence[Request], now=time.perf_counter,
+            tick_hook=None):
         """Serve ``requests`` to completion; returns (list[RequestOutput] in
-        submit order, metrics dict)."""
+        submit order, metrics dict). ``tick_hook(engine, tick)`` runs at
+        the start of every tick: the seam for mid-run interventions such
+        as ``engine.sched.preempt``."""
         if self._run is not None:
             raise RuntimeError("a serving run is already in progress")
         try:
-            self.start_run(requests, now=now)
+            self.start_run(requests, now=now, tick_hook=tick_hook)
             while not self.sched.all_done():
                 self.tick_once()
             return self.finish_run()
@@ -238,55 +435,114 @@ class ServingEngine:
             self._run = None
 
     def start_run(self, requests: Sequence[Request] = (),
-                  now=time.perf_counter) -> None:
+                  now=time.perf_counter, tick_hook=None) -> None:
         """Begin a steppable run: submit ``requests``. Drive with
         :meth:`tick_once` until ``sched.all_done()``, close with
         :meth:`finish_run`."""
         if self._run is not None:
             raise RuntimeError("a serving run is already in progress")
-        rs = _RunState(now)
+        rs = _RunState(now, tick_hook)
         self._run = rs
         for r in requests:
             self.sched.submit(r, now())
         rs.t0 = now()
 
     def tick_once(self) -> bool:
-        """One scheduler iteration: admit, one chunk per prefilling
-        request, one decode step over the decoding slots, record tokens
-        and evict. Returns True when the tick made progress."""
+        """One scheduler iteration: shed and admit, one chunk per
+        prefilling request, then one decode step (or speculative cycle)
+        over the decoding slots, record tokens and evict. Returns True
+        when the tick made progress (admitted, prefilled, shed or
+        decoded)."""
         rs = self._run
         if rs is None:
             raise RuntimeError("tick_once needs start_run first")
         now = rs.now
+        rs.tick += 1
+        if rs.tick_hook is not None:
+            rs.tick_hook(self, rs.tick)
         admitted = self.sched.admit(now())
-        if self.prefill_chunk is None:
-            prefilling, prefill = admitted, self._prefill_request
+        shed_now = self.sched.drain_shed()
+        rs.done.extend(shed_now)
+        chunked = 0
+        if self._paged_prefill:
+            for req in admitted:
+                self._start_prefill(req, rs)
+            for req in [r for r in self.sched.active()
+                        if r.status is Status.PREFILL]:
+                if req.status is not Status.PREFILL:
+                    continue  # retracted by a neighbour's growth this loop
+                self._prefill_chunk_tick(req, rs)
+                rs.chunks += 1
+                chunked += 1
+                if req.status is Status.DONE:
+                    rs.done.append(req)
+                if req.status is not Status.PREFILL:
+                    rs.prefills += 1
         else:
-            prefilling = [r for r in self.sched.active()
-                          if r.status is Status.PREFILL]
-            prefill = self._prefill_chunk_tick
-        for req in prefilling:
-            prefill(req, now)
-            rs.chunks += 1
-            if req.status is not Status.PREFILL:
+            for req in admitted:
+                self._prefill_request(req, rs)
                 rs.prefills += 1
-            if req.status is Status.DONE:
-                rs.done.append(req)
+                if req.status is Status.DONE:
+                    rs.done.append(req)
         active = [r for r in self.sched.active() if r.status is Status.DECODE]
         if not active:
-            return bool(admitted or prefilling)
-        for req in active:
-            self.sched.ensure_page(req)
-        t_step = now()
-        nxt = self._decode_step(active)
-        t = now()
+            if admitted or chunked or shed_now:
+                rs.stalled = 0
+            else:
+                rs.stalled += 1
+                if rs.stalled >= self.stall_patience:
+                    self._stall(rs)
+            rs.t_last_decode = None
+            return bool(admitted or chunked or shed_now)
+        rs.stalled = 0
+        use_spec = self.speculative is not None and any(
+            r.max_new_tokens - len(r.generated) > 1 for r in active)
+        if use_spec:
+            t_step = now()
+            emitted, drafted, accepted, active = self._spec_cycle(active, rs)
+            rs.spec_cycles += 1
+            rs.spec_tokens += emitted
+            rs.spec_drafted += drafted
+            rs.spec_accepted += accepted
+            t = now()
+        else:
+            for req in active:
+                if req.status is Status.DECODE:
+                    self.sched.ensure_page(req)
+            # lazy growth may have retracted a neighbour
+            active = [r for r in active if r.status is Status.DECODE]
+            t_step = now()
+            nxt = self._decode_step(active)
+            t = now()
+        if rs.t_last_decode is not None:
+            rs.max_gap = max(rs.max_gap, t_step - rs.t_last_decode)
+        rs.t_last_decode = t
         rs.steps += 1
         rs.step_time += t - t_step
-        for req in active:
-            self.sched.record_token(req, int(nxt[req.slot]), t)
-            if req.status is Status.DONE:
-                rs.done.append(req)
+        if not use_spec:
+            for req in active:
+                self.sched.record_token(req, int(nxt[req.slot]), t)
+                if req.status is Status.DONE:
+                    rs.done.append(req)
         return True
+
+    def _output(self, r: Request) -> RequestOutput:
+        e2e = r.t_done - r.t_submit
+        if r.finish_reason == "shed":
+            # never served: the whole life was queue wait, no TTFT
+            return RequestOutput(
+                uid=r.uid, prompt=np.asarray(r.prompt),
+                generated=np.asarray(r.generated, np.int64),
+                finish_reason="shed", queue_latency_s=e2e, ttft_s=None,
+                decode_tokens_per_s=None, e2e_latency_s=e2e, tenant=r.tenant)
+        return RequestOutput(
+            uid=r.uid, prompt=np.asarray(r.prompt),
+            generated=np.asarray(r.generated, np.int64),
+            finish_reason=r.finish_reason,
+            queue_latency_s=r.t_admit - r.t_submit,
+            ttft_s=r.t_first_token - r.t_submit,
+            decode_tokens_per_s=len(r.generated) / max(r.t_done - r.t_admit, 1e-9),
+            e2e_latency_s=e2e, tenant=r.tenant)
 
     def finish_run(self):
         """Close the run: (outputs in uid order, metrics dict)."""
@@ -294,16 +550,8 @@ class ServingEngine:
         if rs is None:
             raise RuntimeError("finish_run needs start_run first")
         wall = max(rs.now() - rs.t0, 1e-9)
-        outputs = [
-            RequestOutput(
-                uid=r.uid, prompt=np.asarray(r.prompt),
-                generated=np.asarray(r.generated, np.int64),
-                finish_reason=r.finish_reason,
-                queue_latency_s=r.t_admit - r.t_submit,
-                ttft_s=r.t_first_token - r.t_submit,
-            )
-            for r in sorted(rs.done, key=lambda r: r.uid)
-        ]
+        outputs = [self._output(r) for r in sorted(rs.done, key=lambda r: r.uid)]
+        served = [o.ttft_s for o in outputs if o.ttft_s is not None]
         generated = sum(len(o.generated) for o in outputs)
         metrics = {
             "wall_time_s": wall,
@@ -312,12 +560,141 @@ class ServingEngine:
             "decode_steps": rs.steps,
             "decode_step_time_s": rs.step_time,
             "prefills": rs.prefills,
-            "mean_ttft_s": (sum(o.ttft_s for o in outputs) / len(outputs)
-                            if outputs else 0.0),
+            "mean_ttft_s": sum(served) / len(served) if served else 0.0,
+            # prompt tokens forwarded through prefill (cache hits subtract)
+            "prefill_tokens": rs.prefill_tokens,
+            "shed_requests": sum(o.finish_reason == "shed" for o in outputs),
         }
-        if self.prefill_chunk is not None:
+        if self._paged_prefill:
             # as the JAX engine: a monolithic prefill is one forward per
             # request, counted in ``prefills``, and reports no chunks
             metrics["prefill_chunks"] = rs.chunks
+            metrics["max_decode_gap_s"] = rs.max_gap
+        if self.prefix_cache is not None:
+            hit, fwd = rs.hit_tokens, rs.prefill_tokens
+            metrics["prefix_cache"] = {
+                "hit_tokens": hit,
+                "prefill_tokens": fwd,
+                "hit_rate": round(hit / (hit + fwd), 4) if hit + fwd else 0.0,
+                "cached_pages": self.prefix_cache.cached_pages,
+                "shared_pages_now": self.pool.shared_count,
+                "cow_copies": rs.cow_copies,
+            }
+        if self.speculative is not None:
+            metrics["speculative"] = {
+                "draft_tokens": rs.spec_drafted,
+                "accepted_tokens": rs.spec_accepted,
+                "acceptance_rate": round(rs.spec_accepted / rs.spec_drafted, 4)
+                if rs.spec_drafted else 0.0,
+                "cycles": rs.spec_cycles,
+                "tokens": rs.spec_tokens,
+            }
         self._run = None
         return outputs, metrics
+
+
+def make_skewed_replay(*, n_requests: int, n_prefixes: int, prefix_len: int,
+                       suffix_lens: Sequence[int], max_new: int,
+                       vocab: int, seed: int = 0, zipf_a: float = 1.2):
+    """Synthetic heavy-traffic replay with SKEWED prompt reuse: each
+    request's prompt is one of ``n_prefixes`` shared prefixes (drawn
+    Zipf-style, rank r with weight 1/r^a) followed by a private random
+    suffix. Returns a list of (prompt ndarray, max_new) pairs; every call
+    with the same seed replays the identical trace (the JAX function's,
+    draw for draw). The JAX function's tenant draws and working-set
+    sizing wait for the fleet API."""
+    rng = np.random.RandomState(seed)
+    prefixes = [rng.randint(1, vocab, (prefix_len,)) for _ in range(n_prefixes)]
+    weights = np.array([1.0 / (r + 1) ** zipf_a for r in range(n_prefixes)])
+    weights /= weights.sum()
+    specs = []
+    for _ in range(n_requests):
+        pfx = prefixes[rng.choice(n_prefixes, p=weights)]
+        sfx = rng.randint(1, vocab, (int(rng.choice(suffix_lens)),))
+        specs.append((np.concatenate([pfx, sfx]), max_new))
+    return specs
+
+
+def prefix_replay_benchmark(params, config, *, n_requests=12, n_prefixes=3,
+                            prefix_len=16, suffix_lens=(2, 4, 6), max_new=6,
+                            seed=0, zipf_a=1.2, num_slots=4, num_pages=64,
+                            page_size=8, max_context=64, prefill_chunk=None,
+                            include_speculative=False, speculative=(1, 3),
+                            arms=None, measure=None, device="cuda"):
+    """One skewed-prompt-reuse replay through (a) the baseline engine
+    (monolithic prefill, no sharing), (b) chunked prefill, (c) the prefix
+    cache, (d) both, and optionally (e) both + self-speculative decoding.
+    Each arm runs twice to warm up (a cold run that seeds the cache, a
+    warm one) and is measured on the third. Per arm: tokens/s, TTFT p50
+    and p99 (the JAX histogram's quantile rule), prefill tokens forwarded,
+    the largest decode-step gap, the hit rate and the acceptance rate;
+    ``summary`` sets the cache arm against the baseline. JSON-able.
+
+    ``arms`` ({label: engine keywords}) replaces (a)-(e), and then the
+    summary is left out unless both "baseline" and "cached" are among
+    them. ``measure(label, engine, run)``, if given, takes each measured
+    run: it calls ``run()`` once and returns its (outputs, metrics), so a
+    caller can read device counters around exactly that run. The JAX
+    version's ``trace``, ``include_quant`` and ``include_tiered`` wait
+    for the port's telemetry and KV tiers."""
+    vocab = getattr(config, "valid_vocab_size", None) or config.vocab_size
+    replay = make_skewed_replay(
+        n_requests=n_requests, n_prefixes=n_prefixes, prefix_len=prefix_len,
+        suffix_lens=suffix_lens, max_new=max_new, vocab=vocab, seed=seed,
+        zipf_a=zipf_a)
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=n) for p, n in replay]
+
+    if arms is None:
+        chunk = prefill_chunk or page_size
+        arms = {
+            "baseline": {},
+            "chunked": {"prefill_chunk": chunk},
+            "cached": {"prefix_cache": True},
+            "cached+chunked": {"prefill_chunk": chunk, "prefix_cache": True},
+        }
+        if include_speculative:
+            arms["cached+spec"] = {"prefill_chunk": chunk, "prefix_cache": True,
+                                   "speculative": tuple(speculative)}
+    results = {}
+    for label, kw in arms.items():
+        engine = ServingEngine(
+            params, config, num_slots=num_slots, num_pages=num_pages,
+            page_size=page_size, max_context=max_context, device=device, **kw)
+        engine.run(requests())
+        engine.run(requests())
+        run = lambda: engine.run(requests())  # noqa: E731
+        outs, metrics = measure(label, engine, run) if measure else run()
+        ttft = [o.ttft_s for o in outs if o.ttft_s is not None]
+        row = {
+            "decode_tokens_per_s": metrics["decode_tokens_per_s"],
+            "ttft_p50_s": _quantile(ttft, 0.5),
+            "ttft_p99_s": _quantile(ttft, 0.99),
+            "decode_steps": metrics["decode_steps"],
+            "wall_time_s": metrics["wall_time_s"],
+            "prefill_tokens": metrics["prefill_tokens"],
+        }
+        if "max_decode_gap_s" in metrics:
+            row["max_decode_gap_s"] = metrics["max_decode_gap_s"]
+        if "prefix_cache" in metrics:
+            row["hit_rate"] = metrics["prefix_cache"]["hit_rate"]
+        if "speculative" in metrics:
+            row["spec_acceptance_rate"] = metrics["speculative"]["acceptance_rate"]
+        results[label] = row
+    if "baseline" not in results or "cached" not in results:
+        return results
+    base, cached = results["baseline"], results["cached"]
+    results["summary"] = {
+        "requests": n_requests,
+        "shared_prefix_len": prefix_len,
+        "hit_rate": cached.get("hit_rate", 0.0),
+        "prefill_token_reduction": round(
+            1.0 - cached["prefill_tokens"] / max(base["prefill_tokens"], 1), 4),
+        "ttft_p99_speedup": round(
+            base["ttft_p99_s"] / max(cached["ttft_p99_s"], 1e-9), 3),
+        "tokens_per_s_speedup": round(
+            cached["decode_tokens_per_s"]
+            / max(base["decode_tokens_per_s"], 1e-9), 3),
+    }
+    return results

@@ -8,12 +8,18 @@ page table:
 - :class:`PagePool`, the host-side allocator: a LIFO free list, so
   placement is a pure function of the request/evict order; page 0 is
   the NULL page that absorbs writes from padded slots and pad positions.
+  Pages are refcounted (alloc / share / release), so the prefix cache
+  (``serving/prefix_cache.py``) can point many requests at one page;
+  :func:`copy_page` is the copy-on-write step for a shared page whose
+  tail a new owner must write.
 - :func:`paged_prefill_chunk` forwards a C-token chunk per row through
-  the page tables; :func:`paged_decode_step` forwards one pending token
-  per slot; :func:`write_prompt_pages` scatters a monolithic prefill's
-  contiguous cache (``models.generate.forward_cached``) into the pages. Both read attention through ``ops.paged_attention``, whose
-  keys keep logical positions ``w*ps + o`` whatever physical page holds
-  them.
+  the page tables (chunked prefill, and with ``all_logits=True`` the
+  speculative verification); :func:`paged_decode_step` forwards one
+  pending token per slot (with ``draft_layers`` the speculative draft);
+  :func:`write_prompt_pages` scatters a monolithic prefill's contiguous
+  cache (``models.generate.forward_cached``) into the pages. The two
+  forwards read attention through ``ops.paged_attention``, whose keys
+  keep logical positions ``w*ps + o`` whatever physical page holds them.
 
 JAX donates the pools to its jitted steps; here the pools are updated IN
 PLACE (``index_put_``), so the forward passes return only the logits.
@@ -83,9 +89,15 @@ class PagePool:
 
     Page 0 is the NULL page, never handed out. The free list is a LIFO
     stack, so the physical placement of any workload is a pure function
-    of the submit/evict order. ``history`` keeps the most recent
-    (event, pages, refcount-delta) triples, bounded so a long-lived
-    engine never grows host memory per request."""
+    of the submit/evict order. ``alloc`` hands out pages at refcount 1,
+    ``share`` adds a reader, ``release`` drops one; a page returns to the
+    free list when its last reference goes (``free`` is an alias of
+    ``release``). The scheduler never lets a write land in a page with
+    refcount > 1: copy-on-write duplicates it first.
+
+    ``history`` keeps the most recent ``HISTORY_LIMIT`` (event, pages,
+    refcount-delta) triples, in the JAX pool's order; ``history_dropped``
+    counts the events the bounded ring has let go."""
 
     def __init__(self, num_pages: int, page_size: int):
         if num_pages < 2:
@@ -98,6 +110,7 @@ class PagePool:
         self._ref: Dict[int, int] = {}   # page -> refcount (allocated only)
         self.history: Deque[Tuple[str, Tuple[int, ...], int]] = deque(
             maxlen=HISTORY_LIMIT)
+        self.history_dropped = 0
 
     @property
     def free_count(self) -> int:
@@ -112,8 +125,35 @@ class PagePool:
         """Allocatable pages (the null page is not allocatable)."""
         return self.num_pages - 1
 
+    @property
+    def shared_count(self) -> int:
+        """Pages currently referenced more than once."""
+        return sum(1 for c in self._ref.values() if c > 1)
+
+    def refcount(self, page: int) -> int:
+        return self._ref.get(page, 0)
+
     def pages_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
+
+    def fragmentation(self) -> float:
+        """1 - (largest contiguous free run / free pages): 0.0 when the
+        free space is one run, or empty. The page table makes it harmless
+        for correctness; a rising value under sharing means mid-stream
+        releases dice the LIFO stack."""
+        if not self._free:
+            return 0.0
+        runs, best = 1, 1
+        ordered = sorted(self._free)
+        for a, b in zip(ordered, ordered[1:]):
+            runs = runs + 1 if b == a + 1 else 1
+            best = max(best, runs)
+        return 1.0 - best / len(self._free)
+
+    def _record(self, event: str, pages: Tuple[int, ...], delta: int) -> None:
+        if len(self.history) == self.history.maxlen:
+            self.history_dropped += 1
+        self.history.append((event, pages, delta))
 
     def alloc(self, n: int) -> List[int]:
         if n > len(self._free):
@@ -126,8 +166,18 @@ class PagePool:
                 raise RuntimeError(f"allocator invariant broken: page {p} "
                                    f"double-allocated or null")
             self._ref[p] = 1
-        self.history.append(("alloc", tuple(pages), +1))
+        self._record("alloc", tuple(pages), +1)
         return pages
+
+    def share(self, pages: List[int]) -> None:
+        """Add one reference to each allocated page: a new reader (a
+        prefix-cache hit, or the cache itself)."""
+        for p in pages:
+            if p not in self._ref:
+                raise RuntimeError(f"sharing page {p} that is not allocated")
+        for p in pages:
+            self._ref[p] += 1
+        self._record("share", tuple(pages), +1)
 
     def release(self, pages: List[int]) -> None:
         """Drop one reference per page; pages reaching refcount 0 return
@@ -140,7 +190,9 @@ class PagePool:
             if self._ref[p] == 0:
                 del self._ref[p]
                 self._free.append(p)
-        self.history.append(("release", tuple(pages), -1))
+        self._record("release", tuple(pages), -1)
+
+    free = release
 
 
 def init_pages(config, num_pages: int, page_size: int,
@@ -269,8 +321,22 @@ def _embed(params, tokens, config):
 
 
 @torch.no_grad()
+def copy_page(k_pages, v_pages, src: int, dst: int) -> None:
+    """Copy-on-write: duplicate physical page ``src`` into ``dst`` across
+    every layer's k and v planes, in place, one device copy per plane (an
+    int8 bank copies its scale plane with the page, so the copy holds the
+    values the readers of ``src`` dequantize). The prefix cache asks for
+    it when a request's unique tail starts inside a shared page."""
+    for bank in (k_pages, v_pages):
+        planes = bank.values() if _is_quantized(bank) else (bank,)
+        for plane in planes:
+            plane[:, dst].copy_(plane[:, src])
+
+
+@torch.no_grad()
 def paged_decode_step(params, tokens, k_pages, v_pages, page_table, seq_lens,
-                      config) -> torch.Tensor:
+                      config, write_ok=None,
+                      draft_layers: Optional[int] = None) -> torch.Tensor:
     """One decode step for every slot of the ragged active batch.
 
     ``tokens`` (B,) are the pending tokens, ``seq_lens`` (B,) int32 the
@@ -278,14 +344,29 @@ def paged_decode_step(params, tokens, k_pages, v_pages, page_table, seq_lens,
     Each slot's k/v is written through its ``page_table`` (B, W) row at
     page ``seq_len // ps``, offset ``seq_len % ps``. Padded slots point
     every table entry at the NULL page. Updates the pools in place and
-    returns the logits (B, V) in float32."""
+    returns the logits (B, V) in float32.
+
+    Self-speculative drafting: ``write_ok`` (B,) bool sends a row's k/v
+    write to the NULL page, offset 0, where False; ``draft_layers=k``
+    runs only the first k blocks over the first k layer banks, then the
+    final LN and the tied head (the shallow-exit draft that shares every
+    weight with the verifier)."""
     ps = page_size_of(k_pages)
     x = _embed(params, tokens[:, None], config)
     seq = seq_lens.long()[:, None]                    # (B, 1): one write per row
-    phys = torch.gather(page_table.long(), 1, seq // ps)
-    off = seq % ps
+    idx, off = seq // ps, seq % ps
+    if write_ok is not None:
+        # a row held back may sit past its table: look up entry 0 instead
+        ok = write_ok.bool()[:, None]
+        idx, off = torch.where(ok, idx, 0), torch.where(ok, off, 0)
+    phys = torch.gather(page_table.long(), 1, idx)
+    if write_ok is not None:
+        phys = torch.where(ok, phys, NULL_PAGE)
     slopes = _local_slopes(config, x.device)
-    for i, blk in enumerate(params["blocks"]):
+    blocks = params["blocks"]
+    if draft_layers is not None:
+        blocks = blocks[:draft_layers]
+    for i, blk in enumerate(blocks):
         x = _block(blk, x, layer_bank(k_pages, i), layer_bank(v_pages, i),
                    phys, off, page_table, seq_lens, slopes, None, config)
     x = layer_norm(params["ln_f"], x, config.layer_norm_epsilon)
@@ -294,17 +375,20 @@ def paged_decode_step(params, tokens, k_pages, v_pages, page_table, seq_lens,
 
 @torch.no_grad()
 def paged_prefill_chunk(params, tokens, k_pages, v_pages, page_table, start,
-                        n_valid, config) -> torch.Tensor:
+                        n_valid, config, all_logits: bool = False) -> torch.Tensor:
     """Forward one CHUNK of C tokens per row straight through the pool.
 
     ``tokens`` (B, C) are each row's next prompt tokens, ``start`` (B,)
-    int32 the logical position of the row's first chunk token, ``n_valid``
-    (B,) how many of the C are real. Valid tokens' k/v are written through
-    the row's page table; pad tails write to the NULL page and get zero
-    context. Attention is causal over the global position, with the same
-    ALiBi bias as the decode step, so chunk boundaries are invisible in
-    the math. Updates the pools in place and returns float32 logits at
-    each row's last valid position, (B, V)."""
+    int32 the logical position of the row's first chunk token (tokens
+    already cached, written by earlier chunks or shared from the prefix
+    cache), ``n_valid`` (B,) how many of the C are real. Valid tokens'
+    k/v are written through the row's page table; pad tails write to the
+    NULL page and get zero context. Attention is causal over the global
+    position, with the same ALiBi bias as the decode step, so chunk
+    boundaries are invisible in the math. Updates the pools in place and
+    returns float32 logits at each row's last valid position, (B, V), or
+    with ``all_logits=True`` at every chunk position, (B, C, V): the
+    speculative verification scores a whole draft bundle in one pass."""
     b, c = tokens.shape
     ps = page_size_of(k_pages)
     x = _embed(params, tokens, config)
@@ -320,5 +404,7 @@ def paged_prefill_chunk(params, tokens, k_pages, v_pages, page_table, start,
         x = _block(blk, x, layer_bank(k_pages, i), layer_bank(v_pages, i),
                    dest_page, dest_off, page_table, start, slopes, valid, config)
     x = layer_norm(params["ln_f"], x, config.layer_norm_epsilon)
+    if all_logits:
+        return logits_fn(params, x)
     last = (n_valid.long() - 1)[:, None, None].expand(b, 1, x.shape[-1])
     return logits_fn(params, torch.gather(x, 1, last))[:, 0]

@@ -1,8 +1,8 @@
 """Continuous-batching scheduler: request lifecycle + slot/page admission.
 
-The counterpart of ``pipegoose_tpu/serving/scheduler.py``, for chunked
-prefill without a prefix cache. The request lifecycle is QUEUED ->
-PREFILL -> DECODE -> DONE, over a fixed number of decode SLOTS:
+The counterpart of ``pipegoose_tpu/serving/scheduler.py``. The request
+lifecycle is QUEUED -> PREFILL -> DECODE -> DONE, over a fixed number of
+decode SLOTS:
 
 - **admission** pops the FIFO queue into free slots whenever the page
   pool can cover the candidate's WORST-CASE footprint
@@ -11,20 +11,34 @@ PREFILL -> DECODE -> DONE, over a fixed number of decode SLOTS:
   the first prefill chunk's pages at admission, later chunks' and decode
   pages as the write position crosses a page boundary, so short-finishing
   requests never hold their worst case, while the reservation arithmetic
-  guarantees a lazy ``alloc`` can never fail mid-flight. FIFO
-  head-of-line blocking keeps the schedule deterministic.
+  guarantees a lazy ``alloc`` never fails mid-flight. FIFO head-of-line
+  blocking keeps the schedule deterministic. Queued requests past their
+  ``deadline_s`` are SHED at admission.
+- **prefix caching** (``prefix_cache=PrefixCache(pool)``): the longest
+  cached prefix of the prompt is SHARED (a refcount, no alloc, no
+  prefill) and only the unique tail is prefilled, after a copy-on-write
+  of a partly matched page. The ledger then counts ``free + evictable``
+  as capacity and debits the pages a hit pins, and ``_alloc`` evicts
+  least-recently-used cache pages on demand; where that cannot cover a
+  reservation, it retracts the newest other request.
 - **eviction** frees a finished request's pages and reservation the step
-  its last token is emitted, so the next ``admit`` can reuse both.
+  its last token is emitted (shared pages drop a reference). ``preempt``
+  is the mid-flight variant: every page goes back and the request
+  re-queues ahead of fresh arrivals, to re-prefill ``prompt +
+  generated[:-1]`` and resume decoding token for token.
 
-Prefix caching, deadline shedding, preemption and disaggregated
-transfers wait for later slices of the port (ROADMAP.md queue A).
+``continuous=False`` admits a batch only into an empty slot set and
+drains it fully before the next: the naive padded baseline of an A/B.
+The disaggregated transfers, ``withdraw`` and ``capacity_snapshot`` wait
+for the port's fleet layer, the tracer hooks for its telemetry
+(ROADMAP.md queue A, items 12 and 13).
 """
 from __future__ import annotations
 
 import enum
 from collections import deque
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -41,13 +55,15 @@ class Status(enum.Enum):
 @dataclass
 class Request:
     """One generation request. Engine/scheduler fill the lifecycle
-    fields; callers provide the first three."""
+    fields; callers provide the first three, and optionally a deadline
+    (seconds from submit after which a still-queued request is shed) and
+    a tenant name."""
 
     prompt: np.ndarray                 # (S,) token ids
     max_new_tokens: int
     eos_token_id: Optional[int] = None
-    # deadline shedding is not ported yet: a deadline is refused at submit
     deadline_s: Optional[float] = None
+    tenant: Optional[str] = None
 
     uid: Optional[int] = None
     status: Status = Status.QUEUED
@@ -56,11 +72,17 @@ class Request:
     pages: List[int] = field(default_factory=list)
     outstanding: int = 0               # worst-case pages not yet allocated
     prefilled_len: int = 0             # tokens whose KV is in pages + forwarded
+    hit_tokens: int = 0                # of those, tokens served by the cache
+    cow: Optional[Tuple[int, int]] = None  # (src page, valid tokens) pending copy
     finish_reason: Optional[str] = None
+    # t_submit, t_admit and t_first_token mark the FIRST submission,
+    # admission and token and survive preempt -> re-admit, so queue
+    # latency and TTFT measure what the user waited
     t_submit: Optional[float] = None
     t_admit: Optional[float] = None
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
+    ttft_observed: bool = False
 
     @property
     def prompt_len(self) -> int:
@@ -75,7 +97,9 @@ class Request:
 
     @property
     def target_len(self) -> int:
-        """Tokens prefill must put in the pages before decoding starts."""
+        """Tokens a (re-)prefill must put in the pages before decoding can
+        resume: the prompt, and after a preemption every generated token
+        but the pending last one."""
         return self.cached_len
 
     @property
@@ -86,28 +110,32 @@ class Request:
 
 
 class Scheduler:
+    """``retractions`` counts the requests that ``_alloc`` preempted to
+    keep a reservation."""
+
     def __init__(self, num_slots: int, pool: PagePool, max_context: int,
-                 chunk_tokens: Optional[int] = None, prefix_cache=None):
-        if prefix_cache is not None:
-            raise NotImplementedError(
-                "prefix caching is not ported yet (ROADMAP.md queue A, "
-                "prefix cache and COW)")
+                 continuous: bool = True, prefix_cache=None,
+                 chunk_tokens: Optional[int] = None):
         if num_slots < 1:
             raise ValueError("need at least one decode slot")
         if chunk_tokens is not None and (
                 chunk_tokens < pool.page_size or chunk_tokens % pool.page_size):
             raise ValueError(
                 f"chunk_tokens={chunk_tokens} must be a positive multiple "
-                f"of page_size={pool.page_size} (chunks end on page "
-                f"boundaries so every chunk's pages exist before it runs)")
+                f"of page_size={pool.page_size} (a chunk that starts on a "
+                f"page boundary ends on one)")
         self.num_slots = num_slots
         self.pool = pool
         self.max_context = max_context
+        self.continuous = continuous
+        self.cache = prefix_cache
         self.chunk_tokens = chunk_tokens
         self.slots: List[Optional[Request]] = [None] * num_slots
         self.queue: deque = deque()
+        self.shed: List[Request] = []   # shed since the last drain_shed()
         self._outstanding_total = 0
         self._next_uid = 0
+        self.retractions = 0
 
     def _worst_tokens(self, req: Request) -> int:
         return req.prompt_len + req.max_new_tokens
@@ -120,9 +148,8 @@ class Scheduler:
             raise ValueError("empty prompt")
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        if req.deadline_s is not None:
-            raise NotImplementedError(
-                "deadline shedding is not ported yet (ROADMAP.md queue A)")
+        if req.deadline_s is not None and req.deadline_s < 0:
+            raise ValueError(f"deadline_s must be >= 0, got {req.deadline_s}")
         if self._worst_tokens(req) > self.max_context:
             raise ValueError(
                 f"request needs {self._worst_tokens(req)} "
@@ -138,44 +165,157 @@ class Scheduler:
         req.status = Status.QUEUED
         self.queue.append(req)
 
+    def _shed_expired(self, now: float) -> None:
+        """Drop QUEUED requests already past their deadline into
+        ``self.shed`` (terminal, finish_reason="shed"). Only requests never
+        admitted shed: an admitted one, preempted back into the queue
+        included (``t_admit`` set), has paid its prefill and runs on."""
+        if not any(r.deadline_s is not None for r in self.queue):
+            return
+        kept: deque = deque()
+        for req in self.queue:
+            if (req.deadline_s is not None and req.t_admit is None
+                    and req.t_submit is not None
+                    and now - req.t_submit > req.deadline_s):
+                req.status = Status.DONE
+                req.finish_reason = "shed"
+                req.t_done = now
+                self.shed.append(req)
+            else:
+                kept.append(req)
+        self.queue = kept
+
+    def drain_shed(self) -> List[Request]:
+        """Requests shed since the last drain."""
+        out, self.shed = self.shed, []
+        return out
+
+    def _admission_check(self, req: Request):
+        """The admission ledger, changing nothing: can free pages, plus
+        evictable cache pages, minus the pages a hit would pin, cover
+        ``req``'s worst case beyond every outstanding reservation?
+        Returns ``(fits, hit)``; :meth:`admit` and :meth:`can_admit` both
+        read it."""
+        target = req.target_len
+        worst = self.pool.pages_for(self._worst_tokens(req))
+        hit = None
+        shared: List[int] = []
+        evictable = pinned = 0
+        if self.cache is not None and (
+                self.pool.free_count + self.cache.cached_pages
+                - self._outstanding_total
+                < worst - (target - 1) // self.pool.page_size):
+            # cannot fit even if every cached page were evictable and the
+            # hit the longest possible: skip the trie walk and scan
+            return False, None
+        if self.cache is not None:
+            # >= 1 token must be forwarded: its logits give the next token
+            hit = self.cache.lookup(req.tokens[:target], max_tokens=target - 1)
+            shared = hit.pages
+            pins = shared + ([hit.cow_page] if hit.cow_page is not None else [])
+            pinned = sum(1 for p in pins if self.pool.refcount(p) == 1)
+            evictable = self.cache.evictable_count()
+        need_new = worst - len(shared)
+        if (self.pool.free_count + evictable - pinned
+                - self._outstanding_total < need_new):
+            return False, hit
+        return True, hit
+
+    def can_admit(self, req: Request) -> bool:
+        """Would :meth:`admit` admit ``req`` now from the queue's head?
+        Reserves, pins and touches nothing."""
+        if not any(s is None for s in self.slots):
+            return False
+        if not self.continuous and any(s is not None for s in self.slots):
+            return False
+        return self._admission_check(req)[0]
+
     def admit(self, now: float) -> List[Request]:
-        """Move queued requests into free slots while the pool can cover
-        their worst case beyond all outstanding reservations. Returns the
-        newly admitted requests (they still need their prefill)."""
+        """Shed expired queued requests, then move queued requests into
+        free slots while the ledger covers their worst case. A cache hit
+        shares its pages and shortens the prefill. Returns the newly
+        admitted requests (they still need a prefill of their tail)."""
+        self._shed_expired(now)
         admitted: List[Request] = []
+        if not self.continuous and any(s is not None for s in self.slots):
+            return admitted  # padded batching: drain before refill
         while self.queue:
             free_slots = [i for i, s in enumerate(self.slots) if s is None]
             if not free_slots:
                 break
             req = self.queue[0]
+            target = req.target_len
             worst = self.pool.pages_for(self._worst_tokens(req))
-            if self.pool.free_count - self._outstanding_total < worst:
+            fits, hit = self._admission_check(req)
+            if not fits:
                 break  # FIFO head-of-line: deterministic admission order
+            shared: List[int] = hit.pages if hit is not None else []
+            need_new = worst - len(shared)
             self.queue.popleft()
             req.slot = free_slots[0]
             self.slots[req.slot] = req
             req.status = Status.PREFILL
             if req.t_admit is None:
                 req.t_admit = now
-            req.prefilled_len = 0
-            target = req.target_len
+            req.cow = None
+            req.pages = []
+            req.prefilled_len = req.hit_tokens = 0
+            if hit is not None:
+                self.cache.acquire(hit)       # pins shared + COW source
+                req.pages = list(shared)
+                req.prefilled_len = hit.tokens
+                req.hit_tokens = hit.total_tokens
+                if hit.cow_page is not None:
+                    req.cow = (hit.cow_page, hit.cow_tokens)
+            cow_tokens = req.cow[1] if req.cow else 0
+            # after a COW the first chunk ends cow_tokens past a boundary
             chunk_end = target if self.chunk_tokens is None else min(
-                self.chunk_tokens, target)
-            n_now = self.pool.pages_for(chunk_end)
-            req.pages = self.pool.alloc(n_now)
-            req.outstanding = worst - n_now
+                req.prefilled_len + cow_tokens + self.chunk_tokens, target)
+            n_now = self.pool.pages_for(chunk_end) - len(req.pages)
+            req.pages += self._alloc(n_now)
+            req.outstanding = need_new - n_now
             self._outstanding_total += req.outstanding
             admitted.append(req)
         return admitted
 
+    def preempt(self, req: Request) -> None:
+        """Give back every page of a live request (cache-shared ones stay
+        in the cache for the re-admission to hit) and re-queue it ahead of
+        never-admitted arrivals, in original submit order among preempted
+        peers. Generated tokens are kept; re-admission re-prefills
+        ``prompt + generated[:-1]`` and decode resumes."""
+        if req.status not in (Status.PREFILL, Status.DECODE):
+            raise ValueError(f"cannot preempt a {req.status.value} request")
+        self._release_all(req)
+        self._outstanding_total -= req.outstanding
+        req.outstanding = 0
+        self.slots[req.slot] = None
+        req.slot = None
+        req.prefilled_len = req.hit_tokens = 0
+        req.status = Status.QUEUED
+        pos = 0
+        while (pos < len(self.queue)
+               and self.queue[pos].t_admit is not None
+               and self.queue[pos].uid < req.uid):
+            pos += 1
+        self.queue.insert(pos, req)
+
     def ensure_pages(self, req: Request, n_tokens: int) -> None:
         """Lazy growth to cover ``n_tokens`` cached positions (decode: one
-        past the pending write; chunked prefill: the chunk's end). Cannot
-        fail: admission reserved the worst case."""
+        past the pending write; chunked prefill: the chunk's end;
+        speculation: the bundle's end). Cannot fail: admission reserved
+        the worst case against free + evictable pages, and the one hole
+        in that ledger (a later ``insert`` hanging a live request's child
+        under a node an earlier admission counted as evictable) is closed
+        by retraction: ``_alloc(owner=req)`` preempts the newest other
+        active request. Callers iterating a batch must re-check each
+        request's status after a neighbour's growth."""
         if req.status not in (Status.PREFILL, Status.DECODE):
-            raise RuntimeError(f"ensure_pages on a {req.status.value} request")
+            raise RuntimeError(
+                f"ensure_pages on a {req.status.value} request "
+                f"(retracted mid-batch by a neighbour's lazy growth?)")
         while len(req.pages) * self.pool.page_size < n_tokens:
-            req.pages += self.pool.alloc(1)
+            req.pages += self._alloc(1, owner=req)
             req.outstanding -= 1
             self._outstanding_total -= 1
 
@@ -193,13 +333,40 @@ class Scheduler:
         elif len(req.generated) >= req.max_new_tokens:
             self._finish(req, "length", now)
 
+    def _alloc(self, n: int, owner: Optional[Request] = None) -> List[int]:
+        """Pool alloc that treats LRU-evictable cache pages as free. With
+        ``owner`` (the must-not-fail growth path) a shortfall eviction
+        cannot cover retracts the newest other active requests until it
+        can. Admission passes no owner: its check and alloc are atomic."""
+        if n <= 0:
+            return []
+        if self.cache is not None and self.pool.free_count < n:
+            self.cache.evict(n - self.pool.free_count)
+            if self.pool.free_count < n and owner is not None:
+                for victim in sorted(
+                        (r for r in self.slots
+                         if r is not None and r is not owner),
+                        key=lambda r: r.uid, reverse=True):
+                    self.preempt(victim)
+                    self.retractions += 1
+                    self.cache.evict(n - self.pool.free_count)
+                    if self.pool.free_count >= n:
+                        break
+        return self.pool.alloc(n)
+
+    def _release_all(self, req: Request) -> None:
+        if req.cow is not None:          # COW never ran: drop its pin
+            self.pool.release([req.cow[0]])
+            req.cow = None
+        if req.pages:
+            self.pool.release(req.pages)
+            req.pages = []
+
     def _finish(self, req: Request, reason: str, now: float) -> None:
         req.status = Status.DONE
         req.finish_reason = reason
         req.t_done = now
-        if req.pages:
-            self.pool.release(req.pages)
-            req.pages = []
+        self._release_all(req)
         self._outstanding_total -= req.outstanding
         req.outstanding = 0
         self.slots[req.slot] = None

@@ -18,7 +18,7 @@ from pipegoose_tpu.serving import Request as JRequest
 from pipegoose_tpu.serving import ServingEngine as JServingEngine
 from pipegoose_tpu_torch.models import bloom as tbloom
 from pipegoose_tpu_torch.models.weights import params_from_jax
-from pipegoose_tpu_torch.serving import Request, Scheduler, ServingEngine
+from pipegoose_tpu_torch.serving import PrefixCache, Request, Scheduler, ServingEngine
 from pipegoose_tpu_torch.serving.kv_pool import PagePool
 
 JCFG = jbloom.BloomConfig(vocab_size=64, hidden_size=64, n_layer=2, n_head=4)
@@ -123,8 +123,12 @@ def test_request_probes_raise(setup):
     eng = ServingEngine(tparams, TCFG, device="cpu", **ENGINE)
     with pytest.raises(ValueError, match="sized for"):
         eng.run([Request(prompt=np.ones(60, np.int64), max_new_tokens=8)])
-    with pytest.raises(NotImplementedError, match="deadline"):
-        eng.run([Request(prompt=np.ones(4, np.int64), max_new_tokens=2,
-                         deadline_s=1.0)])
-    with pytest.raises(NotImplementedError, match="prefix caching"):
-        Scheduler(2, PagePool(8, 4), 32, chunk_tokens=8, prefix_cache=object())
+    # a request already past its deadline when admission runs is shed
+    clock = iter([0.0, 0.0] + [5.0] * 50)
+    outs, metrics = eng.run([Request(prompt=np.ones(4, np.int64), max_new_tokens=2,
+                                     deadline_s=1.0)], now=lambda: next(clock))
+    assert outs[0].finish_reason == "shed" and outs[0].ttft_s is None
+    assert metrics["shed_requests"] == 1 and eng.pool.used_count == 0
+    pool = PagePool(8, 4)
+    sched = Scheduler(2, pool, 32, chunk_tokens=8, prefix_cache=PrefixCache(pool))
+    assert sched.cache.pool is pool

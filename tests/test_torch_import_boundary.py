@@ -34,6 +34,7 @@ def test_port_imports_without_jax_or_a_card():
     code = (
         "import sys\n"
         "import pipegoose_tpu_torch.serving, pipegoose_tpu_torch.ops.paged_attention\n"
+        "import pipegoose_tpu_torch.serving.prefix_cache\n"
         "import pipegoose_tpu_torch.ops.fused_ce\n"
         "import pipegoose_tpu_torch.models.weights\n"
         "import pipegoose_tpu_torch.distributed, pipegoose_tpu_torch.nn.sequence_parallel\n"

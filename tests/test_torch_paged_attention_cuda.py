@@ -129,3 +129,57 @@ def test_kernel_rejects_what_it_cannot_take():
         pa.paged_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v,
                            table, start, slopes=slopes)
     assert pa.paged_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("n", [1, 3, 7])
+def test_speculative_verification_shape(pool, n):
+    """The serving engine's verification call: B = 8 slots of C = n + 1
+    bf16 queries from per-row starts (on page boundaries, inside pages,
+    at 0 and on the table's last key), on the FMA route below
+    MMA_MIN_QUERIES queries, counted under its query count."""
+    c = n + 1
+    starts = [0, 5, 16, 31, 47 - c, 60, 100, PS * 8 - c]
+    args, slopes = _case(c, pool, _card(), rows=8, width=8, starts=starts,
+                         qdtype=torch.bfloat16)
+    pages = args[1]["q"] if pool == "int8" else args[1]
+    assert pa.paged_plan(8, c, NH, HD, PS, 8, torch.bfloat16, pages.dtype)["route"] == "fma"
+    before = pa.paged_attention.routes["fma"], pa.paged_attention.queries.get(c, 0)
+    _check(args, slopes, pool)
+    assert (pa.paged_attention.routes["fma"],
+            pa.paged_attention.queries[c]) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+def test_copy_page_on_card_matches_cpu_bit_for_bit(pool):
+    """Copy-on-write on the card: a chain of page copies (a copy of a copy,
+    a page onto itself) over every layer's k and v planes, int8 scale
+    planes included, equals the same chain on the CPU bit for bit."""
+    from pipegoose_tpu_torch.serving.kv_pool import copy_page
+
+    dev = _card()
+    g = torch.Generator().manual_seed(5)
+    shape = (3, 9, PS, NH, HD)
+    banks = []
+    for _ in range(2):
+        x = torch.randn(shape, generator=g)
+        if pool == "int8":
+            qq, s = quantize_kv(x)
+            banks.append({"q": qq, "scale": s})
+        else:
+            banks.append(x.to(torch.bfloat16) if pool == "bf16" else x)
+    to = lambda b: ({n: t.to(dev) for n, t in b.items()} if isinstance(b, dict)  # noqa: E731
+                    else b.to(dev))
+    cpu = [({n: t.clone() for n, t in b.items()} if isinstance(b, dict) else b.clone())
+           for b in banks]
+    card = [to(b) for b in banks]
+    for src, dst in [(3, 7), (7, 1), (5, 3), (2, 2)]:
+        copy_page(*cpu, src, dst)
+        copy_page(*card, src, dst)
+    torch.cuda.synchronize()
+    for c, d in zip(cpu, card):
+        for name in (("q", "scale") if pool == "int8" else (None,)):
+            a, b = (c, d) if name is None else (c[name], d[name])
+            assert torch.equal(a, b.cpu())
