@@ -10,7 +10,7 @@
         # B8/B9's outputs bit for bit), and phase 22 times four training
         # steps with its kernels in turns
 
-Three main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
+Four main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
 24 layers, 16 heads) with random weights made from seed 0:
 
 - serving: ``pipegoose_tpu_torch.serving.ServingEngine`` with chunked
@@ -29,7 +29,14 @@ Three main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
 - sequence-parallel training: ``pipegoose_tpu_torch.trainer.sp_train_step``
   over a ``ParallelContext`` (one rank over NCCL, sp = 1: the driver's
   machine has one card), its attention the ring of ``ring_flash_attention``
-  through the hand-written CUDA ring-chunk forward, dQ and dK/dV kernels.
+  through the hand-written CUDA ring-chunk forward, dQ and dK/dV kernels;
+- hybrid tensor x data parallel training with ZeRO-1:
+  ``pipegoose_tpu_torch.parallel.make_hybrid_train_step`` over a
+  ``ParallelContext`` with the "tensor" and "data" axes named (one rank:
+  tp = dp = 1 on one card), the loss tensor-parallel through the flash and
+  fused cross-entropy kernels, the optimizer ``DistributedOptimizer``;
+  every kernel a tp = 2 or 4 rank launches is also checked at its shard
+  shape against the whole.
 
 Phases, each fatal on failure:
 
@@ -189,7 +196,35 @@ Phases, each fatal on failure:
      tokens a cycle, launches by route and by query count (checked as in
      23); then the paged kernel at the verification's shape (B = 8, C =
      4, bf16 pages, FMA route) against its plain version, and its time
-     beside its bound, the plain version's and SDPA's.
+     beside its bound, the plain version's and SDPA's;
+ 25  what each tensor-parallel rank launches, for tp in {2, 4}, bf16 and
+     float32: B1-B3 on every rank's 16/tp heads (B = 8, S = 1024, hd = 64)
+     with its slice of the ALiBi slopes against the same heads of the
+     16-head launch; B4-B6 on every (V/tp, H) vocab shard at offset r V/tp
+     (T = 8184, H = 1024), the shards' (lse, target logit) combined with
+     ``ops.fused_ce.combine_shards`` and dh summed, against the
+     whole-vocabulary launch, also with a padded vocabulary whose last
+     shard at tp = 4 holds slots >= valid_size; every launch on its
+     dtype's route (as phases 6 and 10). Then each kernel at rank tp-1's
+     shard shape against its plain version and timed beside its bound,
+     its plain version's time and SDPA's or the composite's (their rows'
+     ``launches`` are 0: the one-card main path runs tp = 1);
+ 26  the hybrid step over a one-rank NCCL context with the "tensor" and
+     "data" axes named: (a) float32, full width at 2 layers, 3 steps of
+     ``make_hybrid_train_step`` (loss_fn with tp_axis="tensor",
+     tp_specs, DistributedOptimizer over "data") against 3 ``train_step``s
+     on the card, full logits and fused CE, and with n_accum = 2 against
+     the whole batch (phase 7's loss tolerances; each leaf within
+     HYBRID_PARAM_REL of train_step's move and moved by more than lr; the
+     same launches); (b) bf16
+     bloom-560m, 24 layers, 8 x 1024, remat + flash + fused CE, timed
+     exactly as phase 12's "flash+fusedce": step ms, tokens/s, peak, the
+     ZeRO state's bytes, and the launches, which must equal phase 12's;
+ 27  sampled ``generate()``: bf16 bloom-560m with its vocabulary padded for
+     tp = 3 at temperature 0.7, the same generator seed giving the same
+     tokens twice and no token in the padded slots; then the pick alone,
+     200 000 draws of one float32 row of 8 logits on the card against
+     softmax(logits / T) by a chi-square test, p > 1e-3.
 
 Every phase's seconds are logged as "seconds: <phase> <s>".
 
@@ -954,7 +989,7 @@ def flash_err(got, want, rtol):
     return err, FLASH_ATOL + rtol * want.float().abs().max().item()
 
 
-def check_flash(label, case, causal=True, window=None) -> dict:
+def check_flash(label, case, causal=True, window=None, phase="phase 6") -> dict:
     """Each flash kernel once against its plain version on one case;
     every launch counter must move by exactly one. Returns each kernel's
     max abs error."""
@@ -990,7 +1025,7 @@ def check_flash(label, case, causal=True, window=None) -> dict:
         "dv": flash_err(dv, ref_dv, FLASH_RTOL[dtype]),
     }
     bad = [n for n, (err, tol) in checks.items() if err > tol]
-    log(f"phase 6: {label} (all three on the {route} route): " + ", ".join(
+    log(f"{phase}: {label} (all three on the {route} route): " + ", ".join(
         f"{n} {err:.3g} (tol {tol:.3g})" for n, (err, tol) in checks.items())
         + (f" FAIL {bad}" if bad else " ok"))
     if bad:
@@ -1302,8 +1337,32 @@ def parent_calls(lib, prefix, ins, outs, ints, scale):
     return calls, written
 
 
-def phase9_flash_time(dev, card, errs, launches, parent=None) -> list:
+def sdpa_ms(case, b, nh, s, hd):
+    """The flash kernels' library yardstick on a case's (B, nh, S, hd) bf16
+    q, k, v: SDPA with the ALiBi and causal terms as one additive bias.
+    (forward device ms, backward ms: dq, dk and dv in one autograd call,
+    timed eagerly, since autograd runs it on a worker thread, outside a
+    CUDA graph capture)."""
     from pipegoose_tpu_torch.models.bloom import NEG_INF
+
+    dev = case["q"].device
+    heads = lambda t: t.reshape(b, nh, s, hd).detach().clone().requires_grad_()  # noqa: E731
+    qs, ks, vs = heads(case["q"]), heads(case["k"]), heads(case["v"])
+    kpos = torch.arange(s, device=dev, dtype=torch.float32)
+    keep = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    bias = torch.where(keep, case["slopes"][:nh, None, None] * kpos, NEG_INF)
+    bias = bias[None].to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    so = sdpa(qs, ks, vs, attn_mask=bias)
+    go = case["do"].reshape(b, nh, s, hd)
+    with torch.no_grad():
+        fwd_ms, _ = time_ms(lambda i: sdpa(qs, ks, vs, attn_mask=bias), 8)
+    bwd_ms = time_eager_ms(
+        lambda: torch.autograd.grad(so, (qs, ks, vs), go, retain_graph=True), 8)
+    return fwd_ms, bwd_ms
+
+
+def phase9_flash_time(dev, card, errs, launches, parent=None) -> list:
     from pipegoose_tpu_torch.ops import flash_attention as fa
 
     b, nh, s, hd = 8, 16, 1024, 64
@@ -1324,23 +1383,7 @@ def phase9_flash_time(dev, card, errs, launches, parent=None) -> list:
         "dkv": (lambda i: fa.flash_dkv(*bwd, *mode),
                 lambda i: fa.flash_dkv_reference(*bwd, *mode)),
     }
-    # the library yardstick: SDPA on (B, nh, S, hd) bf16 with the ALiBi and
-    # causal terms as one additive bias; its backward gives dq, dk and dv
-    # in one autograd call, timed eagerly (autograd runs it on a worker
-    # thread, outside a CUDA graph capture)
-    heads = lambda t: t.reshape(b, nh, s, hd).detach().clone().requires_grad_()  # noqa: E731
-    qs, ks, vs = heads(case["q"]), heads(case["k"]), heads(case["v"])
-    kpos = torch.arange(s, device=dev, dtype=torch.float32)
-    keep = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
-    bias = torch.where(keep, case["slopes"][:nh, None, None] * kpos, NEG_INF)
-    bias = bias[None].to(torch.bfloat16)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    so = sdpa(qs, ks, vs, attn_mask=bias)
-    go = case["do"].reshape(b, nh, s, hd)
-    with torch.no_grad():
-        lib_fwd_ms, _ = time_ms(lambda i: sdpa(qs, ks, vs, attn_mask=bias), 8)
-    lib_bwd_ms = time_eager_ms(
-        lambda: torch.autograd.grad(so, (qs, ks, vs), go, retain_graph=True), 8)
+    lib_fwd_ms, lib_bwd_ms = sdpa_ms(case, b, nh, s, hd)
     log(f"phase 9: flash kernels at phase 8's shape (B*nh={b * nh}, S={s}, "
         f"hd={hd}, bf16, causal, no padding), device ms per call, on {card}")
     bwd_route = fa.bwd_plan(torch.bfloat16, hd, s)["route"]
@@ -1412,7 +1455,7 @@ def fused_err(got, want, rtol):
     return (got - want).abs().max().item(), rtol * scale
 
 
-def check_fused(label, case, fwd_route=None) -> dict:
+def check_fused(label, case, fwd_route=None, phase="phase 10") -> dict:
     """Each fused kernel once against its plain version on one case; every
     launch counter must move by exactly one, the forward's on ``fwd_route``
     (default: bf16 "wgmma", float32 "wmma") and the backward kernels' on
@@ -1457,7 +1500,7 @@ def check_fused(label, case, fwd_route=None) -> dict:
     checks["dh"] = fused_err(dh, fce.fused_ce_dh_reference(*bwd), FUSED_GRAD_RTOL[dtype])
     checks["dw"] = fused_err(dw, fce.fused_ce_dw_reference(*bwd), FUSED_GRAD_RTOL[dtype])
     bad = [n for n, (err, tol) in checks.items() if err > tol]
-    log(f"phase 10: {label} (fwd {fwd_route}, dh/dw {route} route): " + ", ".join(
+    log(f"{phase}: {label} (fwd {fwd_route}, dh/dw {route} route): " + ", ".join(
         f"{n} {err:.3g} (tol {tol:.3g}, {err / tol if tol else float('inf'):.2f} of it)"
         for n, (err, tol) in checks.items())
         + (f" FAIL {bad}" if bad else " ok"))
@@ -1571,6 +1614,35 @@ def fused_bound_ms(kind, case, tensors):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def fused_library(h, w, targets, g, vh, offset=0):
+    """The fused kernels' library yardstick, a composite: the full-logits
+    path's PyTorch calls for the same function on this weight (a vocab
+    shard's local work at ``offset``). fwd: the bf16 cuBLAS logits,
+    logsumexp and a gather; dh and dw: softmax minus one-hot from the saved
+    float32 logits, times g, in bf16, then one cuBLAS product each. Returns
+    the calls by kind."""
+    t = h.shape[0]
+    v = w.shape[0] if vh else w.shape[1]
+    rows_t = torch.arange(t, device=h.device)
+    tg = (targets.long() - offset).clamp(0, v - 1)
+    wv = w.t() if vh else w                      # (H, V) view
+
+    def lib_fwd():
+        lg = torch.matmul(h, wv).float()
+        return torch.logsumexp(lg, dim=-1), lg.gather(1, tg[:, None])
+
+    saved = torch.matmul(h, wv).float()
+
+    def lib_dl():
+        p = torch.softmax(saved, dim=-1)
+        p[rows_t, tg] -= 1.0
+        return (p * g[:, None]).to(torch.bfloat16)
+
+    return {"fwd": lib_fwd, "dh": lambda: torch.matmul(lib_dl(), wv.t()),
+            "dw": (lambda: torch.matmul(lib_dl().t(), h)) if vh
+            else (lambda: torch.matmul(h.t(), lib_dl()))}
+
+
 def phase13_fused_time(dev, card, errs, run, parent=None) -> list:
     """Each fused kernel at phase 12's shape, with a (V, H) weight (bench.py's
     tied embedding) and with an (H, V) one. A row's launches are phase 12's
@@ -1596,28 +1668,7 @@ def phase13_fused_time(dev, card, errs, run, parent=None) -> list:
             "dh": (lambda i: fce.fused_ce_dh(*bwd), lambda: fce.fused_ce_dh_reference(*bwd)),
             "dw": (lambda i: fce.fused_ce_dw(*bwd), lambda: fce.fused_ce_dw_reference(*bwd)),
         }
-        # the library yardstick, a composite: the full-logits path's PyTorch
-        # calls for the same function. fwd: the bf16 cuBLAS logits, logsumexp
-        # and a gather; dh and dw: softmax minus one-hot from the saved
-        # float32 logits, times g, in bf16, then one cuBLAS product each
-        rows_t = torch.arange(t, device=dev)
-        tg = targets.long()
-        wv = w.t() if vh else w                      # (H, V) view
-
-        def lib_fwd():
-            lg = torch.matmul(h, wv).float()
-            return torch.logsumexp(lg, dim=-1), lg.gather(1, tg[:, None])
-
-        saved = torch.matmul(h, wv).float()
-
-        def lib_dl():
-            p = torch.softmax(saved, dim=-1)
-            p[rows_t, tg] -= 1.0
-            return (p * g[:, None]).to(torch.bfloat16)
-
-        library = {"fwd": lib_fwd, "dh": lambda: torch.matmul(lib_dl(), wv.t()),
-                   "dw": (lambda: torch.matmul(lib_dl().t(), h)) if vh
-                   else (lambda: torch.matmul(h.t(), lib_dl()))}
+        library = fused_library(h, w, targets, g, vh)
         old = parent_ce_fwd(parent["fused_ce"]) if parent else None
         log(f"phase 13: fused CE kernels at phase 12's shape (T={t}, H={hd}, V={v}, "
             f"bf16, {layout}), device ms per call, on {card}")
@@ -1673,7 +1724,7 @@ def phase13_fused_time(dev, card, errs, run, parent=None) -> list:
             rows.append(row)
             gc.collect()
             torch.cuda.empty_cache()
-        del saved, case, calls, library, io, old
+        del case, calls, library, io, old
         gc.collect()
         torch.cuda.empty_cache()
     return rows
@@ -3015,6 +3066,507 @@ def phase24_timed_cache_spec(np_tree, dev, card) -> list:
              "bound_by": bound_by, "library_ms": library_ms, "call_ms": call_ms}]
 
 
+# -- phase 25 ------------------------------------------------------------------
+
+TP_SIZES = (2, 4)              # phase 25's tensor-parallel degrees
+# phase 26(a): each leaf's L2 distance from train_step's params after 3
+# float32 steps, over the L2 distance train_step moved it. A leaf the step
+# left alone or updated in part is near 1; Adam steps of gradients that
+# differ only in summation order part where a gradient is near zero.
+HYBRID_PARAM_REL = 1e-2
+
+
+def head_shard(x, b, nh, h0, lh):
+    """Rows of heads ``[h0, h0 + lh)`` of a flattened (B*nh, ...) operand,
+    as the tensor-parallel rank holding those heads has them."""
+    return x.reshape(b, nh, *x.shape[1:])[:, h0:h0 + lh].reshape(
+        b * lh, *x.shape[1:]).contiguous()
+
+
+def flash_shard_case(case, b, nh, tp, r):
+    """Rank r's part of a flash case at tp: its nh/tp heads of q, k, v, dO
+    and the key bias, and its slice of the ALiBi slopes."""
+    lh = nh // tp
+    return {**{n: head_shard(case[n], b, nh, r * lh, lh)
+               for n in ("q", "k", "v", "do", "slopes", "kpos", "kneg")},
+            "g": case["g"], "scale": case["scale"]}
+
+
+def flash_shards_vs_whole(label, case, b, nh, tp) -> dict:
+    """B1-B3 on every rank's head shard (each with its slope slice) against
+    the same heads of the whole nh-head launch, on the route phase 6 takes;
+    every launch counter moves by tp. Returns max abs errors."""
+    from pipegoose_tpu_torch.ops import flash_attention as fa
+
+    dtype = case["q"].dtype
+    s, hd = case["q"].shape[1], case["q"].shape[2]
+    route = fa.fwd_plan(dtype, hd, s, s)["route"]
+    kernels = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
+
+    def run(c):
+        fwd, mode = flash_args(c)
+        out, lse = fa.flash_fwd(*fwd, *mode)
+        bwd = flash_bwd_args(c, lse, (c["do"].float() * out.float()).sum(-1))
+        return (out, lse, fa.flash_dq(*bwd, *mode), *fa.flash_dkv(*bwd, *mode))
+
+    whole = run(case)
+    before = tuple(f.launches for f in kernels)
+    routed = tuple(f.routes[route] for f in kernels)
+    parts = [run(flash_shard_case(case, b, nh, tp, r)) for r in range(tp)]
+    torch.cuda.synchronize()
+    if tuple(f.launches - n for f, n in zip(kernels, before)) != (tp,) * 3 or tuple(
+            f.routes[route] - n for f, n in zip(kernels, routed)) != (tp,) * 3:
+        raise AssertionError(f"{label}: the shards' launches left the {route} route")
+    lh = nh // tp
+    checks, exact = {}, True
+    for i, name in enumerate(("out", "lse", "dq", "dk", "dv")):
+        want = whole[i].reshape(b, nh, *whole[i].shape[1:])
+        got = torch.stack([p[i].reshape(b, lh, *p[i].shape[1:]) for p in parts], 1)
+        got = got.reshape(want.shape)
+        exact = exact and torch.equal(got, want)
+        checks[name] = flash_err(got, want, LSE_RTOL if name == "lse" else FLASH_RTOL[dtype])
+    bad = [n for n, (err, tol) in checks.items() if err > tol]
+    log(f"phase 25: {label}, {tp} shards of {lh} heads vs the whole (all on the {route} "
+        f"route{', bit for bit' if exact else ''}): " + ", ".join(
+            f"{n} {err:.3g} (tol {tol:.3g})" for n, (err, tol) in checks.items())
+        + (f" FAIL {bad}" if bad else " ok"))
+    if bad:
+        raise AssertionError(f"{label}: head shards disagree with the whole on {bad}")
+    return {"fwd": max(checks["out"][0], checks["lse"][0]), "dq": checks["dq"][0],
+            "dkv": max(checks["dk"][0], checks["dv"][0])}
+
+
+def fused_shards_vs_whole(label, case, tp) -> None:
+    """B4-B6 on every rank's (V/tp, H) shard at offset r V/tp, as rank r of
+    the tensor axis launches them: the shards' (lse, target logit) combined
+    with the port's arithmetic (``ops.fused_ce.combine_shards``), dh summed
+    over the shards, each shard's dw; held against the whole-vocabulary
+    launch to phase 10's tolerances, every launch on its dtype's route."""
+    from pipegoose_tpu_torch.ops import fused_ce as fce
+
+    h, w, targets, g, valid = case["h"], case["w"], case["targets"], case["g"], case["valid"]
+    dtype, v = h.dtype, w.shape[0]
+    vl = v // tp
+    fwd_route = "wgmma" if dtype == torch.bfloat16 else "wmma"
+    bwd_route = "mma" if dtype == torch.bfloat16 else "wmma"
+    lse, tl = fce.fused_ce_fwd(h, w, targets, 0, valid, True)
+    dh = fce.fused_ce_dh(h, w, targets, lse, g, 0, valid, True)
+    dw = fce.fused_ce_dw(h, w, targets, lse, g, 0, valid, True)
+    counters = (fce.fused_ce_fwd, fce.fused_ce_dh, fce.fused_ce_dw)
+    before = tuple(c.launches for c in counters)
+    routed = (fce.fused_ce_fwd.routes[fwd_route], fce.fused_ce_dh.routes[bwd_route],
+              fce.fused_ce_dw.routes[bwd_route])
+    shards = [w[r * vl:(r + 1) * vl].contiguous() for r in range(tp)]
+    parts = [fce.fused_ce_fwd(h, shards[r], targets, r * vl, valid, True) for r in range(tp)]
+    lse_s, tl_s = fce.combine_shards(torch.stack([p[0] for p in parts]),
+                                     torch.stack([p[1] for p in parts]),
+                                     lambda x: x.amax(0), lambda x: x.sum(0))
+    dh_s = sum(fce.fused_ce_dh(h, shards[r], targets, lse_s, g, r * vl, valid, True).float()
+               for r in range(tp))
+    dw_s = torch.cat([fce.fused_ce_dw(h, shards[r], targets, lse_s, g, r * vl, valid, True)
+                      for r in range(tp)])
+    torch.cuda.synchronize()
+    moved = tuple(c.launches - n for c, n in zip(counters, before))
+    now = (fce.fused_ce_fwd.routes[fwd_route], fce.fused_ce_dh.routes[bwd_route],
+           fce.fused_ce_dw.routes[bwd_route])
+    if moved != (tp,) * 3 or tuple(a - b for a, b in zip(now, routed)) != (tp,) * 3:
+        raise AssertionError(f"{label}: shard launches moved {moved}, off the "
+                             f"{fwd_route}/{bwd_route} routes")
+    checks = {"lse": fused_err(lse_s, lse, FUSED_STAT_RTOL),
+              "target logit": fused_err(tl_s, tl, FUSED_STAT_RTOL),
+              "dh": fused_err(dh_s, dh, FUSED_GRAD_RTOL[dtype]),
+              "dw": fused_err(dw_s, dw, FUSED_GRAD_RTOL[dtype])}
+    bad = [n for n, (err, tol) in checks.items() if err > tol]
+    log(f"phase 25: {label}, {tp} shards of V/tp={vl} (fwd {fwd_route}, dh/dw {bwd_route}) "
+        f"vs the whole: " + ", ".join(
+            f"{n} {err:.3g} (tol {tol:.3g}, {err / tol if tol else float('inf'):.2f} of it)"
+            for n, (err, tol) in checks.items()) + (f" FAIL {bad}" if bad else " ok"))
+    if bad:
+        raise AssertionError(f"{label}: vocab shards disagree with the whole on {bad}")
+
+
+def flash_shard_rows(dev, card, tp) -> list:
+    """B1-B3 at rank tp-1's shard of phase 8's shape (B=8, S=1024, 16/tp
+    heads of hd 64, bf16): each against its plain version, its time beside
+    its bound, the plain version's and SDPA's at that shape."""
+    from pipegoose_tpu_torch.ops import flash_attention as fa
+
+    b, nh, s, hd = 8, 16, 1024, 64
+    lh = nh // tp
+    case = flash_shard_case(flash_case(dev, torch.bfloat16, b=b, seed=SEED + 25), b, nh,
+                            tp, tp - 1)
+    errs = check_flash(f"bf16 rank {tp - 1} of tp={tp}: B=8 S=1024 nh={lh} hd=64 causal, "
+                       f"slopes {case['slopes'][0].item():.6g}..", case, phase="phase 25")
+    fwd, mode = flash_args(case)
+    out, lse = fa.flash_fwd(*fwd, *mode)
+    bwd = flash_bwd_args(case, lse, (case["do"].float() * out.float()).sum(-1))
+    dq = fa.flash_dq(*bwd, *mode)
+    dk, dv = fa.flash_dkv(*bwd, *mode)
+    io = {"fwd": fwd + (out, lse), "dq": bwd + (dq,), "dkv": bwd + (dk, dv)}
+    calls = {"fwd": (lambda i: fa.flash_fwd(*fwd, *mode),
+                     lambda i: fa.flash_fwd_reference(*fwd, *mode)),
+             "dq": (lambda i: fa.flash_dq(*bwd, *mode),
+                    lambda i: fa.flash_dq_reference(*bwd, *mode)),
+             "dkv": (lambda i: fa.flash_dkv(*bwd, *mode),
+                     lambda i: fa.flash_dkv_reference(*bwd, *mode))}
+    lib = dict(zip(("fwd", "bwd"), sdpa_ms(case, b, lh, s, hd)))
+    route = fa.fwd_plan(torch.bfloat16, hd, s, s)["route"]
+    rows = []
+    for kind in ("fwd", "dq", "dkv"):
+        kernel, plain = calls[kind]
+        ms, call_ms = time_ms(kernel, 8)
+        plain_ms, _ = time_ms(plain, 4)
+        bound_ms, bound_by = flash_bound_ms(kind, case, io[kind])
+        library_ms = lib["fwd" if kind == "fwd" else "bwd"]
+        log(f"  flash_{kind} at tp={tp} ({route} route): kernel {ms} (eager {call_ms}), "
+            f"bound {bound_ms} ({bound_by}), plain {plain_ms}, SDPA {library_ms}, on {card}")
+        rows.append({
+            "name": f"flash_{kind} (bf16, B*nh={b * lh}: rank {tp - 1}'s {lh} heads at "
+                    f"tp={tp}, S=1024, hd=64, causal, {route} route)",
+            "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[kind], "route": "cuda",
+            "kernel_route": route, "tp": tp, "launches": 0,
+            "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "call_ms": call_ms})
+    return rows
+
+
+def fused_shard_rows(dev, card, tp) -> list:
+    """B4-B6 at rank tp-1's (V/tp, H) shard of phase 12's shape (T=8184,
+    H=1024, offset (tp-1) V/tp, bf16): each against its plain version, its
+    time beside its bound, the plain version's and the composite's."""
+    from pipegoose_tpu_torch.ops import fused_ce as fce
+
+    t, hd, v = 8 * 1023, 1024, 250880
+    vl, off = v // tp, (tp - 1) * (v // tp)
+    case = fused_case(dev, torch.bfloat16, t=t, hd=hd, v=vl, offset=off, seed=SEED + 25)
+    h, w, targets, g = case["h"], case["w"], case["targets"], case["g"]
+    errs = check_fused(f"bf16 rank {tp - 1} of tp={tp}: T={t} H={hd} V/tp={vl} "
+                       f"offset={off} vh", case, phase="phase 25")
+    lse, tl = fce.fused_ce_fwd(h, w, targets, off, None, True)
+    bwd = (h, w, targets, lse, g, off, None, True)
+    dh = fce.fused_ce_dh(*bwd)
+    dw = fce.fused_ce_dw(*bwd)
+    io = {"fwd": (h, w, targets, lse, tl), "dh": bwd[:5] + (dh,), "dw": bwd[:5] + (dw,)}
+    calls = {"fwd": (lambda i: fce.fused_ce_fwd(h, w, targets, off, None, True),
+                     lambda: fce.fused_ce_fwd_reference(h, w, targets, off, None, True)),
+             "dh": (lambda i: fce.fused_ce_dh(*bwd), lambda: fce.fused_ce_dh_reference(*bwd)),
+             "dw": (lambda i: fce.fused_ce_dw(*bwd), lambda: fce.fused_ce_dw_reference(*bwd))}
+    library = fused_library(h, w, targets, g, True, off)
+    source = {"fwd": FUSED_FWD_SOURCE, "dh": FUSED_MMA_SOURCE, "dw": FUSED_MMA_SOURCE}
+    rows = []
+    for kind in ("fwd", "dh", "dw"):
+        kernel, plain = calls[kind]
+        ms, call_ms = time_ms(kernel, 2, replays=5)
+        plain_ms = time_eager_ms(plain, 2)
+        library_ms = time_eager_ms(library[kind], 2)
+        bound_ms, bound_by = fused_bound_ms(kind, case, io[kind])
+        route = (fce.card_fwd_plan(h, w, True) if kind == "fwd"
+                 else fce.card_plan(h, w, kind, True))["route"]
+        log(f"  fused_ce_{kind} at tp={tp} ({route} route): kernel {ms} (eager {call_ms}), "
+            f"bound {bound_ms} ({bound_by}), plain {plain_ms}, composite {library_ms}, "
+            f"on {card}")
+        rows.append({
+            "name": f"fused_ce_{kind} (bf16, T={t}, H={hd}, V/tp={vl}: rank {tp - 1}'s vocab "
+                    f"shard at tp={tp}, offset {off}, vh)",
+            "source": source[kind], "replaces": FUSED_REPLACES[kind], "route": "cuda",
+            "kernel_route": route, "tp": tp, "launches": 0,
+            "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "call_ms": call_ms})
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase25_tp_shards(dev, card) -> list:
+    """What each tensor-parallel rank launches, on one card: for tp in
+    TP_SIZES, B1-B3 on every head shard and B4-B6 on every vocab shard,
+    bf16 and float32, against the whole (plus a padded vocabulary whose last
+    shard holds slots >= valid_size); then each kernel at rank tp-1's shard
+    shape against its plain version and timed. Returns the kernels' rows,
+    each with ``launches`` 0: the main path on one card runs tp = 1, so no
+    shard shape is launched there."""
+    b, nh = 8, 16
+    t, hd, v = 8 * 1023, 1024, 250880
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        case = flash_case(dev, dtype, b=b, seed=SEED + 25)
+        for tp in TP_SIZES:
+            flash_shards_vs_whole(f"{name} flash B=8 S=1024 nh=16 hd=64 causal", case, b,
+                                  nh, tp)
+        del case
+        case = fused_case(dev, dtype, t=t, hd=hd, v=v, seed=SEED + 25)
+        for tp in TP_SIZES:
+            fused_shards_vs_whole(f"{name} fused CE T={t} H={hd} V={v}", case, tp)
+        valid = v - 3 * v // 16     # 3/4 of the last shard at tp = 4 is padding
+        case["valid"] = valid
+        case["targets"] = case["targets"] % valid
+        fused_shards_vs_whole(f"{name} fused CE T={t} H={hd} V={v} valid={valid}",
+                              case, 4)
+        del case
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 25: each kernel at rank tp-1's shard shape, device ms per call, on {card}")
+    rows = []
+    for tp in TP_SIZES:
+        rows += flash_shard_rows(dev, card, tp)
+        rows += fused_shard_rows(dev, card, tp)
+    return rows
+
+
+# -- phase 26 ------------------------------------------------------------------
+
+def hybrid_context():
+    """A world of one rank over NCCL (as ``sp_context``) and
+    ``ParallelContext(tensor_parallel_size=1, data_parallel_size=1)`` over
+    it: the "tensor" and "data" axes named, each of size 1 (no NCCL group of
+    more than one rank runs on one card). The caller destroys it."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pipegoose_tpu_torch.distributed import ParallelContext
+
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    store = dist.FileStore(f"{store_dir}/store", 1)
+    return ParallelContext.init_multihost(store=store, world_size=1, rank=0, device="cuda",
+                                          tensor_parallel_size=1, data_parallel_size=1)
+
+
+class HybridSteps:
+    """``make_hybrid_train_step`` behind ``train_step``'s signature (the
+    optimizer argument unused): the BLOOM loss with ``tp_axis="tensor"`` on
+    the batch (ids, or (ids, mask); labels = ids), ``tp_specs``,
+    ``DistributedOptimizer(adam(lr), axis_name="data")``; built on the first
+    call over that call's params."""
+
+    def __init__(self, lr, n_accum=1):
+        self.lr, self.n_accum, self.step, self.state = lr, n_accum, None, None
+
+    def __call__(self, params, _opt, ids, mask, labels, cfg, device):
+        from pipegoose_tpu_torch.models.bloom import loss_fn, tp_specs
+        from pipegoose_tpu_torch.optim import DistributedOptimizer, adam
+        from pipegoose_tpu_torch.parallel import make_hybrid_train_step
+
+        if self.step is None:
+            def lf(p, batch):
+                ids, mask = batch if isinstance(batch, tuple) else (batch, None)
+                return loss_fn(p, ids, mask, ids, cfg, tp_axis="tensor")
+
+            init_fn, make_step = make_hybrid_train_step(
+                lf, tp_specs(params), DistributedOptimizer(adam(self.lr), axis_name="data"),
+                n_accum=self.n_accum)
+            self.state = init_fn(params)
+            self.step = make_step(params)
+        _, self.state, loss = self.step(params, self.state,
+                                        ids if mask is None else (ids, mask))
+        return loss
+
+    def state_bytes(self) -> int:
+        return sum(v.numel() * v.element_size() for st in self.state.inner.state.values()
+                   for v in st.values() if torch.is_tensor(v))
+
+
+def phase26_hybrid_vs_train_step(np_tree, dev) -> None:
+    """(a) The float32 hybrid step at tp = dp = 1 on the named axes against
+    ``train_step`` on the card: phase 7's shape (full width, 2 layers, batch
+    2 x 256 with a right-padded row, remat, flash), full logits and fused
+    CE, 3 steps each: the losses to phase 7's tolerances; the params after
+    the steps no element more than one step (lr) from ``train_step``'s, and
+    each leaf's distance from them within HYBRID_PARAM_REL of the distance
+    ``train_step`` moved it (L2 norms), every leaf moved by more than lr;
+    then ``n_accum = 2`` on an unpadded batch against the whole batch's
+    ``train_step``."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.weights import params_from_jax, params_to_jax
+    from pipegoose_tpu_torch.trainer import make_optimizer, train_step
+
+    n_layer, b, s, pad, lr = 2, 2, 256, 57, 1e-4
+    vocab, hidden = np_tree["embed"]["weight"].shape
+    tree = {**np_tree, "blocks": cut_layers(np_tree["blocks"], n_layer)}
+    rng = np.random.default_rng(SEED + 26)
+    ids = torch.from_numpy(rng.integers(0, vocab, (b, s))).to(dev)
+    mask = torch.ones((b, s), dtype=torch.int64, device=dev)
+    mask[1, s - pad:] = 0
+    counters = kernel_counters()
+    for opts, m, n_accum in ((dict(), mask, 1), (dict(fused_ce=True), mask, 1),
+                             (dict(), None, 2)):
+        cfg = BloomConfig(vocab_size=vocab, hidden_size=hidden, n_layer=n_layer, n_head=16,
+                          remat=True, use_flash=True, **opts)
+        runs = {}
+        for label, fn in (("train_step", train_step), ("hybrid", HybridSteps(lr, n_accum))):
+            params = params_from_jax(tree, cfg, device=dev)
+            opt = make_optimizer(params, lr)
+            before = {k: c.launches for k, c in counters.items()}
+            losses = [fn(params, opt, ids, m, ids, cfg, device=dev).item() for _ in range(3)]
+            moved = {k: c.launches - before[k] for k, c in counters.items()}
+            runs[label] = (losses, params_to_jax(params), moved)
+            del params, opt
+        (ref, ref_p, ref_moved), (got, got_p, got_moved) = runs["train_step"], runs["hybrid"]
+        loss_err = abs(got[0] - ref[0])
+        adam_err = max(abs(a - c) for a, c in zip(got, ref))
+        param_err = max(float(np.abs(g - r).max()) for _, g, r in zip_leaves(got_p, ref_p))
+        start = dict((path, a) for path, a, _ in zip_leaves(tree, tree))
+        moved = min(float(np.abs(r - start[path]).max()) for path, r, _ in
+                    zip_leaves(ref_p, ref_p))
+        param_rel = max(float(np.linalg.norm(g - r) / np.linalg.norm(r - start[path]))
+                        for path, g, r in zip_leaves(got_p, ref_p))
+        log(f"phase 26: float32 hybrid step (tp = dp = 1, named axes) vs train_step, "
+            f"depth 2, batch {b} x {s}{' (row 1 right-padded by 57)' if m is not None else ''}"
+            f", {opts or 'full logits'}, n_accum {n_accum}: losses {got} vs {ref}; first "
+            f"loss err {loss_err} (atol {TRAIN_LOSS_ATOL}), 3-step err {adam_err} (atol "
+            f"{TRAIN_ADAM_LOSS_ATOL}), params max err {param_err} (lr = {lr}), largest "
+            f"per-leaf |hybrid - train_step| / |train_step's move| {param_rel} (limit "
+            f"{HYBRID_PARAM_REL}), least per-leaf max move {moved} (> lr); launches "
+            f"{got_moved} vs {ref_moved}")
+        if (loss_err > TRAIN_LOSS_ATOL or adam_err > TRAIN_ADAM_LOSS_ATOL
+                or param_err > lr or param_rel > HYBRID_PARAM_REL or moved <= lr
+                or not all(np.isfinite(got))):
+            raise AssertionError("the hybrid step and train_step disagree")
+        # each microbatch runs its own forward and backward
+        if got_moved != {k: n_accum * n for k, n in ref_moved.items()} or not got_moved["fwd"]:
+            raise AssertionError("the hybrid step launched other kernels than train_step")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase26_timed_hybrid(np_tree, dev, card, train_run) -> dict:
+    """(b) bf16 bloom-560m through ``make_hybrid_train_step`` at tp = dp = 1,
+    timed exactly as phase 12's "flash+fusedce" (``timed_training``): its
+    launches must equal that run's; step ms, tokens/s and peak beside it,
+    and the ZeRO state's bytes."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+
+    cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16, remat=True, use_flash=True,
+                                 fused_ce=True)
+    steps = HybridSteps(1e-4)
+    run = timed_training(np_tree, dev, card, cfg, "phase 26",
+                         "'flash+fusedce' through make_hybrid_train_step, tp = dp = 1",
+                         step_fn=steps)
+    state_bytes = steps.state_bytes()
+    del steps
+    log(f"phase 26: hybrid step {run['step_ms']} ms, {run['tokens_per_s']} tokens/s, peak "
+        f"{run['peak_gib']:.2f} GiB, ZeRO state {state_bytes} bytes; phase 12's train_step "
+        f"{train_run['step_ms']} ms, {train_run['tokens_per_s']} tokens/s, peak "
+        f"{train_run['peak_gib']:.2f} GiB (hybrid / train_step "
+        f"{run['step_ms'] / train_run['step_ms']:.4f}); launches {run['launches']} vs "
+        f"{train_run['launches']}")
+    if run["launches"] != train_run["launches"]:
+        raise AssertionError("the hybrid step's launches differ from train_step's")
+    run["zero_state_bytes"] = state_bytes
+    run["turns_ms"] = step_turns(np_tree, dev, cfg)
+    return run
+
+
+def step_turns(np_tree, dev, cfg, steps=3, rounds=3) -> dict:
+    """Step ms of ``train_step`` and of the hybrid step on the same batch, in
+    turns (``rounds`` x (train_step, hybrid, hybrid, train_step); each turn
+    ``steps`` steps between CUDA events, after one warm-up step of each),
+    each on its own copy of the weights: the host's spread between calls
+    and phases does not enter the ratio of the medians."""
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+    from pipegoose_tpu_torch.trainer import make_optimizer, train_step
+
+    ids = torch.from_numpy(
+        np.random.RandomState(0).randint(0, cfg.vocab_size, (8, 1024))).to(dev)
+    arms = {}
+    for name, fn in (("train_step", train_step), ("hybrid", HybridSteps(1e-4))):
+        params = params_from_jax(np_tree, cfg, device=dev)
+        opt = make_optimizer(params, 1e-4)
+        arms[name] = (lambda fn=fn, params=params, opt=opt:
+                      fn(params, opt, ids, None, ids, cfg, device=dev))
+        arms[name]()
+    out = {"train_step": [], "hybrid": []}
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for name in ("train_step", "hybrid", "hybrid", "train_step") * rounds:
+        torch.cuda.synchronize()
+        t0.record()
+        for _ in range(steps):
+            arms[name]()
+        t1.record()
+        torch.cuda.synchronize()
+        out[name].append(t0.elapsed_time(t1) / steps)
+    med = {k: float(np.median(v)) for k, v in out.items()}
+    log(f"  in turns ({rounds} x (train_step, hybrid, hybrid, train_step), {steps} steps "
+        f"each): train_step {out['train_step']} ms, hybrid {out['hybrid']} ms; medians "
+        f"{med['train_step']} / {med['hybrid']}, ratio {med['hybrid'] / med['train_step']:.4f}")
+    del arms
+    return out
+
+
+# -- phase 27 ------------------------------------------------------------------
+
+SAMPLE_T = 0.7
+SAMPLE_DRAWS = 200_000
+SAMPLE_LOGITS = (1.5, -0.3, 0.8, 2.1, -1.7, 0.0, 1.1, -0.6)
+SAMPLE_P_MIN = 1e-3
+
+
+def chi2_sf(x: float, df: int) -> float:
+    """P(chi-square with an odd ``df`` degrees of freedom > x), in closed
+    form: erfc(sqrt(x/2)) + sqrt(2x/pi) exp(-x/2) sum_j x^(j-1) / (1 3 ...
+    (2j-1)) for j = 1 .. (df-1)/2."""
+    import math
+
+    if df % 2 != 1:
+        raise ValueError(f"odd degrees of freedom only, got {df}")
+    total, term = 0.0, 1.0
+    for j in range(1, (df - 1) // 2 + 1):
+        term = 1.0 if j == 1 else term * x / (2 * j - 1)
+        total += term
+    return math.erfc(math.sqrt(x / 2)) + math.sqrt(2 * x / math.pi) * math.exp(-x / 2) * total
+
+
+def phase27_sampled_generate(np_tree, dev) -> None:
+    """Sampled ``generate()`` on the card: bf16 bloom-560m with its
+    vocabulary padded for tp = 3 (valid_vocab_size 250880) at temperature
+    0.7; the same generator seed gives the same tokens twice, another seed
+    others, and no token reaches the padded slots. Then the pick alone:
+    200 000 draws of one float32 row of 8 logits against softmax(logits /
+    T), a chi-square test, p > 1e-3."""
+    from pipegoose_tpu_torch.models._decode import sample_token
+    from pipegoose_tpu_torch.models.bloom import BloomConfig, pad_for_tp
+    from pipegoose_tpu_torch.models.generate import generate
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+
+    tree, cfg = pad_for_tp(np_tree, BloomConfig.bloom_560m(dtype=torch.bfloat16), 3)
+    params = params_from_jax(tree, cfg, device=dev)
+    del tree
+    prompts = np.random.default_rng(SEED + 27).integers(0, cfg.valid_vocab_size, (4, 32))
+    new = 32
+
+    def sample(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return generate(params, prompts, cfg, new, temperature=SAMPLE_T, device=dev,
+                        generator=gen).cpu().numpy()
+
+    t0 = time.perf_counter()
+    a, again, other = sample(7), sample(7), sample(8)
+    toks = a[:, 32:]
+    log(f"phase 27: sampled generate, bf16 bloom-560m padded to {cfg.vocab_size} "
+        f"(valid {cfg.valid_vocab_size}), 4 prompts x 32, {new} new tokens at T "
+        f"{SAMPLE_T}, three runs in {time.perf_counter() - t0:.1f} s: {len(np.unique(toks))} "
+        f"distinct ids, max {toks.max()}; seed 7 twice equal: {np.array_equal(a, again)}; "
+        f"seed 8 tokens equal to seed 7's: {int((other[:, 32:] == toks).sum())} of {toks.size}")
+    if (not np.array_equal(a, again) or np.array_equal(a, other) or toks.max() >= cfg.valid_vocab_size
+            or not np.array_equal(a[:, :32], prompts)):
+        raise AssertionError("sampled generate: not reproducible, or a padded slot drawn")
+    del params
+    logits = torch.tensor(SAMPLE_LOGITS, device=dev).repeat(SAMPLE_DRAWS, 1)
+    tok = sample_token(logits, SAMPLE_T, torch.Generator(device=dev).manual_seed(SEED))
+    counts = torch.bincount(tok, minlength=len(SAMPLE_LOGITS)).cpu().numpy()
+    p = torch.softmax(torch.tensor(SAMPLE_LOGITS, dtype=torch.float64) / SAMPLE_T, 0).numpy()
+    expected = SAMPLE_DRAWS * p
+    stat = float(((counts - expected) ** 2 / expected).sum())
+    p_value = chi2_sf(stat, len(SAMPLE_LOGITS) - 1)
+    log(f"phase 27: the pick alone on the card, {SAMPLE_DRAWS} draws at T {SAMPLE_T}: "
+        f"counts {counts.tolist()}, expected {np.round(expected, 1).tolist()}, chi-square "
+        f"{stat:.3f} on {len(SAMPLE_LOGITS) - 1} degrees of freedom, p {p_value:.4f} "
+        f"(must exceed {SAMPLE_P_MIN})")
+    if not p_value > SAMPLE_P_MIN:
+        raise AssertionError("the sampled pick does not follow softmax(logits / T)")
+
+
 def main(argv) -> int:
     import argparse
 
@@ -3096,6 +3648,18 @@ def main(argv) -> int:
         ctx.destroy()
     rows += phase21_chunk_time(dev, card, chunk_errs, sp_run["launches"], parent)
     lap("phase 21")
+    shard_rows = phase25_tp_shards(dev, card)
+    lap("phase 25")
+    ctx = hybrid_context()
+    try:
+        phase26_hybrid_vs_train_step(np_tree, dev)
+        phase26_timed_hybrid(np_tree, dev, card, fused_runs["flash+fusedce"])
+    finally:
+        ctx.destroy()
+    rows += shard_rows
+    lap("phase 26")
+    phase27_sampled_generate(np_tree, dev)
+    lap("phase 27")
     del np_tree
     varied = init_params_numpy(BloomConfig.bloom_560m(initializer_range=VARIED_INIT_STD),
                                seed=SEED)

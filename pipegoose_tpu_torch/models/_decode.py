@@ -1,6 +1,10 @@
-"""The shared decode loop and greedy token pick (the counterpart of
+"""The shared decode loop and its token picks (the counterpart of
 ``pipegoose_tpu/models/_decode.py``), used by the serving engine's decode
-step and prefills and by ``models.generate.generate``."""
+step and prefills and by ``models.generate.generate``: greedy, or sampled
+at ``temperature > 0`` from a ``torch.Generator``. The JAX package draws
+with ``jax.random.categorical``; its draws cannot be matched bit for bit,
+so the port's sampled tokens follow the same distribution, not the same
+sequence (ROADMAP.md § C)."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -35,14 +39,33 @@ def greedy_token(logits: torch.Tensor,
     return torch.argmax(logits, dim=-1)
 
 
+def default_generator(device) -> torch.Generator:
+    """A generator on ``device`` seeded 0, as the JAX loop defaults to
+    ``PRNGKey(0)``."""
+    return torch.Generator(device=device).manual_seed(0)
+
+
+def sample_token(logits: torch.Tensor, temperature: float,
+                 generator: torch.Generator,
+                 logits_mask: Optional[Callable] = None) -> torch.Tensor:
+    """The sampled pick: optional padded-vocab mask, then one draw per row
+    from ``softmax(logits / temperature)`` in float32 with ``generator``."""
+    if logits_mask is not None:
+        logits = logits_mask(logits)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
 def autoregressive_generate(forward_cached: Callable, init_cache: Callable,
                             params, input_ids: torch.Tensor, config,
                             max_new_tokens: int, temperature: float = 0.0,
                             eos_token_id: Optional[int] = None,
                             logits_mask: Optional[Callable] = None,
-                            extras=None) -> torch.Tensor:
-    """Greedy decoding with a KV cache: one prefill of the whole prompt,
-    then one ``forward_cached`` call per new token.
+                            extras=None,
+                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Greedy (``temperature=0``) or sampled decoding with a KV cache: one
+    prefill of the whole prompt, then one ``forward_cached`` call per new
+    token.
 
     - ``eos_token_id``: finished rows emit eos from then on (HF generate's
       pad-with-eos);
@@ -52,16 +75,20 @@ def autoregressive_generate(forward_cached: Callable, init_cache: Callable,
 
     ``forward_cached(params, ids, cache, start, config[, extras=])``
     returns (logits, cache); ``init_cache(config, batch, max_len,
-    device=)`` the empty cache. The JAX loop's jit cache and telemetry
-    spans have no counterpart. Sampling (``temperature > 0``) raises
-    ``NotImplementedError``: ``jax.random``'s draws cannot be matched, and
-    the serving path is greedy."""
+    device=)`` the empty cache. ``temperature > 0`` samples each token with
+    :func:`sample_token` from ``generator`` (one on the ids' device seeded
+    0 when None). The JAX loop's jit cache and telemetry spans have no
+    counterpart."""
     if max_new_tokens <= 0:
         return input_ids
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "sampling (temperature > 0) is not ported yet (ROADMAP.md queue "
-            "A); generate is greedy")
+    if temperature > 0.0 and generator is None:
+        generator = default_generator(input_ids.device)
+
+    def pick(logits):
+        if temperature <= 0.0:
+            return greedy_token(logits, logits_mask)
+        return sample_token(logits, temperature, generator, logits_mask)
+
     b, s = input_ids.shape
     cache = init_cache(config, b, s + max_new_tokens, device=input_ids.device)
     eos = -1 if eos_token_id is None else int(eos_token_id)
@@ -72,12 +99,12 @@ def autoregressive_generate(forward_cached: Callable, init_cache: Callable,
         return forward_cached(params, ids, cache, pos, config, extras=extras)
 
     logits, cache = fwd(input_ids, cache, 0)
-    tok = greedy_token(logits, logits_mask)
+    tok = pick(logits)
     done = tok == eos
     out = [tok]
     for pos in range(s, s + max_new_tokens - 1):
         logits, cache = fwd(tok[:, None], cache, pos)
-        tok = torch.where(done, eos, greedy_token(logits, logits_mask))
+        tok = torch.where(done, eos, pick(logits))
         done = done | (tok == eos)
         out.append(tok)
     return torch.cat([input_ids, torch.stack(out, dim=1).to(input_ids.dtype)], dim=1)

@@ -13,7 +13,11 @@ chunk of them at a time (``ce_chunks``), or the fused cross-entropy
 kernels of ``ops.fused_ce`` (``fused_ce``). The sequence-parallel loss
 (``loss_fn_sp``) runs the blocks on this rank's chunk of the sequence with
 ring attention (the chunk kernels B7-B9 with ``use_flash``) or Ulysses.
-Tensor and pipeline parallelism wait for later slices of the port.
+Under ``tp_axis`` every path is Megatron tensor parallel: heads are
+sharded over the axis (each rank's ALiBi slopes are its heads' slice),
+the MLP column/row parallel, and the tied embedding and LM head
+vocab-sharded (``pad_for_tp``, ``tp_mapping``, ``tp_specs``). Pipeline
+parallelism waits for a later slice of the port.
 """
 from __future__ import annotations
 
@@ -24,7 +28,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pipegoose_tpu_torch.models.generate import _attn_core, _qkv_proj
+from pipegoose_tpu_torch.distributed.functional import axis_index, copy_to_tensor_group
+from pipegoose_tpu_torch.models.generate import _attn_core, _qkv_proj, local_heads
+from pipegoose_tpu_torch.nn.parallel import spec_tree
+from pipegoose_tpu_torch.nn.parallel_mapping import Column, ParallelMapping, Row, Vocab
 from pipegoose_tpu_torch.nn.tensor_parallel.layers import (
     chunked_ce_sums,
     column_parallel_linear,
@@ -33,6 +40,7 @@ from pipegoose_tpu_torch.nn.tensor_parallel.layers import (
     vocab_parallel_cross_entropy,
     vocab_parallel_embedding,
 )
+from pipegoose_tpu_torch.nn.tensor_parallel.tensor_parallel import pad_vocab
 
 NEG_INF = -1e9   # finite, as in the JAX package: masked scores stay finite
 
@@ -65,6 +73,9 @@ class BloomConfig:
     ce_chunks: Optional[int] = None
     # the fused cross-entropy kernels (ops/fused_ce.py): no logits buffer
     fused_ce: bool = False
+    # the ring collective-matmul overlap of the tensor axis: not ported yet
+    # (ROADMAP.md queue A, item 6); a forward under a tensor axis raises
+    overlap_tp: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -137,12 +148,21 @@ def bloom_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * 0.5 * (1.0 + torch.tanh(0.79788456 * x * (1.0 + 0.044715 * x * x)))
 
 
-def logits_fn(params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    """LM head tied to the embedding: float32 logits ``hidden @ Wᵀ``.
+def logits_fn(params: dict, hidden: torch.Tensor,
+              tp_axis: Optional[str] = None) -> torch.Tensor:
+    """LM head tied to the embedding: float32 logits ``hidden @ Wᵀ``, under
+    ``tp_axis`` this rank's vocab shard (what the vocab-parallel cross
+    entropy takes).
 
-    The (V, H) embedding is used where it lies, never copied to float32:
-    in a bf16 run cuBLAS accumulates in float32, the product is rounded
-    to bf16 once, and the result is cast up."""
+    The f-operator on ``hidden`` is load-bearing: each rank's hidden
+    cotangent is only its vocab shard's part, and the f-operator's
+    backward all-reduce completes it; without it every gradient upstream
+    of the head is wrong under TP. The (V/tp, H) embedding is used where
+    it lies, never copied to float32: in a bf16 run cuBLAS accumulates in
+    float32, the product is rounded to bf16 once, and the result is cast
+    up."""
+    if tp_axis is not None:
+        hidden = copy_to_tensor_group(hidden, tp_axis)
     w = params["embed"]["weight"]
     return torch.matmul(hidden, w.t()).float()
 
@@ -233,23 +253,35 @@ def _mlp(blk: dict, x: torch.Tensor, config: BloomConfig,
     return row_parallel_linear(blk["mlp"]["down"], bloom_gelu(h), tp_axis)
 
 
+def _local_slopes(config: BloomConfig, tp_axis: Optional[str], device) -> torch.Tensor:
+    """The ALiBi slopes of this rank's heads: ``slopes[h0 : h0 + nh/tp]``
+    with ``h0 = axis_index x nh/tp``."""
+    lh = local_heads(config, tp_axis)
+    h0 = axis_index(tp_axis) * lh
+    return torch.from_numpy(alibi_slopes(config.n_head)[h0:h0 + lh]).to(device)
+
+
 def _attention(blk: dict, x: torch.Tensor, bias: dict, config: BloomConfig,
                tp_axis: Optional[str] = None) -> torch.Tensor:
-    """Self-attention of one block; ``bias`` is the dict from
-    :func:`attention_bias`. Pad-query context is zero on both branches."""
+    """Self-attention of one block, heads sharded over ``tp_axis`` (qkv
+    column-parallel, the output projection row-parallel); ``bias`` is the
+    dict from :func:`attention_bias`. Pad-query context is zero on both
+    branches."""
     b, s, _ = x.shape
+    lh = local_heads(config, tp_axis)
     q, k, v = _qkv_proj(blk, x, config, tp_axis)
     if config.use_flash:
         from pipegoose_tpu_torch.ops.flash_attention import flash_attention
 
-        slopes = torch.from_numpy(alibi_slopes(config.n_head)).to(x.device)
-        ctx = flash_attention(q, k, v, slopes, kv_pos=bias["kv_pos"],
-                              kv_neg=bias["kv_neg"], causal=True)
+        ctx = flash_attention(q, k, v, _local_slopes(config, tp_axis, x.device),
+                              kv_pos=bias["kv_pos"], kv_neg=bias["kv_neg"],
+                              causal=True)
         ctx = ctx * bias["qmask"][:, :, None, None].to(ctx.dtype)
-        ctx = ctx.to(x.dtype).reshape(b, s, config.hidden_size)
+        ctx = ctx.to(x.dtype).reshape(b, s, lh * config.head_dim)
     else:
-        ctx = _attn_core(q, k, v, bias["alibi"] + bias["mask_bias"],
-                         bias["qmask"], x.dtype)
+        h0 = axis_index(tp_axis) * lh
+        alibi = bias["alibi"][:, h0:h0 + lh]
+        ctx = _attn_core(q, k, v, alibi + bias["mask_bias"], bias["qmask"], x.dtype)
     if config.remat and config.remat_policy == "attn":
         ctx = _attn_out(ctx)
     return row_parallel_linear(blk["out"], ctx, tp_axis)
@@ -297,6 +329,10 @@ def forward_hidden(params: dict, input_ids: torch.Tensor,
                    attention_mask: Optional[torch.Tensor], config: BloomConfig,
                    tp_axis: Optional[str] = None) -> torch.Tensor:
     """Embedding -> blocks -> final LN. Returns (B, S, H)."""
+    if config.overlap_tp and tp_axis is not None:
+        raise NotImplementedError(
+            "overlap_tp=True: the ring collective-matmul overlap of the tensor "
+            "axis is not ported yet (ROADMAP.md queue A, item 6)")
     b, s = input_ids.shape
     if attention_mask is None:
         attention_mask = torch.ones((b, s), dtype=torch.int32,
@@ -317,9 +353,9 @@ def forward_hidden(params: dict, input_ids: torch.Tensor,
 def forward(params: dict, input_ids: torch.Tensor,
             attention_mask: Optional[torch.Tensor], config: BloomConfig,
             tp_axis: Optional[str] = None) -> torch.Tensor:
-    """Full causal-LM forward -> float32 logits (B, S, V)."""
+    """Full causal-LM forward -> float32 logits (B, S, V/tp)."""
     return logits_fn(params, forward_hidden(params, input_ids, attention_mask,
-                                            config, tp_axis))
+                                            config, tp_axis), tp_axis)
 
 
 def loss_fn(params: dict, input_ids: torch.Tensor,
@@ -342,7 +378,7 @@ def loss_fn(params: dict, input_ids: torch.Tensor,
         w = (attention_mask[:, 1:] if attention_mask is not None
              else torch.ones_like(labels[:, 1:])).float()
         tot, cnt = chunked_ce_sums(
-            hidden[:, :-1], labels[:, 1:], w, lambda h: logits_fn(params, h),
+            hidden[:, :-1], labels[:, 1:], w, lambda h: logits_fn(params, h, tp_axis),
             tp_axis, config.valid_vocab_size, config.ce_chunks)
         return tot / torch.clamp_min(cnt, 1)
     logits = forward(params, input_ids, attention_mask, config, tp_axis)
@@ -400,7 +436,7 @@ def _attention_sp(blk: dict, x: torch.Tensor, config: BloomConfig,
         raise ValueError(f"unknown SP variant {variant!r} (ring, ulysses)")
     b, s_local, _ = x.shape
     q, k, v = _qkv_proj(blk, x, config, tp_axis)
-    slopes = torch.from_numpy(alibi_slopes(config.n_head)).to(x.device)
+    slopes = _local_slopes(config, tp_axis, x.device)
     if variant == "ulysses":
         from pipegoose_tpu_torch.nn.sequence_parallel.ulysses import (
             ulysses_causal_attention,
@@ -420,7 +456,8 @@ def _attention_sp(blk: dict, x: torch.Tensor, config: BloomConfig,
     ctx = ctx * pad_mask_local[:, :, None, None].to(ctx.dtype)
     if config.remat and config.remat_policy == "attn":
         ctx = _attn_out(ctx)
-    ctx = ctx.to(x.dtype).reshape(b, s_local, config.hidden_size)
+    ctx = ctx.to(x.dtype).reshape(b, s_local, local_heads(config, tp_axis)
+                                  * config.head_dim)
     return row_parallel_linear(blk["out"], ctx, tp_axis)
 
 
@@ -450,7 +487,7 @@ def _sp_head_sums(params: dict, x: torch.Tensor, attention_mask: torch.Tensor,
 
         return fused_ce_masked_sums(x, params["embed"]["weight"], shifted_labels,
                                     shifted_w, tp_axis, config.valid_vocab_size)
-    per_tok = vocab_parallel_cross_entropy(logits_fn(params, x), shifted_labels,
+    per_tok = vocab_parallel_cross_entropy(logits_fn(params, x, tp_axis), shifted_labels,
                                            tp_axis, valid_size=config.valid_vocab_size)
     w = shifted_w.to(per_tok.dtype)
     return (per_tok * w).sum(), w.sum()
@@ -466,8 +503,8 @@ def loss_fn_sp(params: dict, input_ids: torch.Tensor,
     the ring (or Ulysses, see :func:`_attention_sp`). Returns the global
     loss on every rank; its backward gives each rank's partial gradients,
     which the train step sums over ``sp_axis``
-    (``parallel.hybrid.sync_replicated_grads``). ``tp_axis`` must be None
-    until tensor parallelism is ported."""
+    (``parallel.hybrid.sync_replicated_grads``). Under ``tp_axis`` heads,
+    MLP and vocabulary are also sharded over the tensor axis."""
     from pipegoose_tpu_torch.distributed.functional import (
         all_reduce,
         reduce_from_tensor_group,
@@ -493,3 +530,54 @@ def loss_fn_sp(params: dict, input_ids: torch.Tensor,
     count = all_reduce(w_sum, sp_axis)
     # identity-backward combine: each rank's gradients stay its own partials
     return reduce_from_tensor_group(total / torch.clamp_min(count, 1), sp_axis)
+
+
+# -- TP policy -------------------------------------------------------------------
+
+
+def pad_for_tp(params: dict, config: BloomConfig, tp: int):
+    """Pad the tied embedding so that the vocabulary divides the tensor
+    axis: (params, config) with ``valid_vocab_size`` the true vocabulary,
+    so the cross entropy and the picks mask the padded slots. ``params``
+    is the port's tree or the JAX numpy tree alike (only ``embed`` is
+    read)."""
+    v = params["embed"]["weight"].shape[0]
+    padded = pad_vocab(params["embed"]["weight"], tp)
+    if padded.shape[0] == v:
+        return params, config
+    params = dict(params)
+    params["embed"] = {"weight": padded}
+    config = dataclasses.replace(config, vocab_size=padded.shape[0],
+                                 valid_vocab_size=config.valid_vocab_size or v)
+    return params, config
+
+
+def tp_mapping(axis: str = "tensor") -> ParallelMapping:
+    """The BLOOM partition policy: qkv and up column-parallel, out and down
+    row-parallel, the embedding vocab-sharded (BLOOM's per-head qkv layout
+    keeps whole heads per shard; n_head % tp == 0). A block path may carry
+    the port's layer index (``blocks/3/attn/qkv``) or not (the JAX tree's
+    stacked ``blocks/attn/qkv``)."""
+    return ParallelMapping([
+        (r"blocks/(\d+/)?attn/qkv", Column(axis)),
+        (r"blocks/(\d+/)?attn/out", Row(axis)),
+        (r"blocks/(\d+/)?mlp/up", Column(axis)),
+        (r"blocks/(\d+/)?mlp/down", Row(axis)),
+        (r"embed/weight", Vocab(axis)),
+    ])
+
+
+def tp_specs(params: dict, axis: str = "tensor") -> dict:
+    """The spec tree of a BLOOM tree. On the port's tree (``blocks`` a list
+    of per-layer dicts) each layer's leaves get their own specs; on the JAX
+    numpy tree (``blocks`` stacked on a leading ``n_layer`` dim) every block
+    spec gains a leading None, as the JAX ``tp_specs`` gives it."""
+    mapping = tp_mapping(axis)
+    stacked = isinstance(params["blocks"], dict)
+
+    def spec_fn(path, x):
+        if stacked and path.startswith("blocks/"):
+            return (None, *mapping.spec_for(path, x.ndim - 1))
+        return mapping.spec_for(path, x.ndim)
+
+    return spec_tree(params, spec_fn)

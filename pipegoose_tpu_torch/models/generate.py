@@ -16,8 +16,8 @@ then uses the mask-aware positions (``build_alibi``) and pad slots stay
 masked as keys for the whole generation. Without a mask, prompts are
 unpadded and plain global positions apply.
 
-Greedy decoding only: sampling (``temperature > 0``) and the
-tensor-parallel ``generate_tp`` wait for later slices of the port
+Greedy, or sampled at ``temperature > 0`` from a ``torch.Generator``. The
+tensor-parallel ``generate_tp`` waits for a later slice of the port
 (ROADMAP.md queue A).
 """
 from __future__ import annotations
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from pipegoose_tpu_torch._device import resolve_device
+from pipegoose_tpu_torch.distributed.functional import axis_size
 from pipegoose_tpu_torch.nn.tensor_parallel.layers import (
     column_parallel_linear,
     layer_norm,
@@ -45,8 +46,18 @@ def init_cache(config, batch: int, max_len: int, device="cuda") -> dict:
             "v": torch.zeros(shape, dtype=config.dtype, device=dev)}
 
 
+def local_heads(config, tp_axis: Optional[str] = None) -> int:
+    """Heads of this rank: ``n_head / tp``, whole heads per shard."""
+    tp = axis_size(tp_axis)
+    if config.n_head % tp:
+        raise ValueError(f"n_head={config.n_head} must be divisible by the tensor "
+                         f"axis size {tp} (whole heads per shard)")
+    return config.n_head // tp
+
+
 def _qkv_proj(blk: dict, x: torch.Tensor, config, tp_axis: Optional[str] = None):
-    """Fused qkv projection split into (q, k, v), each (B, S, nh, hd).
+    """Fused qkv projection split into (q, k, v), each (B, S, nh/tp, hd):
+    under ``tp_axis`` the kernel is column-sharded by whole heads.
 
     BLOOM's fused output interleaves q, k and v PER HEAD: it reshapes to
     (B, S, nh, 3, hd), not to three [q | k | v] blocks. The three results
@@ -54,7 +65,7 @@ def _qkv_proj(blk: dict, x: torch.Tensor, config, tp_axis: Optional[str] = None)
     b, s, _ = x.shape
     hd = config.head_dim
     fused = column_parallel_linear(blk["qkv"], x, tp_axis)
-    fused = fused.reshape(b, s, config.n_head, 3, hd)
+    fused = fused.reshape(b, s, local_heads(config, tp_axis), 3, hd)
     return fused[..., 0, :], fused[..., 1, :], fused[..., 2, :]
 
 
@@ -175,12 +186,17 @@ def _ragged_extras(attention_mask, max_new_tokens: int, device):
 
 def generate(params: dict, input_ids, config, max_new_tokens: int,
              temperature: float = 0.0, eos_token_id: Optional[int] = None,
-             attention_mask=None, device="cuda") -> torch.Tensor:
-    """Greedy decoding: (B, S) prompt ids -> (B, S + max_new_tokens) int64
-    on ``device``. ``eos_token_id``: finished rows emit eos from then on
-    (HF generate's pad-with-eos). ``attention_mask`` (B, S) enables ragged
-    LEFT-padded prompts. ``params`` must live on ``device``;
-    ``temperature > 0`` raises ``NotImplementedError``."""
+             attention_mask=None, device="cuda",
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Greedy (``temperature=0``) or sampled decoding: (B, S) prompt ids ->
+    (B, S + max_new_tokens) int64 on ``device``. ``eos_token_id``: finished
+    rows emit eos from then on (HF generate's pad-with-eos).
+    ``attention_mask`` (B, S) enables ragged LEFT-padded prompts.
+    ``params`` must live on ``device``. ``temperature > 0`` draws every
+    token from ``softmax(logits / temperature)`` (padded vocabulary
+    masked) with ``generator``, a ``torch.Generator`` on ``device``; one
+    seeded 0 when None (the JAX function's ``rng`` defaults to
+    ``PRNGKey(0)``)."""
     from pipegoose_tpu_torch.models._decode import (
         autoregressive_generate,
         vocab_mask_for,
@@ -197,4 +213,4 @@ def generate(params: dict, input_ids, config, max_new_tokens: int,
     return autoregressive_generate(
         forward_cached, init_cache, params, ids, config,
         max_new_tokens, temperature, eos_token_id,
-        logits_mask=vocab_mask_for(config), extras=extras)
+        logits_mask=vocab_mask_for(config), extras=extras, generator=generator)

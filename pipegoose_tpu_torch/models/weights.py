@@ -12,10 +12,16 @@ serving path reads the updated values with no copy.
 A tree that the JAX package's ``quantize_params`` made carries quantized
 block leaves ``{"q": int8, "scale": float32, "bias"}``: their ``q`` stays
 int8 and their ``scale`` float32, whatever ``config.dtype`` is.
+
+Under tensor parallelism each rank converts only its shard:
+``params_from_jax(..., specs=bloom.tp_specs(np_tree))`` slices every numpy
+leaf by its spec and the current context's coordinates first
+(``nn.parallel.shard_tree``); ``nn.parallel.unshard_tree`` of the result,
+through :func:`params_to_jax`, gives the whole tree back.
 """
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Any, Iterator, Optional
 
 import numpy as np
 import torch
@@ -51,14 +57,22 @@ def _convert(tree, fn):
     return fn(tree, None)
 
 
-def params_from_jax(np_tree: dict, config, device="cuda") -> dict:
+def params_from_jax(np_tree: dict, config, device="cuda", specs: Optional[Any] = None,
+                    ctx=None) -> dict:
     """``{"embed", "embed_ln", "blocks", "ln_f"}`` with every leaf a tensor
     of ``config.dtype`` on ``device``; ``"blocks"`` becomes a list of
     ``config.n_layer`` per-layer dicts with the same keys as the JAX
     ``blocks`` subtree (a quantized leaf keeps its int8 ``q`` and float32
     ``scale``). No leaf requires grad; ``trainer.step.make_optimizer``
-    turns them into trainable leaves."""
+    turns them into trainable leaves. With ``specs`` (the JAX-layout spec
+    tree, stacked block leaves with a leading None as ``bloom.tp_specs`` of
+    the numpy tree gives them), each leaf is first cut to this rank's shard
+    by the coordinates of ``ctx`` (the current context by default)."""
     dev = resolve_device(device)
+    if specs is not None:
+        from pipegoose_tpu_torch.nn.parallel import shard_tree
+
+        np_tree = shard_tree(np_tree, specs, ctx)
 
     def conv(a, dtype=None):
         return _to_tensor(a, dtype or config.dtype, dev)

@@ -1,15 +1,17 @@
-"""The tensor-parallel layer functions of ``pipegoose_tpu.nn.tensor_parallel
-.layers`` at tp=1.
+"""Megatron-style tensor-parallel layers as functions over a params dict.
 
-Same conventions as the JAX module: a layer is a function over a params
-dict, kernels are laid out ``(in_features, out_features)``, and
-``axis_name=None`` is the single-device path. Tensor parallelism waits
-for a later slice of the port, so any other ``axis_name`` raises. The
-cross entropy is the plain single-device one; its backward is autograd's
-softmax-minus-one-hot, which the JAX ``custom_vjp`` only needs under
-TP. ``chunked_ce_sums`` bounds the logits to one sequence chunk. Dense
-products stay ``torch.matmul``: the JAX package leaves them to XLA, so
-there is no kernel to port here. A quantized leaf (``quant.weights``)
+The counterpart of ``pipegoose_tpu/nn/tensor_parallel/layers.py``, with the
+same conventions: kernels are laid out ``(in_features, out_features)``,
+column parallelism shards the OUT dim and row parallelism the IN dim, and
+``axis_name=None`` is the single-device path. Under an axis the
+collectives are ``distributed.functional``'s over the current
+``ParallelContext`` (no-ops on an axis of size 1). The vocab-parallel cross
+entropy has the JAX ``custom_vjp``'s analytic backward, softmax minus one
+hot on the local shard, as a ``torch.autograd.Function``; at
+``axis_name=None`` it is the plain single-device one, differentiated by
+autograd. ``chunked_ce_sums`` bounds the logits to one sequence chunk.
+Dense products stay ``torch.matmul``: the JAX package leaves them to XLA,
+so there is no kernel to port here. A quantized leaf (``quant.weights``)
 goes through ``quant.matmul.quantized_linear`` instead, whose kernels are
 ported and on the card add the bias in their epilogue.
 """
@@ -20,27 +22,25 @@ from typing import Callable, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from pipegoose_tpu_torch.distributed.functional import (
+    all_reduce,
+    axis_index,
+    copy_to_tensor_group,
+    reduce_from_tensor_group,
+)
 from pipegoose_tpu_torch.quant.matmul import quantized_linear
 
 
-def _check_axis(axis_name: Optional[str]) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"axis_name={axis_name!r}: tensor parallelism is not ported yet "
-            f"(ROADMAP.md queue A, TP serving); only axis_name=None runs"
-        )
-
-
-def _kernel_matmul(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """The local product and bias both parallel linears share, dispatching
-    on the leaf: ``{"kernel": fp}`` is ``x @ kernel``; a quantized leaf
-    ``{"q", "scale"}`` runs the dequant-fused matmul with the bias in its
-    epilogue, so no float copy of the weight is made. Either result comes
-    back in the activation dtype: in bf16 the product accumulates in
-    float32 and is rounded once before the bias is added, as
-    ``jnp.dot(..., preferred_element_type=f32).astype(x.dtype) + b``
-    does."""
-    bias = params.get("bias")
+def _kernel_matmul(params: dict, x: torch.Tensor, with_bias: bool = True) -> torch.Tensor:
+    """The local product both parallel linears share, with the bias unless
+    ``with_bias`` is False, dispatching on the leaf: ``{"kernel": fp}`` is
+    ``x @ kernel``; a quantized leaf ``{"q", "scale"}`` runs the
+    dequant-fused matmul with the bias in its epilogue, so no float copy of
+    the weight is made. Either result comes back in the activation dtype:
+    in bf16 the product accumulates in float32 and is rounded once before
+    the bias is added, as ``jnp.dot(..., preferred_element_type=f32)
+    .astype(x.dtype) + b`` does."""
+    bias = params.get("bias") if with_bias else None
     if "q" in params:
         return quantized_linear(x, params["q"], params["scale"], bias)
     y = torch.matmul(x, params["kernel"]).to(x.dtype)
@@ -49,23 +49,44 @@ def _kernel_matmul(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 def column_parallel_linear(params: dict, x: torch.Tensor,
                            axis_name: Optional[str] = None) -> torch.Tensor:
-    """Y = X @ W (+ b)."""
-    _check_axis(axis_name)
+    """Y = X @ W[:, shard] (+ b[shard]): the f-operator on the input
+    (identity forward, all-reduce backward), the local product and the
+    shard's bias."""
+    if axis_name is not None:
+        x = copy_to_tensor_group(x, axis_name)
     return _kernel_matmul(params, x)
 
 
 def row_parallel_linear(params: dict, x: torch.Tensor,
                         axis_name: Optional[str] = None) -> torch.Tensor:
-    """Y = X @ W + b (the psum over shards is the identity at tp=1)."""
-    _check_axis(axis_name)
-    return _kernel_matmul(params, x)
+    """Y = sum over shards of X[shard] @ W[shard, :], + b: the local
+    product, the g-operator (all-reduce forward, identity backward), then
+    the bias ONCE, after the reduce. At ``axis_name=None`` the bias rides
+    in the product (a quantized leaf's epilogue)."""
+    if axis_name is None:
+        return _kernel_matmul(params, x)
+    y = reduce_from_tensor_group(_kernel_matmul(params, x, with_bias=False), axis_name)
+    bias = params.get("bias")
+    return y if bias is None else y + bias
 
 
 def vocab_parallel_embedding(params: dict, ids: torch.Tensor,
                              axis_name: Optional[str] = None) -> torch.Tensor:
-    """Embedding lookup over the whole vocabulary."""
-    _check_axis(axis_name)
-    return params["weight"][ids]
+    """Embedding lookup over a vocab-sharded table: ids outside this
+    shard's ``[start, start + V/tp)`` look up row 0 and are zeroed, then
+    the g-operator sums the shards (an identity backward: the loss is
+    replicated over the axis, so a psum backward would scale the weight's
+    gradient by tp)."""
+    weight = params["weight"]
+    if axis_name is None:
+        return weight[ids]
+    per_shard = weight.shape[0]
+    start = axis_index(axis_name) * per_shard
+    in_range = (ids >= start) & (ids < start + per_shard)
+    out = weight[torch.where(in_range, ids - start, 0)]
+    out = torch.where(in_range[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                            device=out.device))
+    return reduce_from_tensor_group(out, axis_name)
 
 
 def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -83,9 +104,11 @@ def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
 def mask_padded_vocab(logits: torch.Tensor, axis_name: Optional[str],
                       valid_size: int) -> torch.Tensor:
     """Logits of vocab slots >= ``valid_size`` set to -1e9, so padded
-    slots never win a softmax or shift the log-sum-exp."""
-    _check_axis(axis_name)
-    slot = torch.arange(logits.shape[-1], device=logits.device)
+    slots never win a softmax or shift the log-sum-exp. Under an axis the
+    slots are this shard's global columns."""
+    shard_v = logits.shape[-1]
+    slot = (axis_index(axis_name) * shard_v
+            + torch.arange(shard_v, device=logits.device))
     return torch.where(slot < valid_size, logits, -1e9)
 
 
@@ -93,11 +116,15 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                                  axis_name: Optional[str] = None,
                                  valid_size: Optional[int] = None) -> torch.Tensor:
     """Per-token cross entropy ``logsumexp(logits) - logits[target]`` in
-    float32 over the whole vocabulary; callers take the (weighted) mean.
-    ``valid_size`` excludes padded vocab slots from the log-sum-exp."""
-    _check_axis(axis_name)
+    float32; callers take the (weighted) mean. ``valid_size`` excludes
+    padded vocab slots from the log-sum-exp. Under ``axis_name`` the
+    logits are this rank's vocab shard and the targets global ids: the
+    global max, the log-sum-exp and the target's logit are all-reduced,
+    and the backward is the analytic one of :class:`_VocabParallelCE`."""
     if valid_size is not None:
         logits = mask_padded_vocab(logits, axis_name, valid_size)
+    if axis_name is not None:
+        return _VocabParallelCE.apply(logits, targets, axis_name)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     pred = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
@@ -115,8 +142,8 @@ def chunked_ce_sums(hidden: torch.Tensor, labels: torch.Tensor,
     ``torch.utils.checkpoint`` (non-reentrant), so that backward rebuilds
     one chunk's logits at a time. ``hidden`` (B, T, H) is already shifted
     to align with ``labels`` and ``weights`` (B, T); ``logits_fn`` maps
-    (B, C, H) to (B, C, V)."""
-    _check_axis(axis_name)
+    (B, C, H) to (B, C, V/tp), this rank's vocab shard under
+    ``axis_name``."""
     b, t, _ = hidden.shape
     if t % n_chunks:
         pad = n_chunks - t % n_chunks
@@ -139,3 +166,38 @@ def chunked_ce_sums(hidden: torch.Tensor, labels: torch.Tensor,
                               weights[:, part], use_reentrant=False)
         tot, cnt = tot + s_c, cnt + n_c
     return tot, cnt
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """The JAX ``_vp_ce`` custom_vjp: per-token loss over vocab-sharded
+    logits with no collective in its backward, whose gradient is ``g *
+    (softmax_local - onehot_local)`` in the logits' dtype. Targets get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, axis_name):
+        in_dtype = logits.dtype
+        logits = logits.float()
+        shard_v = logits.shape[-1]
+        start = axis_index(axis_name) * shard_v
+        global_max = all_reduce(logits.amax(dim=-1), axis_name, op="max")
+        exp = (logits - global_max[..., None]).exp()
+        sumexp = all_reduce(exp.sum(dim=-1), axis_name)
+        t = targets.long()
+        in_range = (t >= start) & (t < start + shard_v)
+        local_t = torch.where(in_range, t - start, 0)
+        picked = logits.gather(-1, local_t[..., None])[..., 0] - global_max
+        pred = all_reduce(torch.where(in_range, picked, 0.0), axis_name)
+        ctx.save_for_backward(exp.div_(sumexp[..., None]), in_range, local_t)
+        ctx.in_dtype = in_dtype
+        return torch.log(sumexp) - pred
+
+    @staticmethod
+    def backward(ctx, g):
+        softmax_local, in_range, local_t = ctx.saved_tensors
+        shard_v = softmax_local.shape[-1]
+        grad = softmax_local.reshape(-1, shard_v).clone()
+        rows = torch.nonzero(in_range.reshape(-1))[:, 0]
+        grad[rows, local_t.reshape(-1)[rows]] -= 1.0
+        grad = grad.reshape(softmax_local.shape).mul_(g[..., None])
+        return grad.to(ctx.in_dtype), None, None

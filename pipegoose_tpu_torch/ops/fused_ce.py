@@ -33,9 +33,11 @@ index ``offset + j`` is ``>= valid_size`` are set to the finite
 log(max(l, 1e-30))`` with the running max starting at ``NEG_INF``;
 dlogits is ``g * (exp(logit - lse) - onehot)``. ``weight_layout`` "vh" is
 a (V, H) weight (BLOOM's tied embedding), "hv" an (H, V) one (an untied
-head); both are read in place. Tensor parallelism waits for a later slice:
-``_shard_offset`` and ``_combine`` are its tp=1 identities, and any
-``axis_name`` raises.
+head); both are read in place. Under a tensor axis the weight is this
+rank's vocab shard: the kernels run on it at ``offset = axis_index x
+V/tp`` (:func:`_shard_offset`), the shards' (lse, target logit) meet in
+:func:`_combine`, and the backward all-reduces dh, as the JAX custom_vjp
+does.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ from typing import Optional
 
 import torch
 
-from pipegoose_tpu_torch.nn.tensor_parallel.layers import _check_axis
+from pipegoose_tpu_torch.distributed.functional import all_reduce, axis_index
 from pipegoose_tpu_torch.ops import _build
 
 NEG_INF = -1e9      # finite, as in the JAX package
@@ -431,23 +433,37 @@ fused_ce_dw.layouts = {"vh": 0, "hv": 0}
 # -- autograd and the public sums ----------------------------------------------
 
 def _shard_offset(axis_name, v_local: int) -> int:
-    """First global column of this vocab shard: 0 at tp=1."""
-    _check_axis(axis_name)
-    return 0
+    """First global column of this vocab shard: ``axis_index x V/tp``."""
+    return axis_index(axis_name) * v_local
+
+
+def combine_shards(lse_l, tl_l, reduce_max, reduce_sum):
+    """The shards' (lse, target_logit) -> the global pair, given the max
+    and sum reductions over the shards: lse by max and log-sum-exp, the
+    target logit by a sum (its column lies on one shard; the others hold
+    0)."""
+    m = reduce_max(lse_l)
+    return m + torch.log(reduce_sum(torch.exp(lse_l - m))), reduce_sum(tl_l)
 
 
 def _combine(lse_l, tl_l, axis_name):
-    """Local-shard (lse, target_logit) -> global: the identity at tp=1."""
-    _check_axis(axis_name)
-    return lse_l, tl_l
+    """Local-shard (lse, target_logit) -> global over ``axis_name``: the
+    pmax / log-sum-exp / psum combine of the JAX file; the identity at
+    ``axis_name=None``."""
+    if axis_name is None:
+        return lse_l, tl_l
+    return combine_shards(lse_l, tl_l, lambda x: all_reduce(x, axis_name, "max"),
+                          lambda x: all_reduce(x, axis_name))
 
 
 class _FusedCE(torch.autograd.Function):
     """The ``_fused_ce`` custom_vjp: the forward kernel's (lse, target
     logit) give (loss_sum, weight_sum) and save (h, w, targets, token_w,
     lse); the backward takes ``g = ct_loss * token_w`` and launches the dh
-    and dw kernels. ``weight_sum`` is a count and gets no gradient, nor do
-    targets and token_w."""
+    and dw kernels; under an axis dh is all-reduced over it (each shard's
+    dh holds only its vocabulary rows' part: the f-operator of
+    ``bloom.logits_fn``, fused into this backward). ``weight_sum`` is a
+    count and gets no gradient, nor do targets and token_w."""
 
     @staticmethod
     def forward(ctx, h, w, targets, token_w, axis_name, valid, vh):
@@ -466,6 +482,8 @@ class _FusedCE(torch.autograd.Function):
         axis_name, valid, vh, offset = ctx.args
         g = (ct_loss * token_w).float().contiguous()
         dh = fused_ce_dh(h, w, targets, lse, g, offset, valid, vh)
+        if axis_name is not None:
+            dh = all_reduce(dh, axis_name)
         dw = fused_ce_dw(h, w, targets, lse, g, offset, valid, vh)
         return dh, dw, None, None, None, None, None
 

@@ -1,6 +1,12 @@
 """Parallel train-step composition (counterpart of ``pipegoose_tpu.parallel``):
-so far the gradient sync of the sequence-parallel step."""
+the hybrid tensor x data + ZeRO-1 step and the gradient sync."""
 from pipegoose_tpu_torch.parallel.hybrid import (  # noqa: F401
+    build_hybrid_train_step,
+    hybrid_build_config,
+    hybrid_step_kwargs,
+    make_hybrid_train_step,
+    parallel_context_sizes,
     spec_mentions,
     sync_replicated_grads,
+    zero_state_spec,
 )

@@ -1,18 +1,37 @@
-"""The gradient sync of the hybrid train step.
+"""Hybrid-parallel train-step composition: tensor x data parallelism with a
+ZeRO-1 optimizer, gradient accumulation, and the gradient sync of the
+sequence-parallel step.
 
-The counterpart of ``spec_mentions`` and ``sync_replicated_grads`` of
-``pipegoose_tpu/parallel/hybrid.py``. A spec is a tuple with one entry per
-dimension of a parameter: an axis name, a tuple of axis names, or None
-(the JAX ``PartitionSpec``). ``make_hybrid_train_step`` itself (ZeRO-1,
-data and tensor parallelism, accumulation) waits for ROADMAP.md queue A,
-item 5; the sequence-parallel step (``trainer.step.sp_train_step``) uses
-the sync alone.
+The counterpart of ``pipegoose_tpu/parallel/hybrid.py``. A spec is a tuple
+with one entry per dimension of a parameter: an axis name, a tuple of axis
+names, or None (the JAX ``PartitionSpec``). Where the JAX package compiles
+one ``shard_map`` program over the mesh, here every rank runs the step in
+its own process over the current ``ParallelContext``: the loss and its
+backward tensor-parallel (``tp_axis`` collectives inside the loss), this
+rank's part of the batch, the replicated-gradient sync, and the ZeRO-1
+optimizer's reduce-scatter, inner update and all-gather.
+
+Not ported yet: the in-graph health statistics (``with_health``, ROADMAP.md
+queue A, item 13), and the compressed gradient reduction and ring overlap
+(``grad_comm`` other than fp32, ``overlap_tp``; item 6). They raise.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
+import numpy as np
+import torch
+
+from pipegoose_tpu_torch.core.accumulation import _map_batch, make_accumulating_loss
 from pipegoose_tpu_torch.distributed.functional import all_reduce
+from pipegoose_tpu_torch.distributed.parallel_context import ParallelContext
+from pipegoose_tpu_torch.nn.parallel import shard_leaf, tree_leaves, tree_map
+from pipegoose_tpu_torch.optim.zero import (
+    DistributedOptimizer,
+    ZeroState,
+    check_grad_comm,
+    state_specs,
+)
 
 
 def spec_mentions(spec, axis: str) -> bool:
@@ -57,3 +76,155 @@ def sync_replicated_grads(grads: Any, param_specs: Optional[Any], axes: tuple) -
         return g
 
     return _map(sync, grads, param_specs)
+
+
+def zero_state_spec(optimizer: DistributedOptimizer, params: Any, param_specs: Any) -> Any:
+    """The spec tree of the ZeRO-1 state's per-parameter moments
+    (``optim.zero.state_specs``; the JAX function also takes the mesh, to
+    shape the state's shards, which the port's specs do not need)."""
+    return state_specs(params, param_specs, optimizer.axis_name or "data")
+
+
+def parallel_context_sizes(candidate: Any) -> dict:
+    """``ParallelContext`` sizes of a planner candidate (anything with
+    ``dp``/``tp``/``pp``/``ep`` attributes)."""
+    return dict(
+        tensor_parallel_size=int(getattr(candidate, "tp", 1)),
+        pipeline_parallel_size=int(getattr(candidate, "pp", 1)),
+        data_parallel_size=int(getattr(candidate, "dp", 1)),
+        expert_parallel_size=int(getattr(candidate, "ep", 1)),
+    )
+
+
+def hybrid_step_kwargs(candidate: Any) -> dict:
+    """:func:`make_hybrid_train_step` options of a planner candidate: the
+    gradient wire precision, the overlap flag, and for a pipelined
+    candidate the ``("pipe",)`` gradient sum."""
+    kw: dict = dict(grad_comm=getattr(candidate, "grad_comm", None),
+                    overlap_tp=bool(getattr(candidate, "overlap_tp", False)))
+    if int(getattr(candidate, "pp", 1)) > 1:
+        kw["grad_sync_axes"] = ("pipe",)
+    return kw
+
+
+def hybrid_build_config(loss_fn: Callable, param_specs: Any,
+                        optimizer: DistributedOptimizer, batch_spec: tuple = ("data",),
+                        loss_axis: Any = "data", grad_sync_axes: tuple = (),
+                        with_rng: bool = False, n_accum: int = 1,
+                        with_health: bool = False, grad_comm: Optional[str] = None,
+                        overlap_tp: bool = False) -> dict:
+    """Everything :func:`make_hybrid_train_step` takes but the context: what
+    :func:`build_hybrid_train_step` rebuilds the step from on a new one."""
+    return dict(loss_fn=loss_fn, param_specs=param_specs, optimizer=optimizer,
+                batch_spec=batch_spec, loss_axis=loss_axis,
+                grad_sync_axes=grad_sync_axes, with_rng=with_rng, n_accum=n_accum,
+                with_health=with_health, grad_comm=grad_comm, overlap_tp=overlap_tp)
+
+
+def build_hybrid_train_step(config: dict, parallel_context: ParallelContext):
+    """(init_fn, make_step) of a stored :func:`hybrid_build_config` on
+    ``parallel_context``."""
+    cfg = dict(config)
+    return make_hybrid_train_step(cfg.pop("loss_fn"), cfg.pop("param_specs"),
+                                  cfg.pop("optimizer"), parallel_context, **cfg)
+
+
+def _grad_of(p: torch.Tensor) -> torch.Tensor:
+    return p.grad if p.grad is not None else torch.zeros_like(p)
+
+
+def _local_batch(batch: Any, batch_spec: tuple, ctx: ParallelContext, device) -> Any:
+    """This rank's part of the global batch (numpy arrays or tensors, in
+    dicts, lists and tuples) by ``batch_spec``, as tensors on ``device``;
+    integer leaves as int64."""
+    def local(x):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        x = shard_leaf(x, batch_spec, ctx).to(device)
+        return x.long() if not (x.is_floating_point() or x.dtype == torch.bool) else x
+
+    return _map_batch(local, batch)
+
+
+def make_hybrid_train_step(loss_fn: Callable[..., torch.Tensor], param_specs: Any,
+                           optimizer: DistributedOptimizer,
+                           parallel_context: Optional[ParallelContext] = None,
+                           batch_spec: tuple = ("data",), loss_axis: Any = "data",
+                           grad_sync_axes: tuple = (), with_rng: bool = False,
+                           n_accum: int = 1, with_health: bool = False,
+                           grad_comm: Optional[str] = None, overlap_tp: bool = False):
+    """(init_fn, make_step) of the hybrid train step on this rank.
+
+    - ``loss_fn(params, batch) -> scalar`` runs on this rank's shards of the
+      parameters and of the batch (use ``tp_axis="tensor"`` inside it);
+    - ``param_specs``: the spec tree of the parameters (``bloom.tp_specs``);
+    - ``optimizer``: the ZeRO-1 ``DistributedOptimizer``, its state sharded
+      over its data axis.
+
+    ``init_fn(params)`` gives the optimizer state; ``make_step(params)``
+    marks every leaf as requiring grad and returns ``step(params,
+    opt_state, batch) -> (params, opt_state, loss)``. ``batch`` is the
+    GLOBAL batch, the same on every rank: the step keeps this rank's part
+    by ``batch_spec`` (dim 0 over the data axis by default) and moves it to
+    the parameters' device. It runs the loss and its backward, sums or
+    averages the gradients of replicated parameters over
+    ``grad_sync_axes`` (``sync_replicated_grads``), takes the ZeRO step
+    (parameters updated in place), and returns the loss averaged over the
+    loss axes, detached.
+
+    ``with_rng=True``: ``loss_fn(params, batch, rng)`` and ``step(params,
+    opt_state, batch, rng)``, rng an integer seed. ``n_accum > 1``: this
+    rank's batch runs as ``n_accum`` microbatches, one forward and backward
+    at a time (``core.accumulation.make_accumulating_loss``)."""
+    if with_health:
+        raise NotImplementedError(
+            "with_health=True: the in-graph health statistics are not ported yet "
+            "(ROADMAP.md queue A, item 13)")
+    if overlap_tp:
+        raise NotImplementedError(
+            "overlap_tp=True: the ring collective-matmul overlap is not ported "
+            "yet (ROADMAP.md queue A, item 6)")
+    if grad_comm is not None:
+        check_grad_comm(grad_comm)
+    ctx = parallel_context or ParallelContext.get_context()
+    if ctx is None:
+        raise ValueError("no ParallelContext; construct one first")
+    loss_axes = loss_axis if isinstance(loss_axis, tuple) else (loss_axis,)
+    accumulating = make_accumulating_loss(loss_fn, n_accum) if n_accum > 1 else None
+
+    def init_fn(params) -> ZeroState:
+        return optimizer.init(params)
+
+    def make_step(params):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        device = leaves[0].device
+
+        def step(params, opt_state, batch, *rng):
+            if len(rng) != int(with_rng):
+                raise TypeError(f"the step takes {'an' if with_rng else 'no'} rng argument "
+                                f"(with_rng={with_rng})")
+            leaves = tree_leaves(params)
+            for p in leaves:
+                p.grad = None
+            local = _local_batch(batch, batch_spec, ctx, device)
+            if accumulating is not None:
+                loss = accumulating(params, local, *rng)
+            else:
+                loss = loss_fn(params, local, *rng)
+                loss.backward()
+            if grad_sync_axes:
+                grads = sync_replicated_grads(tree_map(_grad_of, params), param_specs,
+                                              grad_sync_axes)
+            else:
+                grads = [_grad_of(p) for p in leaves]
+            params, opt_state = optimizer.step(grads, opt_state, params)
+            loss = loss.detach()
+            for ax in loss_axes:
+                loss = all_reduce(loss, ax, "mean")
+            return params, opt_state, loss
+
+        return step
+
+    return init_fn, make_step

@@ -18,12 +18,8 @@ from pipegoose_tpu_torch._device import resolve_device
 from pipegoose_tpu_torch.distributed.functional import axis_index, axis_size
 from pipegoose_tpu_torch.models.bloom import loss_fn, loss_fn_sp
 from pipegoose_tpu_torch.models.weights import param_leaves
+from pipegoose_tpu_torch.optim.zero import ADAM_BETAS, ADAM_EPS
 from pipegoose_tpu_torch.parallel.hybrid import sync_replicated_grads
-
-# optax.adam's defaults; eps is added outside the square root, after the
-# bias correction, in both: update = m_hat / (sqrt(v_hat) + eps)
-ADAM_BETAS = (0.9, 0.999)
-ADAM_EPS = 1e-8
 
 
 def make_optimizer(params: dict, lr: float) -> torch.optim.Adam:

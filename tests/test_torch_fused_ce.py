@@ -231,7 +231,9 @@ def test_weight_layout_and_axis_name_probes():
             torch.from_numpy(x["targets"]), torch.from_numpy(x["token_w"]))
     with pytest.raises(ValueError, match="weight_layout"):
         tce.fused_ce_sums(*args, weight_layout="vhv")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    # a tensor axis needs a ParallelContext (the sharded runs are held in
+    # test_torch_hybrid.py)
+    with pytest.raises(RuntimeError, match="needs a ParallelContext"):
         tce.fused_ce_sums(*args, axis_name="tensor")
 
 

@@ -38,6 +38,9 @@ def test_port_imports_without_jax_or_a_card():
         "import pipegoose_tpu_torch.ops.fused_ce\n"
         "import pipegoose_tpu_torch.models.weights\n"
         "import pipegoose_tpu_torch.distributed, pipegoose_tpu_torch.nn.sequence_parallel\n"
+        "import pipegoose_tpu_torch.parallel, pipegoose_tpu_torch.optim\n"
+        "import pipegoose_tpu_torch.core.accumulation, pipegoose_tpu_torch.nn.data_parallel\n"
+        "import pipegoose_tpu_torch.nn.tensor_parallel, pipegoose_tpu_torch.nn.parallel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (FORBIDDEN,)
     )

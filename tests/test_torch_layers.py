@@ -147,7 +147,9 @@ def test_tp_axis_name_raises(trees, layer):
         "embedding": lambda: tlayers.vocab_parallel_embedding(
             tparams["embed"], torch.zeros(1, 2, dtype=torch.long), "tensor"),
     }[layer]
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    # a tensor axis needs a ParallelContext (the sharded layers are held in
+    # test_torch_hybrid.py)
+    with pytest.raises(RuntimeError, match="needs a ParallelContext"):
         call()
 
 

@@ -161,8 +161,9 @@ def test_right_padded_mask_raises(setup):
     mask[1, -2:] = 0
     with pytest.raises(ValueError, match="LEFT-padded"):
         tgen.generate(tparams, ids, TCFG, 3, attention_mask=mask, device="cpu")
-    with pytest.raises(NotImplementedError, match="temperature"):
-        tgen.generate(tparams, ids, TCFG, 3, temperature=0.7, device="cpu")
+    with pytest.raises(ValueError, match="LEFT-padded"):
+        tgen.generate(tparams, ids, TCFG, 3, temperature=0.7, attention_mask=mask,
+                      device="cpu")
 
 
 def test_write_prompt_pages_equals_jax(setup):
