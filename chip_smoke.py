@@ -36,7 +36,11 @@ Four main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
   tp = dp = 1 on one card), the loss tensor-parallel through the flash and
   fused cross-entropy kernels, the optimizer ``DistributedOptimizer``;
   every kernel a tp = 2 or 4 rank launches is also checked at its shard
-  shape against the whole.
+  shape against the whole;
+- the Trainer: ``pipegoose_tpu_torch.trainer.Trainer.fit`` over that
+  hybrid step, fed by the port's ``data.TokenDataset`` on its native
+  route, with its callbacks, checkpoints (``utils.checkpoint``, on
+  ``torch.distributed.checkpoint``), resume and ``AutoRecovery``.
 
 Phases, each fatal on failure:
 
@@ -87,9 +91,12 @@ Phases, each fatal on failure:
      (fused_ce_fwd_wgmma.cu) but that last one, which TMA cannot address,
      on "wmma", every float32 one "wmma"; every bf16 d-hidden and d-weight
      launch the tensor-core route ("mma"), every float32 one "wmma";
- 11  phase 7's float32 train step, card vs CPU, with fused_ce=True,
-     ce_chunks=8, remat_policy="dots" and remat_policy="attn"; on the card
-     the fused loss also equals the full-logits loss of the same weights;
+ 11  phase 7's float32 train step on the card with fused_ce=True,
+     ce_chunks=8, remat_policy="dots" and remat_policy="attn", each against
+     phase 7's CPU run (the options change the order of float32 sums or
+     what the backward recomputes, not the function; phase 7's tolerances);
+     on the card the fused loss also equals the full-logits loss of the
+     same weights;
  12  timed bf16 training as phase 8 in bench.py's "flash+fusedce",
      "noremat+flash+fusedce" and "flash+ce8" variants: step ms, tokens/s,
      MFU, peak memory (below phase 8's for the fused variants), falling
@@ -224,12 +231,34 @@ Phases, each fatal on failure:
      tp = 3 at temperature 0.7, the same generator seed giving the same
      tokens twice and no token in the padded slots; then the pick alone,
      200 000 draws of one float32 row of 8 logits on the card against
-     softmax(logits / T) by a chi-square test, p > 1e-3.
+     softmax(logits / T) by a chi-square test, p > 1e-3;
+ 28  the Trainer on phase 26's context, its files under build/ (deleted
+     after): (a) float32, full width at 2 layers, batch 2 x 256 of a
+     Zipf token file through ``TokenDataset`` on the native route
+     (asserted), remat + flash + fused CE: ``Trainer.fit`` for 4 steps
+     (CheckpointCallback every 2, LossLoggerCallback) against 6 steps of
+     ``make_hybrid_train_step`` called by hand on the same batches, a new
+     ``Trainer(resume_dir=)`` at step 4 for 2 steps against the last two,
+     ``AutoRecovery`` over a poisoned third batch (one restore) against the
+     first four, all bit for bit (else phase 7's loss tolerance, params
+     within lr, and the log says so), the launches 4 x a step's;
+     ``evaluate`` equal to the mean of the loss's forward; (b) phase
+     26(b)'s step (bf16 bloom-560m, 8 x 1024, remat + flash + fused CE,
+     Adam 1e-4) through ``Trainer.fit`` from the loader: 2 warm-up and 6
+     timed steps (fit wall / steps) beside phase 26(b)'s, tokens/s, peak,
+     the launches per step equal to phase 26(b)'s, falling losses; one
+     checkpoint of the full train state (free disk checked first) saved and
+     restored into a fresh Trainer, its seconds and bytes, params and
+     moments equal bit for bit and the next loss equal; the Chrome trace
+     of one step through ``fit(profiler_trace_dir=)`` naming B1-B6; the
+     hand-called step and the Trainer in turns.
 
 Every phase's seconds are logged as "seconds: <phase> <s>".
 
-The line before the last is a JSON object with every kernel's numbers;
-the last line is {"ok": true, "device": {...}}. Without a card, or
+The line before the last is a JSON object with every kernel's numbers
+(each row's ``trainer_launches``: its launches in phase 28 (b)'s timed
+fit) and phase 28's under ``trainer``; the last line is
+{"ok": true, "device": {...}}. Without a card, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.
 """
@@ -238,6 +267,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1058,15 +1088,22 @@ def phase6_flash_vs_plain(dev) -> dict:
 
 # -- phase 7 -------------------------------------------------------------------
 
-def phase7_train_vs_cpu(np_tree, dev) -> None:
-    train_vs_cpu(np_tree, dev, "phase 7")
+def phase7_train_vs_cpu(np_tree, dev):
+    """Returns the CPU run, which phase 11 holds its options against."""
+    return train_vs_cpu(np_tree, dev, "phase 7")[3]
 
 
-def train_vs_cpu(np_tree, dev, label, **opts):
+def train_vs_cpu(np_tree, dev, label, cpu=None, **opts):
     """The float32 train step on the card against the same step on the
     CPU: full widths, depth cut to 2 layers, batch 2 x 256 with a
     right-padded row, remat and flash, plus the config options ``opts``.
-    Returns the card's params after the steps and the config."""
+    ``cpu``: an earlier call's CPU run (its losses and first gradients) to
+    hold the card against, in place of running the CPU again: the options
+    of phase 11 change the order of float32 sums (the fused and the chunked
+    cross entropy) or what the backward recomputes (the remat policies),
+    not the function, so the plain config's CPU step is their reference
+    too, at the same tolerances. Returns the card's params after the
+    steps, the config, the batch and the CPU run."""
     from pipegoose_tpu_torch.models.bloom import BloomConfig, loss_fn
     from pipegoose_tpu_torch.models.weights import grads_of, params_from_jax, params_to_jax
     from pipegoose_tpu_torch.trainer import make_optimizer, train_step
@@ -1084,8 +1121,8 @@ def train_vs_cpu(np_tree, dev, label, **opts):
     log(f"{label}: float32 train step, card vs CPU: vocab {vocab}, hidden "
         f"{hidden}, 16 heads, depth cut 24 -> {n_layer} layers, batch {b} x {s} (row 1 right-padded by {pad}), "
         f"remat={cfg.remat}, flash, Adam lr {lr}{extra}")
-    runs = {}
-    for where in ("cpu", dev):
+    runs = {} if cpu is None else {"cpu": cpu}
+    for where in (("cpu",) if cpu is None else ()) + (dev,):
         t0 = time.perf_counter()
         params = params_from_jax(tree, cfg, device=where)
         opt = make_optimizer(params, lr)
@@ -1097,9 +1134,11 @@ def train_vs_cpu(np_tree, dev, label, **opts):
         with torch.no_grad():
             as_t = lambda a: torch.from_numpy(a).to(where)  # noqa: E731
             losses.append(loss_fn(params, as_t(ids), as_t(mask), as_t(ids), cfg).item())
-        runs[str(where)] = (losses, grads, params)
+        runs[str(where)] = (losses, grads, params if where != "cpu" else None)
         log(f"  {where}: losses {losses} in {time.perf_counter() - t0:.1f} s")
-        del opt
+        del opt, params
+    if cpu is not None:
+        log(f"  cpu: phase 7's run of the plain config, losses {cpu[0]}")
     (cpu_losses, cpu_grads, _), (gpu_losses, gpu_grads, gpu_params) = (
         runs["cpu"], runs["cuda"])
     if not all(np.isfinite(gpu_losses)):
@@ -1114,7 +1153,7 @@ def train_vs_cpu(np_tree, dev, label, **opts):
     if (loss_err > TRAIN_LOSS_ATOL or worst[1] > TRAIN_GRAD_RTOL
             or adam_err > TRAIN_ADAM_LOSS_ATOL):
         raise AssertionError("card and CPU train steps disagree")
-    return gpu_params, cfg, (ids, mask)
+    return gpu_params, cfg, (ids, mask), runs["cpu"]
 
 
 def cut_layers(blocks, n):
@@ -1536,10 +1575,11 @@ def phase10_fused_vs_plain(dev) -> dict:
 
 # -- phase 11 ------------------------------------------------------------------
 
-def phase11_train_options_vs_cpu(np_tree, dev) -> None:
-    """Phase 7's check with each option of this slice; the fused run's
-    kernels must launch, and its loss must equal the full-logits loss of
-    the same weights on the card."""
+def phase11_train_options_vs_cpu(np_tree, dev, cpu) -> None:
+    """Phase 7's check with each option of this slice, against phase 7's
+    CPU run ``cpu`` (``train_vs_cpu``); the fused run's kernels must
+    launch, and its loss must equal the full-logits loss of the same
+    weights on the card."""
     from pipegoose_tpu_torch.models.bloom import loss_fn
 
     counters = kernel_counters()
@@ -1547,7 +1587,7 @@ def phase11_train_options_vs_cpu(np_tree, dev) -> None:
                  dict(remat_policy="dots"), dict(remat_policy="attn")):
         for c in counters.values():
             c.launches = 0
-        params, cfg, (ids, mask) = train_vs_cpu(np_tree, dev, "phase 11", **opts)
+        params, cfg, (ids, mask), _ = train_vs_cpu(np_tree, dev, "phase 11", cpu=cpu, **opts)
         counts = {n: c.launches for n, c in counters.items() if "fused" in n}
         if cfg.fused_ce:
             # 3 steps and the last loss: 4 forwards, 3 backwards
@@ -3567,6 +3607,431 @@ def phase27_sampled_generate(np_tree, dev) -> None:
         raise AssertionError("the sampled pick does not follow softmax(logits / T)")
 
 
+# -- phase 28 ------------------------------------------------------------------
+
+# the Trainer's files (token files, checkpoints, the profiler trace) live in
+# the checkout's build/ directory, which git ignores; phase 28 deletes them
+TRAINER_WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                            "chip_smoke_trainer")
+# (a) keeps two float32 checkpoints of 2 layers at full width (~3.4 GB each)
+# on disk at a time, (b) one bf16 bloom-560m train state (~3.4 GB)
+TRAINER_DISK_BYTES = 12 * 2**30
+TRAINER_POISON = 0             # (a)'s sentinel id: a batch that starts with it has a NaN loss
+TRAINER_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel",
+                   "fused_ce_fwd_wgmma_kernel", "fused_ce_bwd_mma_kernel")
+
+
+def token_dataset(path, vocab, batch, seq, windows, seed):
+    """A token file of ``windows`` x ``seq`` ids in [1, vocab) from ``seed``
+    (0 stays free for the poison), Zipf-distributed as a corpus's are (so
+    the steps have a unigram to learn and the loss falls over batches it
+    has not seen), through the port's ``write_token_file``, and a
+    ``TokenDataset`` over it on the native route (asserted)."""
+    from pipegoose_tpu_torch.data import TokenDataset, write_token_file
+
+    ids = np.random.RandomState(seed).zipf(1.2, windows * seq) % (vocab - 1) + 1
+    write_token_file(ids, path)
+    ds = TokenDataset(path, batch=batch, seq=seq, seed=SEED, native=True)
+    if ds.route != "native":
+        raise AssertionError(f"the token loader runs on {ds.route}, not the native build")
+    return ds
+
+
+def per_step_launches(cfg) -> dict:
+    """Each kernel's launches in one train step of ``cfg``."""
+    per = {k: 0 for k in kernel_counters()}
+    per.update(fwd=(2 if cfg.remat else 1) * cfg.n_layer, dq=cfg.n_layer, dkv=cfg.n_layer)
+    per.update({k: int(cfg.fused_ce) for k in ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")})
+    return per
+
+
+def counters_zero() -> None:
+    for c in kernel_counters().values():
+        c.launches = 0
+        for by in (getattr(c, "routes", {}), getattr(c, "layouts", {})):
+            for r in by:
+                by[r] = 0
+
+
+def counters_read() -> dict:
+    return {k: c.launches for k, c in kernel_counters().items()}
+
+
+def bloom_loss(cfg, poison=False):
+    """The BLOOM loss with ``tp_axis="tensor"`` on a batch of ids (labels =
+    ids); with ``poison`` NaN on a batch whose first id is TRAINER_POISON, as
+    ``tests/trainer/test_recovery.py`` does it."""
+    from pipegoose_tpu_torch.models.bloom import loss_fn
+
+    def lf(p, ids):
+        base = loss_fn(p, ids, None, ids, cfg, tp_axis="tensor")
+        if not poison:
+            return base
+        return torch.where(ids[0, 0] == TRAINER_POISON, torch.full_like(base, float("nan")),
+                           base)
+
+    return lf
+
+
+def bloom_trainer(tree, cfg, lr, dev, poison=False, **kw):
+    """A ``Trainer`` over the whole numpy ``tree`` put on the card: the BLOOM
+    loss, ``tp_specs``, ``DistributedOptimizer(adam(lr))`` over "data"."""
+    from pipegoose_tpu_torch.models.bloom import tp_specs
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+    from pipegoose_tpu_torch.optim import DistributedOptimizer, adam
+    from pipegoose_tpu_torch.trainer import Trainer
+
+    whole = params_from_jax(tree, cfg, device=dev)
+    return Trainer(bloom_loss(cfg, poison), whole, tp_specs(whole),
+                   DistributedOptimizer(adam(lr), axis_name="data"), **kw)
+
+
+def hand_step(tree, cfg, lr, dev):
+    """(params, step) of ``make_hybrid_train_step`` called by hand, as phase
+    26 calls it: ``step(batch)`` returns the loss."""
+    from pipegoose_tpu_torch.models.bloom import tp_specs
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+    from pipegoose_tpu_torch.optim import DistributedOptimizer, adam
+    from pipegoose_tpu_torch.parallel import make_hybrid_train_step
+
+    params = params_from_jax(tree, cfg, device=dev)
+    init_fn, make_step = make_hybrid_train_step(
+        bloom_loss(cfg), tp_specs(params), DistributedOptimizer(adam(lr), axis_name="data"))
+    box = [params, init_fn(params), make_step(params)]
+
+    def step(batch):
+        box[0], box[1], loss = box[2](box[0], box[1], batch)
+        return loss
+
+    return params, step
+
+
+def same_run(label, losses, want_losses, params, want_params, lr) -> bool:
+    """Whether a run's losses and params equal the hand-called steps' bit
+    for bit. If they do not, the run is held to phase 7's loss tolerance
+    after Adam steps and its params to within one step (lr) of the
+    hand-called run's, as phase 26 holds them, and the log says so."""
+    from pipegoose_tpu_torch.nn.parallel import tree_leaves
+
+    bits = losses == want_losses and same_tensors(params, want_params)
+    loss_err = max(abs(a - b) for a, b in zip(losses, want_losses))
+    param_err = max(float((a.detach() - b.detach()).abs().max()) for a, b in
+                    zip(tree_leaves(params), tree_leaves(want_params)))
+    log(f"  {label}: losses {losses} vs the hand-called steps' {want_losses}; equal bit for "
+        f"bit: {bits}" + ("" if bits else f" (NOT: loss err {loss_err}, atol "
+                          f"{TRAIN_ADAM_LOSS_ATOL}; params max err {param_err}, limit lr = "
+                          f"{lr}: the same kernels in the same order should repeat their bits, "
+                          f"so a difference names a kernel or reduction that does not)"))
+    if len(losses) != len(want_losses) or loss_err > TRAIN_ADAM_LOSS_ATOL or param_err > lr:
+        raise AssertionError(f"phase 28 (a): {label} differs from the hand-called steps")
+    return bits
+
+
+def same_tensors(a, b) -> bool:
+    from pipegoose_tpu_torch.nn.parallel import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def snapshot(params):
+    from pipegoose_tpu_torch.nn.parallel import tree_map
+
+    return tree_map(lambda p: p.detach().clone(), params)
+
+
+def phase28a_trainer_vs_steps(np_tree, dev) -> dict:
+    """(a) float32, full width at 2 layers, batch 2 x 256 from the native
+    token loader, remat + flash + fused CE, Adam 1e-4: ``Trainer.fit`` (4
+    steps, CheckpointCallback every 2, LossLoggerCallback) against 6 steps
+    of ``make_hybrid_train_step`` called by hand on the same batches; a new
+    Trainer resuming at step 4 for 2 steps; AutoRecovery over a poisoned
+    third batch; ``evaluate``; each bit for bit."""
+    import shutil
+
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.trainer import AutoRecovery, CheckpointCallback, LossLoggerCallback
+
+    n_layer, b, s, lr = 2, 2, 256, 1e-4
+    vocab, hidden = np_tree["embed"]["weight"].shape
+    tree = {**np_tree, "blocks": cut_layers(np_tree["blocks"], n_layer)}
+    cfg = BloomConfig(vocab_size=vocab, hidden_size=hidden, n_layer=n_layer, n_head=16,
+                      remat=True, use_flash=True, fused_ce=True)
+    per = per_step_launches(cfg)
+    path = os.path.join(TRAINER_WORK, "tokens_a.bin")
+    ds = token_dataset(path, vocab, b, s, 64, SEED + 28)
+    batches = ds.take(6)
+    ds.close()
+    log(f"phase 28 (a): float32 Trainer.fit vs make_hybrid_train_step by hand, vocab "
+        f"{vocab}, hidden {hidden}, 16 heads, depth cut 24 -> {n_layer}, batch {b} x {s} from "
+        f"TokenDataset (native route), remat, flash, fused CE, Adam lr {lr}")
+
+    # by hand: 6 steps, the params after 4 kept
+    counters_zero()
+    params, step = hand_step(tree, cfg, lr, dev)
+    hand, p4 = [], None
+    for i, batch in enumerate(batches):
+        hand.append(step(batch).item())
+        if i == 3:
+            p4 = snapshot(params)
+    hand_counts = counters_read()
+    p6 = params
+    del step
+    log(f"  by hand: losses {hand}; launches {hand_counts}")
+    if hand_counts != {k: 6 * n for k, n in per.items()}:
+        raise AssertionError("phase 28 (a): the hand-called step launched other kernels")
+
+    # Trainer.fit over the loader, checkpoints every 2 steps
+    run_a, run_r = (os.path.join(TRAINER_WORK, d) for d in ("run_a", "run_r"))
+    seen = []
+
+    def feed(loader):
+        for x in loader:
+            seen.append(x)
+            yield x
+
+    ds = token_dataset(path, vocab, b, s, 64, SEED + 28)
+    t = bloom_trainer(tree, cfg, lr, dev,
+                      callbacks=[CheckpointCallback(run_a, every=2), LossLoggerCallback(every=2)])
+    counters_zero()
+    t0 = time.perf_counter()
+    st = t.fit(feed(ds), max_steps=4)
+    fit_s = time.perf_counter() - t0
+    counts = counters_read()
+    ds.close()
+    fit_losses = [float(x) for x in st.losses]
+    same_batches = len(seen) == 4 and all(
+        x.tobytes() == y.tobytes() for x, y in zip(seen, batches))
+    bits = {"fit": same_run("Trainer.fit", fit_losses, hand[:4], t.params, p4, lr)}
+    log(f"  Trainer.fit: {fit_s:.1f} s (2 checkpoints); the same batches as by hand: "
+        f"{same_batches}; launches {counts} (want 4 x {per})")
+    if not same_batches:
+        raise AssertionError("phase 28 (a): Trainer.fit and the hand-called steps differ")
+    if counts != {k: 4 * n for k, n in per.items()}:
+        raise AssertionError("phase 28 (a): Trainer.fit launched other kernels than the step")
+    # evaluate: the mean of the loss's forward on the same params
+    ev = t.evaluate(batches[4:6])
+    with torch.no_grad():
+        want = [bloom_loss(cfg)(t.params, torch.from_numpy(x.astype(np.int64)).to(dev)).item()
+                for x in batches[4:6]]
+    log(f"  evaluate {ev}; the mean of the loss's forward {sum(want) / 2}")
+    if ev != sum(want) / 2:
+        raise AssertionError("phase 28 (a): evaluate differs from the loss's mean")
+    del t
+
+    # a new Trainer resumes at step 4
+    t = bloom_trainer(tree, cfg, lr, dev, resume_dir=run_a)
+    resumed = [float(x) for x in t.fit(batches[4:6]).losses]
+    log(f"  resumed at step 4 from {run_a}, now at step {t.state.step}")
+    bits["resume"] = same_run("the resumed run", resumed, hand[4:], t.params, p6, lr)
+    if t.state.step != 6:
+        raise AssertionError("phase 28 (a): the resumed run did not take 2 steps")
+    del t
+    shutil.rmtree(run_a)
+
+    # AutoRecovery over a poisoned batch
+    poisoned = batches[2].copy()
+    poisoned[0, 0] = TRAINER_POISON
+    rec = AutoRecovery(run_r, max_restores=1)
+    t = bloom_trainer(tree, cfg, lr, dev, poison=True,
+                      callbacks=[CheckpointCallback(run_r, every=2), rec])
+    st = t.fit([batches[0], batches[1], poisoned, batches[2], batches[3]])
+    log(f"  AutoRecovery over a poisoned third batch: {rec.restores} restore(s), step "
+        f"{st.step}")
+    bits["recovery"] = same_run("the recovered run", [float(x) for x in st.losses],
+                                hand[:4], t.params, p4, lr)
+    if rec.restores != 1 or st.step != 4:
+        raise AssertionError("phase 28 (a): AutoRecovery did not restore once")
+    del t, p4, p6
+    shutil.rmtree(run_r)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": hand, "launches_per_step": per, "fit_s": fit_s, "bit_for_bit": bits}
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def zero_state_equal(a, b) -> bool:
+    """The two trainers' inner optimizer states: every tensor equal."""
+    for sa, sb in zip(a.shards, b.shards):
+        x, y = a.inner.state[sa], b.inner.state[sb]
+        if set(x) != set(y) or not all(torch.equal(x[k], y[k]) for k in x):
+            return False
+    return True
+
+
+def trace_kernels(trace_dir) -> dict:
+    """The launches of each TRAINER_KERNELS name in the Chrome trace, and
+    its device kernels' count and summed ms ("kernels", "busy_ms")."""
+    with open(os.path.join(trace_dir, "trace_rank0.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = [str(e.get("name", "")) for e in events]
+    found = {k: sum(k in n for n in names) for k in TRAINER_KERNELS}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found["kernels"] = len(kernels)
+    found["busy_ms"] = sum(float(e.get("dur", 0)) for e in kernels) / 1e3
+    return found
+
+
+def phase28b_timed_trainer(np_tree, dev, card, hybrid_run) -> dict:
+    """(b) phase 26(b)'s step through ``Trainer.fit``: bf16 bloom-560m, 8 x
+    1024 from the native token loader, remat + flash + fused CE, Adam 1e-4,
+    a LossLoggerCallback; 2 warm-up and 6 timed steps (fit wall / steps),
+    the launches equal to phase 26(b)'s per step; one checkpoint of the full
+    train state saved and restored into a fresh Trainer bit for bit, its
+    seconds and bytes; the Chrome trace of one step through
+    ``fit(profiler_trace_dir=)``; then the hand-called step and the Trainer
+    in turns."""
+    import shutil
+
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.trainer import LossLoggerCallback
+    from pipegoose_tpu_torch.utils.checkpoint import save_train_state
+
+    cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16, remat=True, use_flash=True,
+                                 fused_ce=True)
+    per = per_step_launches(cfg)
+    warm, timed, bs, seq = 2, 6, 8, 1024
+    ds = token_dataset(os.path.join(TRAINER_WORK, "tokens_b.bin"), cfg.vocab_size, bs, seq,
+                       128, SEED + 29)
+    it = iter(ds)
+    t = bloom_trainer(np_tree, cfg, 1e-4, dev, callbacks=[LossLoggerCallback(every=8)])
+    log(f"phase 28 (b): bloom-560m bf16 through Trainer.fit, batch {bs} x {seq} from "
+        f"TokenDataset (native route), remat, flash, fused CE, Adam 1e-4, {warm} warm-up + "
+        f"{timed} timed steps, on {card}")
+    t.fit(it, max_steps=warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters_zero()
+    t0 = time.perf_counter()
+    st = t.fit(it, max_steps=warm + timed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters_read()
+    layouts = {k: dict(c.layouts) for k, c in kernel_counters().items()
+               if hasattr(c, "layouts")}
+    step_ms = wall * 1e3 / timed
+    tokens_per_s = bs * seq / (step_ms / 1e3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in st.losses]
+    hybrid_per = {k: n // 7 for k, n in hybrid_run["launches"].items()}
+    log(f"  Trainer.fit step {step_ms} ms (fit wall / {timed} steps), {tokens_per_s} "
+        f"tokens/s, peak {peak_gib:.2f} GiB; phase 26(b)'s hand-called step "
+        f"{hybrid_run['step_ms']} ms (Trainer / hand {step_ms / hybrid_run['step_ms']:.4f}); "
+        f"losses {losses}")
+    log(f"  launches over {timed} steps {counts} (fused CE by weight layout {layouts}); per "
+        f"step {per}; phase 26(b)'s per step {hybrid_per}")
+    if counts != {k: timed * n for k, n in per.items()} or any(
+            per[k] != n for k, n in hybrid_per.items()):
+        raise AssertionError("phase 28 (b): the Trainer's launches differ from phase 26(b)'s")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 28 (b): losses not finite and falling: {losses}")
+
+    # one checkpoint of the full train state, restored into a fresh Trainer
+    free = shutil.disk_usage(TRAINER_WORK).free
+    log(f"  free disk under {TRAINER_WORK}: {free} bytes (need {TRAINER_DISK_BYTES})")
+    if free < TRAINER_DISK_BYTES:
+        raise AssertionError(f"phase 28 (b): {free} bytes free, too few for a checkpoint")
+    ckpt, saved = os.path.join(TRAINER_WORK, "run_b"), t.state.step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_train_state(ckpt, saved, t.params, t.opt_state, specs=t.param_specs,
+                            parallel_context=t.parallel_context)
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = dir_bytes(path)
+    fresh = bloom_trainer(np_tree, cfg, 1e-4, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.restore_from(ckpt, saved)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    equal = same_tensors(fresh.params, t.params) and zero_state_equal(
+        fresh.opt_state, t.opt_state)
+    batch = next(it)
+    nxt = [float(x.fit([batch]).losses[-1]) for x in (t, fresh)]
+    log(f"  checkpoint of step {saved}: {ckpt_bytes} bytes, saved in {save_s:.2f} s "
+        f"({ckpt_bytes / save_s / 1e9:.2f} GB/s), restored into a fresh Trainer in "
+        f"{restore_s:.2f} s ({ckpt_bytes / restore_s / 1e9:.2f} GB/s); params and moments "
+        f"equal bit for bit: {equal}; next loss {nxt[0]} vs the restored Trainer's {nxt[1]}")
+    if not equal or nxt[0] != nxt[1]:
+        raise AssertionError("phase 28 (b): the restored train state differs")
+    del fresh
+    shutil.rmtree(ckpt)
+
+    # the Chrome trace of one step
+    trace_dir = os.path.join(TRAINER_WORK, "trace")
+    t0 = time.perf_counter()
+    t.fit([next(it)], profiler_trace_dir=trace_dir)
+    found = trace_kernels(trace_dir)
+    trace_bytes = dir_bytes(trace_dir)
+    log(f"  fit(profiler_trace_dir=) of one step: {trace_bytes} bytes of Chrome trace in "
+        f"{time.perf_counter() - t0:.1f} s; kernel launches named in it, and the device "
+        f"kernels' count and summed ms {found}")
+    if not all(found[k] for k in TRAINER_KERNELS):
+        raise AssertionError("phase 28 (b): the trace does not name every kernel of the step")
+    shutil.rmtree(trace_dir)
+
+    # in turns with the hand-called step, on one batch
+    params, hand = hand_step(np_tree, cfg, 1e-4, dev)
+    hand(batch)
+    arms = {"hand": lambda: hand(batch), "trainer": lambda: t.fit([batch])}
+    turns = {"hand": [], "trainer": []}
+    steps = 3
+    for name in ("hand", "trainer", "trainer", "hand") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            arms[name]()
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - t0) * 1e3 / steps)
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    log(f"  in turns (2 x (hand, Trainer, Trainer, hand), {steps} steps each, wall): hand "
+        f"{turns['hand']} ms, Trainer {turns['trainer']} ms; medians {med['hand']} / "
+        f"{med['trainer']}, ratio {med['trainer'] / med['hand']:.4f}")
+    ds.close()
+    del t, params, hand, arms
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "hybrid_step_ms": hybrid_run["step_ms"],
+            "tokens_per_s": tokens_per_s, "peak_gib": peak_gib, "losses": losses,
+            "launches_per_step": per, "launches": counts, "layouts": layouts,
+            "turns_ms": turns,
+            "turns_median_ratio": med["trainer"] / med["hand"],
+            "checkpoint_bytes": ckpt_bytes, "save_s": save_s, "restore_s": restore_s,
+            "trace_bytes": trace_bytes, "trace_kernels": found}
+
+
+def phase28_trainer(np_tree, dev, card, hybrid_run) -> dict:
+    os.makedirs(TRAINER_WORK, exist_ok=True)
+    try:
+        a = phase28a_trainer_vs_steps(np_tree, dev)
+        b = phase28b_timed_trainer(np_tree, dev, card, hybrid_run)
+    finally:
+        import shutil
+
+        shutil.rmtree(TRAINER_WORK, ignore_errors=True)
+    return {"a": a, "b": b}
+
+
+TRAINER_COUNTERS = {FLASH_REPLACES["fwd"]: "fwd", FLASH_REPLACES["dq"]: "dq",
+                    FLASH_REPLACES["dkv"]: "dkv", FUSED_REPLACES["fwd"]: "fused_ce_fwd",
+                    FUSED_REPLACES["dh"]: "fused_ce_dh", FUSED_REPLACES["dw"]: "fused_ce_dw"}
+
+
+def trainer_launches(row, run) -> int:
+    """A kernels-line row's launches in phase 28 (b)'s timed fit: its
+    kernel's count there at the whole-model shapes, a fused CE row's by its
+    weight layout (a tp shard row, or a kernel off the path, 0)."""
+    name = TRAINER_COUNTERS.get(row["replaces"])
+    if "tp" in row or name is None:
+        return 0
+    if name in run["layouts"]:
+        return run["layouts"][name].get("hv" if row["name"].endswith("hv)") else "vh", 0)
+    return run["launches"][name]
+
+
 def main(argv) -> int:
     import argparse
 
@@ -3611,7 +4076,7 @@ def main(argv) -> int:
     lap("paged prefill vs plain")   # the serving state is gone before training
     flash_errs = phase6_flash_vs_plain(dev)
     lap("phase 6")
-    phase7_train_vs_cpu(np_tree, dev)
+    cpu_run = phase7_train_vs_cpu(np_tree, dev)
     lap("phase 7")
     flash_run = phase8_timed_training(np_tree, dev, card)
     lap("phase 8")
@@ -3619,7 +4084,8 @@ def main(argv) -> int:
     lap("phase 9")
     fused_errs = phase10_fused_vs_plain(dev)
     lap("phase 10")
-    phase11_train_options_vs_cpu(np_tree, dev)
+    phase11_train_options_vs_cpu(np_tree, dev, cpu_run)
+    del cpu_run
     lap("phase 11")
     fused_runs = phase12_timed_variants(np_tree, dev, card, flash_run["peak_gib"])
     lap("phase 12")
@@ -3653,11 +4119,13 @@ def main(argv) -> int:
     ctx = hybrid_context()
     try:
         phase26_hybrid_vs_train_step(np_tree, dev)
-        phase26_timed_hybrid(np_tree, dev, card, fused_runs["flash+fusedce"])
+        hybrid_run = phase26_timed_hybrid(np_tree, dev, card, fused_runs["flash+fusedce"])
+        lap("phase 26")
+        trainer = phase28_trainer(np_tree, dev, card, hybrid_run)
+        lap("phase 28")
     finally:
         ctx.destroy()
     rows += shard_rows
-    lap("phase 26")
     phase27_sampled_generate(np_tree, dev)
     lap("phase 27")
     del np_tree
@@ -3670,7 +4138,9 @@ def main(argv) -> int:
     lap("phase 24")
     del varied
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": rows}))
+    for row in rows:
+        row["trainer_launches"] = trainer_launches(row, trainer["b"])
+    print(json.dumps({"kernels": rows, "trainer": trainer}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,8 @@ rematerialized so that peak activation memory is one microbatch's. In
 PyTorch the same bound comes from running forward and backward one
 microbatch at a time, each loss scaled by 1/K, into the parameters'
 ``.grad``: autograd over K stacked losses would keep all K graphs alive.
-So the functions here run the backward themselves.
+So the functions here run the backward themselves, but
+:func:`make_accumulated_loss`, the loss alone that an evaluation runs.
 
 Microbatch i of a batch is rows ``[i B/K, (i + 1) B/K)`` of every leaf, as
 the JAX ``microbatch.split`` reshape gives them. With an rng argument each
@@ -96,6 +97,23 @@ def make_accumulating_loss(loss_fn: Callable[..., torch.Tensor],
             loss = loss_fn(params, mb, *extra)
             (loss / n_accum).backward()
             total = loss.detach() if total is None else total + loss.detach()
+        return total / n_accum
+
+    return wrapped
+
+
+def make_accumulated_loss(loss_fn: Callable[..., torch.Tensor],
+                          n_accum: int) -> Callable[..., torch.Tensor]:
+    """The loss alone of :func:`make_accumulating_loss`: the equal-weight
+    mean of ``loss_fn`` over ``n_accum`` microbatches, with no backward
+    (what an evaluation runs, under ``torch.no_grad()``). An rng argument
+    reaches microbatch i as ``fold_in(rng, i)``."""
+    def wrapped(params, batch, *rng):
+        total = None
+        for i, mb in enumerate(split(batch, n_accum)):
+            extra = (fold_in(rng[0], i),) if rng else ()
+            loss = loss_fn(params, mb, *extra)
+            total = loss if total is None else total + loss
         return total / n_accum
 
     return wrapped

@@ -102,10 +102,12 @@ def check_grad_comm(grad_comm: str, error_feedback: bool = False) -> None:
 class ZeroState:
     """The inner optimizer over this rank's shards, and the shards it
     updates: the parameters themselves on a data axis of one rank, None
-    at ``axis_name=None``."""
+    at ``axis_name=None``; ``axis_name`` the data axis the shards cut dim 0
+    over (None without one), which a checkpoint reads to lay them out."""
 
     inner: torch.optim.Optimizer
     shards: Optional[List[torch.Tensor]] = None
+    axis_name: Optional[str] = None
 
 
 class DistributedOptimizer:
@@ -126,9 +128,9 @@ class DistributedOptimizer:
         if self.axis_name is None:
             return ZeroState(self.inner(leaves))
         if axis_size(self.axis_name) == 1:
-            return ZeroState(self.inner(leaves), leaves)
+            return ZeroState(self.inner(leaves), leaves, self.axis_name)
         shards = [_local_shard(p.detach(), self.axis_name) for p in leaves]
-        return ZeroState(self.inner(shards), shards)
+        return ZeroState(self.inner(shards), shards, self.axis_name)
 
     @torch.no_grad()
     def step(self, grads: Any, state: ZeroState, params: Any):

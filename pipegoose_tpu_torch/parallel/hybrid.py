@@ -133,12 +133,18 @@ def _grad_of(p: torch.Tensor) -> torch.Tensor:
     return p.grad if p.grad is not None else torch.zeros_like(p)
 
 
-def _local_batch(batch: Any, batch_spec: tuple, ctx: ParallelContext, device) -> Any:
+def _local_batch(batch: Any, batch_spec: Any, ctx: ParallelContext, device) -> Any:
     """This rank's part of the global batch (numpy arrays or tensors, in
-    dicts, lists and tuples) by ``batch_spec``, as tensors on ``device``;
-    integer leaves as int64."""
+    dicts, lists and tuples) by ``batch_spec`` (one spec for every leaf, or
+    a dict of specs by the batch's keys), as tensors on ``device``; integer
+    leaves as int64."""
+    if isinstance(batch_spec, dict):
+        return {k: _local_batch(v, batch_spec[k], ctx, device) for k, v in batch.items()}
+
     def local(x):
         if isinstance(x, np.ndarray):
+            if x.dtype.kind == "u":   # a token file's uint32 ids
+                x = x.astype(np.int64)
             x = torch.from_numpy(np.ascontiguousarray(x))
         x = shard_leaf(x, batch_spec, ctx).to(device)
         return x.long() if not (x.is_floating_point() or x.dtype == torch.bool) else x

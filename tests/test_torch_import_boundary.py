@@ -41,6 +41,9 @@ def test_port_imports_without_jax_or_a_card():
         "import pipegoose_tpu_torch.parallel, pipegoose_tpu_torch.optim\n"
         "import pipegoose_tpu_torch.core.accumulation, pipegoose_tpu_torch.nn.data_parallel\n"
         "import pipegoose_tpu_torch.nn.tensor_parallel, pipegoose_tpu_torch.nn.parallel\n"
+        "import pipegoose_tpu_torch.trainer, pipegoose_tpu_torch.trainer.recovery\n"
+        "import pipegoose_tpu_torch.utils.checkpoint, pipegoose_tpu_torch.utils.procindex\n"
+        "import pipegoose_tpu_torch.utils.profiler, pipegoose_tpu_torch.data\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (FORBIDDEN,)
     )
