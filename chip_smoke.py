@@ -10,7 +10,7 @@
         # B8/B9's outputs bit for bit), and phase 22 times four training
         # steps with its kernels in turns
 
-Four main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
+The main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
 24 layers, 16 heads) with random weights made from seed 0:
 
 - serving: ``pipegoose_tpu_torch.serving.ServingEngine`` with chunked
@@ -40,7 +40,12 @@ Four main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
 - the Trainer: ``pipegoose_tpu_torch.trainer.Trainer.fit`` over that
   hybrid step, fed by the port's ``data.TokenDataset`` on its native
   route, with its callbacks, checkpoints (``utils.checkpoint``, on
-  ``torch.distributed.checkpoint``), resume and ``AutoRecovery``.
+  ``torch.distributed.checkpoint``), resume and ``AutoRecovery``;
+- tensor-parallel serving: ``ServingEngine(param_specs=tp_specs(params),
+  tp_axis="tensor")`` and ``models.generate.generate_tp`` over that
+  context (tp = 1: every collective the identity), through the same
+  paged and quantized-matmul kernels; every kernel a tp = 2 or 4 rank
+  launches is also checked at its shard shape against the whole.
 
 Phases, each fatal on failure:
 
@@ -119,7 +124,8 @@ Phases, each fatal on failure:
      and int4 weights through the kernels against the same prefill through
      the plain composite (last-position logits, greedy next token);
  15  phase 3's float32 card-vs-CPU check with int8 and int4 weights, each
-     with chunked and with monolithic prefill; the card engine's tokens
+     with chunked and with monolithic prefill, bloom-560m's widths at 12
+     layers (the CPU engines' cost); the card engine's tokens
      also equal the card's generate() on the engine's quantized params;
  16  phase 4's timed workload in four arms (fp, int8 weights, int4 weights,
      int8 weights + int8 KV): tokens/s, mean TTFT, mean decode-step ms, the
@@ -127,7 +133,8 @@ Phases, each fatal on failure:
      give), each quantized kernel's launch count (4 x n_layer x (decode
      steps + prefill chunks), all on the tensor-core route), and the
      kernels a profiled decode tick launches and the quantized kernels'
-     share of its device time;
+     share of its device time; the fp arm is phase 4's fp-KV run (the same
+     engine and requests), its numbers read from there and checked here;
  17  each quantized kernel's time at the decode (T = 8) and chunk (T = 128)
      shapes, bf16, per bloom-560m product, beside its bound, its plain
      version's time, the float32-route kernel on the same inputs, cuBLAS's
@@ -173,7 +180,8 @@ Phases, each fatal on failure:
  23  the float32 engine with the prefix cache on a skewed prefix-reuse
      trace (``make_skewed_replay``: 6 requests over 2 prefixes of 200
      tokens, so every hit copies a page on write; 16 new tokens, 4 slots,
-     chunk 128), over weights drawn with init std 0.06 (HF's is 0.02,
+     chunk 128), bloom-560m's widths cut to its first 14 layers (the CPU
+     engines' cost), over weights drawn with init std 0.06 (HF's is 0.02,
      under which every stream repeats one token) so that the greedy
      streams vary and drafts are rejected, on the card against the CPU:
      (a) fp and int8 KV; (b) with speculative decoding (1, 3) and (12,
@@ -193,8 +201,8 @@ Phases, each fatal on failure:
      imply (n_layer per decode step and chunk, k per draft step, n_layer
      per verification); the speculative card engines give the plain card
      engine's tokens;
- 24  timed bf16 serving of a larger skewed trace (24 requests over 3
-     prefixes of 392 tokens, 64 new tokens, 8 slots, context 1024, chunk
+ 24  timed bf16 serving of a larger skewed trace (16 requests over 3
+     prefixes of 392 tokens, 32 new tokens, 8 slots, context 1024, chunk
      128) over phase 23's weights, through ``prefix_replay_benchmark``,
      each arm measured on its third run on the same engine: chunked
      without the cache, cache + chunked (fp, then int8 KV), and with
@@ -251,7 +259,29 @@ Phases, each fatal on failure:
      restored into a fresh Trainer, its seconds and bytes, params and
      moments equal bit for bit and the next loss equal; the Chrome trace
      of one step through ``fit(profiler_trace_dir=)`` naming B1-B6; the
-     hand-called step and the Trainer in turns.
+     hand-called step and the Trainer in turns;
+ 29  tensor-parallel serving on phase 26's context (tp = 1 on the named
+     "tensor" axis): (a) the float32 engine with int8 weights on phase 3's
+     requests with ``param_specs=tp_specs`` and without, tokens equal bit
+     for bit and the paged and quantized kernels' launches by route equal,
+     then ``generate_tp`` against ``generate()`` on those prompts (a ragged
+     left-padded batch), bit for bit; (b) phase 4's bf16 fp-KV workload
+     through the TP engine and the plain engine in turns (plain, TP, TP,
+     plain), timed beside phase 4's fp arm, every run's tokens equal to
+     phase 4's and the paged kernel's launches n_layer x (decode steps +
+     chunks) on their routes; (c) what each tp 2 / 4 rank launches: the
+     paged kernel on every rank's 16/tp heads (its slope slice) of phase
+     5's decode and chunk shapes and phase 24's verification shape, bf16
+     and int8 pages, against the same heads of the 16-head launch and its
+     plain version (phase 2's tolerances; decode and verification on the
+     FMA route, the chunk on the tensor cores), and B10-B11 (int8, int4 G
+     = 32, bf16 x at T = 8 and 128) on every rank's shard of qkv, out, up
+     and down quantized whole: a column shard equal to the whole launch's
+     columns, the row shards' partial products summed equal to the whole,
+     within 1e-5 of the largest value, every launch on the tensor-core
+     route; then rank tp-1's shards timed as phases 5 and 17 time the
+     whole, beside their bounds, plain versions and SDPA or cuBLAS bf16
+     (their rows' ``launches`` are 0: the one-card main path runs tp = 1).
 
 Every phase's seconds are logged as "seconds: <phase> <s>".
 
@@ -697,16 +727,25 @@ def engines_agree(cfg, requests, cpu_params, gpu_params, dev, **knobs):
 
 # -- phase 4 -------------------------------------------------------------------
 
-def phase4_timed_serving(np_tree, dev) -> dict:
+def phase4_requests(cfg):
+    """Phase 4's workload: 12 seeded requests, prompts 128-512, 64 new tokens."""
+    rng = np.random.default_rng(SEED + 4)
+    return [(rng.integers(0, cfg.vocab_size, int(n)), 64)
+            for n in rng.integers(128, 513, 12)]
+
+
+def phase4_timed_serving(np_tree, dev):
+    """Timed bf16 serving, fp then int8 KV. Returns the paged kernel's
+    launches by arm and route, and the fp arm's run (metrics, tokens,
+    memory report, quantized launches, decode profile) for phases 16 and
+    29, which time the same workload."""
     from pipegoose_tpu_torch.models.bloom import BloomConfig
     from pipegoose_tpu_torch.models.weights import params_from_jax
     from pipegoose_tpu_torch.ops import paged_attention as pa
 
     cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16)
     params = params_from_jax(np_tree, cfg, device=dev)
-    rng = np.random.default_rng(SEED + 4)
-    requests = [(rng.integers(0, cfg.vocab_size, int(n)), 64)
-                for n in rng.integers(128, 513, 12)]
+    requests = phase4_requests(cfg)
     log(f"phase 4: bloom-560m bf16, 12 requests, prompts 128-512 "
         f"(sum {sum(len(p) for p, _ in requests)}), 64 new tokens, 8 slots")
     launches = {}
@@ -715,10 +754,15 @@ def phase4_timed_serving(np_tree, dev) -> dict:
         serve(params, cfg, requests, dev, num_slots=8, kv_dtype=kv)   # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        paged_counters_zero()
-        _, outs, m = serve(params, cfg, requests, dev, num_slots=8, kv_dtype=kv)
+        serving_counters_zero()
+        eng, outs, m = serve(params, cfg, requests, dev, num_slots=8, kv_dtype=kv)
         launches[kv or "fp"] = {"all": pa.paged_attention.launches,
                                 **pa.paged_attention.routes}
+        if kv is None:
+            fp_arm = {"metrics": m, "tokens": [o.generated for o in outs],
+                      "memory": eng.memory_report(),
+                      "quant": {k: c.launches for k, c in serving_counters().items()}}
+        del eng
         log(f"  {label}: {m['decode_tokens_per_s']} tokens/s, "
             f"mean TTFT {m['mean_ttft_s'] * 1e3} ms, mean decode step "
             f"{m['decode_step_time_s'] / m['decode_steps'] * 1e3} ms, "
@@ -735,11 +779,18 @@ def phase4_timed_serving(np_tree, dev) -> dict:
             f"the FMA route, 128-token bf16 chunks on the tensor cores)")
         if routes != want:
             raise AssertionError(f"{label}: a route of the paged kernel did not run")
-        decode_profile(params, cfg, requests[:8], dev, kv, label)
-    return launches
+        prof = decode_profile(params, cfg, requests[:8], dev, kv, label)
+        if kv is None:
+            fp_arm["profile"] = prof
+    return launches, fp_arm
 
 
-def decode_profile(params, cfg, requests, dev, kv_dtype, label, ticks=16, **knobs):
+# decode ticks a serving profile covers (phases 4 and 16)
+PROFILE_TICKS = 8
+
+
+def decode_profile(params, cfg, requests, dev, kv_dtype, label, ticks=PROFILE_TICKS,
+                   **knobs):
     """Where a decode step's time goes: fill the 8 slots, let every prefill
     finish, then run ``ticks`` decode-only ticks under torch.profiler and
     report wall time, device busy time and the top kernels per tick.
@@ -1912,21 +1963,29 @@ def quant_prefill_vs_plain(np_tree, dev) -> None:
 
 # -- phase 15 ------------------------------------------------------------------
 
+# phase 15's depth: bloom-560m's widths, its first 12 layers (its four CPU
+# engines cost in proportion; phase 3 holds the full depth)
+PHASE15_LAYERS = 12
+
+
 def phase15_quant_engine_vs_cpu(np_tree, dev) -> None:
     """Phase 3's float32 check with int8 and int4 weights, chunked and
-    monolithic prefill; the card engine's tokens must also equal the card's
-    generate() on the engine's own quantized params."""
+    monolithic prefill, at PHASE15_LAYERS layers; the card engine's tokens
+    must also equal the card's generate() on the engine's own quantized
+    params."""
     from pipegoose_tpu_torch.models.bloom import BloomConfig
     from pipegoose_tpu_torch.models.generate import generate
     from pipegoose_tpu_torch.models.weights import params_from_jax
 
-    cfg = BloomConfig.bloom_560m()
+    cfg = dataclasses.replace(BloomConfig.bloom_560m(), n_layer=PHASE15_LAYERS)
+    np_tree = {**np_tree, "blocks": cut_layers(np_tree["blocks"], PHASE15_LAYERS)}
     requests = card_vs_cpu_requests(cfg)
     cpu_params = params_from_jax(np_tree, cfg, device="cpu")
     gpu_params = params_from_jax(np_tree, cfg, device=dev)
     for weight_dtype in ("int8", "int4"):
         for chunk in (128, None):
-            log(f"phase 15: bloom-560m float32, {weight_dtype} weights (G=32), "
+            log(f"phase 15: bloom-560m float32 at {PHASE15_LAYERS} layers, {weight_dtype} "
+                f"weights (G=32), "
                 f"{'chunk 128' if chunk else 'monolithic prefill'}, prompts "
                 f"{[len(p) for p, _ in requests]}, 16 new tokens, 4 slots")
             cpu_eng, eng, outs = engines_agree(cfg, requests, cpu_params, gpu_params,
@@ -1943,21 +2002,34 @@ def phase15_quant_engine_vs_cpu(np_tree, dev) -> None:
 
 # -- phase 16 ------------------------------------------------------------------
 
-def phase16_quant_serving(np_tree, dev) -> dict:
+def phase16_quant_serving(np_tree, dev, fp_arm) -> dict:
     """Phase 4's workload in four arms: fp, int8 weights, int4 weights
-    (G = 32) and int8 weights + int8 KV. Returns each quantized kernel's
-    launch count from its arm's timed run."""
+    (G = 32) and int8 weights + int8 KV. The fp arm IS phase 4's fp-KV run
+    (``fp_arm``: the same engine, knobs and requests), so its numbers are
+    read from there and checked here, not run again. Returns each
+    quantized kernel's launch count from its arm's timed run."""
     from pipegoose_tpu_torch.models.bloom import BloomConfig
     from pipegoose_tpu_torch.models.weights import params_from_jax
 
     cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16)
     params = params_from_jax(np_tree, cfg, device=dev)
-    rng = np.random.default_rng(SEED + 4)
-    requests = [(rng.integers(0, cfg.vocab_size, int(n)), 64)
-                for n in rng.integers(128, 513, 12)]
+    requests = phase4_requests(cfg)
     log(f"phase 16: phase 4's workload (bloom-560m bf16, 12 requests, prompts "
         f"128-512, 64 new tokens, 8 slots, chunk 128) in four arms")
-    arms = {"fp": {}, "int8w": dict(weight_dtype="int8"),
+    m, report = fp_arm["metrics"], fp_arm["memory"]
+    log(f"  fp (phase 4's fp-KV run): {m['decode_tokens_per_s']} tokens/s, mean TTFT "
+        f"{m['mean_ttft_s'] * 1e3} ms, mean decode step "
+        f"{m['decode_step_time_s'] / m['decode_steps'] * 1e3} ms, weights "
+        f"{report['weights']['total_bytes']} bytes {report['weights']['bytes_by_dtype']}, "
+        f"KV {report['kv']['total_bytes']} bytes")
+    if report["weights"]["total_bytes"] != WEIGHT_BYTES["fp"]:
+        raise AssertionError(f"fp: weights {report['weights']['total_bytes']} bytes, "
+                             f"want {WEIGHT_BYTES['fp']}")
+    check_quant_launches("fp", fp_arm["quant"], m, cfg.n_layer, None)
+    _, busy_ms, kernels = fp_arm["profile"]
+    log(f"  fp: {sum(e.count for e in kernels) / PROFILE_TICKS:.0f} kernels a decode tick, "
+        f"{busy_ms} ms device time (phase 4's profile)")
+    arms = {"int8w": dict(weight_dtype="int8"),
             "int4w": dict(weight_dtype="int4", weight_group_size=32),
             "int8w+int8kv": dict(weight_dtype="int8", kv_dtype="int8")}
     counters = serving_counters()
@@ -1994,8 +2066,8 @@ def phase16_quant_serving(np_tree, dev) -> dict:
                                              weight_dtype=knobs.get("weight_dtype"),
                                              weight_group_size=32)
         quant_ms = sum(e.self_device_time_total for e in kernels
-                       if "quant_m" in e.key) / 1e3 / 16
-        per_tick = sum(e.count for e in kernels) / 16
+                       if "quant_m" in e.key) / 1e3 / PROFILE_TICKS
+        per_tick = sum(e.count for e in kernels) / PROFILE_TICKS
         if busy_ms:
             log(f"  {arm}: {per_tick:.0f} kernels a decode tick; quantized matmul kernels "
                 f"{quant_ms} ms of the tick's {busy_ms} ms device time "
@@ -2724,14 +2796,17 @@ PHASE23_TRACE = dict(n_requests=6, n_prefixes=2, prefix_len=200, suffix_lens=(8,
 # which every greedy stream repeats one token and every draft is accepted,
 # so that the streams vary and the verification rejects drafts
 VARIED_INIT_STD = 0.06
-# phase 24's trace: 24 requests over three Zipf-drawn prefixes of 392 tokens
-PHASE24_TRACE = dict(n_requests=24, n_prefixes=3, prefix_len=392, suffix_lens=(32, 64, 96),
-                     max_new=64, seed=SEED, zipf_a=1.2)
+# phase 24's trace: 16 requests over three Zipf-drawn prefixes of 392 tokens
+PHASE24_TRACE = dict(n_requests=16, n_prefixes=3, prefix_len=392, suffix_lens=(32, 64, 96),
+                     max_new=32, seed=SEED, zipf_a=1.2)
 LEDGER_HOLE_PAGES = 41         # phase 23 (c)'s pool: 40 pages besides the NULL page
 # phase 23's context: its longest request (300 + 16 tokens) rounded up to a
 # page. A narrower page table than phase 3's 1024 keeps the CPU engine's
 # plain attention, which reads every key of the table, three times cheaper.
 PHASE23_CONTEXT = 320
+# phase 23's depth: bloom-560m's widths, its first 14 layers (the CPU engines
+# cost in proportion), which keeps the (12, 3) draft a shallow exit
+PHASE23_LAYERS = 14
 
 
 def paged_counters_zero():
@@ -2860,7 +2935,7 @@ def layers_vs_cpu(label, cpu_params, gpu_params, cfg, prompt, dev, kv):
                            page=1 + pos // ps, off=pos % ps, null=torch.zeros_like(pos),
                            table=i32([list(range(1, width + 1))]), start=i32([start]),
                            qmask=torch.ones((1, c), dtype=torch.bool, device=d) if c > 1 else None,
-                           slopes=kp._local_slopes(cfg, d))
+                           slopes=kp._local_slopes(cfg, None, d))
         a, g = args["cpu"], args[dev]
         at = (a["page"][0], a["off"][0])                 # the positions this pass writes
         x = kp._embed(cpu_params, a["tokens"], cfg)
@@ -2924,11 +2999,13 @@ def phase23_cache_spec_vs_cpu(np_tree, dev) -> None:
     from pipegoose_tpu_torch.models.weights import params_from_jax
     from pipegoose_tpu_torch.serving import make_skewed_replay
 
-    cfg = BloomConfig.bloom_560m()
+    cfg = dataclasses.replace(BloomConfig.bloom_560m(), n_layer=PHASE23_LAYERS)
+    np_tree = {**np_tree, "blocks": cut_layers(np_tree["blocks"], PHASE23_LAYERS)}
     trace = make_skewed_replay(vocab=cfg.vocab_size, **PHASE23_TRACE)
-    log(f"phase 23: bloom-560m float32, init std {VARIED_INIT_STD}, make_skewed_replay "
-        f"{PHASE23_TRACE}: prompts {[len(p) for p, _ in trace]}, 4 slots, pages of 16, "
-        f"chunk 128, context {PHASE23_CONTEXT}")
+    log(f"phase 23: bloom-560m float32 cut to {PHASE23_LAYERS} layers, init std "
+        f"{VARIED_INIT_STD}, make_skewed_replay {PHASE23_TRACE}: prompts "
+        f"{[len(p) for p, _ in trace]}, 4 slots, pages of 16, chunk 128, context "
+        f"{PHASE23_CONTEXT}")
     cpu_params = params_from_jax(np_tree, cfg, device="cpu")
     gpu_params = params_from_jax(np_tree, cfg, device=dev)
     hole = ledger_hole_requests(trace, cfg.vocab_size) + trace
@@ -4032,6 +4109,360 @@ def trainer_launches(row, run) -> int:
     return run["launches"][name]
 
 
+# -- phase 29 ------------------------------------------------------------------
+
+def tp_knobs(params):
+    """The engine's tensor-parallel options over the current context's
+    "tensor" axis (size 1 on one card)."""
+    from pipegoose_tpu_torch.models.bloom import tp_specs
+
+    return {"param_specs": tp_specs(params), "tp_axis": "tensor"}
+
+
+def serving_counters_zero():
+    """Every serving kernel's launch and route counters to 0."""
+    paged_counters_zero()
+    for name, c in serving_counters().items():
+        if name != "paged_attention":
+            c.launches = 0
+            c.routes = {"mma": 0, "fma": 0}
+
+
+def serving_counts():
+    """The serving kernels' launches by route: the paged kernel's (and by
+    query count) and each quantized matmul's."""
+    counters = serving_counters()
+    return {"paged": paged_counts(),
+            **{k: {"all": counters[k].launches, **counters[k].routes} for k in ("int8", "int4")}}
+
+
+def phase29a_tp_engine_vs_plain(np_tree, dev) -> None:
+    """(a) At tp = 1 on the named "tensor" axis: the float32 engine with int8
+    weights, chunked, on phase 3's requests, with ``param_specs`` and
+    without; every collective is the identity, so the tokens must be equal
+    bit for bit and the kernels' launches by route equal. Then
+    ``generate_tp`` against ``generate()`` on the same prompts (a ragged
+    left-padded batch, 16 new tokens), bit for bit."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.generate import generate, generate_tp
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+
+    cfg = BloomConfig.bloom_560m()
+    requests = card_vs_cpu_requests(cfg)
+    params = params_from_jax(np_tree, cfg, device=dev)
+    knobs = dict(weight_dtype="int8")
+    log(f"phase 29 (a): bloom-560m float32, int8 weights, chunk 128, 4 slots, phase 3's "
+        f"requests (prompts {[len(p) for p, _ in requests]}, 16 new tokens), with and "
+        f"without param_specs=tp_specs on the one-rank \"tensor\" axis")
+    runs = {}
+    for label, extra in (("plain", {}), ("tp", tp_knobs(params))):
+        serving_counters_zero()
+        eng, outs, m = serve(params, cfg, requests, dev, num_slots=4, **knobs, **extra)
+        counts = serving_counts()
+        log(f"  {label} engine: launches {counts}, decode steps {m['decode_steps']}, "
+            f"chunks {m['prefill_chunks']}")
+        check_launches(f"{label} engine", counts["paged"]["all"], m, cfg.n_layer)
+        check_quant_launches(f"{label} engine", {k: v["all"] for k, v in counts.items()}, m,
+                             cfg.n_layer, "int8")
+        runs[label] = ([o.generated for o in outs], counts, eng.memory_report())
+        del eng
+    (pt, pc, pm), (tt, tc, tm) = runs["plain"], runs["tp"]
+    same = all(np.array_equal(a, b) for a, b in zip(pt, tt))
+    log(f"  tp engine vs plain engine: tokens bit for bit {same}, launches by route "
+        f"equal {pc == tc}, memory reports equal {pm == tm}")
+    if not (same and pc == tc and pm == tm):
+        raise AssertionError("phase 29 (a): the tp = 1 engine differs from the plain one")
+    width = max(len(p) for p, _ in requests)
+    ids = np.zeros((len(requests), width), np.int64)
+    mask = np.zeros_like(ids)
+    for i, (p, _) in enumerate(requests):
+        ids[i, width - len(p):] = p
+        mask[i, width - len(p):] = 1
+    want = generate(params, ids, cfg, 16, attention_mask=mask, device=dev).cpu().numpy()
+    got = generate_tp(params, ids, cfg, 16, tp_knobs(params)["param_specs"],
+                      attention_mask=mask, device=dev).cpu().numpy()
+    log(f"  generate_tp vs generate(), {len(requests)} left-padded prompts x {width}, 16 "
+        f"new tokens: equal bit for bit {np.array_equal(got, want)}")
+    if not np.array_equal(got, want):
+        raise AssertionError("phase 29 (a): generate_tp differs from generate()")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase29b_timed_tp_serving(np_tree, dev, card, fp_arm) -> None:
+    """(b) Phase 4's bf16 fp-KV workload through the TP engine at tp = 1 and
+    through the plain engine, in turns (plain, TP, TP, plain; phase 4's
+    runs warmed the card): tokens/s, mean TTFT and mean step ms of each,
+    beside phase 4's fp arm; every run's tokens equal phase 4's bit for bit
+    and each TP run's paged launches n_layer x (decode steps + chunks) on
+    their routes."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+
+    cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16)
+    params = params_from_jax(np_tree, cfg, device=dev)
+    requests = phase4_requests(cfg)
+    base = fp_arm["metrics"]
+    log(f"phase 29 (b): phase 4's workload (bf16, fp KV, 12 requests, 8 slots), the plain "
+        f"and the TP engine at tp = 1 in turns; phase 4's fp arm {base['decode_tokens_per_s']} "
+        f"tokens/s, mean TTFT {base['mean_ttft_s'] * 1e3} ms, mean decode step "
+        f"{base['decode_step_time_s'] / base['decode_steps'] * 1e3} ms [{card}]")
+    runs = {"plain": [], "tp": []}
+    for label in ("plain", "tp", "tp", "plain"):
+        torch.cuda.synchronize()
+        serving_counters_zero()
+        knobs = tp_knobs(params) if label == "tp" else {}
+        _, outs, m = serve(params, cfg, requests, dev, num_slots=8, **knobs)
+        counts = paged_counts()
+        step_ms = m["decode_step_time_s"] / m["decode_steps"] * 1e3
+        runs[label].append((m["decode_tokens_per_s"], m["mean_ttft_s"] * 1e3, step_ms))
+        log(f"  {label} engine: {m['decode_tokens_per_s']} tokens/s, mean TTFT "
+            f"{m['mean_ttft_s'] * 1e3} ms, mean decode step {step_ms} ms")
+        check_launches(f"{label} engine", counts["all"], m, cfg.n_layer)
+        routes = {r: counts[r] for r in ("fma", "mma")}
+        want = {"fma": cfg.n_layer * m["decode_steps"],
+                "mma": cfg.n_layer * m["prefill_chunks"]}
+        same = all(np.array_equal(o.generated, t) for o, t in zip(outs, fp_arm["tokens"]))
+        if routes != want or not same:
+            raise AssertionError(f"phase 29 (b): the {label} engine left a route "
+                                 f"({routes}, want {want}) or phase 4's tokens")
+    mean = {k: np.mean(v, axis=0) for k, v in runs.items()}
+    log(f"  in turns, mean of two runs each: tp {mean['tp'].tolist()}, plain "
+        f"{mean['plain'].tolist()} (tokens/s, TTFT ms, step ms); tp / plain step ms "
+        f"{mean['tp'][2] / mean['plain'][2]}; every run's tokens equal phase 4's [{card}]")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def shard_heads(pages, h):
+    """Heads ``h`` of a bank (fp, or int8 with its scale plane), contiguous."""
+    if isinstance(pages, dict):
+        return {"q": pages["q"][..., h, :].contiguous(),
+                "scale": pages["scale"][..., h].contiguous()}
+    return pages[..., h, :].contiguous()
+
+
+def paged_shard_case(case, tp, r):
+    """Rank r's part of a paged case at tp: its nh/tp heads of q and of the
+    float32 banks, and its slice of the ALiBi slopes."""
+    nh = case["q"].shape[2]
+    h = slice(r * nh // tp, (r + 1) * nh // tp)
+    return {**case, "q": case["q"][:, :, h].contiguous(), "k": shard_heads(case["k"], h),
+            "v": shard_heads(case["v"], h), "slopes": case["slopes"][h].contiguous()}
+
+
+def paged_shards_vs_whole(label, case, fmt, tp, want_route) -> float:
+    """The paged kernel on every rank's head shard (its slope slice) against
+    the same heads of the whole launch and against its plain version, to
+    phase 2's tolerance; every launch on ``want_route``. Returns the
+    largest error."""
+    from pipegoose_tpu_torch.ops import paged_attention as pa
+
+    q = case["q"].to(torch.bfloat16)
+    k, v = (layer_of(p, 0) for p in pages_as(case, fmt))
+    args = (case["table"], case["start"])
+    whole = pa.paged_attention(q, k, v, *args, slopes=case["slopes"])
+    b, c, nh, hd = q.shape
+    lh = nh // tp
+    pages = k["q"] if fmt == "int8" else k
+    plans = [pa.paged_plan(b, c, n, hd, pages.shape[1], case["table"].shape[1], q.dtype,
+                           pages.dtype) for n in (nh, lh)]
+    before = dict(pa.paged_attention.routes)
+    err = 0.0
+    for r in range(tp):
+        h = slice(r * lh, (r + 1) * lh)
+        qs, ks, vs, sl = q[:, :, h].contiguous(), shard_heads(k, h), shard_heads(v, h), \
+            case["slopes"][h].contiguous()
+        out = pa.paged_attention(qs, ks, vs, *args, slopes=sl)
+        ref = pa.paged_attention_reference(qs, ks, vs, *args, slopes=sl)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{label}: non-finite shard output")
+        err = max(err, (out - whole[:, :, h]).abs().max().item(),
+                  (out - ref).abs().max().item())
+    torch.cuda.synchronize()
+    moved = {r: pa.paged_attention.routes[r] - before[r] for r in before}
+    ok = err <= ATOL[fmt] and moved == {**dict.fromkeys(before, 0), want_route: tp}
+    log(f"phase 29 (c): {label} {fmt} pages at tp={tp}: {tp} shards of {lh} heads vs the "
+        f"whole and vs plain max_abs_err={err} (atol {ATOL[fmt]}); routes {moved} (want "
+        f"{want_route}); splits whole {plans[0]['splits']} x {plans[0]['blocks']} blocks, "
+        f"shard {plans[1]['splits']} x {plans[1]['blocks']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} {fmt} tp={tp}: head shards disagree or left "
+                             f"the {want_route} route")
+    return err
+
+
+def paged_shard_rows(dev, card) -> list:
+    """The paged kernel at every tp 2 / tp 4 rank's heads of phase 5's decode
+    and chunk shapes and phase 24's verification shape, bf16 and int8 pages;
+    then rank tp-1's shard timed as phase 5 times the whole."""
+    from pipegoose_tpu_torch.ops import paged_attention as pa
+
+    n_layer = 24
+    cases = {**phase5_cases(dev, n_layer), "verification": verify_case(dev, n_layer)}
+    routes = {"decode": "fma", "chunk": "mma", "verification": "fma"}
+    rows = []
+    for kind, case in cases.items():
+        for fmt in ("bf16", "int8"):
+            for tp in TP_SIZES:
+                err = paged_shards_vs_whole(kind, case, fmt, tp, routes[kind])
+                shard = paged_shard_case(case, tp, tp - 1)
+                b, c, lh, hd = shard["q"].shape
+                plan = pa.paged_plan(b, c, lh, hd, 16, 64, torch.bfloat16,
+                                     torch.bfloat16 if fmt == "bf16" else torch.int8)
+                t = paged_time(shard, fmt, n_layer, dev)
+                bound_ms, bound_by = paged_bound_ms(shard, fmt, plan["route"])
+                (ms, call_ms), (plain_ms, _), (library_ms, _) = (t["kernel"], t["plain"],
+                                                                 t["library"])
+                log(f"  {kind} {fmt} pages, rank {tp - 1}'s {lh} heads at tp={tp} "
+                    f"({plan['route']} route, {plan['splits']} splits, {plan['blocks']} "
+                    f"blocks), device ms per call: kernel {ms}, bound {bound_ms} "
+                    f"({bound_by}), plain {plain_ms}, SDPA {library_ms}; eager kernel "
+                    f"{call_ms} [{card}]")
+                rows.append({
+                    "name": f"paged_attention ({fmt} pages, {kind} B={b} C={c}: rank "
+                            f"{tp - 1}'s {lh} heads at tp={tp}, {plan['route']} route)",
+                    **KERNEL, "kernel_route": plan["route"], "tp": tp, "launches": 0,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                    "call_ms": call_ms})
+                del shard
+        del case
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+# each bloom-560m product's tensor-parallel role: qkv and up column-parallel
+# (N sharded), out and down row-parallel (K sharded)
+BLOOM_ROLES = ("column", "row", "column", "row")
+
+
+def quant_shard(kind, role, x, q, scale, tp, r):
+    """Rank r's operands of one quantized product at tp: a column shard's
+    N/tp columns of q and scale (x whole); a row shard's K/tp columns of x
+    and rows of q (K/2tp packed int4 rows), its int4 scales' K/(G tp) groups
+    (int8 scales whole)."""
+    if role == "column":
+        n = q.shape[1] // tp
+        cols = slice(r * n, (r + 1) * n)
+        return x, q[:, cols].contiguous(), scale[..., cols].contiguous()
+    k = x.shape[1] // tp
+    rows = slice(r * k, (r + 1) * k)
+    qk = q.shape[0] // tp
+    q_rows = slice(r * qk, (r + 1) * qk)
+    if kind == "int8":
+        return x[:, rows].contiguous(), q[q_rows].contiguous(), scale
+    g = scale.shape[0] // tp
+    return (x[:, rows].contiguous(), q[q_rows].contiguous(),
+            scale[r * g:(r + 1) * g].contiguous())
+
+
+def quant_shards_vs_whole(dev, kind, t, tp) -> float:
+    """Every rank's shard of bloom-560m's four products (int4 G = 32), bf16
+    x at T tokens, from the whole weight quantized once (the engine's
+    order): a column shard equals the whole launch's column slice, the row
+    shards' partial products summed equal the whole product, each within
+    QUANT_RTOL of the largest value; every launch on the tensor-core route.
+    Returns the largest error over the tolerance's scale."""
+    from pipegoose_tpu_torch.quant import matmul as qm
+
+    wrapper = getattr(qm, f"quantized_matmul_{kind}")
+    worst = 0.0
+    for i, ((k, n), role) in enumerate(zip(BLOOM_KN, BLOOM_ROLES)):
+        x, [(q, scale)] = quant_case(dev, kind, k, n, t, torch.bfloat16, SEED + 29 + i)
+        whole = wrapper(x, q, scale)
+        before = dict(wrapper.routes)
+        parts = [wrapper(*quant_shard(kind, role, x, q, scale, tp, r)) for r in range(tp)]
+        torch.cuda.synchronize()
+        if wrapper.routes != {**before, "mma": before["mma"] + tp}:
+            raise AssertionError(f"{kind} T={t} {k}x{n} tp={tp}: a shard left the "
+                                 f"tensor-core route")
+        got = torch.cat(parts, dim=1) if role == "column" else sum(parts)
+        tol = QUANT_RTOL * whole.abs().max().item()
+        err = (got - whole).abs().max().item()
+        worst = max(worst, err)
+        log(f"phase 29 (c): {kind} T={t} {k}x{n} {role}-parallel at tp={tp}: "
+            f"{'columns' if role == 'column' else 'summed partials'} vs the whole "
+            f"max_abs_err={err} (tol {tol}) {'ok' if err <= tol else 'FAIL'}")
+        if err > tol or not torch.isfinite(got).all():
+            raise AssertionError(f"{kind} {k}x{n} tp={tp}: shards disagree with the whole")
+    return worst
+
+
+def quant_shard_rows(dev, card) -> list:
+    """B10-B11 at every tp 2 / 4 shard against the whole (decode T = 8 and
+    chunk T = 128), then rank tp-1's shard of each product timed as phase 17
+    times the whole, each call reading the next of 24 layers' weights: one
+    layer's four products summed per row."""
+    from pipegoose_tpu_torch.quant import matmul as qm
+
+    n_layer = 24
+    rows = []
+    for kind in ("int8", "int4"):
+        kernel = getattr(qm, f"quantized_matmul_{kind}")
+        for t, shape in ((8, "decode"), (128, "chunk")):
+            for tp in TP_SIZES:
+                err = quant_shards_vs_whole(dev, kind, t, tp)
+                tot = dict.fromkeys(("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                                     "bytes", "ops"), 0.0)
+                for i, ((k, n), role) in enumerate(zip(BLOOM_KN, BLOOM_ROLES)):
+                    x, layers = quant_case(dev, kind, k, n, t, torch.bfloat16,
+                                           SEED + 17 + i, layers=n_layer)
+                    shards = [quant_shard(kind, role, x, q, s, tp, tp - 1) for q, s in layers]
+                    xs = shards[0][0]
+                    ops = [(q, s) for _, q, s in shards]
+                    deq = [qm.dequantize_weight(q, s).to(torch.bfloat16) for q, s in ops]
+                    got = {}
+                    got["ms"], got["call_ms"] = time_ms(
+                        lambda j: kernel(xs, *ops[j % n_layer]), n_layer)
+                    got["plain_ms"], _ = time_ms(
+                        lambda j: qm.quantized_matmul_reference(xs, *ops[j % n_layer]),
+                        n_layer)
+                    got["library_ms"], _ = time_ms(
+                        lambda j: torch.matmul(xs, deq[j % n_layer]), n_layer)
+                    kl, nl = xs.shape[1], deq[0].shape[1]
+                    got["bound_ms"], got["bytes"], got["ops"] = quant_bound_ms(
+                        xs, *ops[0], t, kl, nl)
+                    log(f"  {kind} T={t} rank {tp - 1}'s {role} shard {kl}x{nl} of {k}x{n} "
+                        f"at tp={tp}: kernel {got['ms']} (eager {got['call_ms']}), bound "
+                        f"{got['bound_ms']}, plain {got['plain_ms']}, cuBLAS bf16 x @ "
+                        f"dequantized bf16 {got['library_ms']} [{card}]")
+                    for key in tot:
+                        tot[key] += got[key]
+                    del layers, shards, ops, deq
+                gc.collect()
+                torch.cuda.empty_cache()
+                log(f"  {kind} T={t} at tp={tp}, one layer's four shards: kernel {tot['ms']}, "
+                    f"bound {tot['bound_ms']}, plain {tot['plain_ms']}, cuBLAS bf16 "
+                    f"{tot['library_ms']}")
+                rows.append({
+                    "name": f"quantized_matmul_{kind} (bf16, {shape} T={t}: rank {tp - 1}'s "
+                            f"shards of qkv+out+up+down at tp={tp}, summed)",
+                    "source": QUANT_SOURCE, "replaces": QUANT_REPLACES[kind],
+                    "route": "cuda", "kernel_route": "mma", "tp": tp, "launches": 0,
+                    "max_abs_err": err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                    "bound_ms": tot["bound_ms"],
+                    "bound_by": "bytes" if tot["bytes"] >= tot["ops"] else "operations",
+                    "library_ms": tot["library_ms"], "call_ms": tot["call_ms"]})
+    return rows
+
+
+def phase29_tp_serving(np_tree, dev, card, fp_arm) -> list:
+    """Tensor-parallel serving on the current one-rank context: (a) the
+    engine and generate_tp at tp = 1 against their single-device selves,
+    (b) phase 4's fp arm through the TP engine, timed, (c) the paged and
+    quantized kernels at every tp 2 / 4 rank's shard against the whole, and
+    rank tp-1's shards timed. Returns (c)'s rows, each with ``launches`` 0:
+    the one-card main path runs tp = 1."""
+    phase29a_tp_engine_vs_plain(np_tree, dev)
+    phase29b_timed_tp_serving(np_tree, dev, card, fp_arm)
+    log(f"phase 29 (c): the serving kernels at every tensor-parallel rank's shard, on {card}")
+    return paged_shard_rows(dev, card) + quant_shard_rows(dev, card)
+
+
 def main(argv) -> int:
     import argparse
 
@@ -4068,7 +4499,7 @@ def main(argv) -> int:
     lap(f"weights: bloom-560m from seed {SEED}")
     phase3_engine_vs_cpu(np_tree, dev)
     lap("phase 3")
-    launches = phase4_timed_serving(np_tree, dev)
+    launches, fp_arm = phase4_timed_serving(np_tree, dev)
     lap("phase 4")
     rows = phase5_kernel_time(dev, card, errs, launches)
     lap("phase 5")
@@ -4095,7 +4526,7 @@ def main(argv) -> int:
     lap("phase 14")
     phase15_quant_engine_vs_cpu(np_tree, dev)
     lap("phase 15")
-    quant_launches = phase16_quant_serving(np_tree, dev)
+    quant_launches = phase16_quant_serving(np_tree, dev, fp_arm)
     lap("phase 16")
     rows += phase17_quant_time(dev, card, quant_errs, quant_launches)
     lap("phase 17")
@@ -4123,8 +4554,11 @@ def main(argv) -> int:
         lap("phase 26")
         trainer = phase28_trainer(np_tree, dev, card, hybrid_run)
         lap("phase 28")
+        rows += phase29_tp_serving(np_tree, dev, card, fp_arm)
+        lap("phase 29")
     finally:
         ctx.destroy()
+    del fp_arm
     rows += shard_rows
     phase27_sampled_generate(np_tree, dev)
     lap("phase 27")

@@ -16,9 +16,12 @@ then uses the mask-aware positions (``build_alibi``) and pad slots stay
 masked as keys for the whole generation. Without a mask, prompts are
 unpadded and plain global positions apply.
 
-Greedy, or sampled at ``temperature > 0`` from a ``torch.Generator``. The
-tensor-parallel ``generate_tp`` waits for a later slice of the port
-(ROADMAP.md queue A).
+Greedy, or sampled at ``temperature > 0`` from a ``torch.Generator``.
+:func:`generate_tp` is the tensor-parallel greedy decode over the current
+``ParallelContext``: each rank keeps its shard of the whole tree
+(``nn.parallel.shard_tree``), a cache of its ``n_head / tp`` heads and its
+vocab shard of the logits, and every pick is the global argmax
+(``_decode.global_greedy_pick``), so every rank returns the same ids.
 """
 from __future__ import annotations
 
@@ -37,11 +40,14 @@ from pipegoose_tpu_torch.nn.tensor_parallel.layers import (
 )
 
 
-def init_cache(config, batch: int, max_len: int, device="cuda") -> dict:
+def init_cache(config, batch: int, max_len: int, tp: int = 1, device="cuda") -> dict:
     """Zero KV cache ``{"k", "v"}`` of ``config.dtype``, each (n_layer,
-    batch, max_len, nh, hd), on ``device``."""
+    batch, max_len, nh, hd), on ``device``; under a tensor axis of size
+    ``tp`` the cache holds this rank's ``nh = n_head / tp`` heads."""
     dev = resolve_device(device)
-    shape = (config.n_layer, batch, max_len, config.n_head, config.head_dim)
+    if config.n_head % tp:
+        raise ValueError(f"n_head={config.n_head} not divisible by tp={tp}")
+    shape = (config.n_layer, batch, max_len, config.n_head // tp, config.head_dim)
     return {"k": torch.zeros(shape, dtype=config.dtype, device=dev),
             "v": torch.zeros(shape, dtype=config.dtype, device=dev)}
 
@@ -102,19 +108,19 @@ def _attn_cached(blk, x, k_cache, v_cache, start: int, config, tp_axis=None,
 
 
 def _decode_bias(config, b: int, s: int, start: int, max_len: int, extras,
-                 device):
+                 device, tp_axis: Optional[str] = None):
     """Attention bias of one cached forward, shared by all layers: causal
-    by slot (which also hides slots not yet written) + ALiBi (+ per-row
-    key validity for ragged LEFT-padded prompts). Returns (bias (B|1, nh,
-    S, max_len), qmask (B, S) or None).
+    by slot (which also hides slots not yet written) + ALiBi over this
+    rank's heads (+ per-row key validity for ragged LEFT-padded prompts).
+    Returns (bias (B|1, nh/tp, S, max_len), qmask (B, S) or None).
 
     ``extras={"mask": (B, max_len)}`` (the prompt's mask extended with ones
     over the generated tail): ALiBi positions become the mask-aware
     ``(cumsum(mask) - 1) * mask``, pad slots are masked as keys, and pad
     queries of the prefill get zero context."""
-    from pipegoose_tpu_torch.models.bloom import NEG_INF, alibi_slopes
+    from pipegoose_tpu_torch.models.bloom import NEG_INF, _local_slopes
 
-    slopes = torch.from_numpy(alibi_slopes(config.n_head)).to(device)
+    slopes = _local_slopes(config, tp_axis, device)
     key_pos = torch.arange(max_len, device=device)
     q_pos = start + torch.arange(s, device=device)
     keep = key_pos[None, :] <= q_pos[:, None]
@@ -134,7 +140,9 @@ def forward_cached(params, ids: torch.Tensor, cache: dict, start: int, config,
                    tp_axis: Optional[str] = None, extras=None):
     """Forward S tokens per row at positions ``start..start+S-1`` through
     the cache, writing their k/v into it in place. Returns (float32
-    logits of the last position (B, V), the cache).
+    logits of the last position (B, V), the cache); under ``tp_axis`` the
+    logits are this rank's vocab shard (B, V/tp) and the cache holds its
+    heads (pair them with ``_decode.global_greedy_pick``).
     ``extras={"mask": (B, max_len)}`` enables ragged left-padded prompts
     (see :func:`_decode_bias`)."""
     from pipegoose_tpu_torch.models.bloom import bloom_gelu, logits_fn
@@ -144,7 +152,7 @@ def forward_cached(params, ids: torch.Tensor, cache: dict, start: int, config,
     x = layer_norm(params["embed_ln"], x, eps)
     b, s = ids.shape
     bias, qmask = _decode_bias(config, b, s, int(start), cache["k"].shape[2],
-                               extras, x.device)
+                               extras, x.device, tp_axis)
     for i, blk in enumerate(params["blocks"]):
         ln1 = layer_norm(blk["ln_1"], x, eps)
         x = x + _attn_cached(blk["attn"], ln1, cache["k"][i], cache["v"][i],
@@ -153,7 +161,7 @@ def forward_cached(params, ids: torch.Tensor, cache: dict, start: int, config,
         up = column_parallel_linear(blk["mlp"]["up"], ln2, tp_axis)
         x = x + row_parallel_linear(blk["mlp"]["down"], bloom_gelu(up), tp_axis)
     x = layer_norm(params["ln_f"], x, eps)
-    return logits_fn(params, x[:, -1:])[:, 0], cache
+    return logits_fn(params, x[:, -1:], tp_axis)[:, 0], cache
 
 
 def _ragged_extras(attention_mask, max_new_tokens: int, device):
@@ -202,15 +210,51 @@ def generate(params: dict, input_ids, config, max_new_tokens: int,
         vocab_mask_for,
     )
 
-    dev = resolve_device(device)
-    where = params["embed"]["weight"].device
-    if where.type != dev.type:
-        raise ValueError(f"params are on {where}, generate runs on {dev}")
-    ids = torch.as_tensor(np.asarray(input_ids) if not isinstance(
-        input_ids, torch.Tensor) else input_ids).to(dev, torch.int64)
+    dev = _params_device(params, device)
+    ids = _as_ids(input_ids, dev)
     extras = (_ragged_extras(attention_mask, max_new_tokens, dev)
               if attention_mask is not None else None)
     return autoregressive_generate(
         forward_cached, init_cache, params, ids, config,
         max_new_tokens, temperature, eos_token_id,
         logits_mask=vocab_mask_for(config), extras=extras, generator=generator)
+
+
+def _params_device(params: dict, device) -> torch.device:
+    dev = resolve_device(device)
+    where = params["embed"]["weight"].device
+    if where.type != dev.type:
+        raise ValueError(f"params are on {where}, generate runs on {dev}")
+    return dev
+
+
+def _as_ids(input_ids, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(input_ids) if not isinstance(
+        input_ids, torch.Tensor) else input_ids).to(dev, torch.int64)
+
+
+def generate_tp(params: dict, input_ids, config, max_new_tokens: int,
+                param_specs, tp_axis: str = "tensor",
+                eos_token_id: Optional[int] = None, attention_mask=None,
+                device="cuda") -> torch.Tensor:
+    """Tensor-parallel greedy decoding over the current ``ParallelContext``:
+    ``params`` is the WHOLE tree on ``device``, as the JAX function takes
+    global arrays; each rank keeps its shard by ``param_specs``
+    (``models.bloom.tp_specs``), runs :func:`forward_cached` under
+    ``tp_axis`` over a cache of its heads and picks every token by the
+    global argmax over the sharded vocabulary (``_decode.global_greedy_pick``;
+    a padded vocabulary's slots never win). Returns the same (B, S + max_new_tokens) int64 ids on every
+    rank. ``eos_token_id`` and ``attention_mask`` (ragged LEFT-padded
+    prompts) as in :func:`generate`. Greedy only, as the JAX function."""
+    from pipegoose_tpu_torch.models._decode import autoregressive_generate_sharded
+    from pipegoose_tpu_torch.nn.parallel import shard_tree
+
+    dev = _params_device(params, device)
+    local_heads(config, tp_axis)
+    local = shard_tree(params, param_specs)
+    ids = _as_ids(input_ids, dev)
+    extras = (_ragged_extras(attention_mask, max_new_tokens, dev)
+              if attention_mask is not None else None)
+    return autoregressive_generate_sharded(
+        forward_cached, init_cache, local, ids, config, max_new_tokens,
+        tp_axis, eos_token_id, extras=extras)

@@ -127,8 +127,11 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
         return _VocabParallelCE.apply(logits, targets, axis_name)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    pred = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    return lse - pred
+    pred = torch.gather(logits, -1, targets.long()[..., None])
+    # subtract before dropping the gathered dim: the same numbers, and a
+    # DTensor gather over a vocab-sharded dim (``parallel.auto``) stays a
+    # partial whose mask keeps its shape until the subtraction resolves it
+    return (lse[..., None] - pred)[..., 0]
 
 
 def chunked_ce_sums(hidden: torch.Tensor, labels: torch.Tensor,

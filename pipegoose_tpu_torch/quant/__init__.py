@@ -19,6 +19,7 @@ from pipegoose_tpu_torch.quant.matmul import (  # noqa: F401
 from pipegoose_tpu_torch.quant.weights import (  # noqa: F401
     QuantSpec,
     dequantize_params,
+    quantize_param_specs,
     quantize_params,
     quantized_weight_bytes,
 )
@@ -27,6 +28,7 @@ __all__ = [
     "QuantSpec",
     "dequantize_params",
     "dequantize_weight",
+    "quantize_param_specs",
     "quantize_params",
     "quantized_linear",
     "quantized_matmul",

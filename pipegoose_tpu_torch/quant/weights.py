@@ -23,8 +23,9 @@ round half to even (``torch.round``, as ``jnp.round``), so the port's
 in [-8, 7]; row 2i of the contraction dim is the low nibble of packed row
 i, row 2i + 1 the high nibble.
 
-The JAX module's ``quantize_param_specs`` maps a ``PartitionSpec`` tree
-and waits for tensor-parallel serving (ROADMAP.md queue A).
+``quantize_param_specs(param_specs, params, spec)`` maps the spec tree of
+the fp tree (``models.bloom.tp_specs``) onto that layout, so a quantized
+tree can be sharded over a tensor axis (``nn.parallel.shard_tree``).
 """
 from __future__ import annotations
 
@@ -167,6 +168,40 @@ def bytes_by_dtype(tree) -> dict:
         key = str(leaf.dtype).removeprefix("torch.")
         by_dtype[key] = by_dtype.get(key, 0) + leaf.numel() * leaf.element_size()
     return by_dtype
+
+
+def quantize_param_specs(param_specs: Any, params: Any, spec: QuantSpec) -> Any:
+    """The spec tree matching ``quantize_params``' layout.
+
+    ``q`` inherits the kernel's spec (int4's packed contraction dim is the
+    same axis, halved: contiguous shards stay contiguous). The scale's spec
+    drops the contraction entry for int8 (per-out-channel scales: a
+    row-parallel kernel's are replicated over its shards) and keeps the
+    kernel's spec for int4 (the grouped contraction dim shards with the
+    kernel). ``params`` is the ORIGINAL fp tree, the port's (``blocks`` a
+    list) or the JAX numpy one (``blocks`` stacked): it decides which
+    leaves are targets, a ``kernel`` of rank >= 2 under ``blocks``, so
+    specs and params cannot drift. Specs are tuples, one entry per
+    dimension (``nn.parallel_mapping``)."""
+
+    def walk(spec_node: Any, param_node: Any, in_blocks: bool) -> Any:
+        if isinstance(param_node, list):
+            return [walk(s, p, in_blocks) for s, p in zip(spec_node, param_node)]
+        if not isinstance(param_node, dict):
+            return spec_node
+        if (in_blocks and "kernel" in param_node
+                and getattr(param_node["kernel"], "ndim", 0) >= 2):
+            kspec = tuple(spec_node["kernel"])
+            entries = kspec + (None,) * (param_node["kernel"].ndim - len(kspec))
+            sspec = (entries[:-2] + entries[-1:] if spec.weight_dtype == "int8"
+                     else entries)
+            out = {"q": kspec, "scale": sspec}
+            out.update((k, v) for k, v in spec_node.items() if k != "kernel")
+            return out
+        return {k: walk(spec_node[k], v, in_blocks or k == "blocks")
+                for k, v in param_node.items()}
+
+    return walk(param_specs, params, False)
 
 
 def quantized_weight_bytes(params: dict) -> dict:

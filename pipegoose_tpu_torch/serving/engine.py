@@ -44,11 +44,23 @@ Opt-in modes, all off by default:
 construction (``quant.quantize_params``); every dense product of a block
 then runs the dequant-fused matmul kernels. Greedy decoding only: the
 contract is token identity with the JAX engine and with per-request
-``generate()``. The KV pool lives in place on the device. Sampling,
-tensor parallelism, the fleet API (``submit_request``, ``take_finished``,
-faults), disaggregation, KV tiers and the telemetry hooks (registry,
-tracer, flight recorder, memory ledger) wait for later slices of the
-port (ROADMAP.md queue A).
+``generate()``. The KV pool lives in place on the device.
+
+Tensor parallelism: ``param_specs`` (``models.bloom.tp_specs``) serves the
+whole tree sharded over the ``tp_axis`` of a ``ParallelContext``, one
+engine per rank, as the JAX engine does under a mesh: each rank keeps its
+shard of the weights (quantized whole first, then sharded by
+``quant.quantize_param_specs``), a pool of its ``n_head / tp`` heads, and
+its vocab shard of the logits, and every token is the global argmax
+(``models._decode.global_greedy_pick``). Every rank runs the same host
+scheduler; the clock is the one input that could differ, so every
+``now()`` reading is rank 0's, broadcast over the axis, and shedding, TTFT
+and the run's metrics agree on every rank.
+
+Sampling, the fleet API (``submit_request``, ``take_finished``, faults),
+disaggregation, KV tiers and the telemetry hooks (registry, tracer, flight
+recorder, memory ledger) wait for later slices of the port (ROADMAP.md
+queue A).
 """
 from __future__ import annotations
 
@@ -60,13 +72,22 @@ import numpy as np
 import torch
 
 from pipegoose_tpu_torch._device import resolve_device
-from pipegoose_tpu_torch.models._decode import greedy_token, vocab_mask_for
+from pipegoose_tpu_torch.distributed.functional import broadcast
+from pipegoose_tpu_torch.distributed.parallel_context import ParallelContext
+from pipegoose_tpu_torch.models._decode import (
+    global_greedy_pick,
+    greedy_token,
+    vocab_mask_for,
+)
 from pipegoose_tpu_torch.models.generate import forward_cached, init_cache
+from pipegoose_tpu_torch.nn.parallel import shard_tree
 from pipegoose_tpu_torch.quant.weights import (
     QuantSpec,
     bytes_by_dtype,
+    quantize_param_specs,
     quantize_params,
     quantized_weight_bytes,
+    validate_tp_compat,
 )
 from pipegoose_tpu_torch.serving.kv_pool import (
     PagePool,
@@ -145,7 +166,15 @@ class ServingEngine:
     ``weight_group_size`` is the int4 contraction-group width. With
     neither knob set the engine serves ``params`` as given (the same
     object). ``params`` come from ``models.weights.params_from_jax`` on
-    ``device``."""
+    ``device``.
+
+    ``param_specs`` (the spec tree of the fp ``params``, e.g.
+    ``models.bloom.tp_specs(params)``) serves them tensor-parallel over
+    ``tp_axis`` of ``parallel_context`` (the current ``ParallelContext``
+    when None): ``params`` is then the WHOLE tree, the same on every rank,
+    and each rank builds its own engine with the same arguments and runs
+    the same requests. With ``param_specs=None`` the engine is the
+    single-device one, whatever ``tp_axis`` says."""
 
     def __init__(self, params, config, *, num_slots: int = 4,
                  num_pages: int = 64, page_size: int = 16,
@@ -155,7 +184,8 @@ class ServingEngine:
                  speculative: Optional[Tuple[int, int]] = None,
                  kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None,
-                 weight_group_size: int = 32, device="cuda"):
+                 weight_group_size: int = 32, param_specs=None,
+                 tp_axis: str = "tensor", parallel_context=None, device="cuda"):
         if max_context % page_size:
             raise ValueError("max_context must be a multiple of page_size")
         if stall_patience < 1:
@@ -177,10 +207,33 @@ class ServingEngine:
         if weight_dtype == "fp":
             weight_dtype = None
         self.weight_dtype = weight_dtype
+        self.tp_axis = None
+        tp = 1
+        if param_specs is not None:
+            ctx = parallel_context or ParallelContext.get_context()
+            if ctx is None:
+                raise ValueError("param_specs needs a ParallelContext; construct one first")
+            tp = ctx.axis_size(tp_axis)
+            if config.n_head % tp:
+                raise ValueError(f"n_head={config.n_head} not divisible by tp={tp}")
+            self.tp_axis = tp_axis
         if weight_dtype is not None:
+            quant = QuantSpec(weight_dtype, weight_group_size)
+            validate_tp_compat(config, tp, quant)
+            if param_specs is not None:
+                # mapped from the fp tree, before its kernels change shape
+                param_specs = quantize_param_specs(param_specs, params, quant)
             with torch.no_grad():
-                params = quantize_params(params, QuantSpec(weight_dtype,
-                                                           weight_group_size))
+                # the WHOLE tree, before any shard: an int8 scale is the
+                # maximum over the whole contraction dim, which a
+                # row-parallel shard holds only part of
+                params = quantize_params(params, quant)
+        self._weights = None
+        if param_specs is not None:
+            # the JAX engine reports the global arrays' bytes
+            self._weights = quantized_weight_bytes(params)
+            params = shard_tree(params, param_specs, ctx)
+        self.tp = tp
         self.params = params
         self.config = config
         self.num_slots = num_slots
@@ -200,10 +253,32 @@ class ServingEngine:
         # prefill too; the monolithic path stays the default otherwise
         self._paged_prefill = prefix_cache or prefill_chunk is not None
         self.k_pages, self.v_pages = init_pages(
-            config, num_pages, page_size, kv_dtype=self.kv_dtype,
+            config, num_pages, page_size, tp=tp, kv_dtype=self.kv_dtype,
             device=self.device)
         self._mask_fn = vocab_mask_for(config)
         self._run: Optional[_RunState] = None
+
+    def _pick(self, logits: torch.Tensor) -> torch.Tensor:
+        """The greedy pick of every forward: over the whole vocabulary, or
+        under a tensor axis the global argmax over the vocab shards."""
+        if self.tp_axis is None:
+            return greedy_token(logits, self._mask_fn)
+        return global_greedy_pick(logits, self.tp_axis,
+                                  getattr(self.config, "valid_vocab_size", None))
+
+    def _lockstep_clock(self, now):
+        """``now`` under a tensor axis larger than 1: every reading is rank
+        0's, broadcast over the axis as one float64, so every rank's
+        scheduler sheds, admits and times alike (every rank reads the clock
+        at the same points of the same host logic)."""
+        if self.tp <= 1:
+            return now
+
+        def clock() -> float:
+            t = torch.tensor([now()], dtype=torch.float64, device=self.device)
+            return float(broadcast(t, self.tp_axis, 0)[0])
+
+        return clock
 
     def _tensor(self, arr) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr, np.int32)).to(self.device)
@@ -245,8 +320,8 @@ class ServingEngine:
         logits = paged_prefill_chunk(
             self.params, self._tensor(ids), self.k_pages, self.v_pages,
             self._tensor(table), self._tensor([begin]), self._tensor([n]),
-            self.config)
-        tok = int(greedy_token(logits, self._mask_fn)[0])  # syncs the device
+            self.config, self.tp_axis)
+        tok = int(self._pick(logits)[0])                    # syncs the device
         req.prefilled_len = end
         rs.prefill_tokens += n
         if end < target:
@@ -280,11 +355,11 @@ class ServingEngine:
         ids[0, pad:] = np.asarray(req.prompt, np.int32)
         mask = np.zeros((1, bucket), np.int32)
         mask[0, pad:] = 1
-        cache = init_cache(self.config, 1, bucket, device=self.device)
+        cache = init_cache(self.config, 1, bucket, self.tp, device=self.device)
         logits, cache = forward_cached(self.params, self._tensor(ids), cache, 0,
-                                       self.config,
+                                       self.config, self.tp_axis,
                                        extras={"mask": self._tensor(mask)})
-        tok = greedy_token(logits, self._mask_fn)
+        tok = self._pick(logits)
         phys = np.zeros((self.table_width,), np.int32)
         phys[:len(req.pages)] = req.pages
         write_prompt_pages(self.k_pages, self.v_pages, cache,
@@ -306,8 +381,8 @@ class ServingEngine:
             tokens[req.slot] = req.generated[-1]
         logits = paged_decode_step(
             self.params, self._tensor(tokens), self.k_pages, self.v_pages,
-            self._tensor(table), self._tensor(seq_lens), self.config)
-        return greedy_token(logits, self._mask_fn).cpu().numpy()  # syncs
+            self._tensor(table), self._tensor(seq_lens), self.config, self.tp_axis)
+        return self._pick(logits).cpu().numpy()              # syncs
 
     def _spec_cycle(self, rows: List[Request], rs: _RunState):
         """One speculative cycle over the decoding slots: draft up to n
@@ -343,14 +418,15 @@ class ServingEngine:
         for j in range(n_spec):
             logits = paged_decode_step(
                 self.params, cur, self.k_pages, self.v_pages, d_table, d_seq + j,
-                self.config, write_ok=d_g > j, draft_layers=spec_k)
-            cur = greedy_token(logits, self._mask_fn).to(torch.int32)
+                self.config, self.tp_axis, write_ok=d_g > j, draft_layers=spec_k)
+            cur = self._pick(logits).to(torch.int32)
             drafts.append(cur)
         ids = torch.stack([d_tok0, *drafts], dim=1)
         logits = paged_prefill_chunk(
             self.params, ids, self.k_pages, self.v_pages, d_table, d_seq,
-            d_g + 1, self.config, all_logits=True)
-        verified = greedy_token(logits, self._mask_fn)
+            d_g + 1, self.config, self.tp_axis, all_logits=True)
+        b, c, _ = logits.shape
+        verified = self._pick(logits.reshape(b * c, -1)).reshape(b, c)
         drafts = ids[:, 1:].cpu().numpy()
         toks = verified.cpu().numpy()            # syncs the device
         t = rs.now()
@@ -393,11 +469,14 @@ class ServingEngine:
         from the live params (quantized leaves count their int8 + scale
         bytes), KV from the live pool (values + scale planes).
         ``page_capacity_ratio`` is how many times more pages the same KV
-        bytes hold than an fp pool of this geometry. The JAX report's
-        registry gauges and host tier wait for the port's telemetry and KV
-        tiers."""
-        weights = quantized_weight_bytes(self.params)
-        kv_by = bytes_by_dtype((self.k_pages, self.v_pages))
+        bytes hold than an fp pool of this geometry. Under a tensor axis the
+        bytes are the whole engine's over every rank, as the JAX engine
+        counts its global arrays: the whole quantized tree, and this rank's
+        head-sharded pool times tp. The JAX report's registry gauges and
+        host tier wait for the port's telemetry and KV tiers."""
+        weights = self._weights or quantized_weight_bytes(self.params)
+        kv_by = {k: v * self.tp for k, v in
+                 bytes_by_dtype((self.k_pages, self.v_pages)).items()}
         kv_total = int(sum(kv_by.values()))
         cfg = self.config
         num_pages = self.pool.num_pages
@@ -441,6 +520,7 @@ class ServingEngine:
         :meth:`finish_run`."""
         if self._run is not None:
             raise RuntimeError("a serving run is already in progress")
+        now = self._lockstep_clock(now)
         rs = _RunState(now, tick_hook)
         self._run = rs
         for r in requests:
@@ -620,7 +700,8 @@ def prefix_replay_benchmark(params, config, *, n_requests=12, n_prefixes=3,
                             seed=0, zipf_a=1.2, num_slots=4, num_pages=64,
                             page_size=8, max_context=64, prefill_chunk=None,
                             include_speculative=False, speculative=(1, 3),
-                            arms=None, measure=None, device="cuda"):
+                            arms=None, measure=None, param_specs=None,
+                            tp_axis="tensor", device="cuda"):
     """One skewed-prompt-reuse replay through (a) the baseline engine
     (monolithic prefill, no sharing), (b) chunked prefill, (c) the prefix
     cache, (d) both, and optionally (e) both + self-speculative decoding.
@@ -634,9 +715,11 @@ def prefix_replay_benchmark(params, config, *, n_requests=12, n_prefixes=3,
     summary is left out unless both "baseline" and "cached" are among
     them. ``measure(label, engine, run)``, if given, takes each measured
     run: it calls ``run()`` once and returns its (outputs, metrics), so a
-    caller can read device counters around exactly that run. The JAX
-    version's ``trace``, ``include_quant`` and ``include_tiered`` wait
-    for the port's telemetry and KV tiers."""
+    caller can read device counters around exactly that run.
+    ``param_specs`` and ``tp_axis`` pass through to every arm's engine
+    (tensor-parallel serving over the current context, every rank running
+    the same replay). The JAX version's ``trace``, ``include_quant`` and
+    ``include_tiered`` wait for the port's telemetry and KV tiers."""
     vocab = getattr(config, "valid_vocab_size", None) or config.vocab_size
     replay = make_skewed_replay(
         n_requests=n_requests, n_prefixes=n_prefixes, prefix_len=prefix_len,
@@ -661,7 +744,8 @@ def prefix_replay_benchmark(params, config, *, n_requests=12, n_prefixes=3,
     for label, kw in arms.items():
         engine = ServingEngine(
             params, config, num_slots=num_slots, num_pages=num_pages,
-            page_size=page_size, max_context=max_context, device=device, **kw)
+            page_size=page_size, max_context=max_context, param_specs=param_specs,
+            tp_axis=tp_axis, device=device, **kw)
         engine.run(requests())
         engine.run(requests())
         run = lambda: engine.run(requests())  # noqa: E731

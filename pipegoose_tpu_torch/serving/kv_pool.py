@@ -28,6 +28,13 @@ requiring grad are served without building an autograd graph.
 ``init_pages(kv_dtype="int8")`` makes each bank ``{"q": int8, "scale":
 float32}``: writes quantize per (position, head), the attention read
 dequantizes.
+
+Under a tensor axis (``tp_axis``, over the current ``ParallelContext``)
+each rank holds ``n_head / tp`` heads of every bank (``init_pages(tp=)``;
+an int8 bank's scale plane shards with its heads), runs the kernel on its
+heads with its slice of the ALiBi slopes, and returns its vocab shard of
+the logits: pair them with ``models._decode.global_greedy_pick``. The page
+tables, positions and tokens are the same on every rank.
 """
 from __future__ import annotations
 
@@ -37,7 +44,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import torch
 
 from pipegoose_tpu_torch._device import resolve_device, true_div
-from pipegoose_tpu_torch.models.bloom import alibi_slopes, bloom_gelu, logits_fn
+from pipegoose_tpu_torch.models.bloom import _local_slopes, bloom_gelu, logits_fn
 from pipegoose_tpu_torch.models.generate import _qkv_proj
 from pipegoose_tpu_torch.nn.tensor_parallel.layers import (
     column_parallel_linear,
@@ -195,14 +202,19 @@ class PagePool:
     free = release
 
 
-def init_pages(config, num_pages: int, page_size: int,
+def init_pages(config, num_pages: int, page_size: int, tp: int = 1,
                kv_dtype: Optional[str] = None, device="cuda"):
     """The pool's k and v banks, zero-filled on ``device``: an fp pair in
     ``config.dtype``, or with ``kv_dtype="int8"`` two
-    ``{"q": int8 (L, P, ps, nh, hd), "scale": float32 (L, P, ps, nh)}``."""
+    ``{"q": int8 (L, P, ps, nh, hd), "scale": float32 (L, P, ps, nh)}``.
+    Under a tensor axis of size ``tp`` each rank's banks hold its
+    ``nh = n_head / tp`` heads."""
     dev = resolve_device(device)
     kv_dtype = check_kv_dtype(kv_dtype)
-    shape = (config.n_layer, num_pages, page_size, config.n_head, config.head_dim)
+    if config.n_head % tp:
+        raise ValueError(f"n_head={config.n_head} not divisible by tp={tp}")
+    shape = (config.n_layer, num_pages, page_size, config.n_head // tp,
+             config.head_dim)
     if kv_dtype is None:
         return (torch.zeros(shape, dtype=config.dtype, device=dev),
                 torch.zeros(shape, dtype=config.dtype, device=dev))
@@ -290,33 +302,31 @@ def write_prompt_pages(k_pages, v_pages, cache: dict, phys_pages: torch.Tensor,
     scatter(v_pages, v_seq)
 
 
-def _local_slopes(config, device) -> torch.Tensor:
-    """ALiBi slopes of every head (the port runs at tp=1)."""
-    return torch.from_numpy(alibi_slopes(config.n_head)).to(device)
-
-
 def _block(blk, h, kp, vp, dest_page, dest_off, page_table, start, slopes,
-           qmask, config):
+           qmask, config, tp_axis=None):
     """One transformer block of a paged forward: write this layer's k/v
-    through the page table, attend through the kernel, then the MLP."""
+    through the page table, attend through the kernel, then the MLP. Under
+    ``tp_axis`` the banks and ``slopes`` (``models.bloom._local_slopes``)
+    are this rank's heads, qkv and up column-parallel, out and down
+    row-parallel."""
     b, c, _ = h.shape
     eps = config.layer_norm_epsilon
     ln1 = layer_norm(blk["ln_1"], h, eps)
-    q, k, v = _qkv_proj(blk["attn"], ln1, config)
+    q, k, v = _qkv_proj(blk["attn"], ln1, config, tp_axis)
     _write_kv(kp, dest_page, dest_off, k)
     _write_kv(vp, dest_page, dest_off, v)
     ctx = paged_attention(q, kp, vp, page_table, start, slopes=slopes)
     if qmask is not None:
         ctx = ctx * qmask[:, :, None, None].to(ctx.dtype)
     ctx = ctx.to(h.dtype).reshape(b, c, -1)
-    h = h + row_parallel_linear(blk["attn"]["out"], ctx)
+    h = h + row_parallel_linear(blk["attn"]["out"], ctx, tp_axis)
     ln2 = layer_norm(blk["ln_2"], h, eps)
-    up = column_parallel_linear(blk["mlp"]["up"], ln2)
-    return h + row_parallel_linear(blk["mlp"]["down"], bloom_gelu(up))
+    up = column_parallel_linear(blk["mlp"]["up"], ln2, tp_axis)
+    return h + row_parallel_linear(blk["mlp"]["down"], bloom_gelu(up), tp_axis)
 
 
-def _embed(params, tokens, config):
-    x = vocab_parallel_embedding(params["embed"], tokens).to(config.dtype)
+def _embed(params, tokens, config, tp_axis=None):
+    x = vocab_parallel_embedding(params["embed"], tokens, tp_axis).to(config.dtype)
     return layer_norm(params["embed_ln"], x, config.layer_norm_epsilon)
 
 
@@ -335,7 +345,7 @@ def copy_page(k_pages, v_pages, src: int, dst: int) -> None:
 
 @torch.no_grad()
 def paged_decode_step(params, tokens, k_pages, v_pages, page_table, seq_lens,
-                      config, write_ok=None,
+                      config, tp_axis: Optional[str] = None, write_ok=None,
                       draft_layers: Optional[int] = None) -> torch.Tensor:
     """One decode step for every slot of the ragged active batch.
 
@@ -344,7 +354,8 @@ def paged_decode_step(params, tokens, k_pages, v_pages, page_table, seq_lens,
     Each slot's k/v is written through its ``page_table`` (B, W) row at
     page ``seq_len // ps``, offset ``seq_len % ps``. Padded slots point
     every table entry at the NULL page. Updates the pools in place and
-    returns the logits (B, V) in float32.
+    returns the logits (B, V) in float32; under ``tp_axis`` this rank's
+    vocab shard (B, V/tp).
 
     Self-speculative drafting: ``write_ok`` (B,) bool sends a row's k/v
     write to the NULL page, offset 0, where False; ``draft_layers=k``
@@ -352,7 +363,7 @@ def paged_decode_step(params, tokens, k_pages, v_pages, page_table, seq_lens,
     final LN and the tied head (the shallow-exit draft that shares every
     weight with the verifier)."""
     ps = page_size_of(k_pages)
-    x = _embed(params, tokens[:, None], config)
+    x = _embed(params, tokens[:, None], config, tp_axis)
     seq = seq_lens.long()[:, None]                    # (B, 1): one write per row
     idx, off = seq // ps, seq % ps
     if write_ok is not None:
@@ -362,20 +373,21 @@ def paged_decode_step(params, tokens, k_pages, v_pages, page_table, seq_lens,
     phys = torch.gather(page_table.long(), 1, idx)
     if write_ok is not None:
         phys = torch.where(ok, phys, NULL_PAGE)
-    slopes = _local_slopes(config, x.device)
+    slopes = _local_slopes(config, tp_axis, x.device)
     blocks = params["blocks"]
     if draft_layers is not None:
         blocks = blocks[:draft_layers]
     for i, blk in enumerate(blocks):
         x = _block(blk, x, layer_bank(k_pages, i), layer_bank(v_pages, i),
-                   phys, off, page_table, seq_lens, slopes, None, config)
+                   phys, off, page_table, seq_lens, slopes, None, config, tp_axis)
     x = layer_norm(params["ln_f"], x, config.layer_norm_epsilon)
-    return logits_fn(params, x)[:, 0]
+    return logits_fn(params, x, tp_axis)[:, 0]
 
 
 @torch.no_grad()
 def paged_prefill_chunk(params, tokens, k_pages, v_pages, page_table, start,
-                        n_valid, config, all_logits: bool = False) -> torch.Tensor:
+                        n_valid, config, tp_axis: Optional[str] = None,
+                        all_logits: bool = False) -> torch.Tensor:
     """Forward one CHUNK of C tokens per row straight through the pool.
 
     ``tokens`` (B, C) are each row's next prompt tokens, ``start`` (B,)
@@ -388,10 +400,11 @@ def paged_prefill_chunk(params, tokens, k_pages, v_pages, page_table, start,
     boundaries are invisible in the math. Updates the pools in place and
     returns float32 logits at each row's last valid position, (B, V), or
     with ``all_logits=True`` at every chunk position, (B, C, V): the
-    speculative verification scores a whole draft bundle in one pass."""
+    speculative verification scores a whole draft bundle in one pass.
+    Under ``tp_axis`` V is this rank's vocab shard, V/tp."""
     b, c = tokens.shape
     ps = page_size_of(k_pages)
-    x = _embed(params, tokens, config)
+    x = _embed(params, tokens, config, tp_axis)
     dev = x.device
     pos = start.long()[:, None] + torch.arange(c, device=dev)[None, :]   # (B, C)
     valid = torch.arange(c, device=dev)[None, :] < n_valid.long()[:, None]
@@ -399,12 +412,13 @@ def paged_prefill_chunk(params, tokens, k_pages, v_pages, page_table, start,
         valid, torch.gather(page_table.long(), 1, torch.where(valid, pos // ps, 0)),
         NULL_PAGE)
     dest_off = torch.where(valid, pos % ps, 0)
-    slopes = _local_slopes(config, dev)
+    slopes = _local_slopes(config, tp_axis, dev)
     for i, blk in enumerate(params["blocks"]):
         x = _block(blk, x, layer_bank(k_pages, i), layer_bank(v_pages, i),
-                   dest_page, dest_off, page_table, start, slopes, valid, config)
+                   dest_page, dest_off, page_table, start, slopes, valid, config,
+                   tp_axis)
     x = layer_norm(params["ln_f"], x, config.layer_norm_epsilon)
     if all_logits:
-        return logits_fn(params, x)
+        return logits_fn(params, x, tp_axis)
     last = (n_valid.long() - 1)[:, None, None].expand(b, 1, x.shape[-1])
-    return logits_fn(params, torch.gather(x, 1, last))[:, 0]
+    return logits_fn(params, torch.gather(x, 1, last), tp_axis)[:, 0]

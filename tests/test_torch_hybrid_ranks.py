@@ -263,3 +263,50 @@ def step_rank(rank, world, np_tree, runs, tp, zero_case, rng_case):
     return (hybrid_rank(rank, world, np_tree, runs, tp),
             zero_rank(rank, world, *zero_case),
             rng_rank(rank, world, np_tree, *rng_case))
+
+
+# -- the auto-parallel step (DTensor) -----------------------------------------------------
+
+
+def auto_rank(rank, world, np_tree, cfg, batches, lr, tp):
+    """``parallel.make_auto_train_step`` at tp x (world / tp): the single-
+    device ``loss_fn`` on DTensor params, Adam; then the hybrid step
+    (ZeRO-1 over "data") on the same batches. Each: the losses and the
+    whole params after the last step (JAX layout), and for the auto step
+    this rank's local shape of the qkv kernel."""
+    from pipegoose_tpu_torch.models.bloom import loss_fn, tp_specs
+    from pipegoose_tpu_torch.models.weights import params_from_jax, params_to_jax
+    from pipegoose_tpu_torch.nn.parallel import tree_map, unshard_tree
+    from pipegoose_tpu_torch.optim import DistributedOptimizer, adam
+    from pipegoose_tpu_torch.parallel import make_auto_train_step, make_hybrid_train_step
+
+    ctx = ParallelContext(tensor_parallel_size=tp, data_parallel_size=world // tp,
+                          device="cpu")
+    try:
+        whole = params_from_jax(np_tree, cfg, device="cpu")
+        init_fn, step = make_auto_train_step(
+            lambda p, ids: loss_fn(p, ids, None, ids, cfg),      # single-device code
+            tp_specs(whole), adam(lr), ctx)
+        params, opt = init_fn(whole)
+        qkv_local = tuple(params["blocks"][0]["attn"]["qkv"]["kernel"].to_local().shape)
+        auto_losses = []
+        for ids in batches:
+            params, opt, loss = step(params, opt, ids)
+            auto_losses.append(float(loss))
+        auto = params_to_jax(tree_map(lambda p: p.detach().full_tensor(), params))
+
+        params, specs = _hybrid_params(np_tree, cfg, tp)
+        init_fn, make_step = make_hybrid_train_step(
+            lambda p, ids: loss_fn(p, ids, None, ids, cfg, tp_axis="tensor"), specs,
+            DistributedOptimizer(adam(lr), axis_name="data"), ctx)
+        state = init_fn(params)
+        hstep = make_step(params)
+        hybrid_losses = []
+        for ids in batches:
+            params, state, loss = hstep(params, state, ids)
+            hybrid_losses.append(float(loss))
+        hybrid = params_to_jax(unshard_tree(params, specs))
+        return dict(auto_losses=auto_losses, auto=auto, qkv_local=qkv_local,
+                    hybrid_losses=hybrid_losses, hybrid=hybrid)
+    finally:
+        ctx.destroy()

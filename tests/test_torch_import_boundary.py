@@ -39,6 +39,9 @@ def test_port_imports_without_jax_or_a_card():
         "import pipegoose_tpu_torch.models.weights\n"
         "import pipegoose_tpu_torch.distributed, pipegoose_tpu_torch.nn.sequence_parallel\n"
         "import pipegoose_tpu_torch.parallel, pipegoose_tpu_torch.optim\n"
+        "import pipegoose_tpu_torch.parallel.auto, pipegoose_tpu_torch.models._decode\n"
+        "import pipegoose_tpu_torch.models.generate, pipegoose_tpu_torch.quant.weights\n"
+        "import pipegoose_tpu_torch.serving.engine, pipegoose_tpu_torch.serving.kv_pool\n"
         "import pipegoose_tpu_torch.core.accumulation, pipegoose_tpu_torch.nn.data_parallel\n"
         "import pipegoose_tpu_torch.nn.tensor_parallel, pipegoose_tpu_torch.nn.parallel\n"
         "import pipegoose_tpu_torch.trainer, pipegoose_tpu_torch.trainer.recovery\n"
