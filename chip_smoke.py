@@ -45,7 +45,13 @@ The main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
   tp_axis="tensor")`` and ``models.generate.generate_tp`` over that
   context (tp = 1: every collective the identity), through the same
   paged and quantized-matmul kernels; every kernel a tp = 2 or 4 rank
-  launches is also checked at its shard shape against the whole.
+  launches is also checked at its shard shape against the whole;
+- the comm engine and pipeline parallelism: ``make_hybrid_train_step``
+  with ``grad_comm`` bf16 / int8 (``DistributedOptimizer(error_feedback=)``)
+  and ``overlap_tp``, and with ``models.bloom.loss_fn_pp`` (GPipe),
+  ``loss_fn_1f1b`` and ``loss_fn_pp_sp`` over that context (every axis of
+  size 1 on one card: the reductions still round, the pipelines run their
+  microbatches through the flash, ring-chunk and fused CE kernels).
 
 Phases, each fatal on failure:
 
@@ -180,7 +186,7 @@ Phases, each fatal on failure:
  23  the float32 engine with the prefix cache on a skewed prefix-reuse
      trace (``make_skewed_replay``: 6 requests over 2 prefixes of 200
      tokens, so every hit copies a page on write; 16 new tokens, 4 slots,
-     chunk 128), bloom-560m's widths cut to its first 14 layers (the CPU
+     chunk 128), bloom-560m's widths cut to its first 13 layers (the CPU
      engines' cost), over weights drawn with init std 0.06 (HF's is 0.02,
      under which every stream repeats one token) so that the greedy
      streams vary and drafts are rejected, on the card against the CPU:
@@ -244,7 +250,7 @@ Phases, each fatal on failure:
      after): (a) float32, full width at 2 layers, batch 2 x 256 of a
      Zipf token file through ``TokenDataset`` on the native route
      (asserted), remat + flash + fused CE: ``Trainer.fit`` for 4 steps
-     (CheckpointCallback every 2, LossLoggerCallback) against 6 steps of
+     (CheckpointCallback at step 4, LossLoggerCallback) against 6 steps of
      ``make_hybrid_train_step`` called by hand on the same batches, a new
      ``Trainer(resume_dir=)`` at step 4 for 2 steps against the last two,
      ``AutoRecovery`` over a poisoned third batch (one restore) against the
@@ -281,13 +287,37 @@ Phases, each fatal on failure:
      within 1e-5 of the largest value, every launch on the tensor-core
      route; then rank tp-1's shards timed as phases 5 and 17 time the
      whole, beside their bounds, plain versions and SDPA or cuBLAS bf16
-     (their rows' ``launches`` are 0: the one-card main path runs tp = 1).
+     (their rows' ``launches`` are 0: the one-card main path runs tp = 1);
+ 30  the comm engine and the pipelines on phase 26's context ("tensor",
+     "pipe", "data" and "seq" named, each of size 1): (a) float32, full
+     width at 2 layers, batch 4 x 256 with a right-padded row, flash:
+     3 steps with overlap_tp against the monolithic step (full logits and
+     fused CE; phase 26's criteria, the same launches); 3 steps with
+     grad_comm bf16, int8 and int8 + error feedback, each on the CPU too,
+     fed the card's gradients: step 1's int8 payloads and scales equal bit
+     for bit; for bf16 and int8 the reduced gradients at every step bit
+     for bit; for int8 + error feedback the whole step on CPU copies of the
+     params, within one int8 step of each leaf's scale and the losses after
+     each step to phase 7's Adam tolerance; each update different from the
+     float32 reduction's (the rounding ran at dp = 1); one step of GPipe and 1F1B
+     at M = 2 and 4 and of PP x SP at M = 2 (fused CE) against loss_fn /
+     loss_fn_sp on the whole batch (loss and every gradient, phase 7's
+     tolerances), launching B1-B3 (B7-B9 for PP x SP) n_layer x M times
+     and B4-B6 M times; (b) bf16 bloom-560m, 24 layers, 8 x 1024, remat +
+     flash + fused CE: the hybrid step, int8 + error feedback, GPipe and
+     1F1B at M = 4, each checked (launches per step, falling losses) and
+     timed in two rounds of turns, 3 steps a turn: ms/step, tokens/s, the
+     ratio to the hybrid step with its range over the turns, each arm's
+     peak above what was allocated before it, the ZeRO state's and the
+     residuals' bytes; one profiled step of GPipe (phase 26 profiles the
+     hybrid step).
 
 Every phase's seconds are logged as "seconds: <phase> <s>".
 
 The line before the last is a JSON object with every kernel's numbers
 (each row's ``trainer_launches``: its launches in phase 28 (b)'s timed
-fit) and phase 28's under ``trainer``; the last line is
+fit), phase 28's under ``trainer`` and phase 30's under
+``comm_pipeline``; the last line is
 {"ok": true, "device": {...}}. Without a card, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.
@@ -762,7 +792,6 @@ def phase4_timed_serving(np_tree, dev):
             fp_arm = {"metrics": m, "tokens": [o.generated for o in outs],
                       "memory": eng.memory_report(),
                       "quant": {k: c.launches for k, c in serving_counters().items()}}
-        del eng
         log(f"  {label}: {m['decode_tokens_per_s']} tokens/s, "
             f"mean TTFT {m['mean_ttft_s'] * 1e3} ms, mean decode step "
             f"{m['decode_step_time_s'] / m['decode_steps'] * 1e3} ms, "
@@ -779,7 +808,8 @@ def phase4_timed_serving(np_tree, dev):
             f"the FMA route, 128-token bf16 chunks on the tensor cores)")
         if routes != want:
             raise AssertionError(f"{label}: a route of the paged kernel did not run")
-        prof = decode_profile(params, cfg, requests[:8], dev, kv, label)
+        prof = decode_profile(eng, requests[:8], label)
+        del eng
         if kv is None:
             fp_arm["profile"] = prof
     return launches, fp_arm
@@ -789,15 +819,13 @@ def phase4_timed_serving(np_tree, dev):
 PROFILE_TICKS = 8
 
 
-def decode_profile(params, cfg, requests, dev, kv_dtype, label, ticks=PROFILE_TICKS,
-                   **knobs):
-    """Where a decode step's time goes: fill the 8 slots, let every prefill
-    finish, then run ``ticks`` decode-only ticks under torch.profiler and
-    report wall time, device busy time and the top kernels per tick.
-    Returns what ``profile_device`` returns."""
+def decode_profile(eng, requests, label, ticks=PROFILE_TICKS):
+    """Where a decode step's time goes on ``eng``, an idle 8-slot engine:
+    fill the slots, let every prefill finish, then run ``ticks`` decode-only
+    ticks under torch.profiler and report wall time, device busy time and
+    the top kernels per tick. Returns what ``profile_device`` returns."""
     from pipegoose_tpu_torch.serving import Status
 
-    eng = make_engine(params, cfg, dev, num_slots=8, kv_dtype=kv_dtype, **knobs)
     eng.start_run(as_requests(requests))
     while eng.sched.queue or any(r.status is Status.PREFILL
                                  for r in eng.sched.active()):
@@ -808,16 +836,19 @@ def decode_profile(params, cfg, requests, dev, kv_dtype, label, ticks=PROFILE_TI
     return prof
 
 
-def profile_device(fn, n, label, unit, top):
+def profile_device(fn, n, label, unit, top, host=True):
     """Run ``fn()`` ``n`` times under torch.profiler after a sync; log the
     wall time, the device busy time (summed kernel time) and its share,
     and the ``top`` kernels by device time, each per ``unit``. Returns
-    (wall ms, busy ms, the profiler's device-kernel averages)."""
+    (wall ms, busy ms, the profiler's device-kernel averages). ``host=False``
+    records the device's activity alone (a step of tens of thousands of
+    host ops takes seconds to trace)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
@@ -2060,11 +2091,8 @@ def phase16_quant_serving(np_tree, dev, fp_arm) -> dict:
         check_quant_launches(arm, counts, m, cfg.n_layer, eng.weight_dtype)
         if eng.weight_dtype and eng.weight_dtype not in launches:
             launches[eng.weight_dtype] = counts[eng.weight_dtype]
+        _, busy_ms, kernels = decode_profile(eng, requests[:8], arm)
         del eng
-        _, busy_ms, kernels = decode_profile(params, cfg, requests[:8], dev,
-                                             knobs.get("kv_dtype"), arm,
-                                             weight_dtype=knobs.get("weight_dtype"),
-                                             weight_group_size=32)
         quant_ms = sum(e.self_device_time_total for e in kernels
                        if "quant_m" in e.key) / 1e3 / PROFILE_TICKS
         per_tick = sum(e.count for e in kernels) / PROFILE_TICKS
@@ -2804,9 +2832,9 @@ LEDGER_HOLE_PAGES = 41         # phase 23 (c)'s pool: 40 pages besides the NULL 
 # page. A narrower page table than phase 3's 1024 keeps the CPU engine's
 # plain attention, which reads every key of the table, three times cheaper.
 PHASE23_CONTEXT = 320
-# phase 23's depth: bloom-560m's widths, its first 14 layers (the CPU engines
+# phase 23's depth: bloom-560m's widths, its first 13 layers (the CPU engines
 # cost in proportion), which keeps the (12, 3) draft a shallow exit
-PHASE23_LAYERS = 14
+PHASE23_LAYERS = 13
 
 
 def paged_counters_zero():
@@ -3575,7 +3603,7 @@ def phase26_timed_hybrid(np_tree, dev, card, train_run) -> dict:
     return run
 
 
-def step_turns(np_tree, dev, cfg, steps=3, rounds=3) -> dict:
+def step_turns(np_tree, dev, cfg, steps=3, rounds=1) -> dict:
     """Step ms of ``train_step`` and of the hybrid step on the same batch, in
     turns (``rounds`` x (train_step, hybrid, hybrid, train_step); each turn
     ``steps`` steps between CUDA events, after one warm-up step of each),
@@ -3819,7 +3847,7 @@ def snapshot(params):
 def phase28a_trainer_vs_steps(np_tree, dev) -> dict:
     """(a) float32, full width at 2 layers, batch 2 x 256 from the native
     token loader, remat + flash + fused CE, Adam 1e-4: ``Trainer.fit`` (4
-    steps, CheckpointCallback every 2, LossLoggerCallback) against 6 steps
+    steps, CheckpointCallback at step 4, LossLoggerCallback) against 6 steps
     of ``make_hybrid_train_step`` called by hand on the same batches; a new
     Trainer resuming at step 4 for 2 steps; AutoRecovery over a poisoned
     third batch; ``evaluate``; each bit for bit."""
@@ -3857,7 +3885,7 @@ def phase28a_trainer_vs_steps(np_tree, dev) -> dict:
     if hand_counts != {k: 6 * n for k, n in per.items()}:
         raise AssertionError("phase 28 (a): the hand-called step launched other kernels")
 
-    # Trainer.fit over the loader, checkpoints every 2 steps
+    # Trainer.fit over the loader, a checkpoint at step 4
     run_a, run_r = (os.path.join(TRAINER_WORK, d) for d in ("run_a", "run_r"))
     seen = []
 
@@ -3868,7 +3896,7 @@ def phase28a_trainer_vs_steps(np_tree, dev) -> dict:
 
     ds = token_dataset(path, vocab, b, s, 64, SEED + 28)
     t = bloom_trainer(tree, cfg, lr, dev,
-                      callbacks=[CheckpointCallback(run_a, every=2), LossLoggerCallback(every=2)])
+                      callbacks=[CheckpointCallback(run_a, every=4), LossLoggerCallback(every=2)])
     counters_zero()
     t0 = time.perf_counter()
     st = t.fit(feed(ds), max_steps=4)
@@ -3879,7 +3907,7 @@ def phase28a_trainer_vs_steps(np_tree, dev) -> dict:
     same_batches = len(seen) == 4 and all(
         x.tobytes() == y.tobytes() for x, y in zip(seen, batches))
     bits = {"fit": same_run("Trainer.fit", fit_losses, hand[:4], t.params, p4, lr)}
-    log(f"  Trainer.fit: {fit_s:.1f} s (2 checkpoints); the same batches as by hand: "
+    log(f"  Trainer.fit: {fit_s:.1f} s (1 checkpoint); the same batches as by hand: "
         f"{same_batches}; launches {counts} (want 4 x {per})")
     if not same_batches:
         raise AssertionError("phase 28 (a): Trainer.fit and the hand-called steps differ")
@@ -4056,7 +4084,7 @@ def phase28b_timed_trainer(np_tree, dev, card, hybrid_run) -> dict:
     arms = {"hand": lambda: hand(batch), "trainer": lambda: t.fit([batch])}
     turns = {"hand": [], "trainer": []}
     steps = 3
-    for name in ("hand", "trainer", "trainer", "hand") * 2:
+    for name in ("hand", "trainer", "trainer", "hand"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -4064,7 +4092,7 @@ def phase28b_timed_trainer(np_tree, dev, card, hybrid_run) -> dict:
         torch.cuda.synchronize()
         turns[name].append((time.perf_counter() - t0) * 1e3 / steps)
     med = {k: float(np.median(v)) for k, v in turns.items()}
-    log(f"  in turns (2 x (hand, Trainer, Trainer, hand), {steps} steps each, wall): hand "
+    log(f"  in turns (hand, Trainer, Trainer, hand; {steps} steps each, wall): hand "
         f"{turns['hand']} ms, Trainer {turns['trainer']} ms; medians {med['hand']} / "
         f"{med['trainer']}, ratio {med['trainer'] / med['hand']:.4f}")
     ds.close()
@@ -4463,6 +4491,424 @@ def phase29_tp_serving(np_tree, dev, card, fp_arm) -> list:
     return paged_shard_rows(dev, card) + quant_shard_rows(dev, card)
 
 
+# -- phase 30 ------------------------------------------------------------------
+
+PHASE30_STEPS = 3
+PHASE30_MICRO = (2, 4)
+# (b)'s turns: rounds of the arms forward then back, steps a turn
+PHASE30_ROUNDS = 2
+PHASE30_TURN_STEPS = 3
+
+
+def phase30_loss(kind, micro=None):
+    """The loss of one phase 30 arm as ``lf(params, ids, mask, cfg)``, the
+    labels the ids: "dense" (``loss_fn``), "pp" (GPipe), "1f1b", "sp"
+    (``loss_fn_sp`` at sp = 1) or "pp_sp", every one with
+    ``tp_axis="tensor"`` on the one-rank context."""
+    from pipegoose_tpu_torch.models import bloom
+
+    if kind == "dense":
+        return lambda p, ids, m, cfg: bloom.loss_fn(p, ids, m, ids, cfg, tp_axis="tensor")
+    if kind == "sp":
+        return lambda p, ids, m, cfg: bloom.loss_fn_sp(p, ids, m, ids, cfg,
+                                                       tp_axis="tensor", sp_axis="seq")
+    fn = {"pp": bloom.loss_fn_pp, "1f1b": bloom.loss_fn_1f1b,
+          "pp_sp": bloom.loss_fn_pp_sp}[kind]
+    return lambda p, ids, m, cfg: fn(p, ids, m, ids, cfg, micro, tp_axis="tensor")
+
+
+class MirroredOptimizer:
+    """A ``DistributedOptimizer`` whose compressed reduction is also run on
+    the CPU, on a CPU copy of the card's gradients at every step: the
+    reduced gradients (what the inner Adam takes) on the card against the
+    CPU's, bit for bit, and on the first step each leaf's int8 payload and
+    per-chunk scale. With ``trajectory`` the whole step instead: the same
+    optimizer over CPU copies of the params, fed the card's gradients, its
+    params after each step kept on the card (``trajectory``)."""
+
+    def __init__(self, opt, params, trajectory=False):
+        from pipegoose_tpu_torch.optim import DistributedOptimizer
+
+        self.opt = opt
+        self.device = params["embed"]["weight"].device
+        self.trajectory = [] if trajectory else None
+        self.cpu_opt = DistributedOptimizer(opt.inner, opt.axis_name, opt.grad_comm,
+                                            opt.error_feedback)
+        if trajectory:
+            self.cpu_params = to_device(params, "cpu")
+            self.cpu_state = self.cpu_opt.init(self.cpu_params)
+        self.first = None   # per leaf: (payload and scale equal, its int8 step)
+        self.reduced_equal = True
+        self.cpu_s = 0.0
+
+    def __getattr__(self, name):
+        return getattr(self.opt, name)
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def step(self, grads, state, params):
+        from pipegoose_tpu_torch.distributed.compressed import (
+            _quantize_chunks,
+            compressed_reduce_scatter_mean,
+        )
+        from pipegoose_tpu_torch.nn.parallel import tree_leaves, tree_map
+
+        t0 = time.perf_counter()
+        cpu_grads = tree_map(lambda g: g.detach().to("cpu", copy=True), grads)
+        if self.first is None:   # (the payloads only where the wire is int8)
+            self.first = []
+            for g, c in zip(tree_leaves(grads), tree_leaves(cpu_grads)):
+                qg, sg = _quantize_chunks(g.detach().float().reshape(1, -1))
+                same = True
+                if self.opt.grad_comm == "int8":
+                    qc, sc = _quantize_chunks(c.float().reshape(1, -1))
+                    same = torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+                self.first.append((same, float(sg.max())))
+        if self.trajectory is not None:
+            self.cpu_opt.step(cpu_grads, self.cpu_state, self.cpu_params)
+            self.trajectory.append(to_device(self.cpu_params, self.device))
+        self.cpu_s += time.perf_counter() - t0
+        out = self.opt.step(grads, state, params)
+        if self.trajectory is None:   # at dp = 1 each leaf's .grad is what Adam took
+            t0 = time.perf_counter()
+            for p, c in zip(tree_leaves(params), tree_leaves(cpu_grads)):
+                want = compressed_reduce_scatter_mean(c, self.opt.axis_name,
+                                                      self.opt.grad_comm)[0]
+                self.reduced_equal &= torch.equal(p.grad.cpu(), want.to(p.dtype))
+            self.cpu_s += time.perf_counter() - t0
+        return out
+
+
+def to_device(tree, device):
+    """A copy of a params tree (dicts and lists of tensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.detach().to(device, copy=True)
+
+
+def phase30_arm(template, cfg, kind, ids, mask, lr, micro=None, grad_comm="fp32",
+                error_feedback=False, steps=PHASE30_STEPS, mirror=None):
+    """``steps`` steps of ``make_hybrid_train_step`` on one batch from a copy
+    of ``template``: the loss of ``kind`` (``phase30_loss``) with JAX's
+    gradient sync for it (("pipe",) for the pipelines, ("seq", "sum") too
+    for PP x SP), the sequence over "seq" for the SP arms, ZeRO-1 over
+    "data" at ``grad_comm``. Returns (losses, params, launches per kernel
+    over the steps, the optimizer, its state)."""
+    from pipegoose_tpu_torch.models import bloom
+    from pipegoose_tpu_torch.optim import DistributedOptimizer, adam
+    from pipegoose_tpu_torch.parallel import make_hybrid_train_step
+
+    params = to_device(template, template["embed"]["weight"].device)
+    loss = phase30_loss(kind, micro)
+    sync = {"pp": ("pipe",), "1f1b": ("pipe",), "sp": (("seq", "sum"),),
+            "pp_sp": (("pipe", "sum"), ("seq", "sum"))}.get(kind, ())
+    spec = (None, "seq") if kind in ("sp", "pp_sp") else ("data",)
+    specs = bloom.pp_specs(params) if kind in ("pp", "1f1b", "pp_sp") else \
+        bloom.tp_specs(params)
+    opt = DistributedOptimizer(adam(lr), "data", grad_comm=grad_comm,
+                               error_feedback=error_feedback)
+    if mirror is not None:   # "reduction" or "trajectory"
+        opt = MirroredOptimizer(opt, params, trajectory=mirror == "trajectory")
+    init_fn, make_step = make_hybrid_train_step(
+        lambda p, b: loss(p, b[0], b[1], cfg), specs, opt, batch_spec=spec,
+        grad_sync_axes=sync, overlap_tp=cfg.overlap_tp)
+    state = init_fn(params)
+    step = make_step(params)
+    counters_zero()
+    losses = [step(params, state, (ids, mask))[2].item() for _ in range(steps)]
+    torch.cuda.synchronize()
+    return losses, params, counters_read(), opt, state
+
+
+def phase30_hold(label, got, ref, tree, lr) -> None:
+    """Phase 26's criteria between two runs from the same weights: the first
+    loss to TRAIN_LOSS_ATOL, the later ones to TRAIN_ADAM_LOSS_ATOL, every
+    param within lr of the reference's and each leaf's distance from it
+    within HYBRID_PARAM_REL of the distance the reference moved it, every
+    leaf moved by more than lr."""
+    from pipegoose_tpu_torch.models.weights import params_to_jax
+
+    (g_loss, g_p), (r_loss, r_p) = got, ref
+    g_p, r_p = params_to_jax(g_p), params_to_jax(r_p)
+    loss_err = abs(g_loss[0] - r_loss[0])
+    adam_err = max(abs(a - b) for a, b in zip(g_loss, r_loss))
+    param_err = max(float(np.abs(g - r).max()) for _, g, r in zip_leaves(g_p, r_p))
+    start = dict((path, a) for path, a, _ in zip_leaves(tree, tree))
+    moved = min(float(np.abs(r - start[path]).max()) for path, r, _ in zip_leaves(r_p, r_p))
+    rel = max(float(np.linalg.norm(g - r) / np.linalg.norm(r - start[path]))
+              for path, g, r in zip_leaves(g_p, r_p))
+    log(f"  {label}: losses {g_loss} vs {r_loss}; first loss err {loss_err}, "
+        f"{len(g_loss)}-step err {adam_err}, params max err {param_err} (lr = {lr}), "
+        f"per-leaf distance / move {rel} (limit {HYBRID_PARAM_REL}), least move {moved}")
+    if (loss_err > TRAIN_LOSS_ATOL or adam_err > TRAIN_ADAM_LOSS_ATOL or param_err > lr
+            or rel > HYBRID_PARAM_REL or moved <= lr or not all(np.isfinite(g_loss))):
+        raise AssertionError(f"phase 30: {label} disagrees with its reference")
+
+
+def phase30_pipeline_launches(cfg, kind, micro) -> dict:
+    """Each kernel's launches in one pipelined step of ``cfg`` at one stage:
+    the blocks' attention kernels n_layer x M times (the forward twice under
+    remat: GPipe recomputes the checkpointed stage, 1F1B its checkpointed
+    blocks inside the backward slot's recompute), the ring's at sp = 1 for
+    PP x SP, the fused CE kernels once per microbatch."""
+    per = {k: 0 for k in kernel_counters()}
+    attn = "chunk_" if kind == "pp_sp" else ""
+    per.update({f"{attn}fwd": (2 if cfg.remat else 1) * cfg.n_layer * micro,
+                f"{attn}dq": cfg.n_layer * micro, f"{attn}dkv": cfg.n_layer * micro})
+    per.update({k: micro * int(cfg.fused_ce)
+                for k in ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")})
+    return per
+
+
+def phase30a_float32(np_tree, dev) -> dict:
+    """(a) float32, full width at 2 layers, batch 4 x 256 with row 1
+    right-padded by 57, flash, 3 steps each on the one-rank context:
+    overlap_tp against the monolithic step (full logits and fused CE); the
+    bf16, int8 and int8 + error-feedback reductions mirrored on the CPU
+    (``MirroredOptimizer``: step 1's int8 payloads and scales bit for bit;
+    for bf16 and int8 the reduced gradients at every step bit for bit; for
+    int8 + error feedback the whole step, the params within one int8 step
+    of each chunk's scale and the losses after each step to phase 7's Adam
+    tolerance), each differing from the float32 reduction (the rounding ran
+    at dp = 1); one step of GPipe
+    and 1F1B at M = 2 and 4 and PP x SP at M = 2 (fused CE) against the
+    dense and the SP loss on the whole batch (the loss and every gradient,
+    phase 7's tolerances), with their launches in the step."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+    from pipegoose_tpu_torch.nn.parallel import tree_leaves
+
+    n_layer, b, s, pad, lr = 2, 4, 256, 57, 1e-4
+    vocab, hidden = np_tree["embed"]["weight"].shape
+    tree = {**np_tree, "blocks": cut_layers(np_tree["blocks"], n_layer)}
+    rng = np.random.default_rng(SEED + 30)
+    ids = torch.from_numpy(rng.integers(0, vocab, (b, s))).to(dev)
+    mask = torch.ones((b, s), dtype=torch.int64, device=dev)
+    mask[1, s - pad:] = 0
+    base = dict(vocab_size=vocab, hidden_size=hidden, n_layer=n_layer, n_head=16,
+                use_flash=True)
+    out = {"overlap": {}, "grad_comm": {}, "pipeline": {}}
+    t0 = time.perf_counter()
+
+    template = params_from_jax(tree, BloomConfig(**base), device=dev)   # fused_ce aside
+    for fused in (False, True):
+        cfg = BloomConfig(**base, fused_ce=fused)
+        ref = phase30_arm(template, cfg, "dense", ids, mask, lr)
+        ovl = phase30_arm(template, dataclasses.replace(cfg, overlap_tp=True), "dense",
+                          ids, mask, lr)
+        label = f"overlap_tp vs monolithic, {'fused CE' if fused else 'full logits'}"
+        phase30_hold(label, ovl[:2], ref[:2], tree, lr)
+        if ovl[2] != ref[2]:
+            raise AssertionError(f"phase 30: {label}: launches {ovl[2]} vs {ref[2]}")
+        out["overlap"]["fused_ce" if fused else "full_logits"] = dict(
+            losses=ovl[0], ref_losses=ref[0], launches=ovl[2])
+        if not fused:
+            fp32 = ref
+            for mode, ef in (("bf16", False), ("int8", False), ("int8", True)):
+                name = mode + ("+ef" if ef else "")
+                # the whole step mirrored for int8 + error feedback (it
+                # carries every part: quantize, residual, Adam); the
+                # reduction alone, every step, for bf16 and int8
+                losses, params, launches, opt, state = phase30_arm(
+                    template, cfg, "dense", ids, mask, lr, grad_comm=mode,
+                    error_feedback=ef, mirror="trajectory" if ef else "reduction")
+                first = opt.first
+                worst = ef_err = loss_err = None
+                if ef:
+                    # card vs CPU after the steps, each leaf against one int8
+                    # step of its gradient (step 1's per-chunk scale; a chunk
+                    # is the leaf at dp = 1)
+                    worst = max(float((g.detach().cpu() - c).abs().max()) / max(st, 1e-30)
+                                for g, c, (_, st) in zip(tree_leaves(params),
+                                                         tree_leaves(opt.cpu_params), first))
+                    ef_err = max(float((a.cpu() - c).abs().max())
+                                 for a, c in zip(state.ef, opt.cpu_state.ef))
+                    # the losses after each step: the card's params against
+                    # the CPU optimizer's, both evaluated on the card
+                    lf = phase30_loss("dense")
+                    with torch.no_grad():
+                        after = losses[1:] + [lf(params, ids, mask, cfg).item()]
+                        cpu_after = [lf(p, ids, mask, cfg).item() for p in opt.trajectory]
+                    loss_err = max(abs(x - y) for x, y in zip(after, cpu_after))
+                moved = max(float((g.detach() - r.detach()).abs().max()) for g, r in
+                            zip(tree_leaves(params), tree_leaves(fp32[1])))
+                vs_fp32 = max(abs(x - y) for x, y in zip(losses, fp32[0]))
+                bits = all(same for same, _ in first)
+                log(f"phase 30: grad_comm {name} at dp = 1 (full logits): step 1's int8 "
+                    f"payloads and scales card == CPU on every leaf: "
+                    f"{bits if mode == 'int8' else '(int8 only)'}; " + (
+                        f"params card vs CPU after {PHASE30_STEPS} steps, largest error "
+                        f"over the leaf's int8 step {worst} (<= 1); residuals card vs "
+                        f"CPU {ef_err}; losses after each step {after} vs the CPU "
+                        f"optimizer's params' {cpu_after} (err {loss_err}, atol "
+                        f"{TRAIN_ADAM_LOSS_ATOL})" if ef else
+                        f"the reduced gradients card == CPU at every step: "
+                        f"{opt.reduced_equal}") +
+                    f"; max |params - the float32 reduction's| {moved} (> 0: the "
+                    f"reduction rounded), losses {losses} vs float32's {fp32[0]} (max "
+                    f"difference {vs_fp32}); launches {launches}; the CPU mirror took "
+                    f"{opt.cpu_s:.1f} s")
+                if (not bits or not opt.reduced_equal or moved <= 0 or launches != fp32[2]
+                        or (ef and (worst > 1 or loss_err > TRAIN_ADAM_LOSS_ATOL
+                                    or ef_err > 1e-6
+                                    or not any(float(e.abs().max()) > 0 for e in state.ef)))):
+                    raise AssertionError(f"phase 30: grad_comm {name} fails its checks")
+                log(f"    ({time.perf_counter() - t0:.1f} s into phase 30)")
+                out["grad_comm"][name] = dict(losses=losses, fp32_losses=fp32[0],
+                                              payloads_equal=bits,
+                                              reduced_equal=opt.reduced_equal,
+                                              params_err_over_int8_step=worst,
+                                              ef_err=ef_err, losses_vs_cpu=loss_err,
+                                              update_vs_fp32=moved)
+                del params, opt, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    log(f"    ({time.perf_counter() - t0:.1f} s into phase 30)")
+    # one step each: the loss and every gradient (the leaves' .grad after the
+    # step, the synced gradient the optimizer took) to phase 7's tolerances
+    refs = {"dense": phase30_arm(template, cfg, "dense", ids, mask, lr, steps=1),
+            "sp": phase30_arm(template, cfg, "sp", ids, mask, lr, steps=1)}
+    arms = [(k, m) for k in ("pp", "1f1b") for m in PHASE30_MICRO] + [("pp_sp", 2)]
+    for kind, micro in arms:
+        got = phase30_arm(template, cfg, kind, ids, mask, lr, micro=micro, steps=1)
+        ref = refs["sp" if kind == "pp_sp" else "dense"]
+        label = f"{kind} M = {micro} vs {'loss_fn_sp' if kind == 'pp_sp' else 'loss_fn'}"
+        loss_err = abs(got[0][0] - ref[0][0])
+        grad_err = max(float((g.grad - r.grad).abs().max() / r.grad.abs().max())
+                       for g, r in zip(tree_leaves(got[1]), tree_leaves(ref[1])))
+        want = phase30_pipeline_launches(cfg, kind, micro)
+        log(f"  {label}: loss {got[0][0]} vs {ref[0][0]} (err {loss_err}, atol "
+            f"{TRAIN_LOSS_ATOL}), largest gradient error over its leaf's max {grad_err} "
+            f"(rtol {TRAIN_GRAD_RTOL}); launches in the step {got[2]}, want {want}")
+        if loss_err > TRAIN_LOSS_ATOL or grad_err > TRAIN_GRAD_RTOL or got[2] != want:
+            raise AssertionError(f"phase 30: {label} disagrees or bypassed a kernel")
+        out["pipeline"][f"{kind}_M{micro}"] = dict(loss=got[0][0], ref_loss=ref[0][0],
+                                                   grad_rel_err=grad_err,
+                                                   launches_per_step=got[2])
+    del template, refs
+    log(f"phase 30 (a): every arm held, {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase30b_timed(np_tree, dev, card, hybrid_run) -> dict:
+    """(b) bf16 bloom-560m, 24 layers, batch 8 x 1024, remat + flash + fused
+    CE, Adam 1e-4, beside phase 26(b)'s hybrid step: the hybrid step with
+    int8 + error feedback, GPipe (``loss_fn_pp``) at M = 4 and 1F1B at M = 4.
+    Each arm: one warm-up step (its peak memory above what was allocated
+    before the arm was built, the ZeRO state's and the residuals' bytes),
+    then every arm timed in turns (``PHASE30_ROUNDS`` rounds of the arms
+    forward then back, ``PHASE30_TURN_STEPS`` steps a turn between CUDA
+    events; every turn's launches checked; each ratio to the hybrid step
+    with its range over the turns; the losses falling), and one profiled step
+    of GPipe (device busy time, the top kernels; phase 26 profiles the
+    hybrid step)."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+    from pipegoose_tpu_torch.optim import DistributedOptimizer, adam
+    from pipegoose_tpu_torch.parallel import make_hybrid_train_step
+    from pipegoose_tpu_torch.models import bloom
+
+    cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16, remat=True, use_flash=True,
+                                 fused_ce=True)
+    b, s, micro = 8, 1024, 4
+    t0 = time.perf_counter()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                                            (b, s))).to(dev)
+    template = params_from_jax(np_tree, cfg, device=dev)
+    arms_cfg = {"hybrid": ("dense", "fp32", False), "int8+ef": ("dense", "int8", True),
+                "gpipe_M4": ("pp", "fp32", False), "1f1b_M4": ("1f1b", "fp32", False)}
+    arms, out = {}, {}
+    for name, (kind, comm, ef) in arms_cfg.items():
+        # this arm's own peak: above what the template and the earlier arms hold
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params = to_device(template, dev)
+        loss = phase30_loss(kind, micro)
+        specs = bloom.pp_specs(params) if kind != "dense" else bloom.tp_specs(params)
+        opt = DistributedOptimizer(adam(1e-4), "data", grad_comm=comm, error_feedback=ef)
+        init_fn, make_step = make_hybrid_train_step(
+            lambda p, x, loss=loss: loss(p, x, None, cfg), specs, opt,
+            grad_sync_axes=("pipe",) if kind != "dense" else ())
+        state = init_fn(params)
+        step = make_step(params)
+
+        def run(step=step, params=params, state=state):
+            return step(params, state, ids)[2]
+
+        first = run().item()   # the warm-up step
+        torch.cuda.synchronize()
+        zero_bytes = sum(v.numel() * v.element_size() for st in state.inner.state.values()
+                         for v in st.values() if torch.is_tensor(v))
+        ef_bytes = sum(e.numel() * e.element_size() for e in (state.ef or []))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        log(f"phase 30 (b): {name}: peak {peak:.2f} GiB above the {base / 2**30:.2f} GiB "
+            f"held before it, ZeRO state {zero_bytes} bytes, residuals {ef_bytes} bytes "
+            f"({time.perf_counter() - t0:.1f} s into phase 30 (b))")
+        arms[name] = run
+        out[name] = dict(losses=[first], peak_gib=peak, zero_state_bytes=zero_bytes,
+                         ef_bytes=ef_bytes, launches_per_step=(
+                             per_step_launches(cfg) if kind == "dense"
+                             else phase30_pipeline_launches(cfg, kind, micro)))
+    del template
+    # the turns: each turn's launches checked against its steps, its last
+    # loss kept (the losses must fall from the warm-up step's)
+    order = list(arms)
+    times = {k: [] for k in order}
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for name in (order + order[::-1]) * PHASE30_ROUNDS:
+        torch.cuda.synchronize()
+        counters_zero()
+        t0.record()
+        for _ in range(PHASE30_TURN_STEPS):
+            loss = arms[name]()
+        t1.record()
+        torch.cuda.synchronize()
+        times[name].append(t0.elapsed_time(t1) / PHASE30_TURN_STEPS)
+        out[name]["losses"].append(loss.item())
+        want = {k: PHASE30_TURN_STEPS * n for k, n in out[name]["launches_per_step"].items()}
+        if counters_read() != want:
+            raise AssertionError(f"phase 30 (b): {name} launched {counters_read()} in "
+                                 f"{PHASE30_TURN_STEPS} steps, want {want}")
+    hyb = times["hybrid"]
+    for name in order:
+        losses = out[name]["losses"]
+        log(f"phase 30 (b): {name}: launches per step {out[name]['launches_per_step']} "
+            f"(every turn); the warm-up's loss, then each turn's last {losses}")
+        if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
+            raise AssertionError(f"phase 30 (b): {name}'s losses do not fall")
+        ms = float(np.median(times[name]))
+        ratio = ms / float(np.median(hyb))
+        # the widest ratio the turns allow: unresolved when it spans 1
+        lo, hi = min(times[name]) / max(hyb), max(times[name]) / min(hyb)
+        resolved = name == "hybrid" or not lo <= 1 <= hi
+        out[name].update(step_ms=ms, turns_ms=times[name], tokens_per_s=b * s / (ms / 1e3),
+                         ratio_to_hybrid=ratio, ratio_range=[lo, hi], resolved=resolved)
+        log(f"phase 30 (b): {name}: {ms} ms/step (median of turns {times[name]}, "
+            f"{PHASE30_TURN_STEPS} steps each), {b * s / (ms / 1e3)} tokens/s, beside "
+            f"the hybrid step {ratio:.4f}x (range over the turns {lo:.4f}-{hi:.4f}"
+            f"{'' if resolved else ': unresolved'}); phase 26(b) ran "
+            f"{hybrid_run['step_ms']} ms on {card}")
+    # where a pipelined step's time goes (phase 26 profiles the hybrid step)
+    wall, busy, _ = profile_device(arms["gpipe_M4"], 1, "phase 30 (b): gpipe_M4, one "
+                                   "profiled step", "step", 8, host=False)
+    out["gpipe_M4"].update(profiled_wall_ms=wall, device_busy_ms=busy)
+    del arms
+    return out
+
+
+def phase30_comm_pipeline(np_tree, dev, card, hybrid_run) -> dict:
+    out = {"a": phase30a_float32(np_tree, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["b"] = phase30b_timed(np_tree, dev, card, hybrid_run)
+    return out
+
+
 def main(argv) -> int:
     import argparse
 
@@ -4556,6 +5002,8 @@ def main(argv) -> int:
         lap("phase 28")
         rows += phase29_tp_serving(np_tree, dev, card, fp_arm)
         lap("phase 29")
+        comm_pipeline = phase30_comm_pipeline(np_tree, dev, card, hybrid_run)
+        lap("phase 30")
     finally:
         ctx.destroy()
     del fp_arm
@@ -4574,7 +5022,7 @@ def main(argv) -> int:
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
     for row in rows:
         row["trainer_launches"] = trainer_launches(row, trainer["b"])
-    print(json.dumps({"kernels": rows, "trainer": trainer}))
+    print(json.dumps({"kernels": rows, "trainer": trainer, "comm_pipeline": comm_pipeline}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,8 +16,13 @@ ring attention (the chunk kernels B7-B9 with ``use_flash``) or Ulysses.
 Under ``tp_axis`` every path is Megatron tensor parallel: heads are
 sharded over the axis (each rank's ALiBi slopes are its heads' slice),
 the MLP column/row parallel, and the tied embedding and LM head
-vocab-sharded (``pad_for_tp``, ``tp_mapping``, ``tp_specs``). Pipeline
-parallelism waits for a later slice of the port.
+vocab-sharded (``pad_for_tp``, ``tp_mapping``, ``tp_specs``); with
+``overlap_tp`` the stream between blocks is sharded over tokens and the
+tensor axis's collectives run as ring hops beside partial matmuls
+(``nn.tensor_parallel.overlap``). The pipeline losses (``loss_fn_pp``:
+GPipe; ``loss_fn_1f1b``: 1F1B; ``loss_fn_pp_sp``: GPipe over
+sequence-sharded stages) run this rank's stage of the blocks over the
+"pipe" axis (``pp_specs``), even or uneven (``stage_layer_counts``).
 """
 from __future__ import annotations
 
@@ -28,10 +33,17 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pipegoose_tpu_torch.distributed.functional import axis_index, copy_to_tensor_group
+from pipegoose_tpu_torch.distributed.functional import (
+    axis_index,
+    axis_size,
+    copy_to_tensor_group,
+    gather_from_tensor_group,
+    scatter_to_tensor_group,
+)
 from pipegoose_tpu_torch.models.generate import _attn_core, _qkv_proj, local_heads
-from pipegoose_tpu_torch.nn.parallel import spec_tree
+from pipegoose_tpu_torch.nn.parallel import spec_tree, tree_leaves, tree_map
 from pipegoose_tpu_torch.nn.parallel_mapping import Column, ParallelMapping, Row, Vocab
+from pipegoose_tpu_torch.nn.tensor_parallel.overlap import replicated_for_overlap
 from pipegoose_tpu_torch.nn.tensor_parallel.layers import (
     chunked_ce_sums,
     column_parallel_linear,
@@ -73,8 +85,10 @@ class BloomConfig:
     ce_chunks: Optional[int] = None
     # the fused cross-entropy kernels (ops/fused_ce.py): no logits buffer
     fused_ce: bool = False
-    # the ring collective-matmul overlap of the tensor axis: not ported yet
-    # (ROADMAP.md queue A, item 6); a forward under a tensor axis raises
+    # the ring collective-matmul overlap of the tensor axis
+    # (nn/tensor_parallel/overlap.py): the training forward keeps the stream
+    # between blocks TOKEN-SHARDED over the tensor axis; serving and the
+    # pipeline / sequence-parallel losses ignore it. Needs seq % tp == 0
     overlap_tp: bool = False
 
     @property
@@ -246,11 +260,18 @@ def _remat_wrap(fn, config):
 
 
 def _mlp(blk: dict, x: torch.Tensor, config: BloomConfig,
-         tp_axis: Optional[str] = None) -> torch.Tensor:
-    """ln_2 -> column up -> gelu -> row down."""
-    ln2 = layer_norm(blk["ln_2"], x, config.layer_norm_epsilon)
-    h = column_parallel_linear(blk["mlp"]["up"], ln2, tp_axis)
-    return row_parallel_linear(blk["mlp"]["down"], bloom_gelu(h), tp_axis)
+         tp_axis: Optional[str] = None, overlap: bool = False) -> torch.Tensor:
+    """ln_2 -> column up -> gelu -> row down. ``overlap``: ``x`` is this
+    rank's token chunk, the up projection ring-gathers tokens and the down
+    projection ring-reduces them back to the chunk; ``ln_2`` then sees
+    local tokens only, so its parameters go through the f-operator."""
+    ln2_p = blk["ln_2"]
+    if overlap:
+        ln2_p = replicated_for_overlap(ln2_p, tp_axis)
+    ln2 = layer_norm(ln2_p, x, config.layer_norm_epsilon)
+    h = column_parallel_linear(blk["mlp"]["up"], ln2, tp_axis, overlap=overlap)
+    return row_parallel_linear(blk["mlp"]["down"], bloom_gelu(h), tp_axis,
+                               overlap=overlap)
 
 
 def _local_slopes(config: BloomConfig, tp_axis: Optional[str], device) -> torch.Tensor:
@@ -262,14 +283,22 @@ def _local_slopes(config: BloomConfig, tp_axis: Optional[str], device) -> torch.
 
 
 def _attention(blk: dict, x: torch.Tensor, bias: dict, config: BloomConfig,
-               tp_axis: Optional[str] = None) -> torch.Tensor:
+               tp_axis: Optional[str] = None, overlap: bool = False) -> torch.Tensor:
     """Self-attention of one block, heads sharded over ``tp_axis`` (qkv
     column-parallel, the output projection row-parallel); ``bias`` is the
     dict from :func:`attention_bias`. Pad-query context is zero on both
-    branches."""
-    b, s, _ = x.shape
+    branches. ``overlap``: ``x`` is this rank's token chunk; the qkv
+    projection ring-gathers every token, attention runs on the whole
+    sequence, and the output projection ring-reduces back to the chunk."""
     lh = local_heads(config, tp_axis)
-    q, k, v = _qkv_proj(blk, x, config, tp_axis)
+    if overlap:
+        fused = column_parallel_linear(blk["qkv"], x, tp_axis, overlap=True)
+        b, s, _ = fused.shape
+        fused = fused.reshape(b, s, lh, 3, config.head_dim)
+        q, k, v = fused[..., 0, :], fused[..., 1, :], fused[..., 2, :]
+    else:
+        b, s, _ = x.shape
+        q, k, v = _qkv_proj(blk, x, config, tp_axis)
     if config.use_flash:
         from pipegoose_tpu_torch.ops.flash_attention import flash_attention
 
@@ -284,16 +313,21 @@ def _attention(blk: dict, x: torch.Tensor, bias: dict, config: BloomConfig,
         ctx = _attn_core(q, k, v, alibi + bias["mask_bias"], bias["qmask"], x.dtype)
     if config.remat and config.remat_policy == "attn":
         ctx = _attn_out(ctx)
-    return row_parallel_linear(blk["out"], ctx, tp_axis)
+    return row_parallel_linear(blk["out"], ctx, tp_axis, overlap=overlap)
 
 
 def _block(blk: dict, x: torch.Tensor, bias: dict, config: BloomConfig,
-           tp_axis: Optional[str] = None) -> torch.Tensor:
+           tp_axis: Optional[str] = None, overlap: bool = False) -> torch.Tensor:
     """One transformer block, pre-LN, residual from the un-normalized
-    stream (HF BloomBlock ordering)."""
-    ln1 = layer_norm(blk["ln_1"], x, config.layer_norm_epsilon)
-    x = x + _attention(blk["attn"], ln1, bias, config, tp_axis)
-    return x + _mlp(blk, x, config, tp_axis)
+    stream (HF BloomBlock ordering). ``overlap``: the ring collective-matmul
+    path, ``x`` this rank's token chunk of the stream (set by
+    :func:`forward_hidden` from ``config.overlap_tp``)."""
+    ln1_p = blk["ln_1"]
+    if overlap:
+        ln1_p = replicated_for_overlap(ln1_p, tp_axis)
+    ln1 = layer_norm(ln1_p, x, config.layer_norm_epsilon)
+    x = x + _attention(blk["attn"], ln1, bias, config, tp_axis, overlap=overlap)
+    return x + _mlp(blk, x, config, tp_axis, overlap=overlap)
 
 
 def embed_tokens(params: dict, input_ids: torch.Tensor, config: BloomConfig,
@@ -328,25 +362,36 @@ def attention_bias(attention_mask: torch.Tensor, config: BloomConfig) -> dict:
 def forward_hidden(params: dict, input_ids: torch.Tensor,
                    attention_mask: Optional[torch.Tensor], config: BloomConfig,
                    tp_axis: Optional[str] = None) -> torch.Tensor:
-    """Embedding -> blocks -> final LN. Returns (B, S, H)."""
-    if config.overlap_tp and tp_axis is not None:
-        raise NotImplementedError(
-            "overlap_tp=True: the ring collective-matmul overlap of the tensor "
-            "axis is not ported yet (ROADMAP.md queue A, item 6)")
+    """Embedding -> blocks -> final LN. Returns (B, S, H).
+
+    With ``config.overlap_tp`` under a tensor axis the stream between
+    blocks is TOKEN-SHARDED: one scatter after the embedding, ring
+    collective-matmuls inside every block, one gather before the final LN;
+    the hidden states equal the monolithic path's (float32 allclose). The
+    sequence length must divide over the axis (ValueError)."""
     b, s = input_ids.shape
     if attention_mask is None:
         attention_mask = torch.ones((b, s), dtype=torch.int32,
                                     device=input_ids.device)
     x = embed_tokens(params, input_ids, config, tp_axis)
     bias = attention_bias(attention_mask, config)
+    overlap = bool(config.overlap_tp) and tp_axis is not None
+    if overlap:
+        tp = axis_size(tp_axis)
+        if s % tp:
+            raise ValueError(f"overlap_tp: sequence length {s} must be divisible by "
+                             f"the tensor axis size {tp} (token chunks ride the ring)")
+        x = scatter_to_tensor_group(x, tp_axis, dim=1)
 
     def block(blk, h):
-        return _block(blk, h, bias, config, tp_axis)
+        return _block(blk, h, bias, config, tp_axis, overlap=overlap)
 
     if config.remat:
         block = _remat_wrap(block, config)
     for blk in params["blocks"]:
         x = block(blk, x)
+    if overlap:
+        x = gather_from_tensor_group(x, tp_axis, dim=1)
     return layer_norm(params["ln_f"], x, config.layer_norm_epsilon)
 
 
@@ -530,6 +575,251 @@ def loss_fn_sp(params: dict, input_ids: torch.Tensor,
     count = all_reduce(w_sum, sp_axis)
     # identity-backward combine: each rank's gradients stay its own partials
     return reduce_from_tensor_group(total / torch.clamp_min(count, 1), sp_axis)
+
+
+# -- pipeline-parallel compositions ---------------------------------------------
+
+
+def _stacked_bias(masks: torch.Tensor, config: BloomConfig) -> dict:
+    """:func:`attention_bias` of each microbatch's mask (M, mb, S), stacked
+    on a leading M dim: the pipeline's per-microbatch side inputs."""
+    per = [attention_bias(m, config) for m in masks]
+    return {k: torch.stack([b[k] for b in per]) for k in per[0]}
+
+
+def _split_batch(input_ids, attention_mask, labels, n_microbatches):
+    from pipegoose_tpu_torch.nn.pipeline_parallel import microbatch as mb
+
+    if attention_mask is None:
+        attention_mask = torch.ones(input_ids.shape, dtype=torch.int32,
+                                    device=input_ids.device)
+    return attention_mask, mb.split({"ids": input_ids, "mask": attention_mask,
+                                     "labels": labels}, n_microbatches)
+
+
+def _entry(params: dict, ids: torch.Tensor, config: BloomConfig,
+           tp_axis: Optional[str], pipe_axis: str) -> torch.Tensor:
+    """The pipeline-entry activations (M, mb, S, H): the embedding on stage
+    0, and on the other stages a storage-free tensor of that shape and
+    dtype (they read only its shape)."""
+    if axis_index(pipe_axis) == 0:
+        return embed_tokens(params, ids, config, tp_axis)
+    shape = (*ids.shape, config.hidden_size)
+    return torch.empty((), dtype=config.dtype, device=ids.device).expand(shape)
+
+
+def _stage_fn(block_call, config: BloomConfig, blocks: list, pipe_axis: str,
+              stage_layer_counts):
+    """``stage_fn(blocks, h, side)`` over this stage's blocks: all of them
+    on even stages (``n_layer / P``, ValueError otherwise), the first
+    ``stage_layer_counts[stage]`` on uneven ones."""
+    from pipegoose_tpu_torch.nn.pipeline_parallel.partitioner import (
+        masked_stage_scan,
+        stage_n_valid,
+    )
+
+    if stage_layer_counts is not None:
+        n_valid = stage_n_valid(stage_layer_counts, config.n_layer, pipe_axis)
+        if len(blocks) < n_valid:
+            raise ValueError(f"this stage holds {len(blocks)} blocks, its "
+                             f"stage_layer_counts entry is {n_valid}")
+    else:
+        P = axis_size(pipe_axis)
+        if config.n_layer % P or len(blocks) != config.n_layer // P:
+            raise ValueError(
+                f"this stage holds {len(blocks)} blocks; even stages hold "
+                f"n_layer / P = {config.n_layer} / {P} (pass stage_layer_counts "
+                f"for uneven stages, and each rank only its stage's blocks)")
+        n_valid = len(blocks)
+
+    def stage_fn(blocks, h, side):
+        return masked_stage_scan(lambda blk, hh: block_call(blk, hh, side),
+                                 blocks, h, n_valid)
+
+    return stage_fn
+
+
+def _pp_head_sums(params: dict, h: torch.Tensor, mask: torch.Tensor,
+                  labels: torch.Tensor, config: BloomConfig, tp_axis: Optional[str]):
+    """Final LN -> the next-token cross entropy's (weighted loss sum, weight
+    sum) of one microbatch: through the fused kernels with
+    ``config.fused_ce``, else over the full logits."""
+    h = layer_norm(params["ln_f"], h, config.layer_norm_epsilon)
+    if config.fused_ce:
+        from pipegoose_tpu_torch.ops.fused_ce import fused_ce_shifted_sums
+
+        return fused_ce_shifted_sums(h, params["embed"]["weight"], labels, mask,
+                                     tp_axis, config.valid_vocab_size)
+    per_tok = vocab_parallel_cross_entropy(logits_fn(params, h, tp_axis)[:, :-1],
+                                           labels[:, 1:], tp_axis,
+                                           valid_size=config.valid_vocab_size)
+    w = mask[:, 1:].to(per_tok.dtype)
+    return (per_tok * w).sum(), w.sum()
+
+
+def loss_fn_pp(params: dict, input_ids: torch.Tensor,
+               attention_mask: Optional[torch.Tensor], labels: torch.Tensor,
+               config: BloomConfig, n_microbatches: int, tp_axis: Optional[str] = None,
+               pipe_axis: str = "pipe", stage_layer_counts=None) -> torch.Tensor:
+    """Pipeline-parallel (GPipe) loss over the "pipe" axis: stage 0 embeds
+    every microbatch, :func:`gpipe` runs this stage's blocks
+    (``params["blocks"]``: this rank's stage only, ``pp_specs``), the last
+    stage takes the final LN, the tied head and the cross entropy of each
+    microbatch, and the scalar is combined from the last stage
+    (:func:`last_stage_value`). The loss and gradients equal
+    :func:`loss_fn`'s on the whole batch.
+
+    ``stage_layer_counts`` (P ints): uneven stages, each rank holding its
+    ``repartition_blocks`` stage. With ``remat`` the whole stage is
+    checkpointed, or each block under a ``remat_policy``."""
+    from pipegoose_tpu_torch.nn.pipeline_parallel.pipeline import (
+        gpipe,
+        last_stage_value,
+    )
+
+    _, mbs = _split_batch(input_ids, attention_mask, labels, n_microbatches)
+    h0 = _entry(params, mbs["ids"], config, tp_axis, pipe_axis)
+    side = _stacked_bias(mbs["mask"], config)
+
+    def block_call(blk, hh, side):
+        return _block(blk, hh, side, config, tp_axis)
+
+    gpipe_remat = config.remat
+    if config.remat and config.remat_policy:
+        block_call, gpipe_remat = _remat_wrap(block_call, config), False
+    stage_fn = _stage_fn(block_call, config, params["blocks"], pipe_axis,
+                         stage_layer_counts)
+    outs = gpipe(stage_fn, params["blocks"], h0, side_inputs=side,
+                 axis_name=pipe_axis, remat=gpipe_remat)
+    if axis_index(pipe_axis) != axis_size(pipe_axis) - 1:
+        return last_stage_value(outs.float().sum() * 0, pipe_axis)
+    tot = cnt = 0.0
+    for i in range(n_microbatches):
+        t, c = _pp_head_sums(params, outs[i], mbs["mask"][i], mbs["labels"][i],
+                             config, tp_axis)
+        tot, cnt = tot + t, cnt + c
+    return last_stage_value(tot / torch.clamp_min(cnt, 1), pipe_axis)
+
+
+def loss_fn_1f1b(params: dict, input_ids: torch.Tensor,
+                 attention_mask: Optional[torch.Tensor], labels: torch.Tensor,
+                 config: BloomConfig, n_microbatches: int,
+                 tp_axis: Optional[str] = None, pipe_axis: str = "pipe",
+                 stage_layer_counts=None) -> torch.Tensor:
+    """Pipeline-parallel loss on the 1F1B (PipeDream-flush) runtime
+    (:func:`one_f_one_b`): the same loss and gradients as
+    :func:`loss_fn_pp`, with a stage's live activations bounded by the
+    stage count. Its forward runs the whole pipeline, forward and backward,
+    and keeps the gradients (:func:`manual_grads_loss`), so ``backward()``
+    and ``make_hybrid_train_step`` take it unchanged;
+    ``grad_sync_axes=("pipe",)`` completes the replicated leaves' gradients
+    across stages, as for :func:`loss_fn_pp`. ``stage_layer_counts``: as
+    there."""
+    from pipegoose_tpu_torch.nn.pipeline_parallel.pipeline import (
+        manual_grads_loss,
+        one_f_one_b,
+    )
+
+    mask, mbs = _split_batch(input_ids, attention_mask, labels, n_microbatches)
+    side = {**_stacked_bias(mbs["mask"], config), "labels": mbs["labels"],
+            "mask": mbs["mask"]}
+    # each microbatch's head loss over the LOCAL token count, so that their
+    # plain sum is loss_fn_pp's tot / cnt
+    count = torch.clamp_min(mask[:, 1:].sum().float(), 1)
+
+    def block(blk, h, side):
+        return _block(blk, h, side, config, tp_axis)
+
+    if config.remat:
+        block = _remat_wrap(block, config)
+    stage_fn = _stage_fn(block, config, params["blocks"], pipe_axis, stage_layer_counts)
+
+    def head_fn(hp, h, side):
+        tot, _ = _pp_head_sums(hp, h, side["mask"], side["labels"], config, tp_axis)
+        return (tot / count).float()
+
+    def run(params):
+        from pipegoose_tpu_torch.distributed.functional import all_reduce
+
+        first = axis_index(pipe_axis) == 0
+        embed_params = {"embed": params["embed"], "embed_ln": params["embed_ln"]}
+        h0 = _entry(embed_params, mbs["ids"], config, tp_axis, pipe_axis)
+        head_params = {"ln_f": params["ln_f"], "embed": params["embed"]}
+        loss, dh0, d_blocks, d_head = one_f_one_b(
+            stage_fn, params["blocks"], head_fn, head_params, h0.detach(), side,
+            pipe_axis)
+        grads = {}
+        for leaf, g in zip(tree_leaves(params["blocks"]) + tree_leaves(head_params),
+                           d_blocks + d_head):
+            if g is not None:
+                grads[id(leaf)] = grads[id(leaf)] + g if id(leaf) in grads else g
+        if first:
+            e_leaves = tree_leaves(embed_params)
+            for leaf, g in zip(e_leaves, torch.autograd.grad(h0, e_leaves, dh0,
+                                                             allow_unused=True)):
+                if g is not None:
+                    grads[id(leaf)] = grads[id(leaf)] + g if id(leaf) in grads else g
+        return all_reduce(loss, pipe_axis), tree_map(lambda t: grads.get(id(t)), params)
+
+    return manual_grads_loss(run, params)
+
+
+def pp_specs(params: dict, tp_axis: str = "tensor", pipe_axis: str = "pipe") -> dict:
+    """:func:`tp_specs` with every block leaf marked with the pipe axis
+    (``pipe_stage_specs``): on the JAX numpy tree the stacked n_layer dim is
+    sharded over it (``params_from_jax`` then gives each rank its stage's
+    blocks); on the port's per-layer tree each block belongs to its stage,
+    and the gradient sync over "pipe" leaves it alone."""
+    from pipegoose_tpu_torch.nn.pipeline_parallel.pipeline import pipe_stage_specs
+
+    specs = tp_specs(params, tp_axis)
+    specs["blocks"] = pipe_stage_specs(specs["blocks"], pipe_axis)
+    return specs
+
+
+def loss_fn_pp_sp(params: dict, input_ids: torch.Tensor,
+                  attention_mask: Optional[torch.Tensor], labels: torch.Tensor,
+                  config: BloomConfig, n_microbatches: int,
+                  tp_axis: Optional[str] = None, pipe_axis: str = "pipe",
+                  sp_axis: str = "seq") -> torch.Tensor:
+    """Pipeline x sequence parallel: ``input_ids``, ``attention_mask`` and
+    ``labels`` are this rank's (B, S_local) chunk of the sequence axis;
+    sequence-sharded activations flow through :func:`gpipe`, with ring
+    attention over ``sp_axis`` inside each stage (every sp peer of a stage
+    walks the same clocks). The train step syncs gradients with
+    ``grad_sync_axes=(("pipe", "sum"), ("seq", "sum"))``."""
+    from pipegoose_tpu_torch.distributed.functional import (
+        all_reduce,
+        reduce_from_tensor_group,
+    )
+    from pipegoose_tpu_torch.nn.pipeline_parallel.pipeline import (
+        gpipe,
+        last_stage_value,
+    )
+
+    _, mbs = _split_batch(input_ids, attention_mask, labels, n_microbatches)
+    h0 = _entry(params, mbs["ids"], config, tp_axis, pipe_axis)
+    # mask-aware global ALiBi positions per microbatch, once per step
+    apos = torch.stack([_sp_alibi_pos(m, sp_axis) for m in mbs["mask"]])
+    side = {"mask": mbs["mask"], "apos": apos}
+
+    def block_call(blk, h, side):
+        return _sp_block(blk, h, config, tp_axis, sp_axis, side["mask"],
+                         alibi_pos=side["apos"])
+
+    stage_fn = _stage_fn(block_call, config, params["blocks"], pipe_axis, None)
+    outs = gpipe(stage_fn, params["blocks"], h0, side_inputs=side,
+                 axis_name=pipe_axis, remat=config.remat)
+    if axis_index(pipe_axis) != axis_size(pipe_axis) - 1:
+        return last_stage_value(outs.float().sum() * 0, pipe_axis)
+    tot = cnt = 0.0
+    for i in range(n_microbatches):
+        t, c = _sp_head_sums(params, outs[i], mbs["mask"][i], mbs["labels"][i],
+                             config, tp_axis, sp_axis)
+        tot, cnt = tot + t, cnt + c
+    count = all_reduce(cnt, sp_axis)
+    loss_local = reduce_from_tensor_group(tot / torch.clamp_min(count, 1), sp_axis)
+    return last_stage_value(loss_local, pipe_axis)
 
 
 # -- TP policy -------------------------------------------------------------------

@@ -18,6 +18,12 @@ Under tensor parallelism each rank converts only its shard:
 leaf by its spec and the current context's coordinates first
 (``nn.parallel.shard_tree``); ``nn.parallel.unshard_tree`` of the result,
 through :func:`params_to_jax`, gives the whole tree back.
+
+Under pipeline parallelism ``specs=bloom.pp_specs(np_tree)`` shards the
+stacked layer dim over "pipe", so each rank converts its stage's layers
+only; with ``stage_layer_counts`` the tree carries the JAX package's padded
+uneven layout (``repartition_blocks``) and each stage keeps its live
+layers, dropping the padded slots.
 """
 from __future__ import annotations
 
@@ -58,7 +64,7 @@ def _convert(tree, fn):
 
 
 def params_from_jax(np_tree: dict, config, device="cuda", specs: Optional[Any] = None,
-                    ctx=None) -> dict:
+                    ctx=None, stage_layer_counts=None, pipe_axis: str = "pipe") -> dict:
     """``{"embed", "embed_ln", "blocks", "ln_f"}`` with every leaf a tensor
     of ``config.dtype`` on ``device``; ``"blocks"`` becomes a list of
     ``config.n_layer`` per-layer dicts with the same keys as the JAX
@@ -67,22 +73,42 @@ def params_from_jax(np_tree: dict, config, device="cuda", specs: Optional[Any] =
     turns them into trainable leaves. With ``specs`` (the JAX-layout spec
     tree, stacked block leaves with a leading None as ``bloom.tp_specs`` of
     the numpy tree gives them), each leaf is first cut to this rank's shard
-    by the coordinates of ``ctx`` (the current context by default)."""
+    by the coordinates of ``ctx`` (the current context by default).
+
+    With specs that shard the stacked layer dim (``bloom.pp_specs``) the
+    list holds this stage's ``n_layer / P`` layers; with
+    ``stage_layer_counts`` (the JAX padded layout of uneven stages, its
+    ``L_max = max(counts)`` slots a stage) the first
+    ``stage_layer_counts[stage]`` of them, the stage being this rank's
+    coordinate on ``pipe_axis``."""
     dev = resolve_device(device)
+    n_layer = config.n_layer
     if specs is not None:
         from pipegoose_tpu_torch.nn.parallel import shard_tree
 
+        n_stacked = np.shape(next(_leaves(np_tree["blocks"])))[0]
         np_tree = shard_tree(np_tree, specs, ctx)
+        n_local = np.shape(next(_leaves(np_tree["blocks"])))[0]
+        n_layer = n_layer * n_local // n_stacked
+    if stage_layer_counts is not None:
+        from pipegoose_tpu_torch.distributed.functional import axis_index
+
+        counts = [int(c) for c in stage_layer_counts]
+        if sum(counts) != config.n_layer:
+            raise ValueError(f"stage_layer_counts {tuple(counts)} do not sum to "
+                             f"n_layer={config.n_layer}")
+        n_layer = max(counts)   # the padded slots a stage holds
 
     def conv(a, dtype=None):
         return _to_tensor(a, dtype or config.dtype, dev)
 
-    n_layer = config.n_layer
     for leaf in _leaves(np_tree["blocks"]):
         if np.shape(leaf)[0] != n_layer:
             raise ValueError(
                 f"per-layer leaf of shape {tuple(np.shape(leaf))} does not "
                 f"stack n_layer={n_layer} layers")
+    if stage_layer_counts is not None:
+        n_layer = counts[axis_index(pipe_axis)]
     return {
         "embed": _map(np_tree["embed"], conv),
         "embed_ln": _map(np_tree["embed_ln"], conv),

@@ -4,14 +4,18 @@ The counterpart of ``pipegoose_tpu/nn/data_parallel/data_parallel.py``: the
 batch is split over the ``data`` axis, each rank computes the gradients of
 its part, and :func:`average_gradients` takes their mean over the axis.
 Expert parameters, flagged by a policy table, average over
-``expert_axis`` instead (or stay local without one). Only the float32
-reduction is ported: a compressed ``grad_comm`` is ROADMAP.md queue A,
-item 6, and raises.
+``expert_axis`` instead (or stay local without one). ``grad_comm`` "bf16"
+or "int8" runs the mean over the data axis as a compressed all-reduce
+(``distributed.compressed``); expert gradients always sync in float32.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
+from pipegoose_tpu_torch.distributed.compressed import (
+    check_grad_comm,
+    compressed_all_reduce_mean,
+)
 from pipegoose_tpu_torch.distributed.functional import all_reduce
 from pipegoose_tpu_torch.distributed.parallel_context import ParallelContext
 from pipegoose_tpu_torch.nn.parallel import (
@@ -24,28 +28,26 @@ from pipegoose_tpu_torch.nn.parallel import (
 from pipegoose_tpu_torch.nn.parallel_mapping import ParallelMapping
 
 
-def _check_grad_comm(grad_comm: str) -> None:
-    if grad_comm != "fp32":
-        raise NotImplementedError(
-            f"grad_comm={grad_comm!r}: the compressed gradient reduction is not "
-            f"ported yet (ROADMAP.md queue A, item 6); only 'fp32' runs")
-
-
 def average_gradients(grads: Any, axis_name: Optional[str] = "data",
                       expert_mapping: Optional[ParallelMapping] = None,
                       expert_axis: Optional[str] = None,
                       grad_comm: str = "fp32") -> Any:
     """The mean of a gradient tree over the data axis. Leaves that
     ``expert_mapping`` marks ``expert`` average over ``expert_axis``
-    instead; ``expert_axis=None`` leaves them local."""
-    _check_grad_comm(grad_comm)
+    instead; ``expert_axis=None`` leaves them local. ``grad_comm``: the
+    wire precision of the data-axis mean, "fp32" (the plain mean), "bf16"
+    or "int8" (a compressed all-reduce); expert gradients always sync in
+    float32 (they are few and routing-sensitive)."""
     if axis_name is None:
         return grads
+    mode = check_grad_comm(grad_comm)
 
     def avg(path, g):
         if expert_mapping is not None and expert_mapping.is_expert(path_str(path)):
             return g if expert_axis is None else all_reduce(g, expert_axis, "mean")
-        return all_reduce(g, axis_name, "mean")
+        if mode == "fp32":
+            return all_reduce(g, axis_name, "mean")
+        return compressed_all_reduce_mean(g, axis_name, mode)[0]
 
     return tree_map_with_path(avg, grads)
 

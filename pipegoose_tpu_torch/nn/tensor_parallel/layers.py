@@ -48,21 +48,43 @@ def _kernel_matmul(params: dict, x: torch.Tensor, with_bias: bool = True) -> tor
 
 
 def column_parallel_linear(params: dict, x: torch.Tensor,
-                           axis_name: Optional[str] = None) -> torch.Tensor:
+                           axis_name: Optional[str] = None,
+                           overlap: bool = False) -> torch.Tensor:
     """Y = X @ W[:, shard] (+ b[shard]): the f-operator on the input
     (identity forward, all-reduce backward), the local product and the
-    shard's bias."""
+    shard's bias.
+
+    ``overlap=True``: ``x`` is this rank's TOKEN CHUNK (dim -2 sharded over
+    the axis) and the gather back to every token runs as ring hops beside
+    partial matmuls (``overlap.column_parallel_linear_overlap``)."""
+    if overlap:
+        from pipegoose_tpu_torch.nn.tensor_parallel.overlap import (
+            column_parallel_linear_overlap,
+        )
+
+        return column_parallel_linear_overlap(params, x, axis_name)
     if axis_name is not None:
         x = copy_to_tensor_group(x, axis_name)
     return _kernel_matmul(params, x)
 
 
 def row_parallel_linear(params: dict, x: torch.Tensor,
-                        axis_name: Optional[str] = None) -> torch.Tensor:
+                        axis_name: Optional[str] = None,
+                        overlap: bool = False) -> torch.Tensor:
     """Y = sum over shards of X[shard] @ W[shard, :], + b: the local
     product, the g-operator (all-reduce forward, identity backward), then
     the bias ONCE, after the reduce. At ``axis_name=None`` the bias rides
-    in the product (a quantized leaf's epilogue)."""
+    in the product (a quantized leaf's epilogue).
+
+    ``overlap=True``: the reduce runs as a ring matmul-reduce-scatter and
+    each rank gets its TOKEN CHUNK of the reduced output
+    (``overlap.row_parallel_linear_overlap``)."""
+    if overlap:
+        from pipegoose_tpu_torch.nn.tensor_parallel.overlap import (
+            row_parallel_linear_overlap,
+        )
+
+        return row_parallel_linear_overlap(params, x, axis_name)
     if axis_name is None:
         return _kernel_matmul(params, x)
     y = reduce_from_tensor_group(_kernel_matmul(params, x, with_bias=False), axis_name)

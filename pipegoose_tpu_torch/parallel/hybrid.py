@@ -11,9 +11,13 @@ backward tensor-parallel (``tp_axis`` collectives inside the loss), this
 rank's part of the batch, the replicated-gradient sync, and the ZeRO-1
 optimizer's reduce-scatter, inner update and all-gather.
 
-Not ported yet: the in-graph health statistics (``with_health``, ROADMAP.md
-queue A, item 13), and the compressed gradient reduction and ring overlap
-(``grad_comm`` other than fp32, ``overlap_tp``; item 6). They raise.
+``grad_comm`` sets the gradient reduction's wire precision
+(``distributed.compressed``): inside the ZeRO-1 optimizer, or with an
+unsharded optimizer as a compressed mean all-reduce over the loss axes.
+``overlap_tp`` declares that the loss runs the ring collective-matmul path
+(``BloomConfig.overlap_tp``), whose gradients need no other sync. Not
+ported yet: the in-graph health statistics (``with_health``, ROADMAP.md
+queue A, item 13), which raise.
 """
 from __future__ import annotations
 
@@ -23,13 +27,17 @@ import numpy as np
 import torch
 
 from pipegoose_tpu_torch.core.accumulation import _map_batch, make_accumulating_loss
+from pipegoose_tpu_torch.distributed.compressed import (
+    check_grad_comm,
+    compressed_all_reduce_mean,
+)
 from pipegoose_tpu_torch.distributed.functional import all_reduce
 from pipegoose_tpu_torch.distributed.parallel_context import ParallelContext
 from pipegoose_tpu_torch.nn.parallel import shard_leaf, tree_leaves, tree_map
 from pipegoose_tpu_torch.optim.zero import (
     DistributedOptimizer,
     ZeroState,
-    check_grad_comm,
+    ef_state_specs,
     state_specs,
 )
 
@@ -81,8 +89,14 @@ def sync_replicated_grads(grads: Any, param_specs: Optional[Any], axes: tuple) -
 def zero_state_spec(optimizer: DistributedOptimizer, params: Any, param_specs: Any) -> Any:
     """The spec tree of the ZeRO-1 state's per-parameter moments
     (``optim.zero.state_specs``; the JAX function also takes the mesh, to
-    shape the state's shards, which the port's specs do not need)."""
-    return state_specs(params, param_specs, optimizer.axis_name or "data")
+    shape the state's shards, which the port's specs do not need). With
+    error feedback, ``{"inner": that tree, "ef": the residuals' specs}``
+    (``optim.zero.ef_state_specs``)."""
+    inner = state_specs(params, param_specs, optimizer.axis_name or "data")
+    if not (optimizer.error_feedback and optimizer.axis_name):
+        return inner
+    return {"inner": inner,
+            "ef": ef_state_specs(params, param_specs, optimizer.axis_name)}
 
 
 def parallel_context_sizes(candidate: Any) -> dict:
@@ -127,6 +141,19 @@ def build_hybrid_train_step(config: dict, parallel_context: ParallelContext):
     cfg = dict(config)
     return make_hybrid_train_step(cfg.pop("loss_fn"), cfg.pop("param_specs"),
                                   cfg.pop("optimizer"), parallel_context, **cfg)
+
+
+def _compressed_sync(axes: tuple, mode: str):
+    """The compressed counterpart of ``sync_replicated_grads`` with (axis,
+    "mean") for each of ``axes``: a leaf SHARDED over an axis holds its own
+    gradient there and is left alone."""
+    def sync(g, spec):
+        for ax in axes:
+            if not spec_mentions(spec, ax):
+                g = compressed_all_reduce_mean(g, ax, mode)[0]
+        return g
+
+    return sync
 
 
 def _grad_of(p: torch.Tensor) -> torch.Tensor:
@@ -186,16 +213,24 @@ def make_hybrid_train_step(loss_fn: Callable[..., torch.Tensor], param_specs: An
         raise NotImplementedError(
             "with_health=True: the in-graph health statistics are not ported yet "
             "(ROADMAP.md queue A, item 13)")
-    if overlap_tp:
-        raise NotImplementedError(
-            "overlap_tp=True: the ring collective-matmul overlap is not ported "
-            "yet (ROADMAP.md queue A, item 6)")
-    if grad_comm is not None:
-        check_grad_comm(grad_comm)
     ctx = parallel_context or ParallelContext.get_context()
     if ctx is None:
         raise ValueError("no ParallelContext; construct one first")
+    if grad_comm is not None and grad_comm != optimizer.grad_comm:
+        optimizer = optimizer.replace(grad_comm=check_grad_comm(grad_comm))
+    comm_mode = optimizer.grad_comm
     loss_axes = loss_axis if isinstance(loss_axis, tuple) else (loss_axis,)
+    # no ZeRO axis to fold the compression into: a compressed mean
+    # all-reduce runs on the gradients instead, over every loss axis
+    plain_dp_comm = comm_mode != "fp32" and optimizer.axis_name is None
+    if plain_dp_comm:
+        for entry in grad_sync_axes:
+            ax, op = entry if isinstance(entry, tuple) else (entry, "sum")
+            if ax in loss_axes and op == "mean":
+                raise ValueError(
+                    f"grad_comm={comm_mode!r} with an unsharded optimizer already "
+                    f"mean-syncs grads over {loss_axes}; drop ({ax!r}, 'mean') from "
+                    f"grad_sync_axes")
     accumulating = make_accumulating_loss(loss_fn, n_accum) if n_accum > 1 else None
 
     def init_fn(params) -> ZeroState:
@@ -220,9 +255,13 @@ def make_hybrid_train_step(loss_fn: Callable[..., torch.Tensor], param_specs: An
             else:
                 loss = loss_fn(params, local, *rng)
                 loss.backward()
-            if grad_sync_axes:
-                grads = sync_replicated_grads(tree_map(_grad_of, params), param_specs,
-                                              grad_sync_axes)
+            if grad_sync_axes or plain_dp_comm:
+                grads = tree_map(_grad_of, params)
+                if grad_sync_axes:
+                    grads = sync_replicated_grads(grads, param_specs, grad_sync_axes)
+                if plain_dp_comm:
+                    grads = _map(_compressed_sync(loss_axes, comm_mode), grads,
+                                 param_specs)
             else:
                 grads = [_grad_of(p) for p in leaves]
             params, opt_state = optimizer.step(grads, opt_state, params)

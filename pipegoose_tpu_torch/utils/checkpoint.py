@@ -36,6 +36,18 @@ Fault injection: :func:`set_io_fault_hook` installs a callable invoked at
 the start of every save ATTEMPT; raising ``OSError`` from it simulates a
 transient storage failure and exercises the retry path.
 
+A ZeRO-1 ``ZeroState`` with error feedback saves its residuals
+(``ZeroState.ef``) with the rest, each rank's own, and restores them bit
+for bit at the same layout; a restore at another data-parallel size, or of
+a checkpoint whose residuals the restoring state lacks (or the reverse),
+raises a ValueError that names ``ef``, instead of dropping them.
+
+Pipeline stages: where a spec marks the blocks with the "pipe" axis
+(``bloom.pp_specs``), each stage's per-layer blocks are saved under their
+GLOBAL layer index (the stage's offset is the sum of the earlier stages'
+counts), with the pipe axis taken off their specs; so a checkpoint holds
+the whole model once and restores onto another pipeline split.
+
 Where this parts from the JAX module: the format is DCP's, not orbax's
 (ROADMAP.md § C), and a ZeRO-1 ``ZeroState`` restores in place
 (``inplace=True``): into the live parameters and into the live inner
@@ -55,8 +67,10 @@ import torch.distributed as dist
 
 from pipegoose_tpu_torch.distributed.parallel_context import ParallelContext
 from pipegoose_tpu_torch.distributed.parallel_mode import MESH_AXIS_ORDER
-from pipegoose_tpu_torch.nn.parallel import path_str, tree_map_with_path
-from pipegoose_tpu_torch.optim.zero import ZeroState, zero_param_spec
+from pipegoose_tpu_torch.nn.parallel import path_str, tree_leaves, tree_map_with_path
+from pipegoose_tpu_torch.optim.zero import ZeroState, ef_param_spec, zero_param_spec
+
+PIPE = "pipe"
 
 #: suffix of the in-progress sibling a save writes before the atomic
 #: rename; anything carrying it is by definition incomplete
@@ -102,6 +116,48 @@ def _axes(entry) -> tuple:
     if entry is None:
         return ()
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def _mentions_pipe(spec) -> bool:
+    return any(PIPE in _axes(e) for e in (spec or ()))
+
+
+def _drop_pipe(spec: tuple) -> tuple:
+    def entry(e):
+        rest = tuple(a for a in _axes(e) if a != PIPE)
+        return None if not rest else (rest[0] if len(rest) == 1 else rest)
+    return tuple(entry(e) for e in spec)
+
+
+def _global_blocks(tree: Any, specs: Any, ctx: Optional[ParallelContext]):
+    """(tree, specs) with a pipeline stage's blocks keyed by their global
+    layer index and the pipe axis dropped from their specs, where the specs
+    mark the blocks with it; else as they are. Every rank of the context
+    calls it (an all-gather of the stages' block counts)."""
+    if (specs is None or not isinstance(tree, dict)
+            or not isinstance(tree.get("blocks"), list)
+            or not any(_mentions_pipe(sp) for sp in tree_leaves(specs["blocks"]))):
+        return tree, specs
+    from pipegoose_tpu_torch.distributed.functional import all_gather, axis_index
+
+    blocks = tree["blocks"]
+    device = "cuda" if ctx is not None and ctx.device == "cuda" else "cpu"
+    counts = all_gather(torch.tensor([len(blocks)], device=device), PIPE, dim=0)
+    offset = int(counts[:axis_index(PIPE)].sum())
+    tree, specs = dict(tree), dict(specs)
+    tree["blocks"] = {str(offset + i): b for i, b in enumerate(blocks)}
+    specs["blocks"] = {str(offset + i): tree_map_with_path(lambda _p, sp: _drop_pipe(sp), b)
+                       for i, b in enumerate(specs["blocks"])}
+    return tree, specs
+
+
+def _local_blocks(tree: Any, like: Any) -> Any:
+    """A tree that :func:`_global_blocks` re-keyed, its blocks a list again."""
+    if isinstance(like, dict) and isinstance(like.get("blocks"), list) \
+            and isinstance(tree.get("blocks"), dict):
+        tree = dict(tree)
+        tree["blocks"] = list(tree["blocks"].values())
+    return tree
 
 
 class _Layout:
@@ -232,6 +288,63 @@ def _zero_entries(state: ZeroState, params: Any, specs: Any, layout: Optional[_L
     return out
 
 
+def _ef_layouts(state: ZeroState, params: Any, specs: Any, layout: Optional[_Layout]):
+    """Per parameter leaf with a residual: (key, the residual, its spec in
+    the checkpoint, its global shape)."""
+    ef = iter(state.ef)
+    out = []
+
+    def visit(path, p, spec=None):
+        e = next(ef)
+        spec = ef_param_spec(tuple(spec) if spec is not None else (), p.dim(),
+                             state.axis_name)
+        gshape = (layout.global_shape(e.shape, spec) if layout is not None
+                  else tuple(e.shape))
+        out.append((path_str(path), e, spec, gshape))
+        return p
+
+    tree_map_with_path(visit, params, *(() if specs is None else (specs,)))
+    return out
+
+
+def _ef_entries(state: ZeroState, params: Any, specs: Any, layout: Optional[_Layout],
+                prefix: str):
+    """(key, residual as DCP takes it) of every error-feedback residual."""
+    return [(f"{prefix}{key}", e.detach() if layout is None
+             else layout.dtensor(e, spec, gshape))
+            for key, e, spec, gshape in _ef_layouts(state, params, specs, layout)]
+
+
+def _ef_targets(state: ZeroState, params: Any, specs: Any, layout: Optional[_Layout],
+                prefix: str, metadata) -> dict:
+    """Load targets for the residuals, in place; a checkpoint whose
+    residuals were saved at another data-parallel size (another global
+    shape), or that holds none where the state has them, or the reverse,
+    raises ValueError: a residual is never dropped."""
+    saved = metadata.state_dict_metadata
+    has = sorted(k for k in saved if k.startswith(prefix))
+    if state.ef is None:
+        if has:
+            raise ValueError(f"the checkpoint holds error-feedback residuals (ef, "
+                             f"{len(has)} leaves) and the restoring ZeroState has "
+                             f"none: build its optimizer with error_feedback=True")
+        return {}
+    targets = {}
+    for key, e, spec, gshape in _ef_layouts(state, params, specs, layout):
+        k = prefix + key
+        if k not in saved:
+            raise ValueError(f"ZeroState.ef: the checkpoint holds no residual {k!r} "
+                             f"(saved without error feedback)")
+        if tuple(saved[k].size) != tuple(gshape):
+            raise ValueError(
+                f"ZeroState.ef: residual {k!r} was saved with global shape "
+                f"{tuple(saved[k].size)}, this layout's is {tuple(gshape)}: each "
+                f"data rank's residual is its own, so ef restores only at the "
+                f"data-parallel size that saved it")
+        targets[k] = e if layout is None else layout.dtensor(e, spec, gshape)
+    return targets
+
+
 # -- writes ----------------------------------------------------------------------------
 
 
@@ -284,6 +397,7 @@ def save_pretrained(
         path = os.path.join(path, f"step_{step}")
     ctx = _context(parallel_context)
     layout = _Layout(ctx) if ctx is not None else None
+    params, specs = _global_blocks(params, specs, ctx)
     return _commit(_leaf_entries(params, specs, layout, ""), path, retries, backoff_s)
 
 
@@ -298,9 +412,12 @@ def save_train_state(
     ``path/step_N``. Crash-atomic, as :func:`save_pretrained`."""
     ctx = _context(parallel_context)
     layout = _Layout(ctx) if ctx is not None else None
+    params, specs = _global_blocks(params, specs, ctx)
     entries = _leaf_entries(params, specs, layout, "params/")
     if isinstance(opt_state, ZeroState):
         entries += _zero_entries(opt_state, params, specs, layout, "opt_state/")
+        if opt_state.ef is not None:
+            entries += _ef_entries(opt_state, params, specs, layout, "opt_state/ef/")
     elif opt_state is not None:
         entries += _leaf_entries(opt_state, None, None, "opt_state/")
     if extra is not None:
@@ -377,9 +494,10 @@ def from_pretrained(
     path = os.path.abspath(path)
     ctx = _context(parallel_context)
     layout = _Layout(ctx) if ctx is not None else None
-    tree, targets = _targets(like, specs, layout, "", False)
+    keyed, specs = _global_blocks(like, specs, ctx)
+    tree, targets = _targets(keyed, specs, layout, "", False)
     dcp.load(targets, checkpoint_id=path, no_dist=not _distributed())
-    return tree
+    return _local_blocks(tree, like)
 
 
 def _complete_step(path: str, name: str) -> Optional[int]:
@@ -457,13 +575,17 @@ def restore_train_state(
     ctx = _context(parallel_context)
     layout = _Layout(ctx) if ctx is not None else None
     out = {}
-    out["params"], targets = _targets(like["params"], specs, layout, "params/", inplace)
+    keyed, specs = _global_blocks(like["params"], specs, ctx)
+    params, targets = _targets(keyed, specs, layout, "params/", inplace)
+    out["params"] = _local_blocks(params, like["params"])
     states = None
     if isinstance(zero, ZeroState):
         metadata = dcp.FileSystemReader(full).read_metadata()
-        zt, states = _zero_targets(zero, out["params"], specs, layout, "opt_state/",
+        zt, states = _zero_targets(zero, params, specs, layout, "opt_state/",
                                    metadata)
         targets.update(zt)
+        targets.update(_ef_targets(zero, params, specs, layout, "opt_state/ef/",
+                                   metadata))
         out["opt_state"] = zero
     elif zero is not None:
         out["opt_state"], ot = _targets(zero, None, None, "opt_state/", inplace)

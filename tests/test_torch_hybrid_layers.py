@@ -10,8 +10,8 @@
   the same per-rank inputs (the fused CE's Pallas kernels in interpret
   mode). At tp 4 the padded case's last vocab shard is all padding.
 - The spec tables (``tp_specs``, ``tp_mapping``, ``pad_for_tp``) against
-  the JAX ones, and ``BloomConfig.overlap_tp``, which is not ported
-  (ROADMAP.md queue A, item 6), raising under a tensor axis.
+  the JAX ones, and ``BloomConfig.overlap_tp`` on a one-rank tensor axis
+  equal to the monolithic path.
 
 Tolerance 1e-5 (float32, the same products reduced over ranks in another
 order). One spawn per world size.
@@ -234,15 +234,39 @@ def test_padded_vocab_is_masked_in_the_loss_as_in_jax():
 
 
 @pytest.mark.parametrize("probe", ["forward", "loss_fn", "loss_fn_fused"])
-def test_overlap_options_raise_naming_item_6(probe):
-    """``BloomConfig.overlap_tp`` under a tensor axis raises from every
-    entry point that runs the blocks on the full sequence."""
-    cfg = dataclasses.replace(tbloom.BloomConfig(**SIZE), overlap_tp=True,
-                              fused_ce=probe == "loss_fn_fused")
-    params = params_from_jax(tbloom.init_params_numpy(cfg, seed=0), cfg, device="cpu")
-    ids = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        if probe == "forward":
-            tbloom.forward(params, ids, None, cfg, tp_axis="tensor")
-        else:
-            tbloom.loss_fn(params, ids, None, ids, cfg, tp_axis="tensor")
+def test_overlap_options_raise_naming_item_6(probe, tmp_path):
+    """``BloomConfig.overlap_tp`` under a tensor axis now runs the ring
+    collective-matmul path from every entry point that runs the blocks on
+    the full sequence: on a one-rank tensor axis the ring is the plain
+    product, so the outputs and gradients equal the monolithic path's (to
+    1e-6 of the largest value: the ring's backward sums its own products).
+    (The multi-rank cases are ``test_torch_overlap.py`` and
+    ``test_torch_comm_hybrid.py``.)"""
+    import torch.distributed as dist
+
+    from pipegoose_tpu_torch.distributed import ParallelContext
+
+    cfg = dataclasses.replace(tbloom.BloomConfig(**SIZE), fused_ce=probe == "loss_fn_fused")
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    ctx = ParallelContext.init_multihost(store=store, world_size=1, rank=0, device="cpu",
+                                         tensor_parallel_size=1)
+    try:
+        ids = torch.from_numpy(np.random.default_rng(3).integers(0, 125, (2, 8)))
+        outs = []
+        for overlap in (False, True):
+            c = dataclasses.replace(cfg, overlap_tp=overlap)
+            params = params_from_jax(tbloom.init_params_numpy(c, seed=0), c, device="cpu")
+            for leaf in (params["embed"]["weight"], params["blocks"][0]["ln_1"]["scale"]):
+                leaf.requires_grad_(True)
+            if probe == "forward":
+                y = tbloom.forward(params, ids, None, c, tp_axis="tensor")
+            else:
+                y = tbloom.loss_fn(params, ids, None, ids, c, tp_axis="tensor")
+            y.float().sum().backward()
+            outs.append((y.detach(), params["embed"]["weight"].grad,
+                         params["blocks"][0]["ln_1"]["scale"].grad))
+    finally:
+        ctx.destroy()
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0,
+                                   atol=1e-6 * float(a.abs().max()))

@@ -18,8 +18,9 @@ gloo ranks.
   x rest`` elements (at dp 1 the shards are the leaves themselves).
 - Accumulation at K = 2 and 4 (``accumulate_gradients``,
   ``make_accumulating_loss``) against the JAX functions.
-- The spec helpers against the JAX ones, and the options that are not
-  ported (ROADMAP.md queue A, items 6 and 13) raising.
+- The spec helpers against the JAX ones, ``with_health`` (ROADMAP.md
+  queue A, item 13) raising, and the comm engine's options raising only
+  JAX's errors.
 
 Tiny BLOOM (vocab 128, hidden 64, 2 layers, 4 heads), B = 8 x S = 12, as
 ``tests/test_hybrid.py``; weights and data from numpy seeds, float32. The
@@ -423,6 +424,10 @@ def test_hybrid_build_config_round_trips_every_option():
 @pytest.mark.parametrize("probe", ["with_health", "overlap_tp", "grad_comm",
                                    "error_feedback", "fp8", "no_context"])
 def test_unported_hybrid_options_raise(probe):
+    """``with_health`` (ROADMAP.md queue A, item 13) raises; ``overlap_tp``,
+    ``grad_comm`` and ``error_feedback`` run (the comm engine) and raise only
+    JAX's errors: an unknown wire, error feedback without a compressed one,
+    a step with no context."""
     opt = DistributedOptimizer(adam(LR))
     if probe == "fp8":
         with pytest.raises(ValueError, match="grad_comm"):
@@ -432,11 +437,18 @@ def test_unported_hybrid_options_raise(probe):
         with pytest.raises(ValueError, match="no ParallelContext"):
             thybrid.make_hybrid_train_step(len, {}, opt)
         return
-    item = "item 13" if probe == "with_health" else "item 6"
-    with pytest.raises(NotImplementedError, match=item):
-        if probe == "error_feedback":
+    if probe == "with_health":
+        with pytest.raises(NotImplementedError, match="item 13"):
+            thybrid.make_hybrid_train_step(len, {}, opt, with_health=True)
+        return
+    if probe == "error_feedback":
+        with pytest.raises(ValueError, match="error_feedback requires grad_comm"):
             DistributedOptimizer(adam(LR), error_feedback=True)
-        elif probe == "grad_comm":
-            thybrid.make_hybrid_train_step(len, {}, opt, grad_comm="int8")
-        else:
-            thybrid.make_hybrid_train_step(len, {}, opt, **{probe: True})
+        assert DistributedOptimizer(adam(LR), grad_comm="int8",
+                                    error_feedback=True).error_feedback
+        return
+    if probe == "grad_comm":
+        assert DistributedOptimizer(adam(LR), grad_comm="int8").grad_comm == "int8"
+    with pytest.raises(ValueError, match="no ParallelContext"):
+        thybrid.make_hybrid_train_step(len, {}, opt, **(
+            {"grad_comm": "int8"} if probe == "grad_comm" else {probe: True}))

@@ -47,6 +47,10 @@ def test_port_imports_without_jax_or_a_card():
         "import pipegoose_tpu_torch.trainer, pipegoose_tpu_torch.trainer.recovery\n"
         "import pipegoose_tpu_torch.utils.checkpoint, pipegoose_tpu_torch.utils.procindex\n"
         "import pipegoose_tpu_torch.utils.profiler, pipegoose_tpu_torch.data\n"
+        "import pipegoose_tpu_torch.distributed.compressed\n"
+        "import pipegoose_tpu_torch.nn.tensor_parallel.overlap\n"
+        "import pipegoose_tpu_torch.nn.pipeline_parallel\n"
+        "import pipegoose_tpu_torch.nn.pipeline_parallel.partitioner\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (FORBIDDEN,)
     )
