@@ -51,7 +51,14 @@ The main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
   and ``overlap_tp``, and with ``models.bloom.loss_fn_pp`` (GPipe),
   ``loss_fn_1f1b`` and ``loss_fn_pp_sp`` over that context (every axis of
   size 1 on one card: the reductions still round, the pipelines run their
-  microbatches through the flash, ring-chunk and fused CE kernels).
+  microbatches through the flash, ring-chunk and fused CE kernels);
+- expert parallelism: ``models.bloom_moe.loss_fn`` (BLOOM-MoE, every
+  block's MLP 8 routed experts, top-2, dispatched over ``all_to_all`` on the
+  "expert" axis) through ``Trainer.fit(with_rng=True)`` and
+  ``make_hybrid_train_step`` over that context ("expert" named too, every
+  axis of size 1), upcycled from the dense weights by
+  ``nn.expert_parallel.ExpertParallel.from_dense``, its attention through
+  the flash kernels.
 
 Phases, each fatal on failure:
 
@@ -64,8 +71,9 @@ Phases, each fatal on failure:
      long decode row whose keys split over a cluster; float32, bf16 and
      int8 pages; float32 q, bf16 q and bf16 q as a strided view of the
      fused qkv product), through both routes;
-  3  the float32 engine on the card against the same engine on the CPU:
-     identical greedy tokens, and agreeing finite logits;
+  3  the float32 engine on the card against the same engine on the CPU
+     (a 320-token context, ``CARD_VS_CPU_CONTEXT``): identical greedy
+     tokens, and agreeing finite logits;
   4  timed bf16 serving runs (fp KV, then int8 KV): tokens/s, mean TTFT,
      mean decode-step ms, and the kernel's launch count, which must be
      n_layer x (decode steps + prefill chunks): the decode steps on the
@@ -253,7 +261,8 @@ Phases, each fatal on failure:
      (CheckpointCallback at step 4, LossLoggerCallback) against 6 steps of
      ``make_hybrid_train_step`` called by hand on the same batches, a new
      ``Trainer(resume_dir=)`` at step 4 for 2 steps against the last two,
-     ``AutoRecovery`` over a poisoned third batch (one restore) against the
+     ``AutoRecovery`` over a poisoned fifth batch (one restore of the
+     fit's checkpoint) against the
      first four, all bit for bit (else phase 7's loss tolerance, params
      within lr, and the log says so), the launches 4 x a step's;
      ``evaluate`` equal to the mean of the loss's forward; (b) phase
@@ -295,8 +304,8 @@ Phases, each fatal on failure:
      fused CE; phase 26's criteria, the same launches); 3 steps with
      grad_comm bf16, int8 and int8 + error feedback, each on the CPU too,
      fed the card's gradients: step 1's int8 payloads and scales equal bit
-     for bit; for bf16 and int8 the reduced gradients at every step bit
-     for bit; for int8 + error feedback the whole step on CPU copies of the
+     for bit; for bf16 and int8 the reduced gradients of step 1 bit for
+     bit (the later steps run on the card alone); for int8 + error feedback the whole step on CPU copies of the
      params, within one int8 step of each leaf's scale and the losses after
      each step to phase 7's Adam tolerance; each update different from the
      float32 reduction's (the rounding ran at dp = 1); one step of GPipe and 1F1B
@@ -306,18 +315,40 @@ Phases, each fatal on failure:
      and B4-B6 M times; (b) bf16 bloom-560m, 24 layers, 8 x 1024, remat +
      flash + fused CE: the hybrid step, int8 + error feedback, GPipe and
      1F1B at M = 4, each checked (launches per step, falling losses) and
-     timed in two rounds of turns, 3 steps a turn: ms/step, tokens/s, the
+     timed in two rounds of turns, 2 steps a turn: ms/step, tokens/s, the
      ratio to the hybrid step with its range over the turns, each arm's
      peak above what was allocated before it, the ZeRO state's and the
      residuals' bytes; one profiled step of GPipe (phase 26 profiles the
-     hybrid step).
+     hybrid step);
+ 31  BLOOM-MoE on phase 26's context, "expert" named too: (a) float32, full
+     width at 2 layers, 8 experts, top-2, capacity factor 1.25, no router
+     noise, remat + flash, upcycled from the seed-0 weights on the CPU,
+     batch 4 x 256 with row 1 right-padded by 128 pad ids: the loss and
+     every gradient on the card against the same code on the CPU (phase
+     7's tolerances), each layer's dispatch equal (apart only from a token
+     whose top-k gap is below 1e-5, named), the dropped tokens per layer
+     (more than 0 in all); 3 steps of ``make_hybrid_train_step`` with
+     ``moe_specs``, batch spec (("data", "expert"),), the loss over
+     ("data", "expert") and the trunk's gradients averaged over "expert",
+     against 3 hand-called steps of the same loss and Adam, bit for bit,
+     launching B1 2 L and B2/B3 L times a step on the float32 route; (b)
+     bf16, bloom-560m's widths at 24 layers upcycled on the card
+     (``ExpertParallel(8, jitter=0.01).from_dense``, a seeded card
+     generator), top-2, capacity factor 1.25, router noise 0.1, remat +
+     flash, Adam 1e-4, through ``Trainer.fit(with_rng=True)``, batch 4 x
+     1024: 2 warm-up and 5 timed steps, step ms, tokens/s, peak, MFU (6 x
+     the active parameters + 12 L H S a token; the dense dispatch and
+     combine products' flops beside it), falling losses, launches per step
+     (B1 48, B2/B3 24, all on the tensor cores), the dropped share per
+     layer, and one profiled step.
 
 Every phase's seconds are logged as "seconds: <phase> <s>".
 
 The line before the last is a JSON object with every kernel's numbers
 (each row's ``trainer_launches``: its launches in phase 28 (b)'s timed
-fit), phase 28's under ``trainer`` and phase 30's under
-``comm_pipeline``; the last line is
+fit; ``moe_launches``: in phase 31 (b)'s timed steps), phase 28's under
+``trainer``, phase 30's under ``comm_pipeline`` and phase 31's under
+``moe``; the last line is
 {"ok": true, "device": {...}}. Without a card, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.
@@ -689,10 +720,11 @@ def phase3_engine_vs_cpu(np_tree, dev):
     cfg = BloomConfig.bloom_560m()
     requests = card_vs_cpu_requests(cfg)
     log(f"phase 3: bloom-560m float32, prompts {[len(p) for p, _ in requests]}, "
-        f"16 new tokens each, 4 slots, chunk 128")
+        f"16 new tokens each, 4 slots, chunk 128, context {CARD_VS_CPU_CONTEXT}")
     cpu_params = params_from_jax(np_tree, cfg, device="cpu")
     gpu_params = params_from_jax(np_tree, cfg, device=dev)
-    engines_agree(cfg, requests, cpu_params, gpu_params, dev)
+    engines_agree(cfg, requests, cpu_params, gpu_params, dev,
+                  max_context=CARD_VS_CPU_CONTEXT)
     prompt = requests[0][0]
     lg = prefill_logits(gpu_params, cfg, prompt, dev)
     lc = prefill_logits(cpu_params, cfg, prompt, "cpu")
@@ -703,6 +735,14 @@ def phase3_engine_vs_cpu(np_tree, dev):
         f"max_abs_err={err} (atol {LOGIT_ATOL})")
     if err > LOGIT_ATOL:
         raise AssertionError("card and cpu logits disagree")
+
+
+# phases 3 and 15's context: the longest request card_vs_cpu_requests can
+# draw (300 + 16 tokens) rounded up to a page. The CPU engine's plain
+# attention reads every key of the page table, so a table narrower than the
+# main path's 1024 makes the CPU runs cheaper; the card reads only the
+# keys each sequence holds.
+CARD_VS_CPU_CONTEXT = 320
 
 
 def card_vs_cpu_requests(cfg):
@@ -1236,6 +1276,26 @@ def train_vs_cpu(np_tree, dev, label, cpu=None, **opts):
             or adam_err > TRAIN_ADAM_LOSS_ATOL):
         raise AssertionError("card and CPU train steps disagree")
     return gpu_params, cfg, (ids, mask), runs["cpu"]
+
+
+def init_trees(config, seed, stds) -> list:
+    """``init_params_numpy(replace(config, initializer_range=std), seed)``
+    for each std of ``stds``, bit for bit, from one draw: the tree at std 1
+    (the draws times 1, exact), each normal leaf (every kernel and the
+    embedding) then scaled in float32 as ``init_params_numpy`` scales it,
+    the zeros and ones copied."""
+    from pipegoose_tpu_torch.models.bloom import init_params_numpy
+
+    unit = init_params_numpy(dataclasses.replace(config, initializer_range=1.0), seed)
+
+    def scaled(tree, std, key=None, parent=None):
+        if isinstance(tree, dict):
+            return {k: scaled(v, std, k, key) for k, v in tree.items()}
+        if key == "kernel" or (parent, key) == ("embed", "weight"):
+            return tree * np.float32(std)
+        return tree.copy()
+
+    return [scaled(unit, std) for std in stds]
 
 
 def cut_layers(blocks, n):
@@ -2018,10 +2078,12 @@ def phase15_quant_engine_vs_cpu(np_tree, dev) -> None:
             log(f"phase 15: bloom-560m float32 at {PHASE15_LAYERS} layers, {weight_dtype} "
                 f"weights (G=32), "
                 f"{'chunk 128' if chunk else 'monolithic prefill'}, prompts "
-                f"{[len(p) for p, _ in requests]}, 16 new tokens, 4 slots")
+                f"{[len(p) for p, _ in requests]}, 16 new tokens, 4 slots, context "
+                f"{CARD_VS_CPU_CONTEXT}")
             cpu_eng, eng, outs = engines_agree(cfg, requests, cpu_params, gpu_params,
                                                dev, weight_dtype=weight_dtype,
-                                               prefill_chunk=chunk)
+                                               prefill_chunk=chunk,
+                                               max_context=CARD_VS_CPU_CONTEXT)
             for (prompt, n), o in zip(requests, outs):
                 ref = generate(eng.params, prompt[None], cfg, n, device=dev)
                 check_flip(f"request {o.uid} engine vs card generate()", cpu_eng.params,
@@ -2829,8 +2891,9 @@ PHASE24_TRACE = dict(n_requests=16, n_prefixes=3, prefix_len=392, suffix_lens=(3
                      max_new=32, seed=SEED, zipf_a=1.2)
 LEDGER_HOLE_PAGES = 41         # phase 23 (c)'s pool: 40 pages besides the NULL page
 # phase 23's context: its longest request (300 + 16 tokens) rounded up to a
-# page. A narrower page table than phase 3's 1024 keeps the CPU engine's
-# plain attention, which reads every key of the table, three times cheaper.
+# page. A narrower page table than the main path's 1024 keeps the CPU
+# engine's plain attention, which reads every key of the table, three times
+# cheaper.
 PHASE23_CONTEXT = 320
 # phase 23's depth: bloom-560m's widths, its first 13 layers (the CPU engines
 # cost in proportion), which keeps the (12, 3) draft a shallow exit
@@ -3475,7 +3538,8 @@ def hybrid_context():
     store_dir = tempfile.mkdtemp(prefix="chip_smoke_store_")
     store = dist.FileStore(f"{store_dir}/store", 1)
     return ParallelContext.init_multihost(store=store, world_size=1, rank=0, device="cuda",
-                                          tensor_parallel_size=1, data_parallel_size=1)
+                                          tensor_parallel_size=1, data_parallel_size=1,
+                                          expert_parallel_size=1)
 
 
 class HybridSteps:
@@ -3718,8 +3782,8 @@ def phase27_sampled_generate(np_tree, dev) -> None:
 # the checkout's build/ directory, which git ignores; phase 28 deletes them
 TRAINER_WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                             "chip_smoke_trainer")
-# (a) keeps two float32 checkpoints of 2 layers at full width (~3.4 GB each)
-# on disk at a time, (b) one bf16 bloom-560m train state (~3.4 GB)
+# (a) keeps one float32 checkpoint of 2 layers at full width (~3.4 GB) on
+# disk, (b) one bf16 bloom-560m train state (~3.4 GB)
 TRAINER_DISK_BYTES = 12 * 2**30
 TRAINER_POISON = 0             # (a)'s sentinel id: a batch that starts with it has a NaN loss
 TRAINER_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel",
@@ -3850,7 +3914,8 @@ def phase28a_trainer_vs_steps(np_tree, dev) -> dict:
     steps, CheckpointCallback at step 4, LossLoggerCallback) against 6 steps
     of ``make_hybrid_train_step`` called by hand on the same batches; a new
     Trainer resuming at step 4 for 2 steps; AutoRecovery over a poisoned
-    third batch; ``evaluate``; each bit for bit."""
+    fifth batch, restoring the fit's step-4 checkpoint; ``evaluate``; each
+    bit for bit."""
     import shutil
 
     from pipegoose_tpu_torch.models.bloom import BloomConfig
@@ -3870,14 +3935,16 @@ def phase28a_trainer_vs_steps(np_tree, dev) -> dict:
         f"{vocab}, hidden {hidden}, 16 heads, depth cut 24 -> {n_layer}, batch {b} x {s} from "
         f"TokenDataset (native route), remat, flash, fused CE, Adam lr {lr}")
 
-    # by hand: 6 steps, the params after 4 kept
+    # by hand: 6 steps, the params after 4 and 5 kept
     counters_zero()
     params, step = hand_step(tree, cfg, lr, dev)
-    hand, p4 = [], None
+    hand, p4, p5 = [], None, None
     for i, batch in enumerate(batches):
         hand.append(step(batch).item())
         if i == 3:
             p4 = snapshot(params)
+        if i == 4:
+            p5 = snapshot(params)
     hand_counts = counters_read()
     p6 = params
     del step
@@ -3886,7 +3953,7 @@ def phase28a_trainer_vs_steps(np_tree, dev) -> dict:
         raise AssertionError("phase 28 (a): the hand-called step launched other kernels")
 
     # Trainer.fit over the loader, a checkpoint at step 4
-    run_a, run_r = (os.path.join(TRAINER_WORK, d) for d in ("run_a", "run_r"))
+    run_a = os.path.join(TRAINER_WORK, "run_a")
     seen = []
 
     def feed(loader):
@@ -3931,23 +3998,25 @@ def phase28a_trainer_vs_steps(np_tree, dev) -> dict:
     if t.state.step != 6:
         raise AssertionError("phase 28 (a): the resumed run did not take 2 steps")
     del t
-    shutil.rmtree(run_a)
 
-    # AutoRecovery over a poisoned batch
-    poisoned = batches[2].copy()
+    # AutoRecovery over a poisoned fifth batch, checkpointing into run_a:
+    # its step 4 is on disk already (the fit above wrote it from the same
+    # steps, so the callback does not write it again), the poisoned step
+    # restores it, and the fifth step runs again
+    poisoned = batches[4].copy()
     poisoned[0, 0] = TRAINER_POISON
-    rec = AutoRecovery(run_r, max_restores=1)
+    rec = AutoRecovery(run_a, max_restores=1)
     t = bloom_trainer(tree, cfg, lr, dev, poison=True,
-                      callbacks=[CheckpointCallback(run_r, every=2), rec])
-    st = t.fit([batches[0], batches[1], poisoned, batches[2], batches[3]])
-    log(f"  AutoRecovery over a poisoned third batch: {rec.restores} restore(s), step "
+                      callbacks=[CheckpointCallback(run_a, every=4, save_final=False), rec])
+    st = t.fit(batches[:4] + [poisoned, batches[4]])
+    log(f"  AutoRecovery over a poisoned fifth batch: {rec.restores} restore(s), step "
         f"{st.step}")
     bits["recovery"] = same_run("the recovered run", [float(x) for x in st.losses],
-                                hand[:4], t.params, p4, lr)
-    if rec.restores != 1 or st.step != 4:
+                                hand[:5], t.params, p5, lr)
+    if rec.restores != 1 or st.step != 5:
         raise AssertionError("phase 28 (a): AutoRecovery did not restore once")
-    del t, p4, p6
-    shutil.rmtree(run_r)
+    del t, p4, p5, p6
+    shutil.rmtree(run_a)
     gc.collect()
     torch.cuda.empty_cache()
     return {"losses": hand, "launches_per_step": per, "fit_s": fit_s, "bit_for_bit": bits}
@@ -4494,10 +4563,11 @@ def phase29_tp_serving(np_tree, dev, card, fp_arm) -> list:
 # -- phase 30 ------------------------------------------------------------------
 
 PHASE30_STEPS = 3
+PHASE30_MIRROR_STEPS = 1       # bf16 and int8: the steps whose reduction runs on the CPU too
 PHASE30_MICRO = (2, 4)
 # (b)'s turns: rounds of the arms forward then back, steps a turn
 PHASE30_ROUNDS = 2
-PHASE30_TURN_STEPS = 3
+PHASE30_TURN_STEPS = 2
 
 
 def phase30_loss(kind, micro=None):
@@ -4519,12 +4589,13 @@ def phase30_loss(kind, micro=None):
 
 class MirroredOptimizer:
     """A ``DistributedOptimizer`` whose compressed reduction is also run on
-    the CPU, on a CPU copy of the card's gradients at every step: the
-    reduced gradients (what the inner Adam takes) on the card against the
-    CPU's, bit for bit, and on the first step each leaf's int8 payload and
-    per-chunk scale. With ``trajectory`` the whole step instead: the same
-    optimizer over CPU copies of the params, fed the card's gradients, its
-    params after each step kept on the card (``trajectory``)."""
+    the CPU, on a CPU copy of the card's gradients at each of the first
+    PHASE30_MIRROR_STEPS steps: the reduced gradients (what the inner Adam
+    takes) on the card against the CPU's, bit for bit, and on the first step
+    each leaf's int8 payload and per-chunk scale. With ``trajectory`` the
+    whole step instead, at every step: the same optimizer over CPU copies of
+    the params, fed the card's gradients, its params after each step kept on
+    the card (``trajectory``)."""
 
     def __init__(self, opt, params, trajectory=False):
         from pipegoose_tpu_torch.optim import DistributedOptimizer
@@ -4540,6 +4611,7 @@ class MirroredOptimizer:
         self.first = None   # per leaf: (payload and scale equal, its int8 step)
         self.reduced_equal = True
         self.cpu_s = 0.0
+        self.steps = 0
 
     def __getattr__(self, name):
         return getattr(self.opt, name)
@@ -4554,6 +4626,9 @@ class MirroredOptimizer:
         )
         from pipegoose_tpu_torch.nn.parallel import tree_leaves, tree_map
 
+        self.steps += 1
+        if self.trajectory is None and self.steps > PHASE30_MIRROR_STEPS:
+            return self.opt.step(grads, state, params)
         t0 = time.perf_counter()
         cpu_grads = tree_map(lambda g: g.detach().to("cpu", copy=True), grads)
         if self.first is None:   # (the payloads only where the wire is int8)
@@ -4669,7 +4744,7 @@ def phase30a_float32(np_tree, dev) -> dict:
     overlap_tp against the monolithic step (full logits and fused CE); the
     bf16, int8 and int8 + error-feedback reductions mirrored on the CPU
     (``MirroredOptimizer``: step 1's int8 payloads and scales bit for bit;
-    for bf16 and int8 the reduced gradients at every step bit for bit; for
+    for bf16 and int8 the reduced gradients of step 1 bit for bit; for
     int8 + error feedback the whole step, the params within one int8 step
     of each chunk's scale and the losses after each step to phase 7's Adam
     tolerance), each differing from the float32 reduction (the rounding ran
@@ -4711,7 +4786,7 @@ def phase30a_float32(np_tree, dev) -> dict:
                 name = mode + ("+ef" if ef else "")
                 # the whole step mirrored for int8 + error feedback (it
                 # carries every part: quantize, residual, Adam); the
-                # reduction alone, every step, for bf16 and int8
+                # reduction alone, on the first step, for bf16 and int8
                 losses, params, launches, opt, state = phase30_arm(
                     template, cfg, "dense", ids, mask, lr, grad_comm=mode,
                     error_feedback=ef, mirror="trajectory" if ef else "reduction")
@@ -4745,8 +4820,8 @@ def phase30a_float32(np_tree, dev) -> dict:
                         f"CPU {ef_err}; losses after each step {after} vs the CPU "
                         f"optimizer's params' {cpu_after} (err {loss_err}, atol "
                         f"{TRAIN_ADAM_LOSS_ATOL})" if ef else
-                        f"the reduced gradients card == CPU at every step: "
-                        f"{opt.reduced_equal}") +
+                        f"the reduced gradients card == CPU at the first "
+                        f"{PHASE30_MIRROR_STEPS} step(s): {opt.reduced_equal}") +
                     f"; max |params - the float32 reduction's| {moved} (> 0: the "
                     f"reduction rounded), losses {losses} vs float32's {fp32[0]} (max "
                     f"difference {vs_fp32}); launches {launches}; the CPU mirror took "
@@ -4909,6 +4984,352 @@ def phase30_comm_pipeline(np_tree, dev, card, hybrid_run) -> dict:
     return out
 
 
+# -- phase 31 ------------------------------------------------------------------
+
+MOE_EXPERTS, MOE_TOP_K, MOE_CF = 8, 2, 1.25
+MOE_TIE_MARGIN = 1e-5          # a top-k gap below which card and CPU may route apart
+MOE_BATCH_SPEC = (("data", "expert"),)   # examples/moe_training.py's P(("data", "expert"))
+BLOOM_PAD_ID = 3               # BLOOM's pad token id
+
+
+def moe_config(**kw):
+    """bloom-560m's widths as BLOOM-MoE: 8 experts, top-2, capacity factor
+    1.25, remat and flash."""
+    from pipegoose_tpu_torch.models.bloom_moe import BloomMoEConfig
+
+    kw = {"remat": True, "use_flash": True, **kw}
+    return BloomMoEConfig.bloom_560m(num_experts=MOE_EXPERTS, top_k=MOE_TOP_K,
+                                     capacity_factor=MOE_CF, **kw)
+
+
+def moe_loss(cfg):
+    """The path's loss (``examples/moe_training.py:53-61``): BLOOM-MoE with
+    ``tp_axis="tensor"``, ``ep_axis="expert"`` on a batch of ids (or ids and
+    a mask; labels = ids); with an rng, ``train=True`` and the seed folded
+    with ``data_index x ep + expert_index``, so that every rank draws its
+    own router noise."""
+    from pipegoose_tpu_torch.core.accumulation import fold_in
+    from pipegoose_tpu_torch.distributed.functional import axis_index, axis_size
+    from pipegoose_tpu_torch.models import bloom_moe
+
+    def lf(p, batch, *rng):
+        ids, mask = batch if isinstance(batch, tuple) else (batch, None)
+        seed = None
+        if rng:
+            seed = fold_in(rng[0], axis_index("data") * axis_size("expert")
+                           + axis_index("expert"))
+        return bloom_moe.loss_fn(p, ids, mask, ids, cfg, tp_axis="tensor",
+                                 ep_axis="expert", rng=seed, train=bool(rng))
+
+    return lf
+
+
+class RouteRecorder:
+    """While active, ``TopKRouter.__call__`` also records each call's tokens
+    and dropped tokens (those given fewer than k slots) and, with
+    ``detail``, its dispatch on the host and each token's smallest gap
+    between neighbouring probabilities of its top k + 1 (from the clean
+    logits: phase 31 (a) has no noise). Reading them syncs the host; the
+    timed steps run without it. Under remat the recompute routes again:
+    the first ``n_layer`` calls are the forward's."""
+
+    def __init__(self, detail=False):
+        self.detail, self.calls = detail, []
+
+    def __enter__(self):
+        from pipegoose_tpu_torch.nn.expert_parallel.routers import TopKRouter
+
+        self._orig = orig = TopKRouter.__call__
+        rec = self
+
+        def call(router, params, x, key=None, train=False, capacity=None):
+            out = orig(router, params, x, key=key, train=train, capacity=capacity)
+            with torch.no_grad():
+                kept = out.dispatch.sum(dim=(1, 2))
+                row = {"tokens": x.shape[0],
+                       "dropped": int((kept < router.top_k).sum())}
+                if rec.detail:
+                    probs = torch.softmax(x.float() @ params["gate"]["kernel"].float(), -1)
+                    top = torch.sort(probs, dim=-1, descending=True).values
+                    top = top[:, :router.top_k + 1]
+                    row["gap"] = (top[:, :-1] - top[:, 1:]).min(dim=-1).values.cpu()
+                    row["dispatch"] = out.dispatch.detach().cpu()
+                rec.calls.append(row)
+            return out
+
+        TopKRouter.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        from pipegoose_tpu_torch.nn.expert_parallel.routers import TopKRouter
+
+        TopKRouter.__call__ = self._orig
+        return False
+
+
+def moe_dispatch_agree(label, card_calls, cpu_calls, n_layer) -> list:
+    """Each layer's dispatch, card against CPU: equal, or apart only from a
+    token whose top-k gap is below MOE_TIE_MARGIN (named in the log)."""
+    notes = []
+    for layer, (g, c) in enumerate(zip(card_calls[:n_layer], cpu_calls[:n_layer])):
+        rows = (g["dispatch"] != c["dispatch"]).flatten(1).any(dim=1)
+        if not rows.any():
+            notes.append(0)
+            continue
+        first = int(rows.nonzero()[0])
+        ties = (c["gap"][:first + 1] < MOE_TIE_MARGIN).nonzero().flatten().tolist()
+        log(f"  {label}: layer {layer} dispatch differs from token {first} on "
+            f"({int(rows.sum())} rows apart); tokens at or before it with a top-k gap below "
+            f"{MOE_TIE_MARGIN}: {ties} (gaps {[float(c['gap'][t]) for t in ties]})")
+        if not ties:
+            raise AssertionError(f"phase 31: {label}: layer {layer} routes apart with no "
+                                 f"near tie")
+        notes.append(int(rows.sum()))
+    return notes
+
+
+def phase31a_moe_float32(np_tree, dev) -> dict:
+    """(a) float32 BLOOM-MoE at full width, 2 layers, 8 experts, top-2,
+    capacity factor 1.25, no noise, flash + remat, batch 4 x 256 with row 1
+    right-padded by 128 pad ids (every pad routes alike and takes capacity,
+    so tokens drop), upcycled from the seed-0 weights
+    (``ExpertParallel(jitter=0.01).from_dense`` on the CPU): the loss and
+    every gradient on the card against the same code on the CPU (phase 7's
+    tolerances), each layer's dispatch equal (``moe_dispatch_agree``), the
+    dropped tokens per layer (> 0); then 3 steps of
+    ``make_hybrid_train_step`` (``moe_specs``, the path's batch spec, loss
+    axes and expert-mean sync, ZeRO-1 over "data") against 3 hand-called
+    steps of the same loss and Adam, bit for bit, launching B1 2 L, B2 and
+    B3 L times a step, all on the float32 route."""
+    from pipegoose_tpu_torch.models import bloom_moe
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+    from pipegoose_tpu_torch.nn.expert_parallel import ExpertParallel
+    from pipegoose_tpu_torch.nn.parallel import tree_leaves
+    from pipegoose_tpu_torch.optim import DistributedOptimizer, adam
+    from pipegoose_tpu_torch.parallel import make_hybrid_train_step
+
+    n_layer, b, s, pad, lr, steps = 2, 4, 256, 128, 1e-4, 3
+    vocab = np_tree["embed"]["weight"].shape[0]
+    dense_cfg = dataclasses.replace(BloomConfig.bloom_560m(), n_layer=n_layer)
+    cfg = dataclasses.replace(moe_config(router_noise_eps=0.0), n_layer=n_layer)
+    t0 = time.perf_counter()
+    dense = params_from_jax({**np_tree, "blocks": cut_layers(np_tree["blocks"], n_layer)},
+                            dense_cfg, device="cpu")
+    cpu_tree = ExpertParallel(num_experts=MOE_EXPERTS, jitter=0.01).from_dense(
+        dense, key=SEED + 31)
+    del dense
+    rng = np.random.default_rng(SEED + 31)
+    ids = torch.from_numpy(rng.integers(0, vocab, (b, s)))
+    ids[1, s - pad:] = BLOOM_PAD_ID   # a padded row carries the pad id
+    mask = torch.ones((b, s), dtype=torch.int64)
+    mask[1, s - pad:] = 0
+    lf = moe_loss(cfg)
+    runs = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        params = to_device(cpu_tree, d)
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        with RouteRecorder(detail=True) as rec:
+            loss = lf(params, (ids.to(d), mask.to(d)))
+            loss.backward()
+        runs[where] = (loss.item(), [p.grad.detach().cpu() for p in tree_leaves(params)],
+                       rec.calls)
+        del params, loss
+    (g_loss, g_grads, g_calls), (c_loss, c_grads, c_calls) = runs["card"], runs["cpu"]
+    loss_err = abs(g_loss - c_loss)
+    grad_err = max(float((g - c).abs().max() / max(float(c.abs().max()), 1e-30))
+                   for g, c in zip(g_grads, c_grads))
+    apart = moe_dispatch_agree("card vs CPU", g_calls, c_calls, n_layer)
+    dropped = [c["dropped"] for c in g_calls[:n_layer]]
+    cap = c_calls[0]["dispatch"].shape[2]
+    log(f"phase 31 (a): float32 BLOOM-MoE, width {cfg.hidden_size}, vocab {vocab}, {n_layer} layers, "
+        f"{MOE_EXPERTS} experts, top-{MOE_TOP_K}, capacity factor {MOE_CF} (C = {cap} of "
+        f"{b * s} tokens), batch {b} x {s} (row 1 right-padded by {pad} pad ids), remat + "
+        f"flash, "
+        f"card vs CPU: loss {g_loss} vs {c_loss} (err {loss_err}, atol {TRAIN_LOSS_ATOL}), "
+        f"largest gradient error over its leaf's max {grad_err} (rtol {TRAIN_GRAD_RTOL}); "
+        f"dispatch rows apart per layer {apart}; dropped tokens per layer {dropped} of "
+        f"{b * s}; the router ran {len(g_calls)} times (forward + remat recompute)")
+    if loss_err > TRAIN_LOSS_ATOL or grad_err > TRAIN_GRAD_RTOL or not np.isfinite(g_loss):
+        raise AssertionError("phase 31 (a): the card's MoE loss or gradients disagree "
+                             "with the CPU's")
+    if min(dropped) <= 0:
+        raise AssertionError(f"phase 31 (a): capacity factor {MOE_CF} dropped no token "
+                             f"in some layer: {dropped}")
+    if len(g_calls) != 2 * n_layer:
+        raise AssertionError("phase 31 (a): remat did not recompute every block")
+
+    # 3 steps of the hybrid step against 3 hand-called steps, bit for bit
+    card_tree = to_device(cpu_tree, dev)
+    del cpu_tree
+    batch = (ids.to(dev), mask.to(dev))
+    params = to_device(card_tree, dev)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = adam(lr)(leaves)
+    hand = []
+    for _ in range(steps):
+        for p in leaves:
+            p.grad = None
+        loss = lf(params, batch)
+        loss.backward()
+        opt.step()
+        hand.append(loss.item())
+    hand_params = params
+    del opt
+    params = to_device(card_tree, dev)
+    init_fn, make_step = make_hybrid_train_step(
+        lf, bloom_moe.moe_specs(params), DistributedOptimizer(adam(lr), axis_name="data"),
+        batch_spec=MOE_BATCH_SPEC, loss_axis=("data", "expert"),
+        grad_sync_axes=(("expert", "mean"),))
+    state = init_fn(params)
+    step = make_step(params)
+    counters_zero()
+    hybrid = [step(params, state, batch)[2].item() for _ in range(steps)]
+    torch.cuda.synchronize()
+    counts = counters_read()
+    routes = {k: dict(c.routes) for k, c in kernel_counters().items() if k in ("fwd", "dq", "dkv")}
+    want = {k: steps * n for k, n in per_step_launches(cfg).items()}
+    same = hybrid == hand and same_tensors(params, hand_params)
+    moved = min(float((p.detach() - q).abs().max()) for p, q in
+                zip(tree_leaves(params), tree_leaves(card_tree)))
+    log(f"  make_hybrid_train_step (moe_specs, batch spec {MOE_BATCH_SPEC}, loss over "
+        f"(data, expert), (expert, mean) sync, ZeRO-1 over data) vs hand-called steps, "
+        f"{steps} Adam steps lr {lr}: losses {hybrid} vs {hand}, bit for bit: {same}; least "
+        f"per-leaf move {moved} (> 0); launches over the steps {counts} (want {want}), by "
+        f"route {routes} (all 'fma')")
+    if not same or moved <= 0 or not all(np.isfinite(hybrid)):
+        raise AssertionError("phase 31 (a): the hybrid MoE step and the hand-called steps "
+                             "differ")
+    if counts != want or any(r.get("fma", 0) != counts[k] for k, r in routes.items()):
+        raise AssertionError("phase 31 (a): the MoE step bypassed a kernel or left the "
+                             "float32 route")
+    log(f"phase 31 (a): held, {time.perf_counter() - t0:.1f} s")
+    return {"loss": g_loss, "cpu_loss": c_loss, "grad_rel_err": grad_err,
+            "dispatch_rows_apart": apart, "dropped": dropped, "capacity": cap,
+            "hybrid_losses": hybrid, "launches": counts}
+
+
+def moe_active_params(params, cfg) -> tuple:
+    """(all parameters, those a token uses: the trunk, the router and top_k
+    of the E experts of each layer)."""
+    from pipegoose_tpu_torch.nn.parallel import tree_leaves
+
+    total = sum(p.numel() for p in tree_leaves(params))
+    experts = sum(p.numel() for blk in params["blocks"] for p in tree_leaves(blk["moe"]))
+    return total, total - experts + experts * cfg.top_k // cfg.num_experts
+
+
+def phase31b_timed_moe(np_tree, dev, card) -> dict:
+    """(b) bf16 BLOOM-MoE at bloom-560m's widths, 24 layers: phase 8's seed-0
+    weights upcycled on the card (``ExpertParallel(8, jitter=0.01).from_dense``
+    with a seeded card generator), top-2, capacity factor 1.25, router noise
+    0.1, flash + remat, Adam 1e-4, through ``Trainer.fit(with_rng=True)`` on
+    the path's axes, batch 4 x 1024 ``RandomState(0)`` ids: 2 warm-up and 5
+    timed steps between CUDA events (every counter zeroed just before the
+    timed steps and read after), step ms, tokens/s, peak, MFU (the dense
+    dispatch and combine products apart), falling losses, launches per step
+    (B1 48, B2 and B3 24, all on the tensor-core route); then one step with
+    the dropped share per layer recorded, and one profiled step."""
+    import itertools
+
+    from pipegoose_tpu_torch.models import bloom_moe
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+    from pipegoose_tpu_torch.nn.expert_parallel import ExpertParallel
+    from pipegoose_tpu_torch.optim import DistributedOptimizer, adam
+    from pipegoose_tpu_torch.trainer import Trainer
+
+    warm, timed, b, s = 2, 5, 4, 1024
+    cfg = moe_config(dtype=torch.bfloat16, router_noise_eps=0.1)
+    t0 = time.perf_counter()
+    dense = params_from_jax(np_tree, BloomConfig.bloom_560m(dtype=torch.bfloat16), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    whole = ExpertParallel(num_experts=MOE_EXPERTS, jitter=0.01).from_dense(dense, gen)
+    del dense
+    torch.cuda.synchronize()
+    upcycle_s = time.perf_counter() - t0
+    n_total, n_active = moe_active_params(whole, cfg)
+    trainer = Trainer(moe_loss(cfg), whole, bloom_moe.moe_specs(whole),
+                      DistributedOptimizer(adam(1e-4), axis_name="data"),
+                      batch_spec=MOE_BATCH_SPEC, loss_axis=("data", "expert"),
+                      grad_sync_axes=(("expert", "mean"),), with_rng=True)
+    del whole
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size, (b, s))).to(dev)
+    batches = itertools.repeat(ids)
+    cap = cfg.router().capacity(b * s)
+    log(f"phase 31 (b): bf16 BLOOM-MoE, bloom-560m's widths at {cfg.n_layer} layers, upcycled on the "
+        f"card in {upcycle_s:.2f} s ({MOE_EXPERTS} experts, jitter 0.01, seeded card "
+        f"generator): {n_total} params, {n_active} active a token (top-{MOE_TOP_K}); "
+        f"capacity factor {MOE_CF} (C = {cap} of {b * s} tokens), router noise 0.1, "
+        f"remat + flash, Adam 1e-4, Trainer.fit(with_rng=True), batch {b} x {s}, "
+        f"{warm} warm-up + {timed} timed steps, on {card}")
+    trainer.fit(batches, max_steps=warm, rng=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters_zero()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    trainer.fit(batches, max_steps=warm + timed, rng=SEED)
+    e1.record()
+    torch.cuda.synchronize()
+    counts = counters_read()
+    routes = {k: dict(c.routes) for k, c in kernel_counters().items()
+              if k in ("fwd", "dq", "dkv")}
+    step_ms = e0.elapsed_time(e1) / timed
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    tokens_per_s = b * s / (step_ms / 1e3)
+    flops_tok = 6 * n_active + 12 * cfg.n_layer * cfg.hidden_size * s
+    # the dispatch and combine products, forward and backward (6 x their
+    # multiply-adds, as 6 N counts a weight), left out of MFU's count
+    dispatch_tok = 12 * MOE_EXPERTS * cap * cfg.hidden_size * cfg.n_layer
+    mfu = tokens_per_s * flops_tok / BF16_FLOPS_PER_S
+    mfu_all = tokens_per_s * (flops_tok + dispatch_tok) / BF16_FLOPS_PER_S
+    losses = [float(x) for x in trainer.state.losses]
+    per = per_step_launches(cfg)
+    log(f"  step {step_ms} ms, {tokens_per_s} tokens/s, peak {peak_gib:.2f} GiB; MFU {mfu} "
+        f"({flops_tok} flops a token: 6 x active params + 12 L H S, over 989 TFLOP/s bf16; "
+        f"the dense dispatch and combine products add {dispatch_tok} flops a token, "
+        f"{100 * dispatch_tok / flops_tok:.1f}%, MFU with them {mfu_all}); losses over "
+        f"{warm + timed} steps on one batch {losses}")
+    log(f"  launches over {timed} steps {counts}, per step want {per}; by route {routes} "
+        f"(all 'mma')")
+    if counts != {k: timed * n for k, n in per.items()}:
+        raise AssertionError("phase 31 (b): the MoE step bypassed a kernel")
+    if any(r.get("mma", 0) != counts[k] for k, r in routes.items()):
+        raise AssertionError("phase 31 (b): a bf16 attention launch left the tensor cores")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 31 (b): losses not finite and falling: {losses}")
+    with RouteRecorder() as rec:
+        trainer.fit(batches, max_steps=trainer.state.step + 1, rng=SEED)
+    share = [c["dropped"] / c["tokens"] for c in rec.calls[:cfg.n_layer]]
+    log(f"  dropped share per layer (one step, noise on): {[round(x, 4) for x in share]} "
+        f"(mean {float(np.mean(share)):.4f})")
+    _, busy_ms, kernels = profile_device(
+        lambda: trainer.fit(batches, max_steps=trainer.state.step + 1, rng=SEED), 1,
+        "one profiled MoE train step", "step", top=10)
+    out = {"step_ms": step_ms, "tokens_per_s": tokens_per_s, "peak_gib": peak_gib,
+           "mfu": mfu, "mfu_with_dispatch": mfu_all, "flops_per_token": flops_tok,
+           "dispatch_flops_per_token": dispatch_tok, "params": n_total,
+           "active_params": n_active, "capacity": cap, "losses": losses,
+           "launches": counts, "dropped_share": share,
+           "busy_ms": busy_ms, "upcycle_s": upcycle_s}
+    del trainer
+    return out
+
+
+def phase31_moe(np_tree, dev, card) -> dict:
+    out = {"a": phase31a_moe_float32(np_tree, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["b"] = phase31b_timed_moe(np_tree, dev, card)
+    return out
+
+
 def main(argv) -> int:
     import argparse
 
@@ -4933,7 +5354,7 @@ def main(argv) -> int:
     card = phase0_card()
     dev = torch.device("cuda")
     from pipegoose_tpu_torch import resolve_device
-    from pipegoose_tpu_torch.models.bloom import BloomConfig, init_params_numpy
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
 
     resolve_device(dev)   # float32 products without TF32
     lap("phase 0")
@@ -4941,8 +5362,9 @@ def main(argv) -> int:
     lap("phase 1")
     errs = phase2_kernel_vs_plain(dev)
     lap("phase 2")
-    np_tree = init_params_numpy(BloomConfig.bloom_560m(), seed=SEED)
-    lap(f"weights: bloom-560m from seed {SEED}")
+    std = BloomConfig.bloom_560m().initializer_range
+    np_tree, varied = init_trees(BloomConfig.bloom_560m(), SEED, (std, VARIED_INIT_STD))
+    lap(f"weights: bloom-560m from seed {SEED}, init std {std} and {VARIED_INIT_STD}")
     phase3_engine_vs_cpu(np_tree, dev)
     lap("phase 3")
     launches, fp_arm = phase4_timed_serving(np_tree, dev)
@@ -5004,6 +5426,8 @@ def main(argv) -> int:
         lap("phase 29")
         comm_pipeline = phase30_comm_pipeline(np_tree, dev, card, hybrid_run)
         lap("phase 30")
+        moe = phase31_moe(np_tree, dev, card)
+        lap("phase 31")
     finally:
         ctx.destroy()
     del fp_arm
@@ -5011,9 +5435,6 @@ def main(argv) -> int:
     phase27_sampled_generate(np_tree, dev)
     lap("phase 27")
     del np_tree
-    varied = init_params_numpy(BloomConfig.bloom_560m(initializer_range=VARIED_INIT_STD),
-                               seed=SEED)
-    lap(f"weights: bloom-560m, init std {VARIED_INIT_STD}, from seed {SEED}")
     phase23_cache_spec_vs_cpu(varied, dev)
     lap("phase 23")
     rows += phase24_timed_cache_spec(varied, dev, card)
@@ -5022,7 +5443,9 @@ def main(argv) -> int:
     log(f"wall time {time.perf_counter() - t_start:.1f} s")
     for row in rows:
         row["trainer_launches"] = trainer_launches(row, trainer["b"])
-    print(json.dumps({"kernels": rows, "trainer": trainer, "comm_pipeline": comm_pipeline}))
+        row["moe_launches"] = trainer_launches(row, {**moe["b"], "layouts": {}})
+    print(json.dumps({"kernels": rows, "trainer": trainer, "comm_pipeline": comm_pipeline,
+                      "moe": moe}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

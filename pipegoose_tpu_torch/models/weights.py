@@ -19,6 +19,11 @@ leaf by its spec and the current context's coordinates first
 (``nn.parallel.shard_tree``); ``nn.parallel.unshard_tree`` of the result,
 through :func:`params_to_jax`, gives the whole tree back.
 
+A BLOOM-MoE tree (``blocks/moe/{up,down}`` stacked (L, E, ...), and
+``blocks/router/gate/kernel``, no ``mlp``) converts the same way; with
+``specs=bloom_moe.moe_specs(np_tree)`` each rank converts only its experts
+(over "expert") and its FFN shard of them (over "tensor").
+
 Under pipeline parallelism ``specs=bloom.pp_specs(np_tree)`` shards the
 stacked layer dim over "pipe", so each rank converts its stage's layers
 only; with ``stage_layer_counts`` the tree carries the JAX package's padded

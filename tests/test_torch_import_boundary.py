@@ -1,6 +1,7 @@
-"""The port stands alone: no file of ``pipegoose_tpu_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``pipegoose_tpu``,
-and importing the port needs neither a card nor a built kernel."""
+"""The port stands alone: no file of ``pipegoose_tpu_torch/``, not
+``chip_smoke.py`` and not the rank bodies that spawned gloo processes
+import by name imports ``jax`` or the JAX package ``pipegoose_tpu``, and
+importing the port needs neither a card nor a built kernel."""
 import ast
 import subprocess
 import sys
@@ -9,7 +10,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "pipegoose_tpu_torch").rglob("*.py")) + [
+# the rank bodies that spawned gloo processes import by name
+RANK_BODIES = [ROOT / "tests" / "test_torch_moe_rank_bodies.py"]
+PORT_FILES = sorted((ROOT / "pipegoose_tpu_torch").rglob("*.py")) + RANK_BODIES + [
     ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("sweep_attn_*.py")) + sorted(
     (ROOT / "scripts").glob("sweep_fused_ce_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "pipegoose_tpu")
@@ -51,6 +54,12 @@ def test_port_imports_without_jax_or_a_card():
         "import pipegoose_tpu_torch.nn.tensor_parallel.overlap\n"
         "import pipegoose_tpu_torch.nn.pipeline_parallel\n"
         "import pipegoose_tpu_torch.nn.pipeline_parallel.partitioner\n"
+        "import pipegoose_tpu_torch.nn.expert_parallel, pipegoose_tpu_torch.models.bloom_moe\n"
+        "import pipegoose_tpu_torch.nn.expert_parallel.routers\n"
+        "import pipegoose_tpu_torch.nn.expert_parallel.experts\n"
+        "import pipegoose_tpu_torch.nn.expert_parallel.expert_parallel\n"
+        "import pipegoose_tpu_torch.nn.expert_parallel.loss\n"
+        "from pipegoose_tpu_torch.models import bloom_moe, BloomMoEConfig\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (FORBIDDEN,)
     )
