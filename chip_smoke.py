@@ -58,7 +58,14 @@ The main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
   ``make_hybrid_train_step`` over that context ("expert" named too, every
   axis of size 1), upcycled from the dense weights by
   ``nn.expert_parallel.ExpertParallel.from_dense``, its attention through
-  the flash kernels.
+  the flash kernels;
+- the Llama and Mixtral families: ``models.llama`` and ``models.mixtral``
+  (RMSNorm, RoPE, GQA with 32 query heads over 8 KV heads at head_dim
+  128, SwiGLU, Mixtral's routed experts and sliding window) through
+  ``Trainer.fit`` over that context at Llama-3-8B's and Mixtral-8x7B's
+  published widths (depth cut to 4 and 2 layers), their attention through
+  the flash kernels and their untied (H, V) heads through the fused
+  cross-entropy kernels.
 
 Phases, each fatal on failure:
 
@@ -340,15 +347,37 @@ Phases, each fatal on failure:
      the active parameters + 12 L H S a token; the dense dispatch and
      combine products' flops beside it), falling losses, launches per step
      (B1 48, B2/B3 24, all on the tensor cores), the dropped share per
-     layer, and one profiled step.
+     layer, and one profiled step;
+ 32  the Llama and Mixtral families on phase 26's context: (a) float32,
+     head_dim 128 with GQA g = 4 (width 512, 4 query heads over 1 KV head,
+     FFN 1536, vocab 32000, 2 layers), flash + fused CE, batch 2 x 256
+     with row 1 right-padded by 48: Llama untied and tied and Mixtral (8
+     experts, top-2, sliding window 64), the loss and every gradient on the
+     card against the CPU (phase 7's tolerances), each run's launches by
+     kernel and route (float32 routes); Llama's ``loss_fn_sp`` at sp = 1
+     (B7-B9) against its ``loss_fn``; Mixtral's ``loss_fn_1f1b`` with aux at
+     pp = 1, M = 2 against ``loss_fn_pp`` (gradients) and ``loss_fn`` with
+     per-microbatch router means (value); greedy ``generate`` card vs CPU;
+     (b) bf16 through ``Trainer.fit``: Llama-3-8B's widths at 4 layers
+     (batch 4 x 1024, remat + flash + fused CE on the untied "hv" head,
+     Adam 1e-4), its step-1 loss within 2^-7 of a float32 loss of the same
+     weights, then a short greedy ``generate`` (plain attention, no
+     kernel); Mixtral-8x7B's widths at 2 layers (batch 2 x 1024, capacity
+     factor 1.25, jitter 0.01, ``fit(with_rng=True)``): 2 warm-up and 3
+     timed steps each, step ms, tokens/s, MFU, peak, launches per step on
+     the tensor-core routes; then B1-B3 at the Llama shape (g = 4, hd 128,
+     S 1024) without and with a window of 256, and B4-B6 on the "hv" head
+     at T = 4092, H = 4096, V = 128256, each against its plain version and
+     timed beside its bound, plain version and SDPA (``enable_gqa``) or the
+     full-logits composite.
 
 Every phase's seconds are logged as "seconds: <phase> <s>".
 
 The line before the last is a JSON object with every kernel's numbers
 (each row's ``trainer_launches``: its launches in phase 28 (b)'s timed
 fit; ``moe_launches``: in phase 31 (b)'s timed steps), phase 28's under
-``trainer``, phase 30's under ``comm_pipeline`` and phase 31's under
-``moe``; the last line is
+``trainer``, phase 30's under ``comm_pipeline``, phase 31's under
+``moe`` and phase 32's under ``families``; the last line is
 {"ok": true, "device": {...}}. Without a card, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.
@@ -4199,7 +4228,7 @@ def trainer_launches(row, run) -> int:
     kernel's count there at the whole-model shapes, a fused CE row's by its
     weight layout (a tp shard row, or a kernel off the path, 0)."""
     name = TRAINER_COUNTERS.get(row["replaces"])
-    if "tp" in row or name is None:
+    if "tp" in row or row.get("family") or name is None:
         return 0
     if name in run["layouts"]:
         return run["layouts"][name].get("hv" if row["name"].endswith("hv)") else "vh", 0)
@@ -5330,6 +5359,531 @@ def phase31_moe(np_tree, dev, card) -> dict:
     return out
 
 
+# -- phase 32 ------------------------------------------------------------------
+
+FAMILY_VOCAB_A = 32000          # phase 32 (a)'s vocabulary (Mixtral-8x7B's)
+FAMILY_WINDOW_A = 64            # phase 32 (a)'s Mixtral sliding window
+FAMILY_WINDOW_ROW = 256         # the windowed kernel rows' window at S = 1024
+FAMILY_BF16_LOSS_RTOL = 2.0 ** -7   # bf16 step-1 loss vs float32 of the same weights
+
+
+def family_configs_a():
+    """Phase 32 (a)'s float32 configurations: head_dim 128 with GQA g = 4
+    (4 query heads over 1 KV head) at width 512, FFN 1536, 2 layers,
+    vocabulary 32000, flash and fused CE: Llama untied and tied (theta
+    5e5), Mixtral (8 experts, top-2, no-drop capacity, aux 0.02, z 0.001)
+    with a sliding window of 64."""
+    from pipegoose_tpu_torch.models import llama, mixtral
+
+    base = dict(vocab_size=FAMILY_VOCAB_A, hidden_size=512, intermediate_size=1536,
+                n_layer=2, n_head=4, n_kv_head=1, use_flash=True, fused_ce=True)
+    return {
+        "llama untied": (llama, llama.LlamaConfig(**base, rope_theta=5e5)),
+        "llama tied": (llama, llama.LlamaConfig(**base, rope_theta=5e5,
+                                                tie_word_embeddings=True)),
+        "mixtral window 64": (mixtral, mixtral.MixtralConfig(
+            **base, num_experts=8, top_k=2, aux_loss_weight=0.02, z_loss_weight=0.001,
+            sliding_window=FAMILY_WINDOW_A)),
+    }
+
+
+def family_loss(module, cfg, kind="dense", micro=2):
+    """The path's loss of a RoPE family on a batch (ids, mask; labels = ids)
+    with ``tp_axis="tensor"`` (and ``ep_axis="expert"`` for Mixtral):
+    ``loss_fn``, ``loss_fn_sp`` over "seq", or the pipeline losses over
+    "pipe" with ``micro`` microbatches."""
+    moe = hasattr(cfg, "num_experts")
+    kw = {"tp_axis": "tensor", **({"ep_axis": "expert", "train": False} if moe else {})}
+
+    def lf(p, batch):
+        ids, mask = batch
+        if kind == "sp":
+            return module.loss_fn_sp(p, ids, mask, ids, cfg, sp_axis="seq", **kw)
+        if kind in ("gpipe", "1f1b"):
+            fn = module.loss_fn_pp if kind == "gpipe" else module.loss_fn_1f1b
+            return fn(p, ids, mask, ids, cfg, micro, **kw)
+        return module.loss_fn(p, ids, mask, ids, cfg, **kw)
+
+    return lf
+
+
+def family_grads(params, lf, batch):
+    """(loss, every leaf's gradient on the host) of ``lf`` at ``params``."""
+    from pipegoose_tpu_torch.nn.parallel import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.grad = None
+        p.requires_grad_(True)
+    loss = lf(params, batch)
+    loss.backward()
+    out = loss.item(), [p.grad.detach().cpu() if p.grad is not None else torch.zeros(p.shape)
+                        for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return out
+
+
+def grads_apart(a, b, names=None):
+    """The largest gradient error over its leaf's largest value (with
+    ``names``, also the name of the leaf where it is)."""
+    errs = [float((x - y).abs().max() / max(float(y.abs().max()), 1e-30))
+            for x, y in zip(a, b)]
+    worst = int(np.argmax(errs))
+    return (errs[worst], names[worst]) if names is not None else errs[worst]
+
+
+def leaf_names(params) -> list:
+    from pipegoose_tpu_torch.nn.parallel import path_str, tree_leaves, tree_map_with_path
+
+    return tree_leaves(tree_map_with_path(lambda p, _: path_str(p), params))
+
+
+def family_counts() -> dict:
+    """Every training kernel's launches and routes since ``counters_zero``."""
+    return {k: (c.launches, {r: n for r, n in getattr(c, "routes", {}).items() if n})
+            for k, c in kernel_counters().items() if c.launches}
+
+
+def phase32a_float32(dev) -> dict:
+    """(a) float32, card against CPU, at phase 7's tolerances: for each of
+    ``family_configs_a`` the loss and every gradient through flash (B1-B3
+    at head_dim 128, g = 4, Mixtral's with its window) and fused CE (B4-B6,
+    "hv" untied, "vh" tied); Llama's ``loss_fn_sp`` at sp = 1 (the chunk
+    kernels B7-B9) against its ``loss_fn`` on the card; Mixtral's
+    ``loss_fn_1f1b`` with aux at pp = 1, M = 2 against ``loss_fn_pp`` (its
+    gradients) and against ``loss_fn`` with the microbatch means of the
+    routers' losses (its value); greedy ``generate`` tokens card vs CPU. Each
+    run's launches are counted by kernel and route (all float32 routes)."""
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+
+    # 48 pads under a window of 64: every padded query still sees a valid
+    # key (a query that sees none gets each route's own finite garbage,
+    # which the routers' z and aux losses, means over every token, carry)
+    b, s, pad = 2, 256, 48
+    t0 = time.perf_counter()
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for window in (None, FAMILY_WINDOW_A):
+            case = flash_case(dev, dtype, b=b, s=s, nh=4, nkv=1, hd=128, pad=pad,
+                              seed=SEED + 32)
+            case["slopes"] = torch.zeros_like(case["slopes"])   # RoPE: no ALiBi
+            check_flash(f"{name} B={b} nh=4/nkv=1 (g 4) S={s} hd=128 right-padded by {pad}, "
+                        f"window {window}", case, window=window, phase="phase 32 (a)")
+    rng = np.random.default_rng(SEED + 32)
+    ids = torch.from_numpy(rng.integers(0, FAMILY_VOCAB_A, (b, s)))
+    mask = torch.ones((b, s), dtype=torch.int64)
+    mask[1, s - pad:] = 0
+    out, launches = {}, {}
+    for name, (module, cfg) in family_configs_a().items():
+        tree = module.init_params_numpy(cfg, seed=SEED + 32)
+        runs, calls = {}, {}
+        moe = "mixtral" in name
+        for where in ("card", "cpu"):
+            d = dev if where == "card" else torch.device("cpu")
+            params = params_from_jax(tree, cfg, device=d)
+            counters_zero()
+            with RouteRecorder(detail=True) as rec:
+                runs[where] = family_grads(params, family_loss(module, cfg),
+                                           (ids.to(d), mask.to(d)))
+            calls[where] = rec.calls
+            if where == "card":
+                torch.cuda.synchronize()
+                launches[name] = family_counts()
+                card_params = params
+        (g_loss, g_grads), (c_loss, c_grads) = runs["card"], runs["cpu"]
+        err, worst = grads_apart(g_grads, c_grads, leaf_names(card_params))
+        if moe:
+            apart = moe_dispatch_agree(name, calls["card"], calls["cpu"], cfg.n_layer)
+            log(f"  {name}: dispatch rows apart per layer, card vs CPU: {apart}")
+        want = {"fwd": cfg.n_layer, "dq": cfg.n_layer, "dkv": cfg.n_layer,
+                "fused_ce_fwd": 1, "fused_ce_dh": 1, "fused_ce_dw": 1}
+        got = {k: n for k, (n, _) in launches[name].items()}
+        routes_ok = all(r == {"fma": n} if k in ("fwd", "dq", "dkv") else r == {"wmma": n}
+                        for k, (n, r) in launches[name].items())
+        log(f"phase 32 (a): float32 {name} (H {cfg.hidden_size}, {cfg.n_head}/"
+            f"{cfg.n_kv_head} heads, head_dim {cfg.head_dim}, vocab {cfg.vocab_size}, "
+            f"{cfg.n_layer} layers, flash + fused CE), batch {b} x {s} (row 1 right-padded "
+            f"by {pad}), card vs CPU: loss {g_loss} vs {c_loss} (err {abs(g_loss - c_loss)}, "
+            f"atol {TRAIN_LOSS_ATOL}), largest gradient error over its leaf's max {err} "
+            f"({worst}; rtol {TRAIN_GRAD_RTOL}); launches {launches[name]}")
+        if (abs(g_loss - c_loss) > TRAIN_LOSS_ATOL or err > TRAIN_GRAD_RTOL
+                or not np.isfinite(g_loss)):
+            raise AssertionError(f"phase 32 (a): {name}: card and CPU disagree")
+        if got != want or not routes_ok:
+            raise AssertionError(f"phase 32 (a): {name}: launches {launches[name]}, want "
+                                 f"{want} on the float32 routes")
+        out[name] = {"loss": g_loss, "cpu_loss": c_loss, "grad_rel_err": err}
+        batch = (ids.to(dev), mask.to(dev))
+        if name == "llama untied":   # the ring at sp = 1 against loss_fn
+            counters_zero()
+            sp_loss, sp_grads = family_grads(card_params, family_loss(module, cfg, "sp"), batch)
+            torch.cuda.synchronize()
+            launches["llama untied sp"] = family_counts()
+            sp_err = grads_apart(sp_grads, g_grads)
+            log(f"  loss_fn_sp at sp = 1 (ring through B7-B9) vs loss_fn: loss {sp_loss} vs "
+                f"{g_loss}, gradient error {sp_err}; launches {launches['llama untied sp']}")
+            want_sp = {"chunk_fwd": cfg.n_layer, "chunk_dq": cfg.n_layer,
+                       "chunk_dkv": cfg.n_layer, "fused_ce_fwd": 1, "fused_ce_dh": 1,
+                       "fused_ce_dw": 1}
+            if (abs(sp_loss - g_loss) > TRAIN_LOSS_ATOL or sp_err > TRAIN_GRAD_RTOL
+                    or {k: n for k, (n, _) in launches["llama untied sp"].items()} != want_sp):
+                raise AssertionError("phase 32 (a): loss_fn_sp at sp = 1 parts from loss_fn")
+            out[name]["sp"] = {"loss": sp_loss, "grad_rel_err": sp_err}
+        if moe:   # 1F1B with aux at pp = 1, M = 2
+            counters_zero()
+            f_loss, f_grads = family_grads(card_params, family_loss(module, cfg, "1f1b"), batch)
+            torch.cuda.synchronize()
+            launches["mixtral 1f1b"] = family_counts()
+            p_loss, p_grads = family_grads(card_params, family_loss(module, cfg, "gpipe"), batch)
+            f_err = grads_apart(f_grads, p_grads)
+            with torch.no_grad():   # loss_fn with the routers' losses averaged per microbatch
+                aux = z = 0.0
+                for i in range(2):
+                    _, a, zl = module.forward_hidden(card_params, batch[0][i:i + 1],
+                                                     batch[1][i:i + 1], cfg)
+                    aux, z = aux + a.mean().item() / 2, z + zl.mean().item() / 2
+                _, a, zl = module.forward_hidden(card_params, *batch, cfg)
+                want_loss = (g_loss + cfg.aux_loss_weight * (aux - a.mean().item())
+                             + cfg.z_loss_weight * (z - zl.mean().item()))
+            log(f"  loss_fn_1f1b (with_aux) at pp = 1, M = 2: loss {f_loss} vs loss_fn with "
+                f"microbatch router means {want_loss} (GPipe {p_loss}); gradient error vs "
+                f"GPipe {f_err}; launches {launches['mixtral 1f1b']}")
+            if (abs(f_loss - want_loss) > TRAIN_LOSS_ATOL or abs(f_loss - p_loss) > TRAIN_LOSS_ATOL
+                    or f_err > TRAIN_GRAD_RTOL):
+                raise AssertionError("phase 32 (a): Mixtral 1F1B with aux parts from loss_fn")
+            out[name]["1f1b"] = {"loss": f_loss, "want": want_loss, "grad_rel_err": f_err}
+        if name != "llama tied":   # greedy tokens, card vs CPU
+            cpu_params = params_from_jax(tree, cfg, device="cpu")
+            prompt = ids[:, :16]
+            with torch.no_grad():
+                got_t = module.generate(card_params, prompt, cfg, 8, device="cuda").cpu()
+                want_t = module.generate(cpu_params, prompt, cfg, 8, device="cpu")
+            log(f"  greedy generate, 2 x 16 prompt + 8 tokens: card {got_t[:, 16:].tolist()} "
+                f"vs CPU {want_t[:, 16:].tolist()}")
+            if not torch.equal(got_t, want_t):
+                raise AssertionError(f"phase 32 (a): {name}: greedy tokens differ")
+            del cpu_params
+        del card_params, runs, tree
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 32 (a): held, {time.perf_counter() - t0:.1f} s")
+    return {"runs": out, "launches": {k: {n: c for n, (c, _) in v.items()}
+                                      for k, v in launches.items()}}
+
+
+def family_timed(label, module, cfg, params, lf, batch, warm, timed, rng, card,
+                 active) -> dict:
+    """``Trainer.fit`` over the hybrid step on the path's axes (all of size
+    1), ZeRO-1 Adam 1e-4 over "data": ``warm`` warm-up and ``timed`` steps
+    between CUDA events, every counter zeroed before the timed steps and read
+    after. Returns step ms, tokens/s, MFU, peak, launches per step, the
+    losses and the trainer."""
+    import itertools
+
+    from pipegoose_tpu_torch.optim import DistributedOptimizer, adam
+    from pipegoose_tpu_torch.trainer import Trainer
+
+    trainer = Trainer(lf, params, module.specs(params),
+                      DistributedOptimizer(adam(1e-4), axis_name="data"),
+                      with_rng=rng is not None)
+    batches = itertools.repeat(batch)
+    kw = {} if rng is None else {"rng": rng}
+    trainer.fit(batches, max_steps=warm, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters_zero()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    trainer.fit(batches, max_steps=warm + timed, **kw)
+    e1.record()
+    torch.cuda.synchronize()
+    counts = family_counts()
+    b, s = batch.shape
+    step_ms = e0.elapsed_time(e1) / timed
+    tokens_per_s = b * s / (step_ms / 1e3)
+    flops_tok = 6 * active + 12 * cfg.n_layer * cfg.hidden_size * s
+    mfu = tokens_per_s * flops_tok / BF16_FLOPS_PER_S
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in trainer.state.losses]
+    per_step = {k: n / timed for k, (n, _) in counts.items()}
+    want = {"fwd": 2 * cfg.n_layer, "dq": cfg.n_layer, "dkv": cfg.n_layer,
+            "fused_ce_fwd": 1, "fused_ce_dh": 1, "fused_ce_dw": 1}
+    routes_ok = all(r == {"wgmma" if k == "fused_ce_fwd" else "mma": n}
+                    for k, (n, r) in counts.items())
+    log(f"  {label}: step {step_ms} ms, {tokens_per_s} tokens/s, MFU {mfu} ({flops_tok} "
+        f"flops a token: 6 x {active} active params + 12 L H S, over 989 TFLOP/s bf16), "
+        f"peak {peak_gib:.2f} GiB; losses over {warm + timed} steps on one batch {losses}; "
+        f"launches over {timed} steps {counts} (per step want {want}, bf16 routes: "
+        f"flash 'mma', fused CE forward 'wgmma', dh/dw 'mma'), on {card}")
+    if per_step != want or not routes_ok:
+        raise AssertionError(f"phase 32 (b): {label}: a kernel was bypassed or left its "
+                             f"tensor-core route")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"phase 32 (b): {label}: losses not finite: {losses}")
+    return {"step_ms": step_ms, "tokens_per_s": tokens_per_s, "mfu": mfu,
+            "flops_per_token": flops_tok, "active_params": active, "peak_gib": peak_gib,
+            "losses": losses, "launches": {k: n for k, (n, _) in counts.items()},
+            "launches_per_step": per_step, "trainer": trainer}
+
+
+def phase32b_timed(dev, card) -> dict:
+    """(b) bf16 at the published widths, Trainer.fit over the hybrid step:
+    Llama-3-8B cut to 4 layers (batch 4 x 1024, flash, fused CE on the
+    untied "hv" head, remat), its step-1 loss held within 2^-7 of a float32
+    loss of the same weights on the card; Mixtral-8x7B cut to 2 layers
+    (batch 2 x 1024, capacity factor 1.25, router jitter 0.01 under
+    ``fit(with_rng=True)``); then a short bf16 greedy ``generate`` at the
+    Llama widths (its attention is plain einsum over the cache, no kernel)."""
+    from pipegoose_tpu_torch.models import llama, mixtral
+    from pipegoose_tpu_torch.nn.parallel import tree_leaves
+
+    t0 = time.perf_counter()
+    out = {}
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(
+        dtype=torch.bfloat16, remat=True, use_flash=True, fused_ce=True), n_layer=4)
+    params = llama.init_params(cfg, SEED + 32, device=dev)
+    n = sum(p.numel() for p in tree_leaves(params))
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size, (4, 1024))).to(dev)
+    lf32 = family_loss(llama, dataclasses.replace(cfg, dtype=torch.float32))
+    with torch.no_grad():
+        f32 = lf32(to_f32(params), (ids, None)).item()
+    log(f"phase 32 (b): bf16 Llama-3-8B widths at {cfg.n_layer} layers ({n} params; H "
+        f"{cfg.hidden_size}, FFN {cfg.intermediate_size}, {cfg.n_head}/{cfg.n_kv_head} heads, "
+        f"vocab {cfg.vocab_size}, theta {cfg.rope_theta}), weights from a seeded card "
+        f"generator, remat + flash + fused CE (untied hv), Adam 1e-4, batch 4 x 1024; "
+        f"float32 loss of the same weights {f32}")
+    lf = family_loss(llama, cfg)
+    run = family_timed("llama", llama, cfg, params, lambda p, batch: lf(p, (batch, None)),
+                       ids, 2, 3, None, card, n)
+    del params
+    trainer = run.pop("trainer")
+    rel = abs(run["losses"][0] - f32) / abs(f32)
+    log(f"  step-1 bf16 loss {run['losses'][0]} vs float32 {f32}: relative {rel} "
+        f"(tol {FAMILY_BF16_LOSS_RTOL})")
+    if rel > FAMILY_BF16_LOSS_RTOL:
+        raise AssertionError("phase 32 (b): the bf16 Llama loss parts from float32")
+    run["f32_loss"], run["bf16_rel"] = f32, rel
+    prompt, new = ids[:2, :32], 32
+    with torch.no_grad():
+        llama.generate(trainer.params, prompt, cfg, 2, device="cuda")   # warm-up
+        torch.cuda.synchronize()
+        g0 = time.perf_counter()
+        toks = llama.generate(trainer.params, prompt, cfg, new, device="cuda")
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - g0
+    run["generate_tokens_per_s"] = prompt.shape[0] * new / gen_s
+    log(f"  bf16 greedy generate at these widths, 2 x 32 prompt + {new} tokens: "
+        f"{run['generate_tokens_per_s']} tokens/s on the host clock (attention is plain "
+        f"einsum over the nkv-wide cache: no kernel); tokens finite ints "
+        f"{bool((toks >= 0).all())}")
+    out["llama"] = run
+    del trainer, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mcfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(
+        dtype=torch.bfloat16, remat=True, use_flash=True, fused_ce=True,
+        capacity_factor=1.25, router_jitter=0.01), n_layer=2)
+    params = mixtral.init_params(mcfg, SEED + 33, device=dev)
+    total = sum(p.numel() for p in tree_leaves(params))
+    experts = sum(p.numel() for blk in params["blocks"] for p in tree_leaves(blk["moe"]))
+    active = total - experts + experts * mcfg.top_k // mcfg.num_experts
+    ids = torch.from_numpy(np.random.RandomState(1).randint(0, mcfg.vocab_size, (2, 1024))).to(dev)
+    log(f"phase 32 (b): bf16 Mixtral-8x7B widths at {mcfg.n_layer} layers ({total} params, "
+        f"{active} active a token; {mcfg.num_experts} experts, top-{mcfg.top_k}, capacity "
+        f"factor {mcfg.capacity_factor} (C = {mcfg.router().capacity(2 * 1024)} of 2048 "
+        f"tokens), jitter {mcfg.router_jitter}), remat + flash + fused CE (hv), Adam 1e-4, "
+        f"Trainer.fit(with_rng=True), batch 2 x 1024")
+
+    def mlf(p, batch, rng):
+        return mixtral.loss_fn(p, batch, None, batch, mcfg, tp_axis="tensor",
+                               ep_axis="expert", rng=rng, train=True)
+
+    run = family_timed("mixtral", mixtral, mcfg, params, mlf, ids, 2, 3, SEED, card, active)
+    del params, run["trainer"]
+    out["mixtral"] = run
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 32 (b): done, {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def to_f32(params):
+    """A float32 copy of a params tree (dicts and lists of tensors)."""
+    if isinstance(params, dict):
+        return {k: to_f32(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [to_f32(v) for v in params]
+    return params.detach().float()
+
+
+def window_pairs(s, window):
+    """Visible (q, k) pairs of one causal sequence of ``s`` under a window."""
+    return sum(min(q + 1, window) for q in range(s))
+
+
+def sdpa_gqa_ms(case, b, nh, nkv, s, hd, window=None):
+    """The GQA flash rows' library yardstick: SDPA with ``enable_gqa`` on
+    the case's bf16 q (B, nh, S, hd) and k, v (B, nkv, S, hd), causal (a
+    boolean mask with the window). (forward device ms, backward ms: dq, dk,
+    dv in one eager autograd call)."""
+    dev = case["q"].device
+    q = case["q"].reshape(b, nh, s, hd).detach().clone().requires_grad_()
+    k = case["k"].reshape(b, nkv, s, hd).detach().clone().requires_grad_()
+    v = case["v"].reshape(b, nkv, s, hd).detach().clone().requires_grad_()
+    kw = {"is_causal": True}
+    if window is not None:
+        i = torch.arange(s, device=dev)
+        keep = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        kw = {"attn_mask": keep}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    so = sdpa(q, k, v, enable_gqa=True, **kw)
+    go = case["do"].reshape(b, nh, s, hd)
+    with torch.no_grad():
+        fwd_ms, _ = time_ms(lambda i: sdpa(q, k, v, enable_gqa=True, **kw), 4)
+    bwd_ms = time_eager_ms(lambda: torch.autograd.grad(so, (q, k, v), go, retain_graph=True), 4)
+    return fwd_ms, bwd_ms
+
+
+def family_flash_rows(dev, card, launches) -> list:
+    """B1-B3 at phase 32 (b)'s Llama shape (B 4, 32 query heads over 8 KV
+    heads, S 1024, head_dim 128, bf16, causal) without and with a window of
+    256: each against its plain version (phase 6's tolerances, counters and
+    routes), its device ms, bound (visible pairs), plain ms and SDPA's
+    (``enable_gqa``). ``launches``: {"plain": phase 32 (b)'s Llama counts,
+    "window": phase 32 (a)'s windowed Mixtral counts}."""
+    from pipegoose_tpu_torch.ops import flash_attention as fa
+
+    b, nh, nkv, s, hd = 4, 32, 8, 1024, 128
+    rows = []
+    for window in (None, FAMILY_WINDOW_ROW):
+        case = flash_case(dev, torch.bfloat16, b=b, s=s, nh=nh, nkv=nkv, hd=hd,
+                          seed=SEED + 32)
+        case["slopes"] = torch.zeros_like(case["slopes"])   # RoPE: no ALiBi
+        tag = f"window {window}" if window else "no window"
+        errs = check_flash(f"bf16 B={b} nh={nh}/nkv={nkv} (g 4) S={s} hd={hd} causal, {tag}",
+                           case, window=window, phase="phase 32")
+        fwd, mode = flash_args(case, True, window)
+        out, lse = fa.flash_fwd(*fwd, *mode)
+        delta = (case["do"].float() * out.float()).sum(-1)
+        bwd = flash_bwd_args(case, lse, delta)
+        dq = fa.flash_dq(*bwd, *mode)
+        dk, dv = fa.flash_dkv(*bwd, *mode)
+        io = {"fwd": fwd + (out, lse), "dq": bwd + (dq,), "dkv": bwd + (dk, dv)}
+        calls = {"fwd": (lambda i: fa.flash_fwd(*fwd, *mode),
+                         lambda: fa.flash_fwd_reference(*fwd, *mode)),
+                 "dq": (lambda i: fa.flash_dq(*bwd, *mode),
+                        lambda: fa.flash_dq_reference(*bwd, *mode)),
+                 "dkv": (lambda i: fa.flash_dkv(*bwd, *mode),
+                         lambda: fa.flash_dkv_reference(*bwd, *mode))}
+        lib_fwd, lib_bwd = sdpa_gqa_ms(case, b, nh, nkv, s, hd, window)
+        pairs = b * nh * (window_pairs(s, window) if window else s * (s + 1) // 2)
+        src = launches["window" if window else "plain"]
+        log(f"phase 32: flash kernels at B*nh={b * nh}, g 4, S={s}, hd={hd}, bf16, causal, "
+            f"{tag}, device ms per call, on {card}")
+        for kind in ("fwd", "dq", "dkv"):
+            kernel, plain = calls[kind]
+            ms, call_ms = time_ms(kernel, 8)
+            plain_ms = time_eager_ms(plain, 2)
+            flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * hd * pairs
+            nbytes = sum(t.numel() * t.element_size() for t in io[kind])
+            t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            library_ms = lib_fwd if kind == "fwd" else lib_bwd
+            log(f"  flash_{kind}: kernel {ms} (eager {call_ms}), bound {bound_ms} ({bound_by}), "
+                f"plain {plain_ms}, SDPA (enable_gqa) {library_ms}; {src.get(kind, 0)} launches "
+                f"in phase 32's {'windowed (a)' if window else '(b) Llama'} run")
+            rows.append({
+                "name": f"flash_{kind} (bf16, B*nh={b * nh}, nkv 8 (g 4), S={s}, hd={hd}, "
+                        f"causal, {tag}, mma route)",
+                "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[kind], "route": "cuda",
+                "kernel_route": "mma", "launches": src.get(kind, 0),
+                "launches_from": "phase 32 (a) Mixtral window 64, float32" if window
+                else "phase 32 (b) Llama timed steps",
+                "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                "call_ms": call_ms, "family": True})
+        del case, io, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def family_fused_rows(dev, card, launches) -> list:
+    """B4-B6 on the untied "hv" head at phase 32 (b)'s Llama shape (T = 4 x
+    1023 shifted tokens, H 4096, V 128256, bf16): each against its plain
+    version (phase 10's check: counters, the forward on "wgmma", the
+    backward on "mma" with its cluster plan), its device ms, bound, plain ms
+    and the full-logits composite's (cuBLAS logits + logsumexp)."""
+    from pipegoose_tpu_torch.ops import fused_ce as fce
+
+    t, hd, v = 4 * 1023, 4096, 128256
+    case = fused_case(dev, torch.bfloat16, t=t, hd=hd, v=v, vh=False, seed=SEED + 32)
+    errs = check_fused(f"bf16 T={t} H={hd} V={v} hv", case, phase="phase 32")
+    h, w, targets, g = case["h"], case["w"], case["targets"], case["g"]
+    lse, tl = fce.fused_ce_fwd(h, w, targets, 0, None, False)
+    bwd = (h, w, targets, lse, g, 0, None, False)
+    dh = fce.fused_ce_dh(*bwd)
+    dw = fce.fused_ce_dw(*bwd)
+    io = {"fwd": (h, w, targets, lse, tl), "dh": bwd[:5] + (dh,), "dw": bwd[:5] + (dw,)}
+    calls = {"fwd": (lambda i: fce.fused_ce_fwd(h, w, targets, 0, None, False),
+                     lambda: fce.fused_ce_fwd_reference(h, w, targets, 0, None, False)),
+             "dh": (lambda i: fce.fused_ce_dh(*bwd), lambda: fce.fused_ce_dh_reference(*bwd)),
+             "dw": (lambda i: fce.fused_ce_dw(*bwd), lambda: fce.fused_ce_dw_reference(*bwd))}
+    library = fused_library(h, w, targets, g, False)
+    fplan = fce.card_fwd_plan(h, w, False)
+    log(f"phase 32: fused CE kernels at T={t}, H={hd}, V={v}, bf16, hv (forward plan "
+        f"{fplan['route']}, BN {fplan['bn']}, {fplan['splits']} splits; dh plan "
+        f"{fce.card_plan(h, w, 'dh', False)}; dw plan {fce.card_plan(h, w, 'dw', False)}), "
+        f"device ms per call, on {card}")
+    if fplan["route"] != "wgmma":
+        raise AssertionError(f"phase 32: the hv forward planned {fplan['route']}")
+    rows = []
+    for kind in ("fwd", "dh", "dw"):
+        kernel, plain = calls[kind]
+        ms, call_ms = time_ms(kernel, 2, replays=5)
+        plain_ms = time_eager_ms(plain, 1)
+        library_ms = time_eager_ms(library[kind], 2)
+        bound_ms, bound_by = fused_bound_ms(kind, case, io[kind])
+        name = f"fused_ce_{kind}"
+        log(f"  {name}: kernel {ms} (eager {call_ms}), bound {bound_ms} ({bound_by}), plain "
+            f"{plain_ms}, full-logits composite {library_ms}; {launches.get(name, 0)} hv "
+            f"launches in phase 32 (b)'s Llama timed steps")
+        rows.append({
+            "name": f"{name} (bf16, T={t}, H={hd}, V={v}, hv)", "route": "cuda",
+            "source": FUSED_FWD_SOURCE if kind == "fwd" else FUSED_MMA_SOURCE,
+            "replaces": FUSED_REPLACES[kind],
+            "kernel_route": fplan["route"] if kind == "fwd" else "mma",
+            "launches": launches.get(name, 0),
+            "launches_from": "phase 32 (b) Llama timed steps",
+            "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "call_ms": call_ms,
+            "family": True})
+        gc.collect()
+        torch.cuda.empty_cache()
+    del case, calls, library, io
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase32_families(dev, card) -> tuple:
+    """Phase 32: the Llama and Mixtral families. Returns (its summary, its
+    kernel rows)."""
+    out = {"a": phase32a_float32(dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["b"] = phase32b_timed(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    window = out["a"]["launches"]["mixtral window 64"]
+    rows = family_flash_rows(dev, card, {"plain": out["b"]["llama"]["launches"],
+                                          "window": window})
+    rows += family_fused_rows(dev, card, out["b"]["llama"]["launches"])
+    return out, rows
+
+
 def main(argv) -> int:
     import argparse
 
@@ -5428,10 +5982,12 @@ def main(argv) -> int:
         lap("phase 30")
         moe = phase31_moe(np_tree, dev, card)
         lap("phase 31")
+        families, family_rows = phase32_families(dev, card)
+        lap("phase 32")
     finally:
         ctx.destroy()
     del fp_arm
-    rows += shard_rows
+    rows += shard_rows + family_rows
     phase27_sampled_generate(np_tree, dev)
     lap("phase 27")
     del np_tree
@@ -5445,7 +6001,7 @@ def main(argv) -> int:
         row["trainer_launches"] = trainer_launches(row, trainer["b"])
         row["moe_launches"] = trainer_launches(row, {**moe["b"], "layouts": {}})
     print(json.dumps({"kernels": rows, "trainer": trainer, "comm_pipeline": comm_pipeline,
-                      "moe": moe}))
+                      "moe": moe, "families": families}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

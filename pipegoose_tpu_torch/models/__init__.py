@@ -1,6 +1,11 @@
-"""BLOOM and BLOOM-MoE (counterparts of ``pipegoose_tpu.models``)."""
-from pipegoose_tpu_torch.models import bloom, bloom_moe
+"""BLOOM, BLOOM-MoE, Llama and Mixtral, and the HF converter (counterparts
+of ``pipegoose_tpu.models``)."""
+from pipegoose_tpu_torch.models import bloom, bloom_moe, llama, mixtral
 from pipegoose_tpu_torch.models.bloom import BloomConfig
 from pipegoose_tpu_torch.models.bloom_moe import BloomMoEConfig
+from pipegoose_tpu_torch.models.convert import from_hf, register_family
+from pipegoose_tpu_torch.models.llama import LlamaConfig
+from pipegoose_tpu_torch.models.mixtral import MixtralConfig
 
-__all__ = ["bloom", "bloom_moe", "BloomConfig", "BloomMoEConfig"]
+__all__ = ["bloom", "bloom_moe", "llama", "mixtral", "BloomConfig", "BloomMoEConfig",
+           "LlamaConfig", "MixtralConfig", "from_hf", "register_family"]

@@ -41,7 +41,7 @@ from pipegoose_tpu_torch.distributed.functional import (
     scatter_to_tensor_group,
 )
 from pipegoose_tpu_torch.models.generate import _attn_core, _qkv_proj, local_heads
-from pipegoose_tpu_torch.nn.parallel import spec_tree, tree_leaves, tree_map
+from pipegoose_tpu_torch.nn.parallel import spec_tree
 from pipegoose_tpu_torch.nn.parallel_mapping import Column, ParallelMapping, Row, Vocab
 from pipegoose_tpu_torch.nn.tensor_parallel.overlap import replicated_for_overlap
 from pipegoose_tpu_torch.nn.tensor_parallel.layers import (
@@ -615,22 +615,10 @@ def _stage_fn(block_call, config: BloomConfig, blocks: list, pipe_axis: str,
     ``stage_layer_counts[stage]`` on uneven ones."""
     from pipegoose_tpu_torch.nn.pipeline_parallel.partitioner import (
         masked_stage_scan,
-        stage_n_valid,
+        stage_layers,
     )
 
-    if stage_layer_counts is not None:
-        n_valid = stage_n_valid(stage_layer_counts, config.n_layer, pipe_axis)
-        if len(blocks) < n_valid:
-            raise ValueError(f"this stage holds {len(blocks)} blocks, its "
-                             f"stage_layer_counts entry is {n_valid}")
-    else:
-        P = axis_size(pipe_axis)
-        if config.n_layer % P or len(blocks) != config.n_layer // P:
-            raise ValueError(
-                f"this stage holds {len(blocks)} blocks; even stages hold "
-                f"n_layer / P = {config.n_layer} / {P} (pass stage_layer_counts "
-                f"for uneven stages, and each rank only its stage's blocks)")
-        n_valid = len(blocks)
+    n_valid, _ = stage_layers(config.n_layer, blocks, stage_layer_counts, pipe_axis)
 
     def stage_fn(blocks, h, side):
         return masked_stage_scan(lambda blk, hh: block_call(blk, hh, side),
@@ -715,10 +703,7 @@ def loss_fn_1f1b(params: dict, input_ids: torch.Tensor,
     ``grad_sync_axes=("pipe",)`` completes the replicated leaves' gradients
     across stages, as for :func:`loss_fn_pp`. ``stage_layer_counts``: as
     there."""
-    from pipegoose_tpu_torch.nn.pipeline_parallel.pipeline import (
-        manual_grads_loss,
-        one_f_one_b,
-    )
+    from pipegoose_tpu_torch.nn.pipeline_parallel.pipeline import one_f_one_b_loss
 
     mask, mbs = _split_batch(input_ids, attention_mask, labels, n_microbatches)
     side = {**_stacked_bias(mbs["mask"], config), "labels": mbs["labels"],
@@ -738,30 +723,9 @@ def loss_fn_1f1b(params: dict, input_ids: torch.Tensor,
         tot, _ = _pp_head_sums(hp, h, side["mask"], side["labels"], config, tp_axis)
         return (tot / count).float()
 
-    def run(params):
-        from pipegoose_tpu_torch.distributed.functional import all_reduce
-
-        first = axis_index(pipe_axis) == 0
-        embed_params = {"embed": params["embed"], "embed_ln": params["embed_ln"]}
-        h0 = _entry(embed_params, mbs["ids"], config, tp_axis, pipe_axis)
-        head_params = {"ln_f": params["ln_f"], "embed": params["embed"]}
-        loss, dh0, d_blocks, d_head = one_f_one_b(
-            stage_fn, params["blocks"], head_fn, head_params, h0.detach(), side,
-            pipe_axis)
-        grads = {}
-        for leaf, g in zip(tree_leaves(params["blocks"]) + tree_leaves(head_params),
-                           d_blocks + d_head):
-            if g is not None:
-                grads[id(leaf)] = grads[id(leaf)] + g if id(leaf) in grads else g
-        if first:
-            e_leaves = tree_leaves(embed_params)
-            for leaf, g in zip(e_leaves, torch.autograd.grad(h0, e_leaves, dh0,
-                                                             allow_unused=True)):
-                if g is not None:
-                    grads[id(leaf)] = grads[id(leaf)] + g if id(leaf) in grads else g
-        return all_reduce(loss, pipe_axis), tree_map(lambda t: grads.get(id(t)), params)
-
-    return manual_grads_loss(run, params)
+    return one_f_one_b_loss(
+        params, stage_fn, head_fn, ("embed", "embed_ln"), ("ln_f", "embed"),
+        lambda ep: _entry(ep, mbs["ids"], config, tp_axis, pipe_axis), side, pipe_axis)
 
 
 def pp_specs(params: dict, tp_axis: str = "tensor", pipe_axis: str = "pipe") -> dict:

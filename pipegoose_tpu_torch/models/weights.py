@@ -62,7 +62,7 @@ def _convert(tree, fn):
     """``fn(leaf, dtype)`` over a tree: ``None`` (the config's dtype)
     everywhere but the ``q``/``scale`` planes of a quantized leaf."""
     if isinstance(tree, dict):
-        if "q" in tree:
+        if "q" in tree and not isinstance(tree["q"], dict):   # not an attn/q subtree
             return {k: fn(v, _QUANT_DTYPES.get(k)) for k, v in tree.items()}
         return {k: _convert(v, fn) for k, v in tree.items()}
     return fn(tree, None)
@@ -70,8 +70,10 @@ def _convert(tree, fn):
 
 def params_from_jax(np_tree: dict, config, device="cuda", specs: Optional[Any] = None,
                     ctx=None, stage_layer_counts=None, pipe_axis: str = "pipe") -> dict:
-    """``{"embed", "embed_ln", "blocks", "ln_f"}`` with every leaf a tensor
-    of ``config.dtype`` on ``device``; ``"blocks"`` becomes a list of
+    """The tree's own top-level keys (BLOOM's ``{"embed", "embed_ln",
+    "blocks", "ln_f"}``, Llama's and Mixtral's ``{"embed", "blocks",
+    "ln_f"[, "lm_head"]}``) with every leaf a tensor of ``config.dtype`` on
+    ``device``; ``"blocks"`` becomes a list of
     ``config.n_layer`` per-layer dicts with the same keys as the JAX
     ``blocks`` subtree (a quantized leaf keeps its int8 ``q`` and float32
     ``scale``). No leaf requires grad; ``trainer.step.make_optimizer``
@@ -114,13 +116,10 @@ def params_from_jax(np_tree: dict, config, device="cuda", specs: Optional[Any] =
                 f"stack n_layer={n_layer} layers")
     if stage_layer_counts is not None:
         n_layer = counts[axis_index(pipe_axis)]
-    return {
-        "embed": _map(np_tree["embed"], conv),
-        "embed_ln": _map(np_tree["embed_ln"], conv),
-        "blocks": [_convert(np_tree["blocks"], lambda a, d, i=i: conv(a[i], d))
-                   for i in range(n_layer)],
-        "ln_f": _map(np_tree["ln_f"], conv),
-    }
+    return {key: ([_convert(np_tree["blocks"], lambda a, d, i=i: conv(a[i], d))
+                   for i in range(n_layer)] if key == "blocks"
+                  else _map(np_tree[key], conv))
+            for key in _top_keys(np_tree)}
 
 
 def params_to_jax(params: dict) -> dict:
@@ -136,21 +135,22 @@ def params_to_jax(params: dict) -> dict:
             return {k: stack(*(p[k] for p in per_layer)) for k in per_layer[0]}
         return np.stack([host(t) for t in per_layer])
 
-    return {
-        "embed": _map(params["embed"], host),
-        "embed_ln": _map(params["embed_ln"], host),
-        "blocks": stack(*params["blocks"]),
-        "ln_f": _map(params["ln_f"], host),
-    }
+    return {key: (stack(*params["blocks"]) if key == "blocks"
+                  else _map(params[key], host))
+            for key in _top_keys(params)}
 
 
 def param_leaves(params: dict) -> Iterator[torch.Tensor]:
-    """Every leaf tensor of the port's params, in a fixed order."""
-    for key in ("embed", "embed_ln"):
-        yield from _leaves(params[key])
-    for blk in params["blocks"]:
-        yield from _leaves(blk)
-    yield from _leaves(params["ln_f"])
+    """Every leaf tensor of the port's params, in a fixed order: the top-level
+    keys in :func:`_top_keys`' order (BLOOM's ``embed``, ``embed_ln``,
+    ``blocks``, ``ln_f``, as before any other family came), each block's
+    leaves layer by layer."""
+    for key in _top_keys(params):
+        if key == "blocks":
+            for blk in params["blocks"]:
+                yield from _leaves(blk)
+        else:
+            yield from _leaves(params[key])
 
 
 def grads_of(params: dict) -> dict:
@@ -161,6 +161,21 @@ def grads_of(params: dict) -> dict:
 
     return {k: ([_map(b, grad) for b in v] if k == "blocks" else _map(v, grad))
             for k, v in params.items()}
+
+
+# the order of the top-level keys the families share; any other key follows
+# in the tree's own order
+_TOP_ORDER = ("embed", "embed_ln", "blocks", "ln_f", "lm_head")
+
+
+def _top_keys(tree: dict) -> list:
+    """The tree's own top-level keys, those of ``_TOP_ORDER`` first in that
+    order: BLOOM's tree (``embed``, ``embed_ln``, ``blocks``, ``ln_f``) and
+    the RoPE families' (``embed``, ``blocks``, ``ln_f`` and an untied
+    ``lm_head``) alike, whatever order a JAX-derived numpy tree's dict
+    carries its keys in."""
+    known = [k for k in _TOP_ORDER if k in tree]
+    return known + [k for k in tree if k not in _TOP_ORDER]
 
 
 def _leaves(tree):

@@ -88,6 +88,28 @@ def stage_n_valid(stage_layer_counts, n_layer: int, axis_name: str = "pipe") -> 
     return int(counts[axis_index(axis_name)])
 
 
+def stage_layers(n_layer: int, blocks: list, stage_layer_counts=None,
+                 axis_name: str = "pipe"):
+    """(n_valid, offset) of this stage: how many of its ``blocks`` are live
+    layers and the global index of the first. Even stages (no counts) hold
+    ``n_layer / P`` blocks each; uneven ones the first
+    ``stage_layer_counts[stage]`` of theirs. ValueError otherwise."""
+    stage = axis_index(axis_name)
+    if stage_layer_counts is not None:
+        n_valid = stage_n_valid(stage_layer_counts, n_layer, axis_name)
+        if len(blocks) < n_valid:
+            raise ValueError(f"this stage holds {len(blocks)} blocks, its "
+                             f"stage_layer_counts entry is {n_valid}")
+        return n_valid, int(sum(int(c) for c in stage_layer_counts[:stage]))
+    P = axis_size(axis_name)
+    if n_layer % P or len(blocks) != n_layer // P:
+        raise ValueError(
+            f"this stage holds {len(blocks)} blocks; even stages hold "
+            f"n_layer / P = {n_layer} / {P} (pass stage_layer_counts "
+            f"for uneven stages, and each rank only its stage's blocks)")
+    return len(blocks), stage * len(blocks)
+
+
 def masked_stage_scan(block_fn: Callable, blocks_local: list, h: Any, n_valid: int):
     """``block_fn(blk, h) -> h`` over the first ``n_valid`` of this stage's
     blocks; any slot past them (a padded layout's) is never run."""

@@ -139,7 +139,8 @@ def _transfer(x: Optional[torch.Tensor], like: torch.Tensor, axis_name: str, per
 
 def one_f_one_b(stage_fn: Callable[..., Any], stage_params: Any,
                 head_fn: Callable[..., torch.Tensor], head_params: Any,
-                inputs: torch.Tensor, side_inputs: Any, axis_name: str = "pipe"):
+                inputs: torch.Tensor, side_inputs: Any, axis_name: str = "pipe",
+                with_aux: bool = False):
     """1F1B (PipeDream-flush) with a manual, interleaved backward.
 
     The backward of microbatch m starts as soon as its forward leaves the
@@ -157,10 +158,18 @@ def one_f_one_b(stage_fn: Callable[..., Any], stage_params: Any,
     ``side_inputs`` is required (carry the head's labels and mask in it);
     ``inputs`` is read on stage 0 only (other stages need its shape and
     dtype). Returns ``(loss_sum, d_inputs, d_stage_params, d_head_params)``:
-    the loss and the head's gradients on the LAST rank (zero and None
-    elsewhere), ``d_inputs`` (M-leading) on the FIRST (None elsewhere), the
-    gradients as lists in ``tree_leaves`` order, None for a leaf that got
-    none. Call it outside autograd (it returns gradients); :func:`manual_grads_loss` wraps it."""
+    the loss and the head's gradients on the LAST rank (zero, or the aux
+    sum with ``with_aux``, and None elsewhere), ``d_inputs`` (M-leading) on
+    the FIRST (None elsewhere), the gradients as lists in ``tree_leaves`` order, None for a leaf that got
+    none. Call it outside autograd (it returns gradients); :func:`manual_grads_loss` wraps it.
+
+    ``with_aux=True``: ``stage_fn`` returns ``(h, aux_scalar)``, this stage's
+    pre-weighted, pre-normalized scalar loss contribution for the
+    microbatch (e.g. MoE router losses times their weights over L x M).
+    Each stage's backward seeds a unit cotangent on its own aux scalar, so
+    its router gradients flow in ITS backward with no traffic between
+    stages, and the aux values add into ``loss_sum`` on EVERY rank: the
+    caller combines the loss with a plain sum over the pipe axis."""
     P, stage = axis_size(axis_name), axis_index(axis_name)
     M = inputs.shape[0]
     fwd, bwd, _n_slots, n_clock = one_f_one_b_tables(M, P)
@@ -196,18 +205,23 @@ def one_f_one_b(stage_fn: Callable[..., Any], stage_params: Any,
             if not last:
                 with torch.no_grad():
                     out = stage_fn(stage_params, h_in, _index(side_inputs, f_m))
-                send_h = out
+                send_h = out[0] if with_aux else out
         elif b_m >= 0:
             side = _index(side_inputs, b_m)
             with torch.enable_grad():
                 h = acts.pop(b_m).detach().requires_grad_(True)
-                h_out = stage_fn(stage_params, h, side)
+                h_out, aux = (stage_fn(stage_params, h, side) if with_aux
+                              else (stage_fn(stage_params, h, side), None))
                 if last:
                     loss_m = head_fn(head_params, h_out, side)
+                    if with_aux:
+                        loss_m = loss_m + aux
                     outputs, cts = [loss_m], [torch.ones_like(loss_m)]
                     wrt = p_leaves + h_leaves + [h]
                 else:
                     outputs, cts = [h_out], [recv_g.pop(b_m)]
+                    if with_aux:   # a unit cotangent on this stage's own aux
+                        outputs, cts = outputs + [aux], cts + [torch.ones_like(aux)]
                     wrt = p_leaves + [h]
                 grads = torch.autograd.grad(outputs, wrt, cts, allow_unused=True)
             acc(p_grads, grads[:len(p_leaves)])
@@ -219,6 +233,8 @@ def one_f_one_b(stage_fn: Callable[..., Any], stage_params: Any,
             send_g = dh
             if last:
                 loss = loss + loss_m.detach().float()
+            elif with_aux:
+                loss = loss + aux.detach().float()
     return (loss, torch.stack(dh0) if first else None, p_grads,
             h_grads if last else [None] * len(h_leaves))
 
@@ -247,6 +263,44 @@ def manual_grads_loss(run: Callable[[Any], tuple], params: Any) -> torch.Tensor:
     a leaf with none) times the cotangent to the leaves' ``.grad``, so the
     loss plugs into ``make_hybrid_train_step`` unchanged."""
     return _ManualGrads.apply(run, params, *tree_leaves(params))
+
+
+def one_f_one_b_loss(params: dict, stage_fn: Callable[..., Any],
+                     head_fn: Callable[..., torch.Tensor], entry_keys: tuple,
+                     head_keys: tuple, entry_fn: Callable[[dict], torch.Tensor],
+                     side_inputs: Any, axis_name: str = "pipe",
+                     with_aux: bool = False) -> torch.Tensor:
+    """A model's 1F1B loss over ``params`` (a tree with ``"blocks"``, this
+    stage's): :func:`one_f_one_b` over the blocks, ``head_fn`` on the
+    ``head_keys`` leaves (the last stage), the entry's gradients through
+    ``entry_fn({k: params[k] for k in entry_keys})`` (the pipeline-entry
+    activations, read on the first stage) from the first stage's d_inputs;
+    a leaf reached twice (a tied embedding, in the entry and the head) gets
+    the sum. The loss is summed over the pipe axis, and
+    :func:`manual_grads_loss` hands the gradients to ``backward()``."""
+    from pipegoose_tpu_torch.distributed.functional import all_reduce
+
+    def run(params):
+        entry = {k: params[k] for k in entry_keys}
+        h0 = entry_fn(entry)
+        head = {k: params[k] for k in head_keys}
+        loss, dh0, d_blocks, d_head = one_f_one_b(
+            stage_fn, params["blocks"], head_fn, head, h0.detach(), side_inputs,
+            axis_name, with_aux=with_aux)
+        grads = {}
+
+        def add(leaves, gs):
+            for leaf, g in zip(leaves, gs):
+                if g is not None:
+                    grads[id(leaf)] = grads[id(leaf)] + g if id(leaf) in grads else g
+
+        add(tree_leaves(params["blocks"]) + tree_leaves(head), d_blocks + d_head)
+        if axis_index(axis_name) == 0:
+            leaves = tree_leaves(entry)
+            add(leaves, torch.autograd.grad(h0, leaves, dh0, allow_unused=True))
+        return all_reduce(loss, axis_name), tree_map(lambda t: grads.get(id(t)), params)
+
+    return manual_grads_loss(run, params)
 
 
 def last_stage_value(x: torch.Tensor, axis_name: str = "pipe") -> torch.Tensor:

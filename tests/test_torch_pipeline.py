@@ -166,3 +166,81 @@ def test_pp_specs_mark_every_block_leaf_of_the_port_tree():
     for key in ("embed", "embed_ln", "ln_f"):
         tree_map(lambda s: marks.append(not spec_mentions(s, "pipe")), specs[key])
     assert all(marks)
+
+
+# -- one_f_one_b with and without aux, at pp 2 against JAX's ------------------------------
+
+
+def _one_f_one_b_case():
+    rng = np.random.default_rng(4)
+    L, M, mb, d = 4, 4, 2, 8
+    return dict(w=(rng.standard_normal((L, d, d)) * 0.3).astype(np.float32),
+                b=(rng.standard_normal((L, d)) * 0.1).astype(np.float32),
+                x=rng.standard_normal((M, mb, d)).astype(np.float32),
+                side=(rng.standard_normal((M, d)) * 0.1).astype(np.float32),
+                scale=(1.0 + rng.standard_normal(d) * 0.1).astype(np.float32))
+
+
+def _jax_one_f_one_b(case, with_aux, devices):
+    """JAX's ``one_f_one_b`` on the same tanh stack under a 2-stage pipe mesh:
+    each rank's loss sum, d_inputs, dW/db (stacked) and d_head."""
+    from jax.sharding import Mesh
+
+    from pipegoose_tpu.distributed.compat import shard_map
+
+    def stage_fn(blocks, h, side):
+        for i in range(blocks["w"].shape[0]):
+            h = jnp.tanh(h @ blocks["w"][i] + blocks["b"][i]) + side["s"]
+        return (h, 0.1 * (h ** 2).mean()) if with_aux else h
+
+    def head_fn(hp, h, side):
+        return ((h * hp["scale"]) ** 2).mean()
+
+    def run(blocks, hp, x, side):
+        loss, dx, dp, dh = jpipe.one_f_one_b(stage_fn, blocks, head_fn, hp, x, side,
+                                             "pipe", with_aux=with_aux)
+        return loss[None], dx[None], dp, jax.tree_util.tree_map(lambda a: a[None], dh)
+
+    mesh = Mesh(np.asarray(devices[:2]).reshape(2, 1), ("pipe", "tensor"))
+    spec = {"w": P("pipe"), "b": P("pipe")}
+    f = shard_map(run, mesh=mesh, in_specs=(spec, P(), P(), P()),
+                  out_specs=(P("pipe"), P("pipe"), spec, P("pipe")), check_vma=False)
+    loss, dx, dp, dh = f({"w": jnp.asarray(case["w"]), "b": jnp.asarray(case["b"])},
+                         {"scale": jnp.asarray(case["scale"])}, jnp.asarray(case["x"]),
+                         {"s": jnp.asarray(case["side"])})
+    return (np.asarray(loss), np.asarray(dx), np.asarray(dp["w"]), np.asarray(dp["b"]),
+            np.asarray(dh["scale"]))
+
+
+def _check_one_f_one_b(with_aux, devices):
+    from pipegoose_tpu_torch.testing.dist import run_ranks
+    from test_torch_family_rank_bodies import one_f_one_b_rank
+
+    case = _one_f_one_b_case()
+    loss, dx, dw, db, dscale = _jax_one_f_one_b(case, with_aux, devices)
+    ranks = run_ranks(one_f_one_b_rank, 2, case, with_aux, timeout=300)
+    for r, want in zip(ranks, loss):   # the last rank's head loss (+ aux); aux alone before
+        np.testing.assert_allclose(r["loss"], want, rtol=1e-5, atol=1e-7)
+    if not with_aux:
+        assert ranks[0]["loss"] == 0.0
+    np.testing.assert_allclose(ranks[0]["x"], dx[0], rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(np.concatenate([np.stack(r["w"]) for r in ranks]), dw,
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(np.concatenate([np.stack(r["b"]) for r in ranks]), db,
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(ranks[1]["scale"], dscale[1], rtol=1e-4, atol=1e-6)
+
+
+def test_one_f_one_b_with_aux_matches_jax(devices):
+    """``with_aux=True``: each stage's aux scalar seeds its own backward and
+    adds into every rank's loss sum (rtol 1e-5), the gradients of every
+    stage's layers, of the inputs and of the head against JAX's
+    (``tests/nn/pipeline_parallel/test_pipeline.py``'s rtol 1e-4, atol
+    1e-6), at pp 2 and M = 4."""
+    _check_one_f_one_b(True, devices)
+
+
+def test_one_f_one_b_without_aux_is_unchanged(devices):
+    """The ``with_aux=False`` path against JAX's on the same stack: the loss
+    on the last rank only, the same gradients."""
+    _check_one_f_one_b(False, devices)
