@@ -65,7 +65,14 @@ The main paths, all BLOOM-560m at full width (vocab 250880, hidden 1024,
   ``Trainer.fit`` over that context at Llama-3-8B's and Mixtral-8x7B's
   published widths (depth cut to 4 and 2 layers), their attention through
   the flash kernels and their untied (H, V) heads through the fused
-  cross-entropy kernels.
+  cross-entropy kernels;
+- the ALBERT encoder family: ``models.albert`` (one shared layer applied
+  12 times, factorized embedding, post-LN, the tied MLM head) at
+  albert-base-v2's published widths through ``Trainer.fit`` over that
+  context, its bidirectional attention through the flash kernels
+  (``causal=False``), and ``fill_mask``; DiLoCo's outer loop
+  (``optim.DiLoCoHybrid`` on the "diloco" axis, W = 1 on one card) around
+  the hybrid step on bloom-560m.
 
 Phases, each fatal on failure:
 
@@ -307,8 +314,8 @@ Phases, each fatal on failure:
  30  the comm engine and the pipelines on phase 26's context ("tensor",
      "pipe", "data" and "seq" named, each of size 1): (a) float32, full
      width at 2 layers, batch 4 x 256 with a right-padded row, flash:
-     3 steps with overlap_tp against the monolithic step (full logits and
-     fused CE; phase 26's criteria, the same launches); 3 steps with
+     2 steps with overlap_tp against the monolithic step (full logits and
+     fused CE; phase 26's criteria, the same launches); 2 steps with
      grad_comm bf16, int8 and int8 + error feedback, each on the CPU too,
      fed the card's gradients: step 1's int8 payloads and scales equal bit
      for bit; for bf16 and int8 the reduced gradients of step 1 bit for
@@ -322,7 +329,8 @@ Phases, each fatal on failure:
      and B4-B6 M times; (b) bf16 bloom-560m, 24 layers, 8 x 1024, remat +
      flash + fused CE: the hybrid step, int8 + error feedback, GPipe and
      1F1B at M = 4, each checked (launches per step, falling losses) and
-     timed in two rounds of turns, 2 steps a turn: ms/step, tokens/s, the
+     timed in one round of turns (the arms forward then back), 2 steps a
+     turn: ms/step, tokens/s, the
      ratio to the hybrid step with its range over the turns, each arm's
      peak above what was allocated before it, the ZeRO state's and the
      residuals' bytes; one profiled step of GPipe (phase 26 profiles the
@@ -369,7 +377,33 @@ Phases, each fatal on failure:
      S 1024) without and with a window of 256, and B4-B6 on the "hv" head
      at T = 4092, H = 4096, V = 128256, each against its plain version and
      timed beside its bound, plain version and SDPA (``enable_gqa``) or the
-     full-logits composite.
+     full-logits composite;
+ 33  ALBERT and DiLoCo on phase 26's context ("seq", "pipe" and "diloco" of
+     size 1 too): (a) float32: B1-B3 against their plain versions at B = 2,
+     12 heads, S = 256, hd 64, bidirectional, row 1 ending in 64 padded keys,
+     f32 ("fma") and bf16 ("mma"); albert-base-v2's widths (H 768, E 128,
+     12 heads, FFN 3072, vocab 30000, 12 applications), flash, batch 2 x
+     256 with 64 pad ids ending row 1 and 15% MLM labels: the loss and every
+     gradient card vs CPU (phase 7's tolerances; a leaf below 1e-4 of the
+     tree's largest gradient, the key bias, against that floor), B1-B3 L
+     launches each on "fma"; ``loss_fn_sp`` at sp = 1 (ring, Ulysses) and
+     ``loss_fn_pp`` / ``loss_fn_1f1b`` at pp = 1, M = 2 against ``loss_fn``;
+     ``fill_mask`` tokens card vs CPU; DiLoCoHybrid at W = 1 on phase 30
+     (a)'s float32 2-layer BLOOM with fused CE: 3 inner steps equal 3 hybrid
+     steps bit for bit, the sync a hand-computed Nesterov update within
+     1e-6, the worker the anchor bit for bit; (b) bf16 albert-base-v2 at full
+     width and depth, 16 x 512 with 15% MLM labels, remat + flash, Adam 1e-4,
+     through ``Trainer.fit``: 2 warm-up and 3 timed steps, step ms,
+     tokens/s, MFU (6 x flop-bearing params, the shared layer once per
+     application, + 12 L H S a token), peak, launches per step (B1 2 L,
+     B2/B3 L, all "mma"), one profiled step's busy share, the step-1 loss
+     within 2^-7 of float32's; ``fill_mask`` sequences/s at 64 x 512; one
+     DiLoCoHybrid round (4 inner steps) on bf16 bloom-560m at 8 x 1024
+     beside the hybrid step in turns, the sync's ms, the anchor's, outer
+     momentum's and ZeRO state's bytes; then B1-B3 at ALBERT's shape (B*nh
+     192, S 512, hd 64, bidirectional, padded keys) against their plain
+     versions and timed beside their bound, plain version and SDPA with a
+     boolean key mask.
 
 Every phase's seconds are logged as "seconds: <phase> <s>".
 
@@ -377,7 +411,8 @@ The line before the last is a JSON object with every kernel's numbers
 (each row's ``trainer_launches``: its launches in phase 28 (b)'s timed
 fit; ``moe_launches``: in phase 31 (b)'s timed steps), phase 28's under
 ``trainer``, phase 30's under ``comm_pipeline``, phase 31's under
-``moe`` and phase 32's under ``families``; the last line is
+``moe``, phase 32's under ``families`` and phase 33's under ``albert``;
+the last line is
 {"ok": true, "device": {...}}. Without a card, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.
@@ -4591,11 +4626,11 @@ def phase29_tp_serving(np_tree, dev, card, fp_arm) -> list:
 
 # -- phase 30 ------------------------------------------------------------------
 
-PHASE30_STEPS = 3
+PHASE30_STEPS = 2              # (a)'s steps an arm
 PHASE30_MIRROR_STEPS = 1       # bf16 and int8: the steps whose reduction runs on the CPU too
 PHASE30_MICRO = (2, 4)
 # (b)'s turns: rounds of the arms forward then back, steps a turn
-PHASE30_ROUNDS = 2
+PHASE30_ROUNDS = 1
 PHASE30_TURN_STEPS = 2
 
 
@@ -4769,7 +4804,7 @@ def phase30_pipeline_launches(cfg, kind, micro) -> dict:
 
 def phase30a_float32(np_tree, dev) -> dict:
     """(a) float32, full width at 2 layers, batch 4 x 256 with row 1
-    right-padded by 57, flash, 3 steps each on the one-rank context:
+    right-padded by 57, flash, 2 steps each on the one-rank context:
     overlap_tp against the monolithic step (full logits and fused CE); the
     bf16, int8 and int8 + error-feedback reductions mirrored on the CPU
     (``MirroredOptimizer``: step 1's int8 payloads and scales bit for bit;
@@ -5884,6 +5919,527 @@ def phase32_families(dev, card) -> tuple:
     return out, rows
 
 
+# -- phase 33 ------------------------------------------------------------------
+
+ALBERT_MASK_ID = 4              # albert-base-v2's [MASK] id (its tokenizer's)
+ALBERT_MLM_RATE = 0.15          # the share of valid positions an MLM batch scores
+ALBERT_PAD_A = 64               # phase 33 (a)'s pad ids (id 0) ending row 1
+ALBERT_ZERO_GRAD = 1e-4         # of the tree's largest gradient: a smaller leaf is held absolutely
+DILOCO_SYNC_EVERY = 4           # phase 33 (b)'s inner steps a DiLoCo round
+DILOCO_SYNC_RTOL = 1e-6         # the W = 1 outer step against a hand-computed Nesterov update
+
+
+def albert_batch(cfg, b, s, pad=0, seed=SEED):
+    """An MLM batch from ``RandomState(seed)``: ids drawn above the special
+    ids, ``pad`` pad ids (0) ending the last row, ``ALBERT_MLM_RATE`` of the
+    valid positions scored (their input id replaced by [MASK], their label
+    the drawn id). numpy arrays: ids, mask, labels, lmask."""
+    rng = np.random.RandomState(seed)
+    orig = rng.randint(5, cfg.vocab_size, (b, s))
+    mask = np.ones((b, s), np.int64)
+    if pad:
+        mask[-1, s - pad:] = 0
+        orig[-1, s - pad:] = 0
+    lmask = ((rng.rand(b, s) < ALBERT_MLM_RATE) & (mask > 0)).astype(np.int64)
+    return {"ids": np.where(lmask > 0, ALBERT_MASK_ID, orig), "mask": mask,
+            "labels": orig, "lmask": lmask}
+
+
+def on_device(batch, dev):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
+
+
+def albert_loss(cfg, kind="dense", micro=2):
+    """ALBERT's MLM loss of one path on a batch dict, ``tp_axis="tensor"``:
+    ``loss_fn``, ``loss_fn_sp`` over "seq" ("ring", "ulysses"), or the
+    pipeline losses over "pipe" ("gpipe", "1f1b") with ``micro``
+    microbatches."""
+    from pipegoose_tpu_torch.models import albert
+
+    def lf(p, batch):
+        args = (p, batch["ids"], batch["mask"], batch["labels"], cfg)
+        kw = {"tp_axis": "tensor", "label_mask": batch["lmask"]}
+        if kind in ("ring", "ulysses"):
+            return albert.loss_fn_sp(*args, sp_axis="seq", variant=kind, **kw)
+        if kind in ("gpipe", "1f1b"):
+            fn = albert.loss_fn_pp if kind == "gpipe" else albert.loss_fn_1f1b
+            return fn(*args, micro, **kw)
+        return albert.loss_fn(*args, **kw)
+
+    return lf
+
+
+def albert_grads_apart(a, b, names):
+    """The largest gradient error over its leaf's largest value, a leaf
+    below ``ALBERT_ZERO_GRAD`` of the tree's largest gradient held against
+    that floor instead (the key bias: softmax over keys cancels its
+    gradient, zero in exact arithmetic, rounding alone is left); with the
+    leaf's name."""
+    floor = ALBERT_ZERO_GRAD * max(float(y.abs().max()) for y in b)
+    errs = [float((x - y).abs().max()) / max(float(y.abs().max()), floor, 1e-30)
+            for x, y in zip(a, b)]
+    worst = int(np.argmax(errs))
+    return errs[worst], names[worst]
+
+
+def albert_launch_check(label, got, want, route):
+    """The flash kernels' launches since ``counters_zero`` against ``want``
+    (every other training kernel 0), all on ``route``."""
+    counts = {k: n for k, (n, _) in got.items()}
+    routes_ok = all(r == {route: n} for k, (n, r) in got.items())
+    if counts != {k: n for k, n in want.items() if n} or not routes_ok:
+        raise AssertionError(f"phase 33: {label}: launches {got}, want {want} on {route!r}")
+
+
+def phase33a_float32(np_tree, dev) -> dict:
+    """(a) float32: B1-B3 against their plain versions at this shape
+    (causal=False, padded keys, no ALiBi), f32 and bf16; albert-base-v2's
+    widths (H 768, E 128, 12 heads, FFN 3072, vocab 30000, 12 applications
+    of the shared layer), flash, no remat, batch 2 x 256 with 64 pad ids
+    ending row 1 and 15% MLM labels: the loss and every gradient card vs
+    CPU (phase 7's tolerances), B1-B3 L launches each on "fma"; at sp = 1
+    ``loss_fn_sp`` (ring, Ulysses) and at pp = 1 ``loss_fn_pp`` /
+    ``loss_fn_1f1b`` (M = 2) against ``loss_fn``; ``fill_mask`` tokens card vs
+    CPU; DiLoCoHybrid at W = 1 on phase 30 (a)'s float32 2-layer BLOOM with
+    fused CE: 3 inner steps equal 3 hybrid steps bit for bit, the sync a
+    hand-computed Nesterov update within 1e-6, the worker the anchor."""
+    from pipegoose_tpu_torch.models import albert
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+
+    b, s, pad = 2, 256, ALBERT_PAD_A
+    t0 = time.perf_counter()
+    out = {}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        case = flash_case(dev, dtype, b=b, s=s, nh=12, nkv=12, hd=64, pad=pad,
+                          seed=SEED + 33)
+        case["slopes"] = torch.zeros_like(case["slopes"])   # ALBERT: no ALiBi
+        check_flash(f"{name} B={b} nh=12 S={s} hd=64 bidirectional, row 1 right-padded by "
+                    f"{pad}", case, causal=False, phase="phase 33 (a)")
+    cfg = albert.AlbertConfig.albert_base(use_flash=True)
+    tree = albert.init_params_numpy(cfg, seed=SEED + 33)
+    batch = albert_batch(cfg, b, s, pad)
+    L = cfg.n_layer
+    runs = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        params = params_from_jax(tree, cfg, device=d)
+        counters_zero()
+        runs[where] = family_grads(params, albert_loss(cfg), on_device(batch, d))
+        if where == "card":
+            torch.cuda.synchronize()
+            launches = family_counts()
+            card_params = params
+        else:
+            cpu_params = params
+    names = leaf_names(card_params)
+    (g_loss, g_grads), (c_loss, c_grads) = runs["card"], runs["cpu"]
+    err, worst = albert_grads_apart(g_grads, c_grads, names)
+    log(f"phase 33 (a): float32 albert-base-v2 widths (H {cfg.hidden_size}, E "
+        f"{cfg.embedding_size}, {cfg.n_head} heads, FFN {cfg.intermediate_size}, vocab "
+        f"{cfg.vocab_size}, {L} applications of the shared layer), flash, batch {b} x {s} "
+        f"(row 1 ending in {pad} pad ids, {int(batch['lmask'].sum())} MLM labels), card vs "
+        f"CPU: loss {g_loss} vs {c_loss} (err {abs(g_loss - c_loss)}, atol "
+        f"{TRAIN_LOSS_ATOL}), largest gradient error {err} ({worst}; rtol "
+        f"{TRAIN_GRAD_RTOL}, a leaf below {ALBERT_ZERO_GRAD} of the tree's largest gradient "
+        f"against that floor); launches {launches}")
+    if abs(g_loss - c_loss) > TRAIN_LOSS_ATOL or err > TRAIN_GRAD_RTOL or not np.isfinite(g_loss):
+        raise AssertionError("phase 33 (a): ALBERT card and CPU disagree")
+    albert_launch_check("loss_fn", launches, {"fwd": L, "dq": L, "dkv": L}, "fma")
+    out["dense"] = {"loss": g_loss, "cpu_loss": c_loss, "grad_rel_err": err, "worst": worst,
+                    "launches": {k: n for k, (n, _) in launches.items()}}
+    dbatch = on_device(batch, dev)
+    micro = 2   # the pipelines' microbatches: M x L applications each
+    for kind, want in (("ring", {}), ("ulysses", {"fwd": L, "dq": L, "dkv": L}),
+                       ("gpipe", {"fwd": micro * L, "dq": micro * L, "dkv": micro * L}),
+                       ("1f1b", {"fwd": micro * L, "dq": micro * L, "dkv": micro * L})):
+        counters_zero()
+        k_loss, k_grads = family_grads(card_params, albert_loss(cfg, kind, micro), dbatch)
+        torch.cuda.synchronize()
+        got = family_counts()
+        k_err, k_worst = albert_grads_apart(k_grads, g_grads, names)
+        where = "sp = 1" if kind in ("ring", "ulysses") else "pp = 1, M = 2"
+        log(f"  {kind} at {where} vs loss_fn: loss {k_loss} vs {g_loss}, gradient error "
+            f"{k_err} ({k_worst}); launches {got}")
+        if abs(k_loss - g_loss) > TRAIN_LOSS_ATOL or k_err > TRAIN_GRAD_RTOL:
+            raise AssertionError(f"phase 33 (a): ALBERT {kind} parts from loss_fn")
+        albert_launch_check(kind, got, want, "fma")
+        out[kind] = {"loss": k_loss, "grad_rel_err": k_err}
+    with torch.no_grad():
+        counters_zero()
+        got_t = albert.fill_mask(card_params, dbatch["ids"], ALBERT_MASK_ID, cfg,
+                                 dbatch["mask"]).cpu()
+        fill_launches = family_counts()
+        cb = on_device(batch, "cpu")
+        want_t = albert.fill_mask(cpu_params, cb["ids"], ALBERT_MASK_ID, cfg, cb["mask"])
+    filled = int((batch["ids"] == ALBERT_MASK_ID).sum())
+    log(f"  fill_mask: {filled} [MASK] slots, card tokens equal the CPU's: "
+        f"{bool(torch.equal(got_t, want_t))}; launches {fill_launches}")
+    if not torch.equal(got_t, want_t):
+        raise AssertionError("phase 33 (a): fill_mask tokens differ card vs CPU")
+    albert_launch_check("fill_mask", fill_launches, {"fwd": L}, "fma")
+    out["fill_mask"] = {"slots": filled, "equal": True}
+    del card_params, cpu_params, runs, g_grads, c_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["diloco"] = diloco_w1_float32(np_tree, dev)
+    log(f"phase 33 (a): held, {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def diloco_w1_float32(np_tree, dev) -> dict:
+    """DiLoCoHybrid at W = 1 ("diloco" of size 1 on the one-rank context) on
+    phase 30 (a)'s float32 bloom-560m widths at 2 layers (batch 4 x 256, row
+    1 right-padded by 57, flash, fused CE, ZeRO-1 Adam 1e-4): 3 inner steps
+    against 3 ``make_hybrid_train_step`` steps from the same weights, the
+    losses, parameters and launches bit for bit; the sync against a
+    hand-computed Nesterov update (lr 0.7, momentum 0.9: anchor - 0.7 x 1.9
+    x (anchor - worker)) within 1e-6 of each leaf's largest value; after it
+    the worker equal to the anchor bit for bit."""
+    from pipegoose_tpu_torch.models import bloom
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+    from pipegoose_tpu_torch.nn.parallel import tree_leaves
+    from pipegoose_tpu_torch.optim import DiLoCoHybrid, DistributedOptimizer, adam
+    from pipegoose_tpu_torch.parallel import make_hybrid_train_step
+
+    n_layer, b, s, pad, lr = 2, 4, 256, 57, 1e-4
+    vocab, hidden = np_tree["embed"]["weight"].shape
+    tree = {**np_tree, "blocks": cut_layers(np_tree["blocks"], n_layer)}
+    rng = np.random.default_rng(SEED + 30)
+    ids = torch.from_numpy(rng.integers(0, vocab, (b, s))).to(dev)
+    mask = torch.ones((b, s), dtype=torch.int64, device=dev)
+    mask[1, s - pad:] = 0
+    batch = {"ids": ids, "mask": mask}
+    cfg = BloomConfig(vocab_size=vocab, hidden_size=hidden, n_layer=n_layer, n_head=16,
+                      use_flash=True, fused_ce=True)
+
+    def lf(p, x):
+        return bloom.loss_fn(p, x["ids"], x["mask"], x["ids"], cfg, tp_axis="tensor")
+
+    template = params_from_jax(tree, cfg, device=dev)
+    params = to_device(template, dev)
+    init_fn, make_step = make_hybrid_train_step(
+        lf, bloom.tp_specs(params), DistributedOptimizer(adam(lr), axis_name="data"))
+    state, step = init_fn(params), make_step(params)
+    counters_zero()
+    h_losses = [step(params, state, batch)[2].item() for _ in range(3)]
+    h_launches = counters_read()
+    del state, step
+    anchor = to_device(template, dev)
+    del template
+    dl = DiLoCoHybrid(lf, bloom.tp_specs(anchor),
+                      DistributedOptimizer(adam(lr), axis_name="data"), sync_every=3)
+    wp, inner, outer = dl.init(anchor)
+    inner_step = dl.make_inner_step(wp)
+    counters_zero()
+    d_losses = [inner_step(wp, inner, batch)[2].item() for _ in range(3)]
+    d_launches = counters_read()
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(wp), tree_leaves(params)))
+    del params
+    a0 = [t.detach().clone() for t in tree_leaves(anchor)]
+    w = [t.detach().clone() for t in tree_leaves(wp)]
+    torch.cuda.synchronize()
+    anchor, wp, outer = dl.make_sync_step(anchor)(anchor, wp, outer)
+    torch.cuda.synchronize()
+    sync_err = max(float((got - (a - 0.7 * (1.9 * (a - x)))).abs().max())
+                   / max(float(a.abs().max()), 1e-30)
+                   for got, a, x in zip(tree_leaves(anchor), a0, w))
+    reset = all(torch.equal(x, y) for x, y in zip(tree_leaves(wp), tree_leaves(anchor)))
+    moved = min(float((got - a).abs().max()) for got, a in zip(tree_leaves(anchor), a0))
+    log(f"  DiLoCoHybrid at W = 1, float32 bloom-560m widths at {n_layer} layers, batch "
+        f"{b} x {s} (row 1 right-padded by {pad}), flash + fused CE: inner losses "
+        f"{d_losses} vs the hybrid step's {h_losses}, parameters equal bit for bit {same}, "
+        f"launches {d_launches} vs {h_launches}; the sync against anchor - 0.7 x 1.9 x "
+        f"(anchor - worker): largest error over its leaf's max {sync_err} (tol "
+        f"{DILOCO_SYNC_RTOL}), least leaf move {moved}; the worker equals the new anchor "
+        f"bit for bit {reset}")
+    if d_losses != h_losses or not same or d_launches != h_launches:
+        raise AssertionError("phase 33 (a): DiLoCoHybrid's inner steps part from the hybrid step")
+    if sync_err > DILOCO_SYNC_RTOL or not reset or not moved > 0:
+        raise AssertionError("phase 33 (a): the DiLoCo sync parts from the Nesterov update")
+    del anchor, wp, inner, outer, a0, w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": d_losses, "hybrid_losses": h_losses, "bit_equal": same,
+            "sync_rel_err": sync_err, "launches": d_launches}
+
+
+def albert_flops_per_token(cfg, s) -> float:
+    """6 x the flop-bearing parameters (the E -> H projection, the shared
+    layer once per application, the head's dense and its tied decoder; the
+    embedding lookups bear none) + 12 L H S (attention's scores and
+    context, forward and backward)."""
+    h, e, i, L = cfg.hidden_size, cfg.embedding_size, cfg.intermediate_size, cfg.n_layer
+    active = e * h + L * (4 * h * h + 2 * h * i) + h * e + cfg.vocab_size * e
+    return 6 * active + 12 * L * h * s, active
+
+
+def phase33b_timed(np_tree, dev, card) -> dict:
+    """(b) bf16: albert-base-v2 at full width and depth (12 applications),
+    weights from a seeded card generator, 16 x 512 ids from RandomState(0)
+    with 15% MLM labels, remat + flash, ZeRO-1 Adam 1e-4 through
+    ``Trainer.fit``: 2 warm-up and 3 timed steps, step ms, tokens/s, MFU,
+    peak, launches per step (B1 2 L, B2/B3 L, all "mma"), the device-busy
+    share of one profiled step, the step-1 loss within 2^-7 of a float32 loss
+    of the same weights; ``fill_mask`` sequences/s at 64 x 512. Then one
+    DiLoCoHybrid round (``DILOCO_SYNC_EVERY`` inner steps) on bf16 bloom-560m
+    at 8 x 1024 (remat + flash + fused CE, Adam 1e-4): its inner steps beside
+    the hybrid step's in turns (hybrid, DiLoCo, DiLoCo, hybrid; 2 steps a
+    turn), launches equal; the sync's ms; the anchor's and the outer
+    momentum's bytes beside the ZeRO state's."""
+    import itertools
+
+    from pipegoose_tpu_torch.models import albert
+    from pipegoose_tpu_torch.nn.parallel import tree_leaves
+    from pipegoose_tpu_torch.optim import DistributedOptimizer, adam
+    from pipegoose_tpu_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfg = albert.AlbertConfig.albert_base(dtype=torch.bfloat16, remat=True, use_flash=True)
+    L, (b, s) = cfg.n_layer, (16, 512)
+    params = albert.init_params(cfg, SEED + 33, device=dev)
+    batch = on_device(albert_batch(cfg, b, s), dev)
+    lf = albert_loss(cfg)
+    with torch.no_grad():
+        f32 = albert_loss(dataclasses.replace(cfg, dtype=torch.float32))(
+            to_f32(params), batch).item()
+    flops_tok, active = albert_flops_per_token(cfg, s)
+    n = sum(p.numel() for p in tree_leaves(params))
+    log(f"phase 33 (b): bf16 albert-base-v2 ({n} params, {active} flop-bearing a token "
+        f"with the shared layer counted {L} times), weights from a seeded card generator, "
+        f"remat + flash, Adam 1e-4, batch {b} x {s} with {int(batch['lmask'].sum())} MLM "
+        f"labels, Trainer.fit; float32 loss of the same weights {f32}")
+    trainer = Trainer(lf, params, albert.tp_specs(params),
+                      DistributedOptimizer(adam(1e-4), axis_name="data"))
+    batches = itertools.repeat(batch)
+    warm, timed = 2, 3
+    trainer.fit(batches, max_steps=warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters_zero()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    trainer.fit(batches, max_steps=warm + timed)
+    e1.record()
+    torch.cuda.synchronize()
+    counts = family_counts()
+    step_ms = e0.elapsed_time(e1) / timed
+    tokens_per_s = b * s / (step_ms / 1e3)
+    mfu = tokens_per_s * flops_tok / BF16_FLOPS_PER_S
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in trainer.state.losses]
+    launches = {k: c for k, (c, _) in counts.items()}
+    log(f"  step {step_ms} ms, {tokens_per_s} tokens/s, MFU {mfu} ({flops_tok} flops a "
+        f"token over 989 TFLOP/s bf16), peak {peak_gib:.2f} GiB; losses {losses}; launches "
+        f"over {timed} steps {counts}, on {card}")
+    albert_launch_check("timed steps", counts,
+                        {"fwd": 2 * L * timed, "dq": L * timed, "dkv": L * timed}, "mma")
+    rel = abs(losses[0] - f32) / abs(f32)
+    log(f"  step-1 bf16 loss {losses[0]} vs float32 {f32}: relative {rel} (tol "
+        f"{FAMILY_BF16_LOSS_RTOL})")
+    if rel > FAMILY_BF16_LOSS_RTOL or not all(np.isfinite(losses)):
+        raise AssertionError("phase 33 (b): the bf16 ALBERT loss parts from float32")
+    wall, busy, _ = profile_device(
+        lambda: trainer.fit(batches, max_steps=trainer.state.step + 1), 1,
+        "phase 33 (b): ALBERT, one profiled Trainer step", "step", 6)
+    out = {"step_ms": step_ms, "tokens_per_s": tokens_per_s, "mfu": mfu,
+           "flops_per_token": flops_tok, "active_params": active, "peak_gib": peak_gib,
+           "losses": losses, "f32_loss": f32, "bf16_rel": rel, "launches": launches,
+           "profiled_wall_ms": wall, "device_busy_ms": busy}
+    # fill_mask at 64 x 512: one forward, B1 L launches a call
+    fb = on_device(albert_batch(cfg, 64, s, seed=SEED + 1), dev)
+    with torch.no_grad():
+        albert.fill_mask(trainer.params, fb["ids"], ALBERT_MASK_ID, cfg)   # warm-up
+        counters_zero()
+        calls = 3
+        e0.record()
+        for _ in range(calls):
+            filled = albert.fill_mask(trainer.params, fb["ids"], ALBERT_MASK_ID, cfg)
+        e1.record()
+        torch.cuda.synchronize()
+    fill_counts = family_counts()
+    seq_per_s = 64 * calls / (e0.elapsed_time(e1) / 1e3)
+    kept = bool(torch.equal(filled[fb["lmask"] == 0], fb["ids"][fb["lmask"] == 0]))
+    log(f"  fill_mask at 64 x {s}: {seq_per_s} sequences/s ({calls} calls between CUDA "
+        f"events), unmasked ids kept {kept}; launches {fill_counts}")
+    albert_launch_check("fill_mask", fill_counts, {"fwd": L * calls}, "mma")
+    if not kept:
+        raise AssertionError("phase 33 (b): fill_mask rewrote an unmasked id")
+    out["fill_mask_seq_per_s"] = seq_per_s
+    del trainer, params, batch, fb
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["diloco"] = diloco_bf16_round(np_tree, dev, card)
+    log(f"phase 33 (b): done, {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def diloco_bf16_round(np_tree, dev, card) -> dict:
+    """One DiLoCoHybrid round on bf16 bloom-560m, 8 x 1024, remat + flash +
+    fused CE, ZeRO-1 Adam 1e-4, beside the hybrid step (see phase33b_timed)."""
+    from pipegoose_tpu_torch.models import bloom
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+    from pipegoose_tpu_torch.nn.parallel import tree_leaves
+    from pipegoose_tpu_torch.optim import DiLoCoHybrid, DistributedOptimizer, adam
+    from pipegoose_tpu_torch.parallel import make_hybrid_train_step
+
+    cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16, remat=True, use_flash=True,
+                                 fused_ce=True)
+    b, s, turn = 8, 1024, 2
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size, (b, s))).to(dev)
+
+    def lf(p, x):
+        return bloom.loss_fn(p, x, None, x, cfg, tp_axis="tensor")
+
+    def zero_bytes(state):
+        return sum(v.numel() * v.element_size() for st in state.inner.state.values()
+                   for v in st.values() if torch.is_tensor(v))
+
+    anchor = params_from_jax(np_tree, cfg, device=dev)
+    params = to_device(anchor, dev)
+    init_fn, make_step = make_hybrid_train_step(
+        lf, bloom.tp_specs(params), DistributedOptimizer(adam(1e-4), axis_name="data"))
+    h_state, h_step = init_fn(params), make_step(params)
+    dl = DiLoCoHybrid(lf, bloom.tp_specs(anchor),
+                      DistributedOptimizer(adam(1e-4), axis_name="data"),
+                      sync_every=DILOCO_SYNC_EVERY)
+    wp, inner, outer = dl.init(anchor)
+    inner_step, sync = dl.make_inner_step(wp), dl.make_sync_step(anchor)
+    arms = {"hybrid": lambda: h_step(params, h_state, ids)[2],
+            "diloco": lambda: inner_step(wp, inner, ids)[2]}
+    # round 0: one inner step and a sync, the warm-up of both
+    arms["hybrid"]()
+    arms["diloco"]()
+    anchor, wp, outer = sync(anchor, wp, outer)
+    torch.cuda.synchronize()
+    times, losses = {k: [] for k in arms}, {k: [] for k in arms}
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    want = {k: turn * n for k, n in per_step_launches(cfg).items()}
+    for name in ("hybrid", "diloco", "diloco", "hybrid"):
+        torch.cuda.synchronize()
+        counters_zero()
+        e0.record()
+        for _ in range(turn):
+            loss = arms[name]()
+        e1.record()
+        torch.cuda.synchronize()
+        times[name].append(e0.elapsed_time(e1) / turn)
+        losses[name].append(loss.item())
+        if counters_read() != want:
+            raise AssertionError(f"phase 33 (b): DiLoCo {name} launched {counters_read()} "
+                                 f"in {turn} steps, want {want}")
+    e0.record()
+    anchor, wp, outer = sync(anchor, wp, outer)   # round 1: 4 inner steps, then this
+    e1.record()
+    torch.cuda.synchronize()
+    sync_ms = e0.elapsed_time(e1)
+    reset = all(torch.equal(x, y) for x, y in zip(tree_leaves(wp), tree_leaves(anchor)))
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)   # noqa: E731
+    anchor_bytes = nbytes(tree_leaves(anchor))
+    momentum_bytes = nbytes(st["momentum_buffer"] for st in outer.state.values()
+                            if st.get("momentum_buffer") is not None)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"phase 33 (b): DiLoCoHybrid, bf16 bloom-560m, {b} x {s}, remat + flash + fused CE, "
+        f"sync every {DILOCO_SYNC_EVERY}: in turns (hybrid, DiLoCo, DiLoCo, hybrid; {turn} "
+        f"steps a turn) hybrid {times['hybrid']} ms, DiLoCo inner {times['diloco']} ms "
+        f"(medians {med['hybrid']} / {med['diloco']}, ratio "
+        f"{med['diloco'] / med['hybrid']:.4f}); losses {losses}; sync {sync_ms} ms; the "
+        f"worker equals the anchor after it {reset}; anchor {anchor_bytes} bytes, outer "
+        f"momentum {momentum_bytes} bytes, ZeRO state {zero_bytes(inner)} bytes (the hybrid "
+        f"step's {zero_bytes(h_state)}), on {card}")
+    if not reset or not all(np.isfinite(v) for l in losses.values() for v in l):
+        raise AssertionError("phase 33 (b): the DiLoCo round failed its checks")
+    out = {"hybrid_ms": times["hybrid"], "inner_ms": times["diloco"],
+           "ratio": med["diloco"] / med["hybrid"], "sync_ms": sync_ms,
+           "anchor_bytes": anchor_bytes, "outer_momentum_bytes": momentum_bytes,
+           "zero_state_bytes": zero_bytes(inner), "losses": losses}
+    del arms, params, h_state, anchor, wp, inner, outer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def albert_flash_rows(dev, card, launches) -> list:
+    """B1-B3 at ALBERT's training shape (B 16, 12 heads: B*nh = 192, S 512,
+    hd 64, bf16, bidirectional, the last row ending in 64 padded keys, no
+    ALiBi): each against its plain version (phase 6's check, "mma"), its
+    device ms, bound (the visible pairs), plain ms and SDPA's with a boolean
+    key mask. ``launches``: phase 33 (b)'s timed steps."""
+    from pipegoose_tpu_torch.ops import flash_attention as fa
+
+    b, nh, s, hd, pad = 16, 12, 512, 64, ALBERT_PAD_A
+    case = flash_case(dev, torch.bfloat16, b=b, s=s, nh=nh, nkv=nh, hd=hd, pad=pad,
+                      seed=SEED + 33)
+    case["slopes"] = torch.zeros_like(case["slopes"])   # no ALiBi
+    errs = check_flash(f"bf16 B={b} nh={nh} S={s} hd={hd} bidirectional, the last row "
+                       f"ending in {pad} padded keys", case, causal=False, phase="phase 33")
+    fwd, mode = flash_args(case, False)
+    out, lse = fa.flash_fwd(*fwd, *mode)
+    delta = (case["do"].float() * out.float()).sum(-1)
+    bwd = flash_bwd_args(case, lse, delta)
+    dq = fa.flash_dq(*bwd, *mode)
+    dk, dv = fa.flash_dkv(*bwd, *mode)
+    io = {"fwd": fwd + (out, lse), "dq": bwd + (dq,), "dkv": bwd + (dk, dv)}
+    calls = {"fwd": (lambda i: fa.flash_fwd(*fwd, *mode),
+                     lambda: fa.flash_fwd_reference(*fwd, *mode)),
+             "dq": (lambda i: fa.flash_dq(*bwd, *mode),
+                    lambda: fa.flash_dq_reference(*bwd, *mode)),
+             "dkv": (lambda i: fa.flash_dkv(*bwd, *mode),
+                     lambda: fa.flash_dkv_reference(*bwd, *mode))}
+    # SDPA with the padding as a boolean key mask (B, 1, 1, S)
+    heads = lambda t: t.reshape(b, nh, s, hd).detach().clone().requires_grad_()  # noqa: E731
+    q, k, v = heads(case["q"]), heads(case["k"]), heads(case["v"])
+    keep = (case["kneg"].reshape(b, nh, s)[:, :1, None, :] == 0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    so = sdpa(q, k, v, attn_mask=keep)
+    with torch.no_grad():
+        lib_fwd, _ = time_ms(lambda i: sdpa(q, k, v, attn_mask=keep), 8)
+    lib_bwd = time_eager_ms(lambda: torch.autograd.grad(
+        so, (q, k, v), case["do"].reshape(b, nh, s, hd), retain_graph=True), 8)
+    pairs = nh * ((b - 1) * s * s + s * (s - pad))   # every query sees every valid key
+    log(f"phase 33: flash kernels at ALBERT's shape, B*nh={b * nh}, S={s}, hd={hd}, bf16, "
+        f"bidirectional, {pad} padded keys in the last row, device ms per call, on {card}")
+    rows = []
+    for kind in ("fwd", "dq", "dkv"):
+        kernel, plain = calls[kind]
+        ms, call_ms = time_ms(kernel, 8)
+        plain_ms = time_eager_ms(plain, 2)
+        flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * hd * pairs
+        nbytes = sum(t.numel() * t.element_size() for t in io[kind])
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        library_ms = lib_fwd if kind == "fwd" else lib_bwd
+        log(f"  flash_{kind}: kernel {ms} (eager {call_ms}), bound {bound_ms} ({bound_by}), "
+            f"plain {plain_ms}, SDPA (boolean key mask) {library_ms}; {launches.get(kind, 0)} "
+            f"launches in phase 33 (b)'s timed ALBERT steps")
+        rows.append({
+            "name": f"flash_{kind} (bf16, B*nh={b * nh}, S={s}, hd={hd}, bidirectional, "
+                    f"padded keys, ALBERT, mma route)",
+            "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[kind], "route": "cuda",
+            "kernel_route": "mma", "launches": launches.get(kind, 0),
+            "launches_from": "phase 33 (b) ALBERT timed steps",
+            "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "call_ms": call_ms,
+            "family": True})
+    del case, io, calls, q, k, v, so
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase33_albert_diloco(np_tree, dev, card) -> tuple:
+    """Phase 33: the ALBERT family and DiLoCo. Returns (its summary, its
+    kernel rows)."""
+    out = {"a": phase33a_float32(np_tree, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["b"] = phase33b_timed(np_tree, dev, card)
+    rows = albert_flash_rows(dev, card, out["b"]["launches"])
+    return out, rows
+
+
 def main(argv) -> int:
     import argparse
 
@@ -5984,10 +6540,12 @@ def main(argv) -> int:
         lap("phase 31")
         families, family_rows = phase32_families(dev, card)
         lap("phase 32")
+        albert, albert_rows = phase33_albert_diloco(np_tree, dev, card)
+        lap("phase 33")
     finally:
         ctx.destroy()
     del fp_arm
-    rows += shard_rows + family_rows
+    rows += shard_rows + family_rows + albert_rows
     phase27_sampled_generate(np_tree, dev)
     lap("phase 27")
     del np_tree
@@ -6001,7 +6559,7 @@ def main(argv) -> int:
         row["trainer_launches"] = trainer_launches(row, trainer["b"])
         row["moe_launches"] = trainer_launches(row, {**moe["b"], "layouts": {}})
     print(json.dumps({"kernels": rows, "trainer": trainer, "comm_pipeline": comm_pipeline,
-                      "moe": moe, "families": families}))
+                      "moe": moe, "families": families, "albert": albert}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

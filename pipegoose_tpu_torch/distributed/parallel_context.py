@@ -10,8 +10,11 @@ the JAX docstring's, within one DiLoCo worker block:
     r = pipe*(dp*sp*ep*tp) + data*(sp*ep*tp) + seq*(ep*tp) + expert*tp + tensor
 
 (``arange(world).reshape(diloco, pp, dp, sp, ep, tp)`` over the axes of
-``MESH_AXIS_ORDER``). The queries answer for THIS process's rank where the
-JAX ones take a ``jax.Device``.
+``MESH_AXIS_ORDER``). The "diloco" axis is the outermost: its group is the
+DiLoCo workers' ranks that share every other coordinate, and only the
+outer loop's sync step communicates over it (``optim.diloco``). The
+queries answer for THIS process's rank where the JAX ones take a
+``jax.Device``.
 
 The backend follows the device: NCCL for ``"cuda"`` (the default), one
 card per rank (``cuda:LOCAL_RANK``), and gloo for ``"cpu"``, which is how
@@ -69,10 +72,6 @@ class ParallelContext:
         for name, size in sizes.items():
             if size < 1:
                 raise ValueError(f"{name} parallel size must be >= 1, got {size}")
-        if self.diloco_parallel_size > 1:
-            raise NotImplementedError(
-                "diloco_parallel_size > 1: DiLoCo is not ported yet "
-                "(ROADMAP.md queue A, item 11)")
         if self.device not in BACKENDS:
             raise ValueError(f"device must be 'cuda' or 'cpu', got {self.device!r}")
         if not dist.is_initialized():

@@ -3,9 +3,10 @@
 The counterpart of ``pipegoose_tpu/models/hf.py``: HF weights are converted
 once, through a declarative RULES table per family (``models.convert``),
 into the stacked JAX-layout numpy tree, and from there into the port's
-per-layer params on a device (``models.weights.params_from_jax``). Three
-families are registered, bloom, llama and mixtral; ``model_type="albert"``
-raises NotImplementedError until the ALBERT family is ported.
+per-layer params on a device (``models.weights.params_from_jax``). Four
+families are registered: bloom, llama, mixtral and albert (``AlbertForMaskedLM``
+with one hidden group of one inner layer and ``gelu_new``; other ALBERT
+layouts raise NotImplementedError).
 
 Layout notes:
 - torch Linear stores (out, in); the port's kernels are (in, out) ->
@@ -213,6 +214,85 @@ def llama_params_from_hf(model: Any, dtype=torch.float32, device="cuda") -> tupl
     return cfg, params_from_jax(tree, cfg, device=device)
 
 
+# -- ALBERT (encoder family) -------------------------------------------------------
+
+_ALBERT_L = "albert.encoder.albert_layer_groups.0.albert_layers.0."
+
+ALBERT_RULES = [
+    {"path": "embed/word/weight", "hf": "albert.embeddings.word_embeddings.weight"},
+    {"path": "embed/pos", "hf": "albert.embeddings.position_embeddings.weight"},
+    {"path": "embed/type", "hf": "albert.embeddings.token_type_embeddings.weight"},
+    {"path": "embed/ln/scale", "hf": "albert.embeddings.LayerNorm.weight"},
+    {"path": "embed/ln/bias", "hf": "albert.embeddings.LayerNorm.bias"},
+    {"path": "map_in/kernel",
+     "hf": "albert.encoder.embedding_hidden_mapping_in.weight", "transpose": True},
+    {"path": "map_in/bias", "hf": "albert.encoder.embedding_hidden_mapping_in.bias"},
+    # ONE shared layer (cross-layer parameter sharing): group 0, layer 0
+    {"path": "layer/attn/q/kernel", "hf": _ALBERT_L + "attention.query.weight",
+     "transpose": True},
+    {"path": "layer/attn/q/bias", "hf": _ALBERT_L + "attention.query.bias"},
+    {"path": "layer/attn/k/kernel", "hf": _ALBERT_L + "attention.key.weight",
+     "transpose": True},
+    {"path": "layer/attn/k/bias", "hf": _ALBERT_L + "attention.key.bias"},
+    {"path": "layer/attn/v/kernel", "hf": _ALBERT_L + "attention.value.weight",
+     "transpose": True},
+    {"path": "layer/attn/v/bias", "hf": _ALBERT_L + "attention.value.bias"},
+    {"path": "layer/attn/dense/kernel", "hf": _ALBERT_L + "attention.dense.weight",
+     "transpose": True},
+    {"path": "layer/attn/dense/bias", "hf": _ALBERT_L + "attention.dense.bias"},
+    {"path": "layer/attn/ln/scale", "hf": _ALBERT_L + "attention.LayerNorm.weight"},
+    {"path": "layer/attn/ln/bias", "hf": _ALBERT_L + "attention.LayerNorm.bias"},
+    {"path": "layer/ffn/up/kernel", "hf": _ALBERT_L + "ffn.weight", "transpose": True},
+    {"path": "layer/ffn/up/bias", "hf": _ALBERT_L + "ffn.bias"},
+    {"path": "layer/ffn/down/kernel", "hf": _ALBERT_L + "ffn_output.weight",
+     "transpose": True},
+    {"path": "layer/ffn/down/bias", "hf": _ALBERT_L + "ffn_output.bias"},
+    {"path": "layer/ffn/ln/scale", "hf": _ALBERT_L + "full_layer_layer_norm.weight"},
+    {"path": "layer/ffn/ln/bias", "hf": _ALBERT_L + "full_layer_layer_norm.bias"},
+    # the MLM head; the decoder weight is TIED to the word embedding
+    {"path": "mlm/dense/kernel", "hf": "predictions.dense.weight", "transpose": True},
+    {"path": "mlm/dense/bias", "hf": "predictions.dense.bias"},
+    {"path": "mlm/ln/scale", "hf": "predictions.LayerNorm.weight"},
+    {"path": "mlm/ln/bias", "hf": "predictions.LayerNorm.bias"},
+    {"path": "mlm/bias", "hf": "predictions.bias"},
+]
+
+
+def albert_config_from_hf(hf_config, **overrides):
+    """An HF ``AlbertConfig`` -> ``AlbertConfig``. Refuses (NotImplementedError)
+    a layout other than one hidden group of one inner layer, and an
+    activation other than ``gelu_new`` (the released v1/v2 one)."""
+    from pipegoose_tpu_torch.models.albert import AlbertConfig
+
+    if (getattr(hf_config, "num_hidden_groups", 1) != 1
+            or getattr(hf_config, "inner_group_num", 1) != 1):
+        raise NotImplementedError(
+            "albert with num_hidden_groups/inner_group_num != 1 not supported "
+            "(the standard released configs use 1 group x 1 inner layer)")
+    act = getattr(hf_config, "hidden_act", "gelu_new")
+    if act != "gelu_new":
+        raise NotImplementedError(
+            f"albert hidden_act={act!r} not supported (models/albert.py applies "
+            "gelu_new, the released albert-v1/v2 activation)")
+    return AlbertConfig(
+        vocab_size=hf_config.vocab_size, embedding_size=hf_config.embedding_size,
+        hidden_size=hf_config.hidden_size, n_layer=hf_config.num_hidden_layers,
+        n_head=hf_config.num_attention_heads,
+        intermediate_size=hf_config.intermediate_size,
+        max_position_embeddings=hf_config.max_position_embeddings,
+        type_vocab_size=hf_config.type_vocab_size,
+        layer_norm_eps=hf_config.layer_norm_eps,
+        initializer_range=hf_config.initializer_range, **overrides)
+
+
+def albert_params_from_hf(model: Any, dtype=torch.float32, device="cuda") -> tuple:
+    """An HF ``AlbertForMaskedLM`` -> (AlbertConfig, the port's shared-layer
+    params on ``device``)."""
+    cfg = albert_config_from_hf(model.config, dtype=dtype)
+    tree = params_from_state_dict(dict(model.state_dict()), ALBERT_RULES, cfg.n_layer)
+    return cfg, params_from_jax(tree, cfg, device=device)
+
+
 # -- family registry ---------------------------------------------------------------
 
 
@@ -235,9 +315,9 @@ def _load_llama(model, dtype, device):
 
 
 def _load_albert(model, dtype, device):
-    raise NotImplementedError(
-        "model_type='albert': the ALBERT encoder family (models/albert.py and its "
-        "RULES) is not ported yet; it is the next slice of the port (ROADMAP.md A10)")
+    from pipegoose_tpu_torch.models import albert as module
+
+    return (*albert_params_from_hf(model, dtype, device), module)
 
 
 register_family("bloom", _load_bloom)
@@ -249,5 +329,6 @@ __all__ = [
     "bloom_config_from_hf", "bloom_params_from_hf", "bloom_params_to_hf_state_dict",
     "mixtral_config_from_hf", "mixtral_params_from_hf",
     "llama_config_from_hf", "llama_params_from_hf",
-    "BLOOM_RULES", "MIXTRAL_RULES", "LLAMA_RULES",
+    "albert_config_from_hf", "albert_params_from_hf",
+    "BLOOM_RULES", "MIXTRAL_RULES", "LLAMA_RULES", "ALBERT_RULES",
 ]

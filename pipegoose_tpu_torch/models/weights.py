@@ -19,6 +19,9 @@ leaf by its spec and the current context's coordinates first
 (``nn.parallel.shard_tree``); ``nn.parallel.unshard_tree`` of the result,
 through :func:`params_to_jax`, gives the whole tree back.
 
+ALBERT's tree (``embed``, ``map_in``, ``layer``, ``mlm``) has no stacked
+leaf: its one shared ``layer`` converts leaf for leaf, as do its specs.
+
 A BLOOM-MoE tree (``blocks/moe/{up,down}`` stacked (L, E, ...), and
 ``blocks/router/gate/kernel``, no ``mlp``) converts the same way; with
 ``specs=bloom_moe.moe_specs(np_tree)`` each rank converts only its experts
@@ -72,9 +75,11 @@ def params_from_jax(np_tree: dict, config, device="cuda", specs: Optional[Any] =
                     ctx=None, stage_layer_counts=None, pipe_axis: str = "pipe") -> dict:
     """The tree's own top-level keys (BLOOM's ``{"embed", "embed_ln",
     "blocks", "ln_f"}``, Llama's and Mixtral's ``{"embed", "blocks",
-    "ln_f"[, "lm_head"]}``) with every leaf a tensor of ``config.dtype`` on
-    ``device``; ``"blocks"`` becomes a list of
-    ``config.n_layer`` per-layer dicts with the same keys as the JAX
+    "ln_f"[, "lm_head"]}``, ALBERT's ``{"embed", "map_in", "layer",
+    "mlm"}``) with every leaf a tensor of ``config.dtype`` on ``device``;
+    ``"blocks"``, where the tree has it, becomes a list of
+    ``config.n_layer`` per-layer dicts (ALBERT's shared ``"layer"`` has no
+    stacked dim and stays one dict) with the same keys as the JAX
     ``blocks`` subtree (a quantized leaf keeps its int8 ``q`` and float32
     ``scale``). No leaf requires grad; ``trainer.step.make_optimizer``
     turns them into trainable leaves. With ``specs`` (the JAX-layout spec
@@ -89,6 +94,13 @@ def params_from_jax(np_tree: dict, config, device="cuda", specs: Optional[Any] =
     ``stage_layer_counts[stage]`` of them, the stage being this rank's
     coordinate on ``pipe_axis``."""
     dev = resolve_device(device)
+    if "blocks" not in np_tree:   # ALBERT: one shared layer, nothing stacked
+        if specs is not None:
+            from pipegoose_tpu_torch.nn.parallel import shard_tree
+
+            np_tree = shard_tree(np_tree, specs, ctx)
+        return {key: _map(np_tree[key], lambda a: _to_tensor(a, config.dtype, dev))
+                for key in _top_keys(np_tree)}
     n_layer = config.n_layer
     if specs is not None:
         from pipegoose_tpu_torch.nn.parallel import shard_tree

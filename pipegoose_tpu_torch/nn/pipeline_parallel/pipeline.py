@@ -269,9 +269,10 @@ def one_f_one_b_loss(params: dict, stage_fn: Callable[..., Any],
                      head_fn: Callable[..., torch.Tensor], entry_keys: tuple,
                      head_keys: tuple, entry_fn: Callable[[dict], torch.Tensor],
                      side_inputs: Any, axis_name: str = "pipe",
-                     with_aux: bool = False) -> torch.Tensor:
-    """A model's 1F1B loss over ``params`` (a tree with ``"blocks"``, this
-    stage's): :func:`one_f_one_b` over the blocks, ``head_fn`` on the
+                     with_aux: bool = False, stage_key: str = "blocks") -> torch.Tensor:
+    """A model's 1F1B loss over ``params`` (a tree whose ``stage_key`` entry
+    holds this stage's parameters: ``"blocks"``, or ALBERT's shared
+    ``"layer"``): :func:`one_f_one_b` over them, ``head_fn`` on the
     ``head_keys`` leaves (the last stage), the entry's gradients through
     ``entry_fn({k: params[k] for k in entry_keys})`` (the pipeline-entry
     activations, read on the first stage) from the first stage's d_inputs;
@@ -285,7 +286,7 @@ def one_f_one_b_loss(params: dict, stage_fn: Callable[..., Any],
         h0 = entry_fn(entry)
         head = {k: params[k] for k in head_keys}
         loss, dh0, d_blocks, d_head = one_f_one_b(
-            stage_fn, params["blocks"], head_fn, head, h0.detach(), side_inputs,
+            stage_fn, params[stage_key], head_fn, head, h0.detach(), side_inputs,
             axis_name, with_aux=with_aux)
         grads = {}
 
@@ -294,7 +295,7 @@ def one_f_one_b_loss(params: dict, stage_fn: Callable[..., Any],
                 if g is not None:
                     grads[id(leaf)] = grads[id(leaf)] + g if id(leaf) in grads else g
 
-        add(tree_leaves(params["blocks"]) + tree_leaves(head), d_blocks + d_head)
+        add(tree_leaves(params[stage_key]) + tree_leaves(head), d_blocks + d_head)
         if axis_index(axis_name) == 0:
             leaves = tree_leaves(entry)
             add(leaves, torch.autograd.grad(h0, leaves, dh0, allow_unused=True))

@@ -12,7 +12,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 # the rank bodies that spawned gloo processes import by name
 RANK_BODIES = [ROOT / "tests" / "test_torch_moe_rank_bodies.py",
-               ROOT / "tests" / "test_torch_family_rank_bodies.py"]
+               ROOT / "tests" / "test_torch_family_rank_bodies.py",
+               ROOT / "tests" / "test_torch_albert_rank_bodies.py",
+               ROOT / "tests" / "test_torch_diloco_rank_bodies.py"]
 PORT_FILES = sorted((ROOT / "pipegoose_tpu_torch").rglob("*.py")) + RANK_BODIES + [
     ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("sweep_attn_*.py")) + sorted(
     (ROOT / "scripts").glob("sweep_fused_ce_*.py"))
@@ -63,6 +65,8 @@ def test_port_imports_without_jax_or_a_card():
         "from pipegoose_tpu_torch.models import bloom_moe, BloomMoEConfig\n"
         "from pipegoose_tpu_torch.models import llama, mixtral, from_hf\n"
         "import pipegoose_tpu_torch.models.convert, pipegoose_tpu_torch.models.hf\n"
+        "from pipegoose_tpu_torch.models import albert, AlbertConfig\n"
+        "from pipegoose_tpu_torch.optim import diloco, DiLoCo, DiLoCoHybrid\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (FORBIDDEN,)
     )

@@ -2,7 +2,9 @@
 the JAX package on the CPU.
 
 - A wrong world size raises, as does a context without a process group
-  or with DiLoCo (not ported).
+  or with a diloco size below 1; at diloco 2 x data 2 x tensor 2 the
+  DiLoCo groups equal the JAX mesh's (the body in
+  ``test_torch_diloco_rank_bodies.py``).
 - The rank layout: for (tp, pp, dp, sp) = (2, 1, 2, 2) and (1, 2, 1, 4),
   every mode's local rank, group and first/last flags of each of 8 gloo
   ranks equal the JAX context's mesh coordinates over 8 fake devices, and
@@ -29,6 +31,7 @@ from pipegoose_tpu.distributed import functional as jF
 from pipegoose_tpu.distributed.compat import shard_map
 from pipegoose_tpu_torch.distributed import ParallelContext
 from pipegoose_tpu_torch.testing.dist import run_ranks
+from test_torch_diloco_rank_bodies import diloco_layout_rank
 from test_torch_sp_ranks import GRAD_OPS, collectives_rank, layout_rank, wrong_world_size_rank
 
 SIZES = [(2, 1, 2, 2), (1, 2, 1, 4)]   # (tp, pp, dp, sp), 8 ranks each
@@ -64,11 +67,33 @@ def test_context_raises_on_a_wrong_world_size():
         run_ranks(wrong_world_size_rank, 2)
 
 
-def test_context_needs_a_process_group_and_rejects_diloco():
+def test_context_needs_a_process_group_and_rejects_diloco(devices):
+    """Without a process group the context raises, as it does for a diloco
+    size below 1; at diloco 2 x data 2 x tensor 2 (DiLoCo's outermost
+    worker axis, ``optim.diloco``) every mode's local rank, group and
+    first/last flags of each of 8 gloo ranks equal the JAX mesh's, and an
+    all_reduce over each group sums exactly that group."""
     with pytest.raises(RuntimeError, match="no default process group"):
         ParallelContext(device="cpu")
-    with pytest.raises(NotImplementedError, match="DiLoCo"):
-        ParallelContext(diloco_parallel_size=2, device="cpu")
+    with pytest.raises(ValueError, match="diloco parallel size must be >= 1"):
+        ParallelContext(diloco_parallel_size=0, device="cpu")
+    port = run_ranks(diloco_layout_rank, 8, 2, 2, 2)
+    ctx = JaxContext(diloco_parallel_size=2, data_parallel_size=2, tensor_parallel_size=2,
+                     devices=devices[:8])
+    try:
+        for rank, dev in enumerate(ctx.mesh.devices.flat):
+            assert ctx.get_global_rank(dev) == rank
+            for mode in JaxMode:
+                local, group, total, first, last = port[rank][mode.value]
+                want_group = ctx.get_ranks_in_group(dev, mode)
+                assert local == ctx.get_local_rank(dev, mode), (rank, mode)
+                assert list(group) == want_group, (rank, mode)
+                assert total == sum(want_group), (rank, mode)
+                assert first == ctx.is_first_rank(dev, mode)
+                assert last == ctx.is_last_rank(dev, mode)
+        assert [int(r) for r in port[5]["diloco"][1]] == [1, 5]   # strided by 4
+    finally:
+        ctx.destroy()
 
 
 def _jax_collectives(world):
