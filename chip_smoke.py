@@ -88,10 +88,11 @@ Phases, each fatal on failure:
   3  the float32 engine on the card against the same engine on the CPU
      (a 320-token context, ``CARD_VS_CPU_CONTEXT``): identical greedy
      tokens, and agreeing finite logits;
-  4  timed bf16 serving runs (fp KV, then int8 KV): tokens/s, mean TTFT,
-     mean decode-step ms, and the kernel's launch count, which must be
-     n_layer x (decode steps + prefill chunks): the decode steps on the
-     FMA route, the chunks on the tensor-core route;
+  4  timed bf16 serving runs (fp KV, then int8 KV), each after a warm-up
+     run of the same workload with telemetry on (phase 34 checks it):
+     tokens/s, mean TTFT, mean decode-step ms, and the kernel's launch
+     count, which must be n_layer x (decode steps + prefill chunks): the
+     decode steps on the FMA route, the chunks on the tensor-core route;
   5  the kernel's time at phase 4's decode shape and at its chunk shape
      (B=1, C=128 from position 384) beside its bound, its plain version's
      time and SDPA's; then a bf16 bloom-560m prefill of 512 tokens in
@@ -403,7 +404,28 @@ Phases, each fatal on failure:
      momentum's and ZeRO state's bytes; then B1-B3 at ALBERT's shape (B*nh
      192, S 512, hd 64, bidirectional, padded keys) against their plain
      versions and timed beside their bound, plain version and SDPA with a
-     boolean key mask.
+     boolean key mask;
+ 34  the telemetry core (right after phase 28, on its context): (a) phase
+     4's warm-up runs, fp and int8 KV, through engines with an enabled
+     private registry, a FlightRecorder and the memory ledger: tokens and
+     launches by route equal the timed registry-off runs'; every counter,
+     end gauge (the ledger's bytes as pages) and histogram count, and the
+     ledger's per-tick pages, equal the port's CPU engine's on the same
+     requests (a 1-layer, width-32 model at bloom-560m's vocabulary: the
+     schedule does not depend on the weights); the ledger conserved on
+     every tick and its audit clean; a run forced to stall (a pool that
+     cannot admit) raises and its black box names the card; (b) phase
+     28 (b)'s 8 batches through a Trainer with TelemetryCallback(
+     flops_per_step=, hbm_every=1, fence=True), a FlightRecorder and
+     FailureDetector(recorder=): losses and params bit for bit phase 28
+     (b)'s, its launches per step, one train.step and one train.data span
+     sample a step, train.mfu the phase's MFU formula from the same step
+     time (1e-12 relative), train.hbm_bytes_in_use the allocator's in-use
+     bytes read at that point; (c) inside a CUDA-graph capture a counter
+     and a span record nothing, and ten replays add nothing; (d) the
+     serving decode tick (3 rounds of on, off, off, on, 4 ticks a turn)
+     and the Trainer step (one round, 2 steps a turn) with telemetry on
+     and off, each ratio with its range.
 
 Every phase's seconds are logged as "seconds: <phase> <s>".
 
@@ -411,7 +433,8 @@ The line before the last is a JSON object with every kernel's numbers
 (each row's ``trainer_launches``: its launches in phase 28 (b)'s timed
 fit; ``moe_launches``: in phase 31 (b)'s timed steps), phase 28's under
 ``trainer``, phase 30's under ``comm_pipeline``, phase 31's under
-``moe``, phase 32's under ``families`` and phase 33's under ``albert``;
+``moe``, phase 32's under ``families``, phase 33's under ``albert`` and
+phase 34's under ``telemetry``;
 the last line is
 {"ok": true, "device": {...}}. Without a card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -869,10 +892,13 @@ def phase4_requests(cfg):
 
 
 def phase4_timed_serving(np_tree, dev):
-    """Timed bf16 serving, fp then int8 KV. Returns the paged kernel's
-    launches by arm and route, and the fp arm's run (metrics, tokens,
-    memory report, quantized launches, decode profile) for phases 16 and
-    29, which time the same workload."""
+    """Timed bf16 serving, fp then int8 KV, each after a warm-up run of
+    the same workload with telemetry on (phase 34 (a) checks it). Returns
+    the paged kernel's launches by arm and route, and the fp arm's run
+    (metrics, tokens, memory report, quantized launches, decode profile)
+    for phases 16 and 29, which time the same workload, with phase 34's
+    telemetry runs under "telemetry" (the warm-ups, a stalled run, the
+    serving cost turns)."""
     from pipegoose_tpu_torch.models.bloom import BloomConfig
     from pipegoose_tpu_torch.models.weights import params_from_jax
     from pipegoose_tpu_torch.ops import paged_attention as pa
@@ -883,15 +909,19 @@ def phase4_timed_serving(np_tree, dev):
     log(f"phase 4: bloom-560m bf16, 12 requests, prompts 128-512 "
         f"(sum {sum(len(p) for p, _ in requests)}), 64 new tokens, 8 slots")
     launches = {}
+    tele = {"requests": requests}       # phase 34 (a) and (d) check these
     for kv in (None, "int8"):
         label = f"{kv or 'fp'} KV"
-        serve(params, cfg, requests, dev, num_slots=8, kv_dtype=kv)   # warm-up
+        # the warm-up, with telemetry on
+        tele[kv or "fp"] = phase34_instrumented_serve(params, cfg, requests, dev, kv)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         serving_counters_zero()
         eng, outs, m = serve(params, cfg, requests, dev, num_slots=8, kv_dtype=kv)
         launches[kv or "fp"] = {"all": pa.paged_attention.launches,
                                 **pa.paged_attention.routes}
+        tele[kv or "fp"].update(timed_tokens=[o.generated.tolist() for o in outs],
+                                timed_launches=dict(launches[kv or "fp"]))
         if kv is None:
             fp_arm = {"metrics": m, "tokens": [o.generated for o in outs],
                       "memory": eng.memory_report(),
@@ -916,6 +946,9 @@ def phase4_timed_serving(np_tree, dev):
         del eng
         if kv is None:
             fp_arm["profile"] = prof
+    tele["stall"] = phase34_stall(params, cfg, dev)
+    tele["cost"] = phase34_serving_cost(params, cfg, requests[:8], dev)
+    fp_arm["telemetry"] = tele
     return launches, fp_arm
 
 
@@ -934,8 +967,11 @@ def decode_profile(eng, requests, label, ticks=PROFILE_TICKS):
     while eng.sched.queue or any(r.status is Status.PREFILL
                                  for r in eng.sched.active()):
         eng.tick_once()
+    # device activity only: tracing every host op of a tick costs seconds a
+    # profile and adds to the wall it measures
     prof = profile_device(eng.tick_once, ticks,
-                          f"{label} decode tick (8 slots, profiled)", "tick", top=6)
+                          f"{label} decode tick (8 slots, profiled)", "tick", top=6,
+                          host=False)
     eng.finish_run()
     return prof
 
@@ -4113,7 +4149,7 @@ def trace_kernels(trace_dir) -> dict:
     return found
 
 
-def phase28b_timed_trainer(np_tree, dev, card, hybrid_run) -> dict:
+def phase28b_timed_trainer(np_tree, dev, card, hybrid_run, keep=None) -> dict:
     """(b) phase 26(b)'s step through ``Trainer.fit``: bf16 bloom-560m, 8 x
     1024 from the native token loader, remat + flash + fused CE, Adam 1e-4,
     a LossLoggerCallback; 2 warm-up and 6 timed steps (fit wall / steps),
@@ -4121,7 +4157,8 @@ def phase28b_timed_trainer(np_tree, dev, card, hybrid_run) -> dict:
     train state saved and restored into a fresh Trainer bit for bit, its
     seconds and bytes; the Chrome trace of one step through
     ``fit(profiler_trace_dir=)``; then the hand-called step and the Trainer
-    in turns."""
+    in turns. ``keep``, a dict, gets the 8 batches of the warm-up and timed
+    fits, their losses and the params after them (phase 34 (b))."""
     import shutil
 
     from pipegoose_tpu_torch.models.bloom import BloomConfig
@@ -4134,7 +4171,14 @@ def phase28b_timed_trainer(np_tree, dev, card, hybrid_run) -> dict:
     warm, timed, bs, seq = 2, 6, 8, 1024
     ds = token_dataset(os.path.join(TRAINER_WORK, "tokens_b.bin"), cfg.vocab_size, bs, seq,
                        128, SEED + 29)
-    it = iter(ds)
+    pulled = []
+
+    def recorded(source):
+        for batch in source:
+            pulled.append(batch)
+            yield batch
+
+    it = recorded(iter(ds))
     t = bloom_trainer(np_tree, cfg, 1e-4, dev, callbacks=[LossLoggerCallback(every=8)])
     log(f"phase 28 (b): bloom-560m bf16 through Trainer.fit, batch {bs} x {seq} from "
         f"TokenDataset (native route), remat, flash, fused CE, Adam 1e-4, {warm} warm-up + "
@@ -4154,6 +4198,8 @@ def phase28b_timed_trainer(np_tree, dev, card, hybrid_run) -> dict:
     tokens_per_s = bs * seq / (step_ms / 1e3)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(x) for x in st.losses]
+    if keep is not None:    # phase 34 (b) replays these batches with telemetry on
+        keep.update(batches=list(pulled), losses=list(losses), params=snapshot(t.params))
     hybrid_per = {k: n // 7 for k, n in hybrid_run["launches"].items()}
     log(f"  Trainer.fit step {step_ms} ms (fit wall / {timed} steps), {tokens_per_s} "
         f"tokens/s, peak {peak_gib:.2f} GiB; phase 26(b)'s hand-called step "
@@ -4241,11 +4287,11 @@ def phase28b_timed_trainer(np_tree, dev, card, hybrid_run) -> dict:
             "trace_bytes": trace_bytes, "trace_kernels": found}
 
 
-def phase28_trainer(np_tree, dev, card, hybrid_run) -> dict:
+def phase28_trainer(np_tree, dev, card, hybrid_run, keep=None) -> dict:
     os.makedirs(TRAINER_WORK, exist_ok=True)
     try:
         a = phase28a_trainer_vs_steps(np_tree, dev)
-        b = phase28b_timed_trainer(np_tree, dev, card, hybrid_run)
+        b = phase28b_timed_trainer(np_tree, dev, card, hybrid_run, keep)
     finally:
         import shutil
 
@@ -6440,6 +6486,471 @@ def phase33_albert_diloco(np_tree, dev, card) -> tuple:
     return out, rows
 
 
+# -- phase 34 ------------------------------------------------------------------
+
+# the black boxes phase 34's flight recorders write; deleted at the end of the run
+TELEMETRY_WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                              "chip_smoke_telemetry")
+TELEMETRY_TIME_VALUED = ("serving.tokens_per_s",)   # left out of the card-vs-CPU counts
+TELEMETRY_BYTES_GAUGES = "serving.memledger."         # bytes: compared as pages
+TELEMETRY_COST_TICKS = 4       # decode ticks a serving turn of (d)
+TELEMETRY_COST_ROUNDS = 3      # (d)'s serving rounds of turns (on, off, off, on)
+TELEMETRY_FIT_TURN = 2         # (d)'s Trainer steps a turn
+TELEMETRY_FIT_ROUNDS = 2       # (d)'s Trainer rounds of turns (on, off, off, on)
+TELEMETRY_HOST_CALLS = 500     # calls a turn of (d)'s timing of the host work alone
+TELEMETRY_MFU_RTOL = 1e-12     # the callback's MFU against the phase's formula
+# the CPU engine that predicts the card's host counts: the schedule depends
+# on the trace, the pool and the knobs, not on the weights (no eos, greedy)
+TELEMETRY_CPU_MODEL = dict(hidden_size=32, n_layer=1, n_head=4)
+
+
+def telemetry_counts(reg, bytes_per_page) -> dict:
+    """A registry's counters, its gauges at the end of the run (NaN, never
+    set, as None; the memory ledger's byte gauges in pages; time-valued
+    gauges left out) and its histograms' sample counts."""
+    snap = reg.snapshot()
+    gauges = {}
+    for k, v in snap["gauges"].items():
+        if k in TELEMETRY_TIME_VALUED:
+            continue
+        if v != v:
+            v = None
+        elif k.startswith(TELEMETRY_BYTES_GAUGES) and k.endswith("_bytes"):
+            v = v / bytes_per_page
+        gauges[k] = v
+    return {"counters": snap["counters"], "gauges": gauges,
+            "histograms": {k: h["count"] for k, h in snap["histograms"].items()}}
+
+
+def telemetry_engine(params, cfg, dev, kv, label):
+    """Phase 4's engine with telemetry on: an enabled private registry, a
+    FlightRecorder writing under TELEMETRY_WORK, and the memory ledger."""
+    from pipegoose_tpu_torch.telemetry import FlightRecorder, MetricsRegistry
+
+    reg = MetricsRegistry(enabled=True)
+    rec = FlightRecorder(os.path.join(TELEMETRY_WORK, label), capacity=1024)
+    eng = make_engine(params, cfg, dev, num_slots=8, kv_dtype=kv, registry=reg,
+                      recorder=rec, memledger=True)
+    return eng, reg, rec
+
+
+def telemetry_ledger(eng) -> dict:
+    """The run's memory-ledger verdicts: ticks, conservation failures (the
+    check runs on every tick), a fresh audit, the per-tick page samples."""
+    led = eng.memledger
+    audit = led.audit()
+    return {"ticks": led.ticks, "conservation_failures": led.conservation_failures,
+            "audit_ok": audit["ok"], "leaks": len(audit["leaks"]),
+            "double_owners": len(audit["double_owners"]),
+            "stranded": audit["stranded_reserved_pages"],
+            "bytes_per_page": led.bytes_per_page,
+            "samples": [{k: v for k, v in s.items() if k != "t"} for s in led.samples]}
+
+
+def phase34_instrumented_serve(params, cfg, requests, dev, kv) -> dict:
+    """Phase 4's warm-up run of one arm, instrumented (phase 34 (a) checks
+    it): every serving counter set to 0 just before and read just after."""
+    from pipegoose_tpu_torch.ops import paged_attention as pa
+
+    label = kv or "fp"
+    eng, reg, rec = telemetry_engine(params, cfg, dev, kv, f"serve_{label}")
+    serving_counters_zero()
+    outs, m = eng.run(as_requests(requests))
+    torch.cuda.synchronize()
+    out = {"tokens": [o.generated.tolist() for o in outs], "metrics": m,
+           "launches": {"all": pa.paged_attention.launches, **pa.paged_attention.routes},
+           "counts": telemetry_counts(reg, eng.memledger.bytes_per_page),
+           "ledger": telemetry_ledger(eng), "records": len(rec.records),
+           "dumps": list(rec.dumps), "memory": m["memory"]}
+    del eng
+    return out
+
+
+def phase34_stall(params, cfg, dev) -> dict:
+    """A run forced to stall: a 3-page pool, two pages held outside any
+    request, a head whose worst case needs two. The watchdog must raise
+    after ``stall_patience`` ticks, naming the black box it wrote."""
+    from pipegoose_tpu_torch.telemetry import FlightRecorder
+
+    rec = FlightRecorder(os.path.join(TELEMETRY_WORK, "stall"))
+    eng = make_engine(params, cfg, dev, num_slots=2, num_pages=4, max_context=64,
+                      prefill_chunk=16, stall_patience=3, recorder=rec)
+    eng.pool.alloc(2)
+    prompt = np.arange(1, 21)
+    try:
+        eng.run(as_requests([(prompt, 4)]))
+    except RuntimeError as e:
+        err = str(e)
+    else:
+        raise AssertionError("phase 34 (a): the stalled run did not raise")
+    if not rec.dumps or rec.dumps[-1] not in err:
+        raise AssertionError(f"phase 34 (a): the stall names no black box: {err}")
+    with open(rec.dumps[-1]) as f:
+        box = json.load(f)
+    return {"error": err, "path": rec.dumps[-1], "trigger": box["trigger"]["name"],
+            "environment": box["environment"], "context": box["context"]}
+
+
+def phase34_serving_cost(params, cfg, requests, dev) -> dict:
+    """(d) for serving: one fp-KV engine fills its 8 slots, then runs decode
+    ticks with telemetry on (registry enabled, the recorder, a freshly bound
+    memory ledger) and off (registry disabled, no recorder, no ledger) in
+    turns, on, off, off, on, TELEMETRY_COST_TICKS ticks a turn, for
+    TELEMETRY_COST_ROUNDS rounds. Returns each turn's ms a tick and each
+    round's on / off ratio. Then the telemetry's host work a tick alone, in
+    the same turns of TELEMETRY_HOST_CALLS calls: the decode step's span,
+    ``_observe_step`` and ``_ledger_tick`` over the live decoding slots."""
+    from pipegoose_tpu_torch.serving import Status
+    from pipegoose_tpu_torch.telemetry import MemoryLedger, span
+
+    def telemetry_on(on):
+        if on:
+            reg.enable()
+            eng.recorder = rec
+            eng.attach_memledger(MemoryLedger())
+        else:
+            reg.disable()
+            eng.recorder = None
+            eng.attach_memledger(None)
+
+    eng, reg, rec = telemetry_engine(params, cfg, dev, None, "cost")
+    eng.start_run(as_requests(requests))
+    while eng.sched.queue or any(r.status is Status.PREFILL for r in eng.sched.active()):
+        eng.tick_once()
+    turns = {"on": [], "off": []}
+    ratios = []
+    failures = 0
+    for _ in range(TELEMETRY_COST_ROUNDS):
+        got = {"on": [], "off": []}
+        for name in ("on", "off", "off", "on"):
+            if eng.memledger is not None:
+                failures += eng.memledger.conservation_failures
+            telemetry_on(name == "on")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TELEMETRY_COST_TICKS):
+                eng.tick_once()
+            torch.cuda.synchronize()
+            got[name].append((time.perf_counter() - t0) * 1e3 / TELEMETRY_COST_TICKS)
+        ratios.append(sum(got["on"]) / sum(got["off"]))
+        for k in turns:
+            turns[k] += got[k]
+    rs = eng._run
+    active = [r for r in eng.sched.active() if r.status is Status.DECODE]
+    if not active:
+        raise AssertionError("phase 34 (d): no decoding slot left to time the host work on")
+    host = {"on": [], "off": []}
+    for name in ("on", "off", "off", "on"):
+        if eng.memledger is not None:
+            failures += eng.memledger.conservation_failures
+        telemetry_on(name == "on")
+        t0 = time.perf_counter()
+        for _ in range(TELEMETRY_HOST_CALLS):
+            with span("serving.decode_step", registry=eng.registry):
+                pass
+            eng._observe_step(rs, active, len(active), 0.0)
+            eng._ledger_tick(rs)
+        host[name].append((time.perf_counter() - t0) * 1e6 / TELEMETRY_HOST_CALLS)
+    failures += eng.memledger.conservation_failures
+    eng.attach_memledger(None)
+    eng.finish_run()
+    del eng
+    return {"turns_ms": turns, "round_ratios": ratios, "ledger_failures": failures,
+            "host_us": host, "host_slots": len(active)}
+
+
+def phase34_cpu_counts(requests, kv) -> dict:
+    """The port's CPU engine on phase 4's requests with the same knobs and
+    telemetry, over TELEMETRY_CPU_MODEL at bloom-560m's vocabulary: its
+    host counts are the card's prediction."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig, init_params_numpy
+    from pipegoose_tpu_torch.models.weights import params_from_jax
+
+    cfg = BloomConfig(vocab_size=250880, **TELEMETRY_CPU_MODEL)
+    params = params_from_jax(init_params_numpy(cfg, seed=SEED), cfg, device="cpu")
+    eng, reg, rec = telemetry_engine(params, cfg, "cpu", kv, f"cpu_{kv or 'fp'}")
+    outs, m = eng.run(as_requests(requests))
+    return {"metrics": m, "counts": telemetry_counts(reg, eng.memledger.bytes_per_page),
+            "ledger": telemetry_ledger(eng), "records": len(rec.records)}
+
+
+def phase34a_serving(card, tele) -> dict:
+    """(a) phase 4's two warm-up runs, instrumented: tokens and launches by
+    route equal the timed (registry-off) runs'; every counter, end gauge and
+    histogram count equal the CPU engine's; the ledger conserved every
+    tick, its audit clean; the stall's black box naming the card."""
+    requests = tele["requests"]
+    out = {}
+    for kv in ("fp", "int8"):
+        arm = tele[kv]
+        label = f"phase 34 (a) {kv} KV"
+        t0 = time.perf_counter()
+        cpu = phase34_cpu_counts(requests, None if kv == "fp" else "int8")
+        log(f"  {label}: cpu engine {time.perf_counter() - t0:.1f} s")
+        same_tokens = arm["tokens"] == arm["timed_tokens"]
+        log(f"  {label}: tokens equal the registry-off engine's: {same_tokens}; launches "
+            f"{arm['launches']} vs phase 4's {arm['timed_launches']}")
+        if not same_tokens:
+            raise AssertionError(f"{label}: telemetry changed the tokens")
+        if arm["launches"] != arm["timed_launches"]:
+            raise AssertionError(f"{label}: telemetry changed the kernel launches")
+        got, want = arm["counts"], cpu["counts"]
+        log(f"  {label}: counters {got['counters']}")
+        log(f"  {label}: end gauges {got['gauges']}")
+        log(f"  {label}: histogram counts {got['histograms']}")
+        for part in ("counters", "gauges", "histograms"):
+            if got[part] != want[part]:
+                diff = {k: (got[part].get(k), want[part].get(k))
+                        for k in set(got[part]) | set(want[part])
+                        if got[part].get(k) != want[part].get(k)}
+                raise AssertionError(f"{label}: {part} differ from the CPU engine's: {diff}")
+        led, cled = arm["ledger"], cpu["ledger"]
+        log(f"  {label}: ledger {led['ticks']} ticks, {led['conservation_failures']} "
+            f"conservation failures, audit ok {led['audit_ok']} (leaks {led['leaks']}, "
+            f"double owners {led['double_owners']}, stranded {led['stranded']}), "
+            f"{led['bytes_per_page']} bytes a page, run summary {arm['memory']}")
+        if led["conservation_failures"] or not led["ticks"] or not led["audit_ok"]:
+            raise AssertionError(f"{label}: the memory ledger broke conservation or leaked")
+        if led["samples"] != cled["samples"] or led["ticks"] != cled["ticks"]:
+            raise AssertionError(f"{label}: the ledger's per-tick pages differ from the CPU's")
+        if arm["records"] != arm["metrics"]["decode_steps"] or arm["dumps"]:
+            raise AssertionError(f"{label}: the recorder kept {arm['records']} records for "
+                                 f"{arm['metrics']['decode_steps']} steps, dumps {arm['dumps']}")
+        out[kv] = {"counts": got, "ledger_ticks": led["ticks"], "memory": arm["memory"],
+                   "bytes_per_page": led["bytes_per_page"]}
+    stall = tele["stall"]
+    name = torch.cuda.get_device_name(0)
+    log(f"  phase 34 (a) stall: {stall['error']}")
+    log(f"  phase 34 (a) stall black box: trigger {stall['trigger']}, environment "
+        f"{stall['environment']}, context {stall['context']}")
+    if stall["trigger"] != "decode_stall" or stall["environment"].get("device_name") != name:
+        raise AssertionError("phase 34 (a): the stall's black box does not name the card")
+    out["stall"] = {"trigger": stall["trigger"], "device_name": name}
+    return out
+
+
+def phase34b_trainer(np_tree, dev, card, keep) -> dict:
+    """(b) phase 28 (b)'s first 8 batches through a fresh Trainer with
+    TelemetryCallback(flops_per_step=, hbm_every=1, fence=True) on the
+    global registry, a FlightRecorder and FailureDetector(recorder=):
+    losses and params bit for bit phase 28 (b)'s, launches per step its
+    own, one train.step and one train.data span sample a step, train.mfu
+    the phase's MFU formula from the same step time, train.hbm_bytes_in_use
+    the allocator's in-use bytes read at that point; then (d): the unfenced
+    step with the registry on and off in turns, and its host work alone."""
+    from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.telemetry import (FlightRecorder, TelemetryCallback,
+                                               get_registry, span)
+    from pipegoose_tpu_torch.telemetry.derived import hbm_utilization
+    from pipegoose_tpu_torch.nn.parallel import tree_leaves
+    from pipegoose_tpu_torch.trainer import Callback, FailureDetector, LossLoggerCallback
+
+    class HbmProbe(Callback):
+        """After TelemetryCallback (order 5): the allocator's in-use bytes
+        at the point the callback set its gauge."""
+
+        order = 6
+
+        def __init__(self):
+            self.pairs = []
+
+        def on_step_end(self, trainer, step, loss):
+            self.pairs.append((reg.gauge("train.hbm_bytes_in_use").value,
+                               float(torch.cuda.memory_allocated(dev))))
+
+    cfg = BloomConfig.bloom_560m(dtype=torch.bfloat16, remat=True, use_flash=True,
+                                 fused_ce=True)
+    per = per_step_launches(cfg)
+    batches = keep["batches"]
+    bs, seq = batches[0].shape
+    n_params = sum(int(np.size(a)) for a in tree_leaves(np_tree))
+    flops_per_token = 6 * n_params + 12 * cfg.n_layer * cfg.hidden_size * seq
+    reg = get_registry()
+    reg.clear()
+    reg.disable()
+    events = []
+    reg.attach(events.append)
+    rec = FlightRecorder(os.path.join(TELEMETRY_WORK, "train"))
+    probe = HbmProbe()
+    tele_cbs = [TelemetryCallback(flops_per_step=bs * seq * flops_per_token, hbm_every=1,
+                                  fence=True), rec, FailureDetector(recorder=rec), probe]
+    logger_cb = LossLoggerCallback(every=8)
+    t = bloom_trainer(np_tree, cfg, 1e-4, dev, callbacks=[logger_cb, *tele_cbs])
+    log(f"phase 34 (b): phase 28 (b)'s {len(batches)} batches ({bs} x {seq}) through a "
+        f"Trainer with TelemetryCallback(flops_per_step, hbm_every=1, fence=True), a "
+        f"FlightRecorder and FailureDetector(recorder=), on {card}")
+    counters_zero()
+    st = t.fit(list(batches))
+    torch.cuda.synchronize()
+    counts = counters_read()
+    losses = [float(x) for x in st.losses]
+    same_losses = losses == keep["losses"]
+    same_params = same_tensors(t.params, keep["params"])
+    snap = reg.snapshot()
+    hists = {k: h["count"] for k, h in snap["histograms"].items()}
+    steps = [e for e in events if e["kind"] == "train.step"]
+    mfu_err = max(abs(e["mfu"] - bs * seq / e["dur_s"] * flops_per_token / BF16_FLOPS_PER_S)
+                  / e["mfu"] for e in steps)
+    hbm_equal = all(a == b for a, b in probe.pairs)
+    log(f"  losses {losses}; equal bit for bit to phase 28 (b)'s: {same_losses}; params "
+        f"equal bit for bit: {same_params}")
+    log(f"  launches over {len(batches)} steps {counts}, per step {per}")
+    log(f"  histogram counts {hists}; counters {snap['counters']}")
+    log(f"  train.mfu per step {[e['mfu'] for e in steps]} (flops a step {bs * seq * flops_per_token},"
+        f" peak {BF16_FLOPS_PER_S}): worst relative gap to the phase's formula {mfu_err} "
+        f"(rtol {TELEMETRY_MFU_RTOL})")
+    log(f"  train.hbm_bytes_in_use vs the allocator's in-use bytes at that point: "
+        f"{probe.pairs[:3]} ... equal every step: {hbm_equal}")
+    log(f"  recorder: {len(rec.records)} records, dumps {rec.dumps}")
+    if not (same_losses and same_params):
+        raise AssertionError("phase 34 (b): telemetry changed the losses or params")
+    if counts != {k: len(batches) * n for k, n in per.items()}:
+        raise AssertionError("phase 34 (b): the launches differ from phase 28 (b)'s per step")
+    if (hists.get("span.train.step.seconds") != len(batches)
+            or hists.get("span.train.data.seconds") != len(batches)
+            or hists.get("train.step_seconds") != len(batches)):
+        raise AssertionError(f"phase 34 (b): the fit's spans are not one sample a step: {hists}")
+    if len(steps) != len(batches) or mfu_err > TELEMETRY_MFU_RTOL:
+        raise AssertionError("phase 34 (b): train.mfu is not the phase's MFU formula")
+    if len(probe.pairs) != len(batches) or not hbm_equal:
+        raise AssertionError("phase 34 (b): train.hbm_bytes_in_use is not the allocator's")
+    if len(rec.records) != len(batches) or rec.dumps:
+        raise AssertionError("phase 34 (b): the recorder's ring or a stray trigger is off")
+
+    # (d): the step with the registry on and off, in turns (on, off, off, on),
+    # unfenced: on, the fit's spans and a TelemetryCallback(fence=False); off,
+    # neither. The recorder reads the loss every step by design and stays out.
+    turn = list(batches[:TELEMETRY_FIT_TURN])
+    tele_cb = TelemetryCallback(flops_per_step=bs * seq * flops_per_token, hbm_every=1)
+    arms = {"on": [logger_cb, tele_cb], "off": [logger_cb]}
+    turns = {"on": [], "off": []}
+    for name in ("on", "off", "off", "on") * TELEMETRY_FIT_ROUNDS:
+        if name == "on":
+            reg.enable()
+        else:
+            reg.disable()
+        t.callbacks = arms[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.fit(turn)
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - t0) * 1e3 / len(turn))
+    ratio = sum(turns["on"]) / sum(turns["off"])
+    pairs = [a / b for a, b in zip(turns["on"], turns["off"])]
+    log(f"  (d) Trainer step with the registry on / off in turns ({TELEMETRY_FIT_TURN} steps a "
+        f"turn, {TELEMETRY_FIT_ROUNDS} rounds, unfenced, wall): on {turns['on']} ms, off "
+        f"{turns['off']} ms; ratio {ratio:.4f} (turn pairs {min(pairs):.4f}-{max(pairs):.4f}) "
+        f"on {card}")
+    # the same host work alone: the two spans and the callback's hooks a step
+    # (on), the two disabled spans (off)
+    loss = torch.zeros((), device=dev)
+    host = {"on": [], "off": []}
+    for name in ("on", "off", "off", "on"):
+        if name == "on":
+            reg.enable()
+        else:
+            reg.disable()
+        cbs = arms[name][1:]
+        t0 = time.perf_counter()
+        for i in range(TELEMETRY_HOST_CALLS):
+            with span("train.data"):
+                pass
+            for cb in cbs:
+                cb.on_step_start(t, i)
+            with span("train.step"):
+                pass
+            for cb in cbs:
+                cb.on_step_end(t, i + 1, loss)
+        host[name].append((time.perf_counter() - t0) * 1e6 / TELEMETRY_HOST_CALLS)
+    t0 = time.perf_counter()
+    for _ in range(TELEMETRY_HOST_CALLS):
+        hbm_utilization(dev)
+    host["hbm_utilization"] = (time.perf_counter() - t0) * 1e6 / TELEMETRY_HOST_CALLS
+    log(f"  (d) Trainer host work a step alone (the two spans and TelemetryCallback's hooks; "
+        f"{TELEMETRY_HOST_CALLS} calls a turn, on, off, off, on): on {host['on']} us, off "
+        f"{host['off']} us; on - off {np.median(host['on']) - np.median(host['off']):.2f} us a step, "
+        f"of it the allocator read (hbm_every=1) {host['hbm_utilization']:.2f} us on {card}")
+    reg.disable()
+    reg.clear()
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "launches": counts, "histograms": hists,
+            "mfu": [e["mfu"] for e in steps], "mfu_rel_err": mfu_err,
+            "hbm_bytes_in_use": [a for a, _ in probe.pairs],
+            "cost": {"turns_ms": turns, "ratio": ratio, "pair_range": [min(pairs), max(pairs)],
+                     "host_us": host}}
+
+
+def phase34c_capture(dev) -> dict:
+    """(c) inside a ``torch.cuda.graph`` capture a counter's ``inc`` and a
+    ``span`` record nothing, and ten replays add nothing."""
+    from pipegoose_tpu_torch.telemetry import MetricsRegistry, span
+
+    reg = MetricsRegistry(enabled=True)
+    c = reg.counter("captured.calls")
+    x = torch.ones(1 << 16, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):         # warm-up off the capture stream
+        y = x * 2
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        c.inc()
+        with span("captured", registry=reg) as sp:
+            y = x * 2 + 1
+            sp.fence(y)
+    for _ in range(10):
+        graph.replay()
+    torch.cuda.synchronize()
+    hists = reg.snapshot()["histograms"]
+    c.inc()
+    out = {"counter_after_capture_and_replays": c.value - 1.0,
+           "span_samples": hists.get("span.captured.seconds", {}).get("count", 0),
+           "replayed_sum": float(y.sum())}
+    log(f"  phase 34 (c): inside a CUDA-graph capture and 10 replays: {out}; a counter "
+        f"outside a capture counts (1 increment -> {c.value})")
+    if out["counter_after_capture_and_replays"] or out["span_samples"] or c.value != 1.0:
+        raise AssertionError("phase 34 (c): a capture recorded telemetry")
+    if out["replayed_sum"] != 3.0 * x.numel():
+        raise AssertionError("phase 34 (c): the captured work did not replay")
+    return out
+
+
+def phase34_telemetry(np_tree, dev, card, tele, keep) -> dict:
+    """Phase 34: the telemetry core on the card, (a) serving, (b) training,
+    (c) a capture, (d) the cost of instrumenting each path."""
+    import shutil
+
+    try:
+        log(f"phase 34: the telemetry core on {card}: (a) phase 4's engines with an enabled "
+            f"registry, a FlightRecorder and the memory ledger; (b) phase 28 (b)'s Trainer "
+            f"with TelemetryCallback, a FlightRecorder and FailureDetector(recorder=); (c) a "
+            f"CUDA-graph capture; (d) each path on and off in turns")
+        a = phase34a_serving(card, tele)
+        cost = tele["cost"]
+        log(f"  (d) serving decode tick with telemetry on / off in turns "
+            f"({TELEMETRY_COST_TICKS} ticks a turn, {TELEMETRY_COST_ROUNDS} rounds, wall): "
+            f"on {cost['turns_ms']['on']} ms, off {cost['turns_ms']['off']} ms; round "
+            f"ratios {cost['round_ratios']} (range {min(cost['round_ratios']):.4f}-"
+            f"{max(cost['round_ratios']):.4f}) on {card}")
+        host = cost["host_us"]
+        log(f"  (d) serving host work a tick alone (the decode step's span, _observe_step, "
+            f"_ledger_tick; {cost['host_slots']} slots, {TELEMETRY_HOST_CALLS} calls a turn, "
+            f"on, off, off, on): on {host['on']} us, off {host['off']} us; on - off "
+            f"{np.median(host['on']) - np.median(host['off']):.2f} us a tick on {card}")
+        if cost["ledger_failures"]:
+            raise AssertionError("phase 34 (d): the re-bound ledgers broke conservation")
+        b = phase34b_trainer(np_tree, dev, card, keep)
+        c = phase34c_capture(dev)
+    finally:
+        shutil.rmtree(TELEMETRY_WORK, ignore_errors=True)
+    return {"a": a, "b": b, "c": c, "serving_cost": {
+        "turns_ms": cost["turns_ms"], "round_ratios": cost["round_ratios"],
+        "host_us": cost["host_us"]}}
+
+
 def main(argv) -> int:
     import argparse
 
@@ -6530,8 +7041,12 @@ def main(argv) -> int:
         phase26_hybrid_vs_train_step(np_tree, dev)
         hybrid_run = phase26_timed_hybrid(np_tree, dev, card, fused_runs["flash+fusedce"])
         lap("phase 26")
-        trainer = phase28_trainer(np_tree, dev, card, hybrid_run)
+        trainer_keep = {}
+        trainer = phase28_trainer(np_tree, dev, card, hybrid_run, trainer_keep)
         lap("phase 28")
+        telemetry = phase34_telemetry(np_tree, dev, card, fp_arm["telemetry"], trainer_keep)
+        del trainer_keep
+        lap("phase 34")
         rows += phase29_tp_serving(np_tree, dev, card, fp_arm)
         lap("phase 29")
         comm_pipeline = phase30_comm_pipeline(np_tree, dev, card, hybrid_run)
@@ -6559,7 +7074,8 @@ def main(argv) -> int:
         row["trainer_launches"] = trainer_launches(row, trainer["b"])
         row["moe_launches"] = trainer_launches(row, {**moe["b"], "layouts": {}})
     print(json.dumps({"kernels": rows, "trainer": trainer, "comm_pipeline": comm_pipeline,
-                      "moe": moe, "families": families, "albert": albert}))
+                      "moe": moe, "families": families, "albert": albert,
+                      "telemetry": telemetry}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

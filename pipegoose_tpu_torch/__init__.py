@@ -18,7 +18,10 @@ the hybrid tensor x data parallel step with a ZeRO-1 optimizer and
 gradient accumulation (``parallel.make_hybrid_train_step``,
 ``optim.DistributedOptimizer``; the tensor-parallel layers of
 ``nn/tensor_parallel``, each rank's flash and fused cross-entropy kernels
-on its heads and vocabulary shard).
+on its heads and vocabulary shard); and the host-side telemetry core
+(``telemetry``: registry, spans, exporters, SLOs, the flight recorder, the
+serving memory ledger, ``TelemetryCallback``) wired into the engine, the
+Trainer and recovery.
 Entry points run on the card unless called with
 ``device="cpu"``; nothing here builds a kernel or touches a card at
 import time.

@@ -7,7 +7,10 @@ so the port's sampled tokens follow the same distribution, not the same
 sequence (ROADMAP.md § C). Under a tensor axis the logits are vocab
 shards: :func:`global_greedy_pick` is the greedy pick over them and
 :func:`autoregressive_generate_sharded` the loop of
-``models.generate.generate_tp``."""
+``models.generate.generate_tp``. The loops open the JAX loops' telemetry
+spans (``generate.prefill`` and ``generate.decode``, or one
+``generate.sharded``), each fenced on its tokens so its wall time covers
+the card's work; no-ops while the registry is disabled."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -16,6 +19,7 @@ import torch
 
 from pipegoose_tpu_torch.distributed.functional import all_gather, axis_index, axis_size
 from pipegoose_tpu_torch.models.bloom import NEG_INF
+from pipegoose_tpu_torch.telemetry.spans import span
 
 
 def vocab_mask_for(config) -> Optional[Callable]:
@@ -81,8 +85,7 @@ def autoregressive_generate(forward_cached: Callable, init_cache: Callable,
     returns (logits, cache); ``init_cache(config, batch, max_len,
     device=)`` the empty cache. ``temperature > 0`` samples each token with
     :func:`sample_token` from ``generator`` (one on the ids' device seeded
-    0 when None). The JAX loop's jit cache and telemetry spans have no
-    counterpart."""
+    0 when None). The JAX loop's jit cache has no counterpart."""
     if max_new_tokens <= 0:
         return input_ids
     if temperature > 0.0 and generator is None:
@@ -102,15 +105,21 @@ def autoregressive_generate(forward_cached: Callable, init_cache: Callable,
             return forward_cached(params, ids, cache, pos, config)
         return forward_cached(params, ids, cache, pos, config, extras=extras)
 
-    logits, cache = fwd(input_ids, cache, 0)
-    tok = pick(logits)
+    with span("generate.prefill", attrs={"prompt_len": s, "batch": b}) as sp:
+        logits, cache = fwd(input_ids, cache, 0)
+        tok = pick(logits)
+        sp.fence(tok)
     done = tok == eos
     out = [tok]
-    for pos in range(s, s + max_new_tokens - 1):
-        logits, cache = fwd(tok[:, None], cache, pos)
-        tok = torch.where(done, eos, pick(logits))
-        done = done | (tok == eos)
-        out.append(tok)
+    if max_new_tokens > 1:
+        with span("generate.decode",
+                  attrs={"new_tokens": max_new_tokens, "batch": b}) as sp:
+            for pos in range(s, s + max_new_tokens - 1):
+                logits, cache = fwd(tok[:, None], cache, pos)
+                tok = torch.where(done, eos, pick(logits))
+                done = done | (tok == eos)
+                out.append(tok)
+            sp.fence(tok)
     return torch.cat([input_ids, torch.stack(out, dim=1).to(input_ids.dtype)], dim=1)
 
 
@@ -168,13 +177,19 @@ def autoregressive_generate_sharded(forward_cached: Callable, init_cache: Callab
             return forward_cached(params, ids, cache, pos, config, tp_axis)
         return forward_cached(params, ids, cache, pos, config, tp_axis, extras=extras)
 
-    logits, cache = fwd(input_ids, cache, 0)
-    tok = global_greedy_pick(logits, tp_axis, valid)
-    done = tok == eos
-    out = [tok]
-    for pos in range(s, s + max_new_tokens - 1):
-        logits, cache = fwd(tok[:, None], cache, pos)
-        tok = torch.where(done, eos, global_greedy_pick(logits, tp_axis, valid))
-        done = done | (tok == eos)
-        out.append(tok)
+    # prefill and decode under one span, as the JAX loop runs them as one
+    # program
+    with span("generate.sharded",
+              attrs={"prompt_len": s, "new_tokens": max_new_tokens,
+                     "batch": b, "tp": tp}) as sp:
+        logits, cache = fwd(input_ids, cache, 0)
+        tok = global_greedy_pick(logits, tp_axis, valid)
+        done = tok == eos
+        out = [tok]
+        for pos in range(s, s + max_new_tokens - 1):
+            logits, cache = fwd(tok[:, None], cache, pos)
+            tok = torch.where(done, eos, global_greedy_pick(logits, tp_axis, valid))
+            done = done | (tok == eos)
+            out.append(tok)
+        sp.fence(tok)
     return torch.cat([input_ids, torch.stack(out, dim=1).to(input_ids.dtype)], dim=1)

@@ -15,9 +15,12 @@ optimizer's reduce-scatter, inner update and all-gather.
 (``distributed.compressed``): inside the ZeRO-1 optimizer, or with an
 unsharded optimizer as a compressed mean all-reduce over the loss axes.
 ``overlap_tp`` declares that the loss runs the ring collective-matmul path
-(``BloomConfig.overlap_tp``), whose gradients need no other sync. Not
-ported yet: the in-graph health statistics (``with_health``, ROADMAP.md
-queue A, item 13), which raise.
+(``BloomConfig.overlap_tp``), whose gradients need no other sync. Each
+built step exports the comm engine's configuration to the telemetry
+registry when it is enabled (``comm.overlap_enabled``,
+``comm.bytes_saved``, ``comm.grad_wire_bits``). Not ported yet: the
+in-graph health statistics (``with_health``, ROADMAP.md queue A, item
+A13b), which raise.
 """
 from __future__ import annotations
 
@@ -179,6 +182,54 @@ def _local_batch(batch: Any, batch_spec: Any, ctx: ParallelContext, device) -> A
     return _map_batch(local, batch)
 
 
+def _global_shape(p, spec, ctx) -> tuple:
+    """The unsharded shape of this rank's shard ``p`` under ``spec``."""
+    shape = list(p.shape)
+    for dim, entry in enumerate(spec or ()):
+        for ax in (entry if isinstance(entry, (tuple, list)) else (entry,)):
+            if ax is not None:
+                shape[dim] *= ctx.axis_size(ax)
+    return tuple(shape)
+
+
+def _set_comm_gauges(params, param_specs, ctx, optimizer, comm_mode: str,
+                     overlap_tp: bool, dp_axis: str) -> None:
+    """Export the comm engine's configuration and savings beside the MFU
+    gauges: ``comm.overlap_enabled`` (0/1), and for a compressed gradient
+    reduction the analytic per-step ``comm.bytes_saved`` of the whole
+    (unsharded) tree, as the JAX step counts its global arrays
+    (``distributed.compressed.grad_comm_bytes_saved``). One registry
+    branch when telemetry is disabled."""
+    from pipegoose_tpu_torch.telemetry.registry import get_registry
+
+    reg = get_registry()
+    if not reg.enabled:
+        return
+    reg.gauge(
+        "comm.overlap_enabled",
+        help="1 when the TP ring collective-matmul overlap path is on",
+    ).set(1.0 if overlap_tp else 0.0)
+    ax = getattr(optimizer, "axis_name", None) or dp_axis
+    n = ctx.axis_size(ax) if ax in ctx.sizes else 1
+    # always write all three (the last build wins): an fp32 build after a
+    # quantized one must not leave stale savings on the exporters
+    saved = 0.0
+    if comm_mode != "fp32" and n > 1:
+        from pipegoose_tpu_torch.distributed.compressed import grad_comm_bytes_saved
+
+        whole = tree_map(lambda p, spec: torch.empty(_global_shape(p, spec, ctx),
+                                                     device="meta"),
+                         params, param_specs)
+        saved = float(grad_comm_bytes_saved(whole, n, comm_mode))
+    reg.gauge(
+        "comm.bytes_saved",
+        help="analytic per-step gradient-reduction wire bytes saved "
+             "vs fp32 by grad_comm compression",
+    ).set(saved)
+    reg.gauge("comm.grad_wire_bits").set(
+        {"fp32": 32.0, "bf16": 16.0, "int8": 8.0}[comm_mode])
+
+
 def make_hybrid_train_step(loss_fn: Callable[..., torch.Tensor], param_specs: Any,
                            optimizer: DistributedOptimizer,
                            parallel_context: Optional[ParallelContext] = None,
@@ -212,7 +263,7 @@ def make_hybrid_train_step(loss_fn: Callable[..., torch.Tensor], param_specs: An
     if with_health:
         raise NotImplementedError(
             "with_health=True: the in-graph health statistics are not ported yet "
-            "(ROADMAP.md queue A, item 13)")
+            "(ROADMAP.md queue A, item 13, its half A13b)")
     ctx = parallel_context or ParallelContext.get_context()
     if ctx is None:
         raise ValueError("no ParallelContext; construct one first")
@@ -237,6 +288,8 @@ def make_hybrid_train_step(loss_fn: Callable[..., torch.Tensor], param_specs: An
         return optimizer.init(params)
 
     def make_step(params):
+        _set_comm_gauges(params, param_specs, ctx, optimizer, comm_mode, overlap_tp,
+                         loss_axes[0])
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)

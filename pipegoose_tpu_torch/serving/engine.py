@@ -57,10 +57,18 @@ scheduler; the clock is the one input that could differ, so every
 ``now()`` reading is rank 0's, broadcast over the axis, and shedding, TTFT
 and the run's metrics agree on every rank.
 
-Sampling, the fleet API (``submit_request``, ``take_finished``, faults),
-disaggregation, KV tiers and the telemetry hooks (registry, tracer, flight
-recorder, memory ledger) wait for later slices of the port (ROADMAP.md
-queue A).
+Telemetry (``telemetry/``): every run updates the engine's registry
+(``registry=``, the global one by default, disabled until enabled):
+request, token, prefill, chunk, step, shed, prefix-cache and speculative
+counters, TTFT, per-token, end-to-end and decode-gap histograms, occupancy
+gauges, and the ``serving.prefill`` / ``serving.decode_step`` spans, whose
+wall time covers the card's work (each ends with the token read). A
+``recorder=`` (``telemetry.FlightRecorder``) records every decode step and
+dumps a black box when the watchdog trips; ``memledger=True`` (or a
+``telemetry.MemoryLedger``) keeps a byte-exact account of the pool's pages,
+checked every tick. The request tracer waits for ROADMAP.md queue A, A13a
+split (2); sampling, the fleet API (``submit_request``, ``take_finished``,
+faults), disaggregation and KV tiers for A12.
 """
 from __future__ import annotations
 
@@ -100,6 +108,8 @@ from pipegoose_tpu_torch.serving.kv_pool import (
 )
 from pipegoose_tpu_torch.serving.prefix_cache import PrefixCache
 from pipegoose_tpu_torch.serving.scheduler import Request, Scheduler, Status
+from pipegoose_tpu_torch.telemetry.registry import get_registry
+from pipegoose_tpu_torch.telemetry.spans import span
 
 
 @dataclass
@@ -119,10 +129,11 @@ class RequestOutput:
 class _RunState:
     """Accumulators of one serving run (``start_run`` .. ``finish_run``)."""
 
-    def __init__(self, now, tick_hook):
+    def __init__(self, now, tick_hook, tok0=0.0):
         self.now = now
         self.tick_hook = tick_hook
         self.t0 = 0.0
+        self.tok0 = tok0                # serving.tokens_total at the start
         self.done: List[Request] = []
         self.tick = 0
         self.steps = 0                  # decode steps and speculative cycles
@@ -174,7 +185,10 @@ class ServingEngine:
     when None): ``params`` is then the WHOLE tree, the same on every rank,
     and each rank builds its own engine with the same arguments and runs
     the same requests. With ``param_specs=None`` the engine is the
-    single-device one, whatever ``tp_axis`` says."""
+    single-device one, whatever ``tp_axis`` says.
+
+    ``registry``, ``recorder`` and ``memledger`` are the telemetry hooks of
+    the module docstring."""
 
     def __init__(self, params, config, *, num_slots: int = 4,
                  num_pages: int = 64, page_size: int = 16,
@@ -185,7 +199,8 @@ class ServingEngine:
                  kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None,
                  weight_group_size: int = 32, param_specs=None,
-                 tp_axis: str = "tensor", parallel_context=None, device="cuda"):
+                 tp_axis: str = "tensor", parallel_context=None, device="cuda",
+                 registry=None, recorder=None, memledger=None):
         if max_context % page_size:
             raise ValueError("max_context must be a multiple of page_size")
         if stall_patience < 1:
@@ -257,6 +272,50 @@ class ServingEngine:
             device=self.device)
         self._mask_fn = vocab_mask_for(config)
         self._run: Optional[_RunState] = None
+        self.recorder = recorder
+        self.registry = registry if registry is not None else get_registry()
+        self._resolve_metrics()
+        # the memory ledger comes last: its bytes per page are measured
+        # from the live pool above
+        self.memledger = None
+        if memledger:
+            from pipegoose_tpu_torch.telemetry.memledger import MemoryLedger
+
+            self.attach_memledger(memledger if isinstance(memledger, MemoryLedger)
+                                  else MemoryLedger())
+
+    def _resolve_metrics(self) -> None:
+        """Resolve the metric handles once: inc / set / observe check the
+        enabled flag themselves, so a disabled registry costs one branch
+        per site in the hot loop (no lock, no name lookup)."""
+        reg = self.registry
+        self._m_tokens = reg.counter("serving.tokens_total")
+        self._m_requests = reg.counter("serving.requests_total")
+        self._m_shed = reg.counter("serving.shed_total")
+        self._m_prefills = reg.counter("serving.prefills_total")
+        self._m_steps = reg.counter("serving.decode_steps_total")
+        self._m_ttft = reg.histogram("serving.ttft_seconds")
+        self._m_tok_lat = reg.histogram("serving.decode_token_seconds")
+        self._m_e2e = reg.histogram("serving.e2e_latency_seconds")
+        self._m_queue = reg.gauge("serving.queue_depth")
+        self._m_active = reg.gauge("serving.slots_active")
+        self._m_slot_occ = reg.gauge("serving.slot_occupancy")
+        self._m_page_occ = reg.gauge("serving.page_occupancy")
+        self._m_tps = reg.gauge("serving.tokens_per_s")
+        self._m_hit_tok = reg.counter("serving.prefix_cache.hit_tokens")
+        self._m_miss_tok = reg.counter("serving.prefix_cache.miss_tokens")
+        self._m_shared = reg.counter("serving.prefix_cache.shared_pages")
+        self._m_cow = reg.counter("serving.prefix_cache.cow_copies")
+        self._m_cached = reg.gauge("serving.prefix_cache.cached_pages")
+        # pages leaf-first eviction could recover right now
+        self._m_evictable = reg.gauge("serving.prefix_cache.evictable_pages")
+        self._m_frag = reg.gauge("serving.pool.fragmentation")
+        self._m_prefill_tok = reg.counter("serving.prefill_tokens_total")
+        self._m_chunks = reg.counter("serving.prefill_chunks_total")
+        self._m_gap = reg.histogram("serving.decode_gap_seconds")
+        self._m_spec_cycles = reg.counter("serving.spec.cycles")
+        self._m_spec_draft = reg.counter("serving.spec.draft_tokens")
+        self._m_spec_acc = reg.counter("serving.spec.accepted_tokens")
 
     def _pick(self, logits: torch.Tensor) -> torch.Tensor:
         """The greedy pick of every forward: over the whole vocabulary, or
@@ -290,14 +349,29 @@ class ServingEngine:
         the source right after it."""
         if self.prefix_cache is not None:
             rs.hit_tokens += req.hit_tokens
+            # chunk-only engines have no cache: all-miss counters would
+            # read as a misconfigured cache
+            self._m_hit_tok.inc(req.hit_tokens)
+            self._m_miss_tok.inc(req.target_len - req.hit_tokens)
+            self._m_shared.inc(req.prefilled_len // self.page_size)
         if req.cow is not None:
             src, m = req.cow
             dst = req.pages[req.prefilled_len // self.page_size]
             copy_page(self.k_pages, self.v_pages, src, dst)
-            self.pool.release([src])   # the PrefixCache.acquire pin
+            self.pool.release([src], owner=("cow", req.uid))   # the acquire pin
             req.cow = None
             req.prefilled_len += m
             rs.cow_copies += 1
+            self._m_cow.inc()
+
+    def _observe_ttft(self, req: Request) -> None:
+        """TTFT into its histogram once per request: a preempted request
+        re-enters prefill with its first ``t_first_token`` kept."""
+        if (req.ttft_observed or req.t_first_token is None
+                or req.t_submit is None):
+            return
+        req.ttft_observed = True
+        self._m_ttft.observe(req.t_first_token - req.t_submit)
 
     def _prefill_chunk_tick(self, req: Request, rs: _RunState) -> None:
         """Advance one prefill chunk through the page tables. On reaching
@@ -317,13 +391,16 @@ class ServingEngine:
         ids[0, :n] = req.tokens[begin:end]
         table = np.zeros((1, self.table_width), np.int32)
         table[0, :len(req.pages)] = req.pages
-        logits = paged_prefill_chunk(
-            self.params, self._tensor(ids), self.k_pages, self.v_pages,
-            self._tensor(table), self._tensor([begin]), self._tensor([n]),
-            self.config, self.tp_axis)
-        tok = int(self._pick(logits)[0])                    # syncs the device
+        with span("serving.prefill", registry=self.registry):
+            logits = paged_prefill_chunk(
+                self.params, self._tensor(ids), self.k_pages, self.v_pages,
+                self._tensor(table), self._tensor([begin]), self._tensor([n]),
+                self.config, self.tp_axis)
+            tok = int(self._pick(logits)[0])        # syncs: span = card work
         req.prefilled_len = end
         rs.prefill_tokens += n
+        self._m_chunks.inc()
+        self._m_prefill_tok.inc(n)
         if end < target:
             return
         if self.prefix_cache is not None:
@@ -331,12 +408,16 @@ class ServingEngine:
             self.prefix_cache.insert(
                 np.asarray(req.prompt)[:n_full * self.page_size],
                 req.pages[:n_full])
+            self._m_cached.set(self.prefix_cache.cached_pages)
+        self._m_prefills.inc()
         if req.generated:
             # resumed after preemption: the last logits re-derive the
             # pending token (greedy); decode picks up where it left off
             req.status = Status.DECODE
             return
         self.sched.record_token(req, tok, rs.now())
+        self._m_tokens.inc()
+        self._observe_ttft(req)
 
     def _prefill_request(self, req: Request, rs: _RunState) -> None:
         """Monolithic prefill: forward the whole prompt through a
@@ -349,25 +430,30 @@ class ServingEngine:
                 "and/or prefill_chunk")
         s = req.prompt_len
         ps = self.pool.page_size
-        bucket = self.pool.pages_for(s) * ps
-        pad = bucket - s
-        ids = np.zeros((1, bucket), np.int32)
-        ids[0, pad:] = np.asarray(req.prompt, np.int32)
-        mask = np.zeros((1, bucket), np.int32)
-        mask[0, pad:] = 1
-        cache = init_cache(self.config, 1, bucket, self.tp, device=self.device)
-        logits, cache = forward_cached(self.params, self._tensor(ids), cache, 0,
-                                       self.config, self.tp_axis,
-                                       extras={"mask": self._tensor(mask)})
-        tok = self._pick(logits)
-        phys = np.zeros((self.table_width,), np.int32)
-        phys[:len(req.pages)] = req.pages
-        write_prompt_pages(self.k_pages, self.v_pages, cache,
-                           self._tensor(phys), pad, ps)
-        tok = int(tok[0])                                  # syncs the device
-        req.prefilled_len = s
-        rs.prefill_tokens += s
-        self.sched.record_token(req, tok, rs.now())
+        with span("serving.prefill", registry=self.registry):
+            bucket = self.pool.pages_for(s) * ps
+            pad = bucket - s
+            ids = np.zeros((1, bucket), np.int32)
+            ids[0, pad:] = np.asarray(req.prompt, np.int32)
+            mask = np.zeros((1, bucket), np.int32)
+            mask[0, pad:] = 1
+            cache = init_cache(self.config, 1, bucket, self.tp, device=self.device)
+            logits, cache = forward_cached(self.params, self._tensor(ids), cache, 0,
+                                           self.config, self.tp_axis,
+                                           extras={"mask": self._tensor(mask)})
+            tok = self._pick(logits)
+            phys = np.zeros((self.table_width,), np.int32)
+            phys[:len(req.pages)] = req.pages
+            write_prompt_pages(self.k_pages, self.v_pages, cache,
+                               self._tensor(phys), pad, ps)
+            tok = int(tok[0])                        # syncs: span = card work
+            req.prefilled_len = s
+            rs.prefill_tokens += s
+            self.sched.record_token(req, tok, rs.now())
+        self._m_prefill_tok.inc(s)
+        self._m_prefills.inc()
+        self._m_tokens.inc()  # the prefill's token
+        self._observe_ttft(req)
 
     def _decode_step(self, active: List[Request]) -> np.ndarray:
         """One decode step over the decoding slots; returns each slot's
@@ -379,10 +465,11 @@ class ServingEngine:
             table[req.slot, :len(req.pages)] = req.pages
             seq_lens[req.slot] = req.cached_len
             tokens[req.slot] = req.generated[-1]
-        logits = paged_decode_step(
-            self.params, self._tensor(tokens), self.k_pages, self.v_pages,
-            self._tensor(table), self._tensor(seq_lens), self.config, self.tp_axis)
-        return self._pick(logits).cpu().numpy()              # syncs
+        with span("serving.decode_step", registry=self.registry):
+            logits = paged_decode_step(
+                self.params, self._tensor(tokens), self.k_pages, self.v_pages,
+                self._tensor(table), self._tensor(seq_lens), self.config, self.tp_axis)
+            return self._pick(logits).cpu().numpy()          # syncs: span = card work
 
     def _spec_cycle(self, rows: List[Request], rs: _RunState):
         """One speculative cycle over the decoding slots: draft up to n
@@ -412,23 +499,26 @@ class ServingEngine:
             seq[r.slot] = r.cached_len
             tok0[r.slot] = r.generated[-1]
             g[r.slot] = min(n_spec, r.max_new_tokens - len(r.generated) - 1)
-        d_table, d_seq, d_tok0, d_g = (self._tensor(a) for a in (table, seq, tok0, g))
-        cur = d_tok0
-        drafts = []
-        for j in range(n_spec):
-            logits = paged_decode_step(
-                self.params, cur, self.k_pages, self.v_pages, d_table, d_seq + j,
-                self.config, self.tp_axis, write_ok=d_g > j, draft_layers=spec_k)
-            cur = self._pick(logits).to(torch.int32)
-            drafts.append(cur)
-        ids = torch.stack([d_tok0, *drafts], dim=1)
-        logits = paged_prefill_chunk(
-            self.params, ids, self.k_pages, self.v_pages, d_table, d_seq,
-            d_g + 1, self.config, self.tp_axis, all_logits=True)
-        b, c, _ = logits.shape
-        verified = self._pick(logits.reshape(b * c, -1)).reshape(b, c)
-        drafts = ids[:, 1:].cpu().numpy()
-        toks = verified.cpu().numpy()            # syncs the device
+        # the plain path's span: speculation must not make the decode-step
+        # stream vanish
+        with span("serving.decode_step", registry=self.registry):
+            d_table, d_seq, d_tok0, d_g = (self._tensor(a) for a in (table, seq, tok0, g))
+            cur = d_tok0
+            drafts = []
+            for j in range(n_spec):
+                logits = paged_decode_step(
+                    self.params, cur, self.k_pages, self.v_pages, d_table, d_seq + j,
+                    self.config, self.tp_axis, write_ok=d_g > j, draft_layers=spec_k)
+                cur = self._pick(logits).to(torch.int32)
+                drafts.append(cur)
+            ids = torch.stack([d_tok0, *drafts], dim=1)
+            logits = paged_prefill_chunk(
+                self.params, ids, self.k_pages, self.v_pages, d_table, d_seq,
+                d_g + 1, self.config, self.tp_axis, all_logits=True)
+            b, c, _ = logits.shape
+            verified = self._pick(logits.reshape(b * c, -1)).reshape(b, c)
+            drafts = ids[:, 1:].cpu().numpy()
+            toks = verified.cpu().numpy()        # syncs: span = card work
         t = rs.now()
         emitted = accepted = 0
         for r in rows:
@@ -444,12 +534,16 @@ class ServingEngine:
                 if r.status is Status.DONE:
                     rs.done.append(r)
                     break
-        return emitted, int(g.sum()), accepted, rows
+        drafted = int(g.sum())
+        self._m_spec_cycles.inc()
+        self._m_spec_draft.inc(drafted)
+        self._m_spec_acc.inc(accepted)
+        return emitted, drafted, accepted, rows
 
     def _stall(self, rs: _RunState) -> None:
-        """The no-progress watchdog tripped: end the run and raise rather
-        than loop forever. (The JAX engine also dumps a flight-recorder
-        black box here; the port's recorder waits for its telemetry.)"""
+        """The no-progress watchdog tripped: dump a black box (when a
+        recorder is attached), end the run and raise rather than loop
+        forever."""
         queued = len(self.sched.queue)
         head = self.sched.queue[0] if queued else None
         reason = (
@@ -459,12 +553,34 @@ class ServingEngine:
         if head is not None:
             worst = self.pool.pages_for(self.sched._worst_tokens(head))
             reason += f"; queue head uid={head.uid} needs {worst} pages worst-case"
+        where = ""
+        if self.recorder is not None:
+            trig = self.recorder.trigger_decode_stall(
+                rs.steps, reason,
+                context={
+                    "num_slots": self.num_slots,
+                    "page_size": self.page_size,
+                    "pages_free": self.pool.free_count,
+                    "pages_total": self.pool.capacity,
+                    "queued": queued,
+                    "decode_steps": rs.steps,
+                    "wall_s": rs.now() - rs.t0,
+                })
+            if trig.dump_path:
+                where = f" (black box: {trig.dump_path})"
         self._run = None   # the stall is terminal for this run
-        raise RuntimeError(f"serving decode stall: {reason}")
+        raise RuntimeError(f"serving decode stall: {reason}{where}")
 
     # -- API ---------------------------------------------------------------
 
-    def memory_report(self) -> dict:
+    def _kv_bytes_by_dtype(self) -> dict:
+        """The live pool's bytes by dtype (values + scale planes), over
+        every rank under a tensor axis (this rank's heads times tp), as
+        the JAX engine counts its global arrays."""
+        return {k: v * self.tp for k, v in
+                bytes_by_dtype((self.k_pages, self.v_pages)).items()}
+
+    def memory_report(self, registry=None) -> dict:
         """Byte census of the engine's resident state, by dtype: weights
         from the live params (quantized leaves count their int8 + scale
         bytes), KV from the live pool (values + scale planes).
@@ -472,18 +588,19 @@ class ServingEngine:
         bytes hold than an fp pool of this geometry. Under a tensor axis the
         bytes are the whole engine's over every rank, as the JAX engine
         counts its global arrays: the whole quantized tree, and this rank's
-        head-sharded pool times tp. The JAX report's registry gauges and
-        host tier wait for the port's telemetry and KV tiers."""
+        head-sharded pool times tp. Sets the ``serving.hbm.weights_bytes``,
+        ``serving.hbm.kv_bytes`` and ``serving.hbm.kv_page_capacity_ratio``
+        gauges of ``registry`` (the engine's by default). The JAX report's
+        host tier waits for the port's KV tiers."""
         weights = self._weights or quantized_weight_bytes(self.params)
-        kv_by = {k: v * self.tp for k, v in
-                 bytes_by_dtype((self.k_pages, self.v_pages)).items()}
+        kv_by = self._kv_bytes_by_dtype()
         kv_total = int(sum(kv_by.values()))
         cfg = self.config
         num_pages = self.pool.num_pages
         itemsize = torch.empty((), dtype=cfg.dtype).element_size()
         fp_total = (2 * cfg.n_layer * num_pages * self.pool.page_size
                     * cfg.n_head * cfg.head_dim * itemsize)
-        return {
+        report = {
             "weight_dtype": self.weight_dtype or "fp",
             "kv_dtype": self.kv_dtype or "fp",
             "weights": weights,
@@ -496,6 +613,49 @@ class ServingEngine:
                 "page_capacity_ratio": round(fp_total / max(kv_total, 1), 4),
             },
         }
+        reg = registry if registry is not None else self.registry
+        reg.gauge(
+            "serving.hbm.weights_bytes",
+            help="resident model weight bytes (quantized leaves counted "
+                 "at their wire size)",
+        ).set(float(weights["total_bytes"]))
+        reg.gauge(
+            "serving.hbm.kv_bytes",
+            help="resident KV page-pool bytes (values + scale planes)",
+        ).set(float(kv_total))
+        reg.gauge(
+            "serving.hbm.kv_page_capacity_ratio",
+            help="pages the same device memory holds vs an fp pool (1.0 = fp)",
+        ).set(float(report["kv"]["page_capacity_ratio"]))
+        return report
+
+    def attach_memledger(self, ledger) -> None:
+        """Attach (or detach, with None) a ``telemetry.MemoryLedger``: bind
+        it to the pool (as its synchronous event observer), the scheduler,
+        the prefix cache, the flight recorder and the registry, with the
+        bytes per page measured from the live pool (q + scale planes for
+        int8 pages, the census ``memory_report`` takes). Attaching to a
+        warm engine adopts its pool through the ledger's ``resync``."""
+        if ledger is None:
+            if self.memledger is not None:
+                self.memledger.unbind()
+            self.memledger = None
+            return
+        total = int(sum(self._kv_bytes_by_dtype().values()))
+        ledger.bind(
+            self.pool, sched=self.sched, cache=self.prefix_cache,
+            host_tier=None, recorder=self.recorder, registry=self.registry,
+            bytes_per_page=total // self.pool.num_pages)
+        self.memledger = ledger
+
+    def _ledger_tick(self, rs: _RunState) -> None:
+        """Per-tick ledger hook (conservation check, forecast, occupancy
+        sample). Without a ledger (the default) the cost is this one
+        attribute read and branch."""
+        ml = self.memledger
+        if ml is None:
+            return
+        ml.on_tick(rs.tick, t=rs.now())
 
     def run(self, requests: Sequence[Request], now=time.perf_counter,
             tick_hook=None):
@@ -521,10 +681,12 @@ class ServingEngine:
         if self._run is not None:
             raise RuntimeError("a serving run is already in progress")
         now = self._lockstep_clock(now)
-        rs = _RunState(now, tick_hook)
+        rs = _RunState(now, tick_hook, self._m_tokens.value)
         self._run = rs
         for r in requests:
             self.sched.submit(r, now())
+            self._m_requests.inc()
+        self._m_queue.set(len(self.sched.queue))
         rs.t0 = now()
 
     def tick_once(self) -> bool:
@@ -542,7 +704,11 @@ class ServingEngine:
             rs.tick_hook(self, rs.tick)
         admitted = self.sched.admit(now())
         shed_now = self.sched.drain_shed()
-        rs.done.extend(shed_now)
+        if shed_now:
+            # shedding is the degraded-but-healthy mode: a counter and
+            # terminal outputs, never a watchdog trigger
+            self._m_shed.inc(len(shed_now))
+            rs.done.extend(shed_now)
         chunked = 0
         if self._paged_prefill:
             for req in admitted:
@@ -565,6 +731,7 @@ class ServingEngine:
                 if req.status is Status.DONE:
                     rs.done.append(req)
         active = [r for r in self.sched.active() if r.status is Status.DECODE]
+        self._m_queue.set(len(self.sched.queue))
         if not active:
             if admitted or chunked or shed_now:
                 rs.stalled = 0
@@ -573,6 +740,7 @@ class ServingEngine:
                 if rs.stalled >= self.stall_patience:
                     self._stall(rs)
             rs.t_last_decode = None
+            self._ledger_tick(rs)
             return bool(admitted or chunked or shed_now)
         rs.stalled = 0
         use_spec = self.speculative is not None and any(
@@ -594,17 +762,55 @@ class ServingEngine:
             t_step = now()
             nxt = self._decode_step(active)
             t = now()
+            emitted = len(active)
         if rs.t_last_decode is not None:
-            rs.max_gap = max(rs.max_gap, t_step - rs.t_last_decode)
+            gap = t_step - rs.t_last_decode
+            self._m_gap.observe(gap)
+            rs.max_gap = max(rs.max_gap, gap)
         rs.t_last_decode = t
         rs.steps += 1
         rs.step_time += t - t_step
+        self._observe_step(rs, active, emitted, t - t_step)
         if not use_spec:
             for req in active:
                 self.sched.record_token(req, int(nxt[req.slot]), t)
                 if req.status is Status.DONE:
                     rs.done.append(req)
+        self._ledger_tick(rs)
         return True
+
+    def _observe_step(self, rs: _RunState, active: List[Request], emitted: int,
+                      dur: float) -> None:
+        """A decode step's (or speculative cycle's) metrics, JSONL event and
+        flight-recorder record."""
+        reg = self.registry
+        slot_occ = len(active) / self.num_slots
+        page_occ = self.pool.used_count / self.pool.capacity
+        # seconds per token per slot: a plain step emits one token per
+        # active slot, a speculative cycle may emit several
+        self._m_tok_lat.observe(dur * len(active) / max(emitted, 1))
+        self._m_steps.inc()
+        self._m_tokens.inc(emitted)
+        self._m_active.set(len(active))
+        self._m_slot_occ.set(slot_occ)
+        self._m_page_occ.set(page_occ)
+        if reg.enabled:
+            # fragmentation() sorts the free list: too heavy for the
+            # disabled path's one-branch cost
+            self._m_frag.set(self.pool.fragmentation())
+            if self.prefix_cache is not None:
+                # per step, not only on insert: pressure eviction happens
+                # exactly when dashboards look
+                self._m_cached.set(self.prefix_cache.cached_pages)
+                self._m_evictable.set(self.prefix_cache.evictable_count())
+        reg.event("serving.step", step=rs.steps, active=len(active),
+                  queue_depth=len(self.sched.queue), dur_s=dur,
+                  slot_occupancy=slot_occ, page_occupancy=page_occ,
+                  tokens=emitted)
+        if self.recorder is not None:
+            self.recorder.observe_serving_step(
+                rs.steps, active=len(active), queue_depth=len(self.sched.queue),
+                dur_s=dur, tokens=emitted)
 
     def _output(self, r: Request) -> RequestOutput:
         e2e = r.t_done - r.t_submit
@@ -615,6 +821,7 @@ class ServingEngine:
                 generated=np.asarray(r.generated, np.int64),
                 finish_reason="shed", queue_latency_s=e2e, ttft_s=None,
                 decode_tokens_per_s=None, e2e_latency_s=e2e, tenant=r.tenant)
+        self._m_e2e.observe(e2e)
         return RequestOutput(
             uid=r.uid, prompt=np.asarray(r.prompt),
             generated=np.asarray(r.generated, np.int64),
@@ -630,6 +837,9 @@ class ServingEngine:
         if rs is None:
             raise RuntimeError("finish_run needs start_run first")
         wall = max(rs.now() - rs.t0, 1e-9)
+        # tokens/s from the counter's delta: the per-step instrumentation
+        # checked against the run's own count
+        self._m_tps.set((self._m_tokens.value - rs.tok0) / wall)
         outputs = [self._output(r) for r in sorted(rs.done, key=lambda r: r.uid)]
         served = [o.ttft_s for o in outputs if o.ttft_s is not None]
         generated = sum(len(o.generated) for o in outputs)
@@ -669,6 +879,10 @@ class ServingEngine:
                 "cycles": rs.spec_cycles,
                 "tokens": rs.spec_tokens,
             }
+        if self.memledger is not None:
+            # peak per-class occupancy, fragmentation, leak and audit
+            # verdicts: the run's memory trajectory in one block
+            metrics["memory"] = self.memledger.run_summary()
         self._run = None
         return outputs, metrics
 
@@ -718,8 +932,9 @@ def prefix_replay_benchmark(params, config, *, n_requests=12, n_prefixes=3,
     caller can read device counters around exactly that run.
     ``param_specs`` and ``tp_axis`` pass through to every arm's engine
     (tensor-parallel serving over the current context, every rank running
-    the same replay). The JAX version's ``trace``, ``include_quant`` and
-    ``include_tiered`` wait for the port's telemetry and KV tiers."""
+    the same replay). The JAX version's ``trace`` waits for the port's
+    request tracer (ROADMAP.md queue A, A13a split (2)), ``include_quant``
+    and ``include_tiered`` for its KV tiers (A12)."""
     vocab = getattr(config, "valid_vocab_size", None) or config.vocab_size
     replay = make_skewed_replay(
         n_requests=n_requests, n_prefixes=n_prefixes, prefix_len=prefix_len,

@@ -104,7 +104,11 @@ class PagePool:
 
     ``history`` keeps the most recent ``HISTORY_LIMIT`` (event, pages,
     refcount-delta) triples, in the JAX pool's order; ``history_dropped``
-    counts the events the bounded ring has let go."""
+    counts the events the bounded ring has let go. ``ledger``, when set
+    (``telemetry.memledger.MemoryLedger.bind``), observes every event with
+    the ``owner`` its call passed (``("req", uid)``, ``("cow", uid)``,
+    ``("cache",)``; None is untagged); no ledger (the default) costs one
+    attribute read and a branch per event."""
 
     def __init__(self, num_pages: int, page_size: int):
         if num_pages < 2:
@@ -118,6 +122,7 @@ class PagePool:
         self.history: Deque[Tuple[str, Tuple[int, ...], int]] = deque(
             maxlen=HISTORY_LIMIT)
         self.history_dropped = 0
+        self.ledger = None
 
     @property
     def free_count(self) -> int:
@@ -157,12 +162,18 @@ class PagePool:
             best = max(best, runs)
         return 1.0 - best / len(self._free)
 
-    def _record(self, event: str, pages: Tuple[int, ...], delta: int) -> None:
+    def _record(self, event: str, pages: Tuple[int, ...], delta: int,
+                owner) -> None:
+        """Ring the event (counting what the bounded ring drops) and feed
+        the attached ledger with its owner."""
         if len(self.history) == self.history.maxlen:
             self.history_dropped += 1
         self.history.append((event, pages, delta))
+        led = self.ledger
+        if led is not None:
+            led.on_pool_event(event, pages, owner)
 
-    def alloc(self, n: int) -> List[int]:
+    def alloc(self, n: int, owner=None) -> List[int]:
         if n > len(self._free):
             raise RuntimeError(
                 f"page pool exhausted: requested {n}, free {len(self._free)} "
@@ -173,10 +184,10 @@ class PagePool:
                 raise RuntimeError(f"allocator invariant broken: page {p} "
                                    f"double-allocated or null")
             self._ref[p] = 1
-        self._record("alloc", tuple(pages), +1)
+        self._record("alloc", tuple(pages), +1, owner)
         return pages
 
-    def share(self, pages: List[int]) -> None:
+    def share(self, pages: List[int], owner=None) -> None:
         """Add one reference to each allocated page: a new reader (a
         prefix-cache hit, or the cache itself)."""
         for p in pages:
@@ -184,9 +195,9 @@ class PagePool:
                 raise RuntimeError(f"sharing page {p} that is not allocated")
         for p in pages:
             self._ref[p] += 1
-        self._record("share", tuple(pages), +1)
+        self._record("share", tuple(pages), +1, owner)
 
-    def release(self, pages: List[int]) -> None:
+    def release(self, pages: List[int], owner=None) -> None:
         """Drop one reference per page; pages reaching refcount 0 return
         to the free list (LIFO)."""
         for p in pages:
@@ -197,7 +208,7 @@ class PagePool:
             if self._ref[p] == 0:
                 del self._ref[p]
                 self._free.append(p)
-        self._record("release", tuple(pages), -1)
+        self._record("release", tuple(pages), -1, owner)
 
     free = release
 

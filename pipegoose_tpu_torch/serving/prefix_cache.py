@@ -22,9 +22,11 @@ to page ids and never touches device memory.
   deterministic clock. ``evictable_count`` feeds the scheduler's
   admission ledger, which counts ``free + evictable`` as capacity.
 
-The host tier's ``restorable_len`` and spill hook, and the memory
-ledger's owner tags, wait for the port's KV tiers and telemetry
-(ROADMAP.md queue A, items 12 and 13).
+Every pool call names its owner for an attached memory ledger (the
+``owner=`` of ``PagePool.share`` / ``release``): a hit's pages are the request's, its COW source the
+request's COW pin, the cache's own references ``("cache",)``. The host
+tier's ``restorable_len`` and spill hook wait for the port's KV tiers
+(ROADMAP.md queue A, item A12).
 """
 from __future__ import annotations
 
@@ -165,15 +167,18 @@ class PrefixCache:
 
     # -- mutation ----------------------------------------------------------
 
-    def acquire(self, hit: PrefixHit) -> None:
+    def acquire(self, hit: PrefixHit, owner=None) -> None:
         """Take one reference per matched page for a request and refresh
         the chain's recency. The COW source is pinned too: the copy runs
         later, and an eviction in between could hand the page to a new
-        owner; the engine releases that pin right after ``copy_page``."""
+        owner; the engine releases that pin right after ``copy_page``.
+        ``owner`` (a request uid, or None for an anonymous pin) labels the
+        references for the memory ledger."""
+        pool = self.pool
         if hit.pages:
-            self.pool.share(hit.pages)
+            pool.share(hit.pages, owner=("req", owner))
         if hit.cow_page is not None:
-            self.pool.share([hit.cow_page])
+            pool.share([hit.cow_page], owner=("cow", owner))
         for node in hit.nodes:
             self._clock += 1
             node.last_used = self._clock
@@ -195,7 +200,7 @@ class PrefixCache:
             node = children.get(blk)
             if node is None:
                 node = _Node(blk, int(pages[i]), parent)
-                self.pool.share([node.page])
+                self.pool.share([node.page], owner=("cache",))
                 children[blk] = node
                 self._nodes[id(node)] = node
                 added += 1
@@ -220,7 +225,7 @@ class PrefixCache:
             if victim is None:
                 break
             self._remove(victim)
-            self.pool.release([victim.page])
+            self.pool.release([victim.page], owner=("cache",))
             freed += 1
         self.evictions += freed
         return freed

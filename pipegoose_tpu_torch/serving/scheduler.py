@@ -29,9 +29,13 @@ decode SLOTS:
 
 ``continuous=False`` admits a batch only into an empty slot set and
 drains it fully before the next: the naive padded baseline of an A/B.
-The disaggregated transfers, ``withdraw`` and ``capacity_snapshot`` wait
-for the port's fleet layer, the tracer hooks for its telemetry
-(ROADMAP.md queue A, items 12 and 13).
+
+With a memory ledger on the pool (``telemetry.memledger``), every alloc
+and release names its owner (``PagePool``'s ``owner=``) and admission reports the
+queue head's worst-case need (``note_admission``). The disaggregated
+transfers and their ledger tags, ``withdraw`` and ``capacity_snapshot``
+wait for the port's fleet layer (ROADMAP.md queue A, item A12), the tracer
+hooks for A13a split (2).
 """
 from __future__ import annotations
 
@@ -247,6 +251,11 @@ class Scheduler:
             target = req.target_len
             worst = self.pool.pages_for(self._worst_tokens(req))
             fits, hit = self._admission_check(req)
+            led = self.pool.ledger
+            if led is not None:
+                # the exhaustion forecaster's feed: the head's worst-case
+                # need, and whether memory let it in
+                led.note_admission(worst, fits)
             if not fits:
                 break  # FIFO head-of-line: deterministic admission order
             shared: List[int] = hit.pages if hit is not None else []
@@ -261,7 +270,7 @@ class Scheduler:
             req.pages = []
             req.prefilled_len = req.hit_tokens = 0
             if hit is not None:
-                self.cache.acquire(hit)       # pins shared + COW source
+                self.cache.acquire(hit, owner=req.uid)   # pins shared + COW source
                 req.pages = list(shared)
                 req.prefilled_len = hit.tokens
                 req.hit_tokens = hit.total_tokens
@@ -272,7 +281,7 @@ class Scheduler:
             chunk_end = target if self.chunk_tokens is None else min(
                 req.prefilled_len + cow_tokens + self.chunk_tokens, target)
             n_now = self.pool.pages_for(chunk_end) - len(req.pages)
-            req.pages += self._alloc(n_now)
+            req.pages += self._alloc(n_now, req)
             req.outstanding = need_new - n_now
             self._outstanding_total += req.outstanding
             admitted.append(req)
@@ -315,7 +324,7 @@ class Scheduler:
                 f"ensure_pages on a {req.status.value} request "
                 f"(retracted mid-batch by a neighbour's lazy growth?)")
         while len(req.pages) * self.pool.page_size < n_tokens:
-            req.pages += self._alloc(1, owner=req)
+            req.pages += self._alloc(1, req, retract=True)
             req.outstanding -= 1
             self._outstanding_total -= 1
 
@@ -333,33 +342,34 @@ class Scheduler:
         elif len(req.generated) >= req.max_new_tokens:
             self._finish(req, "length", now)
 
-    def _alloc(self, n: int, owner: Optional[Request] = None) -> List[int]:
-        """Pool alloc that treats LRU-evictable cache pages as free. With
-        ``owner`` (the must-not-fail growth path) a shortfall eviction
-        cannot cover retracts the newest other active requests until it
-        can. Admission passes no owner: its check and alloc are atomic."""
+    def _alloc(self, n: int, req: Request, retract: bool = False) -> List[int]:
+        """Pool alloc of ``n`` pages for ``req`` that treats LRU-evictable
+        cache pages as free. With ``retract`` (the must-not-fail growth
+        path) a shortfall eviction cannot cover retracts the newest other
+        active requests until it can. Admission does not retract: its
+        check and alloc are atomic."""
         if n <= 0:
             return []
         if self.cache is not None and self.pool.free_count < n:
             self.cache.evict(n - self.pool.free_count)
-            if self.pool.free_count < n and owner is not None:
+            if self.pool.free_count < n and retract:
                 for victim in sorted(
                         (r for r in self.slots
-                         if r is not None and r is not owner),
+                         if r is not None and r is not req),
                         key=lambda r: r.uid, reverse=True):
                     self.preempt(victim)
                     self.retractions += 1
                     self.cache.evict(n - self.pool.free_count)
                     if self.pool.free_count >= n:
                         break
-        return self.pool.alloc(n)
+        return self.pool.alloc(n, owner=("req", req.uid))
 
     def _release_all(self, req: Request) -> None:
         if req.cow is not None:          # COW never ran: drop its pin
-            self.pool.release([req.cow[0]])
+            self.pool.release([req.cow[0]], owner=("cow", req.uid))
             req.cow = None
         if req.pages:
-            self.pool.release(req.pages)
+            self.pool.release(req.pages, owner=("req", req.uid))
             req.pages = []
 
     def _finish(self, req: Request, reason: str, now: float) -> None:

@@ -1,0 +1,591 @@
+"""Live memory ledger: byte-exact KV page accounting of the serving pool,
+with leak audits and exhaustion forecasting.
+
+The counterpart of ``pipegoose_tpu/telemetry/memledger.py``, host logic
+only. KV pages move through owners (live request tables, copy-on-write
+prefix-cache pins, scheduler reservations, and in the JAX package's fleet
+the transfer stages and the host tier, which wait for ROADMAP.md queue A,
+item A12: ``host_tier`` stays None and the scheduler has no transfers).
+A refcount leak or a stranded reservation silently shrinks the pool until
+admission stalls; the :class:`MemoryLedger` names it:
+
+- **Per-owner-class byte account.** The ledger mirrors every ``PagePool``
+  refcount as an owner-tag multiset (``("req", uid)`` / ``("stage",
+  uid)`` / ``("cow", uid)`` / ``("cache",)`` / ``("restore",)``), fed
+  synchronously by the pool's events (the same (event, pages, delta)
+  triples ``PagePool.history`` records, delivered as an observer, so the
+  account stays exact after the ring wraps). Each allocated page counts
+  once, under its strongest owner: request > staged > cow > cached.
+- **Hard conservation contract.** On every tick, classified pages +
+  reserved-unmaterialized + free-unreserved == pool capacity exactly
+  (integer pages times the measured bytes per page). Reservations can
+  exceed the free pages (admission spends evictable cache pages too), so
+  ``reserved_unmaterialized = min(outstanding, free)`` and
+  ``reserved_evictable_backed`` reports the overlap.
+- **``audit()`` leak detector.** Cross-checks pool refcounts, the
+  reachable holders (live requests' page tables and COW pins, prefix-trie
+  nodes) and the scheduler's reservation ledger, and fires a
+  ``memory_leak`` / ``double_owner`` / ``stranded_reservation`` black box
+  through the flight recorder, naming the page and its ownership trail.
+- **Exhaustion forecaster.** Admission headroom (free + evictable -
+  reserved) against the recent consumption rate and the typical admission
+  need gives ``steps_to_exhaustion``, a gauge that reaches zero before the
+  first admission deferral.
+
+Everything defaults off: an engine without a ledger pays one attribute
+read and a branch per tick, and the pool's alloc / share / release the
+same. Nothing here touches device memory.
+"""
+from __future__ import annotations
+
+import math
+from collections import deque
+from typing import Deque, Dict, List, Optional, Tuple
+
+Tag = Tuple  # ("req", uid) | ("stage", uid) | ("cow", uid) | ("cache",) ...
+
+#: owner-class names, strongest first — a shared page counts once,
+#: under the first class below that holds a reference to it
+CLASSES = ("request", "staged", "cow", "cached")
+
+#: tag kind -> owner class (restore-in-flight pages are staged
+#: transfers from the host tier / a peer; untracked refs — adopted by
+#: a warm ``resync`` — conservatively count as request KV)
+_KIND_CLASS = {
+    "req": "request",
+    "stage": "staged",
+    "restore": "staged",
+    "cow": "cow",
+    "cache": "cached",
+    "untracked": "request",
+}
+
+#: classification priority of tag kinds (index = strength)
+_PRIORITY = {"req": 0, "stage": 1, "restore": 2, "cow": 3, "cache": 4,
+             "untracked": 5}
+
+
+class MemoryLedger:
+    """Byte-exact per-owner-class account of a ``PagePool``'s pages.
+
+    Construct, then :meth:`bind` to a pool (and optionally scheduler /
+    prefix cache / host tier / recorder / registry), or let
+    ``ServingEngine(..., memledger=...)`` / ``attach_memledger`` do
+    the binding. ``audit_every=N`` runs the leak audit every N ticks
+    (0 = only when called explicitly — the default, keeping the tick
+    cost to the classification bookkeeping)."""
+
+    def __init__(self, *, trail_len: int = 8, window: int = 32,
+                 audit_every: int = 0, max_samples: int = 4096):
+        if trail_len < 1:
+            raise ValueError(f"trail_len must be >= 1, got {trail_len}")
+        if window < 2:
+            raise ValueError(f"window must be >= 2, got {window}")
+        self.trail_len = trail_len
+        self.window = window
+        self.audit_every = audit_every
+        # page -> owner-tag multiset (mirrors the pool refcount) and
+        # the derived class; counts are maintained incrementally so a
+        # tick never walks every page
+        self._tags: Dict[int, List[Tag]] = {}
+        self._class: Dict[int, str] = {}
+        self._counts: Dict[str, int] = {c: 0 for c in CLASSES}
+        # page -> last-N (seq, event, tag) ownership transitions; kept
+        # after free — the trail is exactly what a leak box needs
+        self._trail: Dict[int, Deque[Tuple[int, str, Optional[Tag]]]] = {}
+        self._seq = 0
+        self.mismatched_releases = 0   # release tag absent from the page
+        # bound collaborators (all optional except the pool)
+        self.pool = None
+        self.sched = None
+        self.cache = None
+        self.host_tier = None
+        self.recorder = None
+        self.registry = None
+        self.bytes_per_page = 1
+        # conservation + audit state
+        self.ticks = 0
+        self.conservation_failures = 0
+        self.last_audit: Optional[dict] = None
+        self.audits_run = 0
+        self._fired: set = set()       # (trigger, key) — fire each once
+        # exhaustion forecaster state
+        self._needs: Deque[int] = deque(maxlen=window)
+        self._avail_hist: Deque[int] = deque(maxlen=window)
+        self.steps_to_exhaustion: float = math.inf
+        self.min_steps_to_exhaustion: float = math.inf
+        self.first_admission_block_tick: Optional[int] = None
+        # per-tick occupancy samples (Perfetto counter tracks /
+        # a memory trend view) + run peaks
+        self.samples: Deque[dict] = deque(maxlen=max_samples)
+        self.peak_pages: Dict[str, int] = {c: 0 for c in CLASSES}
+        self.peak_fragmentation = 0.0
+        self._m = None                 # resolved gauge handles
+
+    # -- binding -----------------------------------------------------------
+
+    def bind(self, pool, *, sched=None, cache=None, host_tier=None,
+             recorder=None, registry=None, bytes_per_page: int = 1):
+        """Attach to ``pool`` as its synchronous event observer (sets
+        ``pool.ledger``) and remember the ground-truth sources the
+        audit cross-checks. ``bytes_per_page`` is the MEASURED wire
+        size of one page in the pool's dtype (q+scale planes for int8
+        — engine.attach_memledger measures it from the live pool).
+        A warm pool is adopted via :meth:`resync`."""
+        self.pool = pool
+        self.sched = sched
+        self.cache = cache
+        self.host_tier = host_tier
+        self.recorder = recorder
+        self.registry = registry
+        self.bytes_per_page = int(bytes_per_page)
+        pool.ledger = self
+        if registry is not None:
+            g = registry.gauge
+            self._m = {
+                "request": g("serving.memledger.request_bytes"),
+                "staged": g("serving.memledger.staged_bytes"),
+                "cow": g("serving.memledger.cow_bytes"),
+                "cached": g("serving.memledger.cached_bytes"),
+                "reserved": g("serving.memledger.reserved_bytes"),
+                "free": g("serving.memledger.free_bytes"),
+                "host": g("serving.memledger.host_tier_bytes"),
+                "forecast": g("serving.memledger.steps_to_exhaustion"),
+            }
+        if pool.used_count:
+            self.resync()
+        return self
+
+    def unbind(self) -> None:
+        if self.pool is not None and getattr(self.pool, "ledger", None) is self:
+            self.pool.ledger = None
+
+    def resync(self) -> None:
+        """Adopt a pool with live allocations (post-hoc attachment to
+        a warm engine): rebuild the tag multisets from the reachable
+        holders; refcounts nobody reachable explains become
+        ``("untracked",)`` request-class tags — visible, not hidden."""
+        self._tags.clear()
+        self._class.clear()
+        self._counts = {c: 0 for c in CLASSES}
+        holders = self._reachable_holders()
+        for page, ref in self.pool._ref.items():
+            tags = list(holders.get(page, ()))[:ref]
+            tags += [("untracked",)] * (ref - len(tags))
+            self._tags[page] = tags
+            self._reclass(page)
+
+    # -- pool event feed ---------------------------------------------------
+
+    def on_pool_event(self, event: str, pages, tag: Optional[Tag]) -> None:
+        """Synchronous observer called by the pool inside alloc /
+        share / release — same triples ``history`` records, plus the
+        owner tag the call site declared (None = untagged)."""
+        self._seq += 1
+        seq = self._seq
+        if event == "alloc":
+            t = tag or ("untracked",)
+            for p in pages:
+                self._tags[p] = [t]
+                self._note(p, seq, event, t)
+                self._reclass(p)
+        elif event == "share":
+            t = tag or ("untracked",)
+            for p in pages:
+                self._tags.setdefault(p, []).append(t)
+                self._note(p, seq, event, t)
+                self._reclass(p)
+        elif event == "release":
+            for p in pages:
+                tags = self._tags.get(p)
+                if not tags:
+                    # release of a page the ledger never saw (warm
+                    # attach gap) — count it, don't crash the run
+                    self.mismatched_releases += 1
+                    continue
+                if tag is not None and tag in tags:
+                    tags.remove(tag)
+                else:
+                    if tag is not None:
+                        self.mismatched_releases += 1
+                    # drop the WEAKEST tag: losing an anonymous
+                    # reference should never demote a page out of its
+                    # strongest owner class
+                    tags.remove(max(tags, key=self._strength))
+                self._note(p, seq, event, tag)
+                if not tags:
+                    del self._tags[p]
+                self._reclass(p)
+
+    def retag(self, pages, old: Tag, new: Tag) -> None:
+        """Ownership transition without a refcount change — the JAX disagg
+        ``admit_with_pages`` moment where staged transfer pages become
+        request KV."""
+        self._seq += 1
+        for p in pages:
+            tags = self._tags.get(p)
+            if tags is None or old not in tags:
+                self.mismatched_releases += 1
+                continue
+            tags[tags.index(old)] = new
+            self._note(p, self._seq, "retag", new)
+            self._reclass(p)
+
+    @staticmethod
+    def _strength(tag: Tag) -> int:
+        return _PRIORITY.get(tag[0], 9)
+
+    def _note(self, page: int, seq: int, event: str,
+              tag: Optional[Tag]) -> None:
+        trail = self._trail.get(page)
+        if trail is None:
+            trail = self._trail[page] = deque(maxlen=self.trail_len)
+        trail.append((seq, event, tag))
+
+    def _reclass(self, page: int) -> None:
+        tags = self._tags.get(page)
+        new = None
+        if tags:
+            best = min(tags, key=self._strength)
+            new = _KIND_CLASS.get(best[0], "request")
+        old = self._class.get(page)
+        if old == new:
+            return
+        if old is not None:
+            self._counts[old] -= 1
+        if new is not None:
+            self._counts[new] += 1
+            self._class[page] = new
+        else:
+            del self._class[page]
+
+    # -- admission pressure feed ------------------------------------------
+
+    def note_admission(self, need_pages: int, admitted: bool) -> None:
+        """Scheduler admission feed: the queue head's worst-case page
+        need, and whether it got in. The needs size the forecaster's
+        "typical request"; the first memory deferral timestamps the
+        ground-truth exhaustion event the forecast must beat."""
+        self._needs.append(int(need_pages))
+        if not admitted and self.first_admission_block_tick is None:
+            self.first_admission_block_tick = self.ticks
+
+    # -- accounting views --------------------------------------------------
+
+    def outstanding_total(self) -> int:
+        return self.sched._outstanding_total if self.sched is not None else 0
+
+    def evictable_count(self) -> int:
+        return self.cache.evictable_count() if self.cache is not None else 0
+
+    def counts(self) -> Dict[str, int]:
+        """Per-class page counts INCLUDING the free-side split: the
+        full partition of pool capacity."""
+        pool = self.pool
+        out = self.outstanding_total()
+        reserved = min(out, pool.free_count)
+        c = dict(self._counts)
+        c["reserved_unmaterialized"] = reserved
+        c["free"] = pool.free_count - reserved
+        return c
+
+    def conservation(self) -> dict:
+        """The hard contract, checked two ways: the classified pages
+        must equal the pool's used count EXACTLY (the ledger saw every
+        event), and the full partition must sum to capacity EXACTLY
+        (the free split is consistent). Integer arithmetic — no
+        epsilon."""
+        pool = self.pool
+        c = self.counts()
+        classified = sum(self._counts.values())
+        total = classified + c["reserved_unmaterialized"] + c["free"]
+        ok = classified == pool.used_count and total == pool.capacity
+        return {
+            "ok": ok,
+            "classified_pages": classified,
+            "used_pages": pool.used_count,
+            "sum_pages": total,
+            "capacity_pages": pool.capacity,
+            # reservations the admission ledger backs with EVICTABLE
+            # cache pages rather than free ones — overlap, reported
+            # separately so the capacity sum stays a partition
+            "reserved_evictable_backed": max(
+                0, self.outstanding_total() - pool.free_count),
+        }
+
+    def trail(self, page: int) -> List[dict]:
+        """Last-N ownership transitions of ``page`` (kept after free)
+        — what a ``memory_leak`` black box embeds."""
+        return [
+            {"seq": s, "event": e,
+             "owner": list(t) if t is not None else None}
+            for s, e, t in self._trail.get(page, ())
+        ]
+
+    # -- per-tick hook -----------------------------------------------------
+
+    def on_tick(self, step: int, t: Optional[float] = None) -> None:
+        """Engine tick hook: verify conservation, advance the
+        forecaster, refresh gauges, record one occupancy sample. A
+        conservation break fires ONE ``ledger_conservation`` black box
+        and counts — it never raises into the serving loop."""
+        self.ticks += 1
+        cons = self.conservation()
+        if not cons["ok"]:
+            self.conservation_failures += 1
+            self._fire(
+                "ledger_conservation",
+                f"memory ledger conservation broken: "
+                f"{cons['classified_pages']} classified != "
+                f"{cons['used_pages']} used "
+                f"(sum {cons['sum_pages']}/{cons['capacity_pages']})",
+                key=("conservation",), details=cons,
+            )
+        c = self.counts()
+        for name in CLASSES:
+            if c[name] > self.peak_pages[name]:
+                self.peak_pages[name] = c[name]
+        frag = self.pool.fragmentation()
+        if frag > self.peak_fragmentation:
+            self.peak_fragmentation = frag
+        self._forecast(c)
+        bpp = self.bytes_per_page
+        if self._m is not None:
+            m = self._m
+            m["request"].set(float(c["request"] * bpp))
+            m["staged"].set(float(c["staged"] * bpp))
+            m["cow"].set(float(c["cow"] * bpp))
+            m["cached"].set(float(c["cached"] * bpp))
+            m["reserved"].set(float(c["reserved_unmaterialized"] * bpp))
+            m["free"].set(float(c["free"] * bpp))
+            if self.host_tier is not None:
+                m["host"].set(float(self.host_tier.resident_bytes))
+            m["forecast"].set(
+                -1.0 if math.isinf(self.steps_to_exhaustion)
+                else float(self.steps_to_exhaustion))
+        sample = {"step": step, "t": t, "fragmentation": round(frag, 4),
+                  "steps_to_exhaustion": (
+                      None if math.isinf(self.steps_to_exhaustion)
+                      else self.steps_to_exhaustion)}
+        sample.update({k: c[k] for k in
+                       (*CLASSES, "reserved_unmaterialized", "free")})
+        if self.host_tier is not None:
+            sample["host_tier_bytes"] = self.host_tier.resident_bytes
+        self.samples.append(sample)
+        if self.audit_every and self.ticks % self.audit_every == 0:
+            self.audit()
+
+    def _forecast(self, c: Dict[str, int]) -> None:
+        """Steps-to-exhaustion: admission headroom (free + evictable -
+        reserved) over the recent consumption rate, minus the typical
+        admission need — so the gauge reaches ZERO one step before a
+        typical request is deferred, not after. Clamped monotone while
+        headroom keeps shrinking (a forecast that bounces on noise is
+        useless to an autoscaler); any recovery resets the clamp."""
+        avail = max(
+            0, self.pool.free_count + self.evictable_count()
+            - self.outstanding_total())
+        hist = self._avail_hist
+        prev = hist[-1] if hist else None
+        hist.append(avail)
+        drops = [max(0, a - b) for a, b in zip(hist, list(hist)[1:])]
+        rate = max(drops) if drops else 0
+        need = (sum(self._needs) / len(self._needs)) if self._needs else 0.0
+        if avail <= need:
+            est = 0.0
+        elif rate <= 0:
+            est = math.inf
+        else:
+            est = float(int((avail - need) // rate))
+        if prev is not None and avail <= prev:
+            est = min(est, self.steps_to_exhaustion)
+        self.steps_to_exhaustion = est
+        if est < self.min_steps_to_exhaustion:
+            self.min_steps_to_exhaustion = est
+
+    # -- leak audit --------------------------------------------------------
+
+    def _reachable_holders(self) -> Dict[int, List[Tag]]:
+        """Ground-truth page holders, recomputed from the live data
+        structures (NOT from the ledger's own mirror): active
+        requests' page tables and COW pins, transfer stages (none until A12),
+        and the prefix trie's nodes."""
+        holders: Dict[int, List[Tag]] = {}
+
+        def add(page, tag):
+            holders.setdefault(page, []).append(tag)
+
+        sched = self.sched
+        if sched is not None:
+            for req in sched.active():
+                for p in req.pages:
+                    add(p, ("req", req.uid))
+                if req.cow is not None:
+                    add(req.cow[0], ("cow", req.uid))
+            for uid, stage in getattr(sched, "transfers", {}).items():
+                for p in stage["pages"]:
+                    add(p, ("stage", uid))
+        cache = self.cache
+        if cache is not None:
+            for node in cache._nodes.values():
+                add(node.page, ("cache",))
+        return holders
+
+    def audit(self) -> dict:
+        """Cross-check the ledger against ground truth and fire black
+        boxes for what it finds. Three checks:
+
+        - pool refcount > reachable holders → ``memory_leak`` (a
+          reference nobody reachable owns keeps the page allocated
+          forever), box names the page + its ownership trail;
+        - reachable holders > pool refcount → ``double_owner`` (two
+          owners believe they hold a reference the pool never
+          granted — a future double-free);
+        - scheduler ``_outstanding_total`` != Σ request/stage
+          outstanding → ``stranded_reservation`` (phantom pages the
+          admission ledger withholds from every future request).
+
+        Each finding fires ONCE per (kind, page); re-audits count but
+        stay quiet. Returns the report dict (also kept on
+        ``last_audit``)."""
+        self.audits_run += 1
+        pool = self.pool
+        holders = self._reachable_holders()
+        leaks: List[dict] = []
+        doubles: List[dict] = []
+        drift: List[dict] = []
+        for page, ref in sorted(pool._ref.items()):
+            held = len(holders.get(page, ()))
+            mirrored = len(self._tags.get(page, ()))
+            if ref > held:
+                leaks.append({
+                    "page": page, "refcount": ref, "holders": held,
+                    "owners": [list(t) for t in
+                               sorted(self._tags.get(page, ()),
+                                      key=self._strength)],
+                    "trail": self.trail(page),
+                })
+            elif held > ref:
+                doubles.append({
+                    "page": page, "refcount": ref, "holders": held,
+                    "claimants": [list(t) for t in holders[page]],
+                    "trail": self.trail(page),
+                })
+            if mirrored != ref:
+                drift.append({"page": page, "refcount": ref,
+                              "mirrored": mirrored})
+        stranded = 0
+        if self.sched is not None:
+            sched = self.sched
+            expected = sum(r.outstanding for r in sched.active())
+            expected += sum(s["outstanding"]
+                            for s in getattr(sched, "transfers", {}).values())
+            stranded = sched._outstanding_total - expected
+        report = {
+            "ok": not leaks and not doubles and not stranded,
+            "leaks": leaks,
+            "double_owners": doubles,
+            "ledger_drift": drift,
+            "stranded_reserved_pages": stranded,
+            "mismatched_releases": self.mismatched_releases,
+            "tick": self.ticks,
+        }
+        self.last_audit = report
+        for leak in leaks:
+            self._fire(
+                "memory_leak",
+                f"page {leak['page']} refcount {leak['refcount']} but "
+                f"only {leak['holders']} reachable holder(s) — the "
+                f"extra reference is owned by nobody",
+                key=("memory_leak", leak["page"]), details=leak,
+            )
+        for d in doubles:
+            self._fire(
+                "double_owner",
+                f"page {d['page']} claimed by {d['holders']} holders "
+                f"but refcount is {d['refcount']} — a double free is "
+                f"coming",
+                key=("double_owner", d["page"]), details=d,
+            )
+        if stranded:
+            self._fire(
+                "stranded_reservation",
+                f"scheduler reservation ledger off by {stranded} "
+                f"page(s): _outstanding_total no longer matches the "
+                f"live requests' + stages' outstanding sums",
+                key=("stranded_reservation",),
+                details={"stranded_pages": stranded, "tick": self.ticks},
+            )
+        return report
+
+    def _fire(self, name: str, reason: str, key, details: dict) -> None:
+        if key in self._fired:
+            return
+        self._fired.add(key)
+        if self.recorder is not None:
+            self.recorder.fire_trigger(name, reason, self.ticks,
+                                       details=details)
+
+    # -- reports -----------------------------------------------------------
+
+    def report(self) -> dict:
+        """The memory report: per-class bytes + pages, the
+        conservation verdict, the forecast, the host-tier account, the
+        last audit, and the (bounded) occupancy trend tail."""
+        c = self.counts()
+        bpp = self.bytes_per_page
+        classes = {
+            name: {"pages": c[name], "bytes": c[name] * bpp}
+            for name in (*CLASSES, "reserved_unmaterialized", "free")
+        }
+        report = {
+            "ticks": self.ticks,
+            "bytes_per_page": bpp,
+            "capacity_pages": self.pool.capacity,
+            "capacity_bytes": self.pool.capacity * bpp,
+            "classes": classes,
+            "conservation": self.conservation(),
+            "conservation_failures": self.conservation_failures,
+            "fragmentation": round(self.pool.fragmentation(), 4),
+            "forecast": {
+                "steps_to_exhaustion": (
+                    None if math.isinf(self.steps_to_exhaustion)
+                    else self.steps_to_exhaustion),
+                "min_steps_to_exhaustion": (
+                    None if math.isinf(self.min_steps_to_exhaustion)
+                    else self.min_steps_to_exhaustion),
+                "first_admission_block_tick":
+                    self.first_admission_block_tick,
+            },
+            "history_dropped": getattr(self.pool, "history_dropped", 0),
+            "audits_run": self.audits_run,
+            "last_audit": self.last_audit,
+            "peak_pages": dict(self.peak_pages),
+            "peak_fragmentation": round(self.peak_fragmentation, 4),
+        }
+        if self.host_tier is not None:
+            report["host_tier"] = {
+                "resident_pages": self.host_tier.resident_pages,
+                "resident_bytes": self.host_tier.resident_bytes,
+                "budget_bytes": self.host_tier.byte_budget,
+            }
+        return report
+
+    def run_summary(self) -> dict:
+        """Compact per-run block for ``finish_run`` metrics and the
+        bench rows: peaks, conservation verdict, audit tallies, and
+        the forecast floor — the memory trajectory one JSONL row can
+        carry."""
+        bpp = self.bytes_per_page
+        return {
+            "peak_pages": dict(self.peak_pages),
+            "peak_bytes": {k: v * bpp for k, v in self.peak_pages.items()},
+            "peak_fragmentation": round(self.peak_fragmentation, 4),
+            "conservation_failures": self.conservation_failures,
+            "audits_run": self.audits_run,
+            "leaks": (len(self.last_audit["leaks"])
+                      if self.last_audit else 0),
+            "min_steps_to_exhaustion": (
+                None if math.isinf(self.min_steps_to_exhaustion)
+                else self.min_steps_to_exhaustion),
+        }

@@ -19,8 +19,12 @@ Every rank holds the same averaged loss after the step's all-reduce, so
 every rank takes the same decision at the same step, and the restore, a
 collective, runs on all of them together.
 
-Not ported yet: the ``recorder`` (the flight recorder's structured
-triggers, ROADMAP.md queue A, item 13); passing one raises.
+Both accept ``recorder=`` (a ``telemetry.FlightRecorder``, listed among
+the Trainer's callbacks): a trigger it fired this step (non-finite loss,
+loss spike; the gradient-health triggers wait for the in-graph health
+statistics, ROADMAP.md queue A, item A13b) is consumed in the same
+callback round and handled like a divergence, and the reason names the
+black box already on disk.
 """
 from __future__ import annotations
 
@@ -55,10 +59,6 @@ class FailureDetector(Callback):
         window: int = 50,
         recorder: Optional[Any] = None,
     ):
-        if recorder is not None:
-            raise NotImplementedError(
-                "recorder: the flight recorder is not ported yet (ROADMAP.md queue A, "
-                "item 13)")
         if check_every < 1:
             raise ValueError(f"check_every must be >= 1, got {check_every}")
         if window < 2:
@@ -66,8 +66,11 @@ class FailureDetector(Callback):
         self.check_every = check_every
         self.spike_factor = spike_factor
         self.window = window
-        self.recorder = None
+        self.recorder = recorder
         self._history: deque = deque(maxlen=window)
+        # the structured trigger being handled right now (set for the
+        # length of a handle_failure call driven by the recorder)
+        self.active_trigger: Optional[Any] = None
 
     def _is_divergent(self, loss: float) -> Optional[str]:
         if not math.isfinite(loss):
@@ -81,6 +84,16 @@ class FailureDetector(Callback):
         return None
 
     def on_step_end(self, trainer: Any, step: int, loss: Any) -> None:
+        if self.recorder is not None:
+            trig = self.recorder.take_trigger()
+            if trig is not None:
+                where = f" (black box: {trig.dump_path})" if trig.dump_path else ""
+                self.active_trigger = trig
+                try:
+                    self.handle_failure(trainer, step, f"{trig.name}: {trig.reason}{where}")
+                finally:
+                    self.active_trigger = None
+                return
         if step % self.check_every:
             return
         reason = self._is_divergent(_host_scalar(loss))
@@ -163,6 +176,11 @@ class AutoRecovery(FailureDetector):
 
     def _after_restore(self, trainer: Any, step: int, restored_step: int) -> None:
         self._history.clear()
+        if self.recorder is not None:
+            # the spike baselines span the rolled-back steps; this also
+            # drops a pending trigger, so the next round does not fire
+            # again on the evidence from before the restore
+            self.recorder.reset_after_restore(restored_step)
         # drop the rolled-back tail of the loss record; it counts entries
         # since THIS trainer started, so truncate by the steps rolled back
         rolled_back = step - restored_step

@@ -6,10 +6,13 @@ together the hybrid tensor x data parallel step with its ZeRO-1 optimizer
 resume. Every rank of the context runs its own Trainer over the same
 global batches, as it runs the step.
 
-Where this parts from the JAX Trainer (ROADMAP.md § C): ``rng`` is an
-integer seed, and step i gets ``core.accumulation.fold_in(rng, i)``; the
-loop opens no telemetry spans. Not ported yet (ROADMAP.md queue A, item
-13): ``doctor``, ``profile`` and ``with_health``; they raise.
+The fit loop opens the ``train.data`` span around each batch pull and the
+``train.step`` span around each step, as the JAX loop does: no-ops while
+the telemetry registry is disabled (``telemetry.TelemetryCallback``
+enables it). Where this parts from the JAX Trainer (ROADMAP.md § C):
+``rng`` is an integer seed, and step i gets
+``core.accumulation.fold_in(rng, i)``. Not ported yet (ROADMAP.md queue A,
+item A13b): ``doctor``, ``profile`` and ``with_health``; they raise.
 """
 from __future__ import annotations
 
@@ -23,11 +26,12 @@ from pipegoose_tpu_torch.distributed.functional import all_reduce
 from pipegoose_tpu_torch.distributed.parallel_context import ParallelContext
 from pipegoose_tpu_torch.nn.parallel import shard_tree, tree_leaves, tree_map
 from pipegoose_tpu_torch.optim.zero import DistributedOptimizer
+from pipegoose_tpu_torch.telemetry.spans import span
 from pipegoose_tpu_torch.trainer.callback import Callback
 from pipegoose_tpu_torch.trainer.logger import DistributedLogger
 from pipegoose_tpu_torch.trainer.state import TrainerState, TrainerStatus
 
-_ITEM_13 = "is not ported yet (ROADMAP.md queue A, item 13)"
+_A13B = "is not ported yet (ROADMAP.md queue A, item 13, its half A13b)"
 
 
 def _numel(x) -> int:
@@ -61,7 +65,7 @@ class Trainer:
         specs like the batch)."""
         if with_health:
             raise NotImplementedError(f"with_health=True: the in-graph health statistics "
-                                      f"{_ITEM_13}")
+                                      f"{_A13B}")
         self.parallel_context = parallel_context or ParallelContext.get_context()
         if self.parallel_context is None:
             raise ValueError("no ParallelContext; construct one first")
@@ -70,6 +74,7 @@ class Trainer:
         self.state = TrainerState()
         self.with_rng = with_rng
         self.tokens_per_step = 0  # updated from batch shapes each step
+        self.last_batch = None    # the batch of the latest step
 
         from pipegoose_tpu_torch.parallel.hybrid import (
             build_hybrid_train_step,
@@ -213,11 +218,11 @@ class Trainer:
 
     def doctor(self, *args, **kwargs):
         """The mesh doctor of the JAX Trainer reads XLA's compiled HLO."""
-        raise NotImplementedError(f"Trainer.doctor (telemetry/doctor.py) {_ITEM_13}")
+        raise NotImplementedError(f"Trainer.doctor (telemetry/doctor.py) {_A13B}")
 
     def profile(self, *args, **kwargs):
         """The JAX Trainer's measured step attribution (telemetry/xprof.py)."""
-        raise NotImplementedError(f"Trainer.profile (telemetry/xprof.py) {_ITEM_13}")
+        raise NotImplementedError(f"Trainer.profile (telemetry/xprof.py) {_A13B}")
 
     def fit(
         self,
@@ -273,7 +278,10 @@ class Trainer:
                 if max_steps is not None and self.state.step >= max_steps:
                     break
                 try:
-                    batch = next(it)
+                    # disabled-registry spans are one branch; enabled,
+                    # they split host data time from the step's launches
+                    with span("train.data"):
+                        batch = next(it)
                 except StopIteration:
                     break
                 step = self.state.step
@@ -282,9 +290,14 @@ class Trainer:
                 leaves = []
                 _map_batch(leaves.append, batch)
                 self.tokens_per_step = _numel(leaves[0]) if leaves else 0
+                self.last_batch = batch
                 extra = (fold_in(rng, step),) if self.with_rng else ()
-                self.params, self.opt_state, loss = self._step_fn(
-                    self.params, self.opt_state, batch, *extra)
+                # UNFENCED: measures the launches; in steady state the
+                # queue backpressures to the card's step time.
+                # TelemetryCallback(fence=True) gives exact step times.
+                with span("train.step"):
+                    self.params, self.opt_state, loss = self._step_fn(
+                        self.params, self.opt_state, batch, *extra)
                 # the loss stays a device tensor: reading it here would make
                 # the host wait for the card every step; callbacks read it
                 # only when they look

@@ -254,5 +254,11 @@ def test_checkpoint_refuses_nonfinite_params_or_moments(parts, tmp_path, where):
 
 
 def test_recorder_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        FailureDetector(recorder=object())
+    """The flight recorder is ported now (A13a): a detector keeps the
+    recorder it is given, and consumes its pending trigger
+    (``tests/test_torch_flightrec.py`` drives it through ``fit``)."""
+    from pipegoose_tpu_torch.telemetry import FlightRecorder
+
+    rec = FlightRecorder("unused")
+    det = FailureDetector(recorder=rec)
+    assert det.recorder is rec and det.active_trigger is None

@@ -446,11 +446,16 @@ def test_make_accumulated_loss_matches_jax(k):
 @pytest.mark.parametrize("probe", ["doctor", "profile", "with_health", "recorder"])
 def test_unported_options_raise_naming_item_13(ctx1, probe):
     np_tree, _ = _data()
+    if probe == "recorder":
+        # the flight recorder is ported (A13a): recovery now takes one
+        from pipegoose_tpu_torch.telemetry import FlightRecorder
+
+        rec = FlightRecorder("unused")
+        assert AutoRecovery("unused", recorder=rec).recorder is rec
+        return
     with pytest.raises(NotImplementedError, match="item 13"):
         if probe == "with_health":
             make_trainer(np_tree, _cfg(), LR, with_health=True)
-        elif probe == "recorder":
-            AutoRecovery("unused", recorder=object())
         else:
             getattr(make_trainer(np_tree, _cfg(), LR), probe)(None)
 
