@@ -425,7 +425,30 @@ Phases, each fatal on failure:
      and a span record nothing, and ten replays add nothing; (d) the
      serving decode tick (3 rounds of on, off, off, on, 4 ticks a turn)
      and the Trainer step (one round, 2 steps a turn) with telemetry on
-     and off, each ratio with its range.
+     and off, each ratio with its range;
+ 35  the rest of the telemetry core, read from runs of phases 4, 28 and
+     34: (a) phase 34 (a)'s engines also carry a RequestTracer, and their
+     tracer is one replica of a FleetTracer whose plane hops are marked by
+     hand: each request's components sum to its end to end and its TTFT
+     components to its TTFT (1e-6 s), its event kinds and counts, the
+     programs run and the admissions deferred equal the CPU engine's, the
+     Perfetto rows are valid with one track per decode slot, each stitched
+     trace's hops plus replica share equal its end to end (1e-6 s), and
+     the stall's black box names the stuck request and the card; (b) an
+     OpsServer on 127.0.0.1 around the stalled engine: /healthz 200 before
+     the stall and 503 naming it after, /metrics, /debug/requests and
+     /debug/memory equal the direct calls, /debug/doctor answers as an
+     unset provider, no paged launch and no allocation while serving; (c)
+     an engine with a PerfSentinel: two real runs seed the baseline, a 3x
+     decode-step observation writes one perf_regression box naming the
+     decode-step time and the card, a run of shed requests is not
+     observed; (d) phase 34 (b)'s fit also carries a TrainerGoodput and a
+     ChromeTraceExporter (conservation, one warm-up step, one slice a step
+     span; the same 8 batches again without the fence for the other
+     split) and phase 28 (a)'s AutoRecovery run a TrainerGoodput (one
+     incident, its replayed steps the rewind's length, its MTTR set); (e)
+     the tracer's decode tick and the sentinel's observation alone, on and
+     off, 500 calls a turn.
 
 Every phase's seconds are logged as "seconds: <phase> <s>".
 
@@ -433,8 +456,8 @@ The line before the last is a JSON object with every kernel's numbers
 (each row's ``trainer_launches``: its launches in phase 28 (b)'s timed
 fit; ``moe_launches``: in phase 31 (b)'s timed steps), phase 28's under
 ``trainer``, phase 30's under ``comm_pipeline``, phase 31's under
-``moe``, phase 32's under ``families``, phase 33's under ``albert`` and
-phase 34's under ``telemetry``;
+``moe``, phase 32's under ``families``, phase 33's under ``albert``,
+phase 34's under ``telemetry`` and phase 35's under ``telemetry.traces``;
 the last line is
 {"ok": true, "device": {...}}. Without a card, or
 without the rest of the repository beside it, the script exits non-zero
@@ -948,6 +971,7 @@ def phase4_timed_serving(np_tree, dev):
             fp_arm["profile"] = prof
     tele["stall"] = phase34_stall(params, cfg, dev)
     tele["cost"] = phase34_serving_cost(params, cfg, requests[:8], dev)
+    tele["sentinel"] = phase35_sentinel(params, cfg, requests, dev)
     fp_arm["telemetry"] = tele
     return launches, fp_arm
 
@@ -4019,6 +4043,7 @@ def phase28a_trainer_vs_steps(np_tree, dev) -> dict:
     import shutil
 
     from pipegoose_tpu_torch.models.bloom import BloomConfig
+    from pipegoose_tpu_torch.telemetry import TrainerGoodput
     from pipegoose_tpu_torch.trainer import AutoRecovery, CheckpointCallback, LossLoggerCallback
 
     n_layer, b, s, lr = 2, 2, 256, 1e-4
@@ -4103,11 +4128,14 @@ def phase28a_trainer_vs_steps(np_tree, dev) -> dict:
     # its step 4 is on disk already (the fit above wrote it from the same
     # steps, so the callback does not write it again), the poisoned step
     # restores it, and the fifth step runs again
+    # (phase 35 (d): a TrainerGoodput prices the rewind)
     poisoned = batches[4].copy()
     poisoned[0, 0] = TRAINER_POISON
     rec = AutoRecovery(run_a, max_restores=1)
+    goodput = TrainerGoodput()
     t = bloom_trainer(tree, cfg, lr, dev, poison=True,
-                      callbacks=[CheckpointCallback(run_a, every=4, save_final=False), rec])
+                      callbacks=[goodput, CheckpointCallback(run_a, every=4, save_final=False),
+                                 rec])
     st = t.fit(batches[:4] + [poisoned, batches[4]])
     log(f"  AutoRecovery over a poisoned fifth batch: {rec.restores} restore(s), step "
         f"{st.step}")
@@ -4119,7 +4147,8 @@ def phase28a_trainer_vs_steps(np_tree, dev) -> dict:
     shutil.rmtree(run_a)
     gc.collect()
     torch.cuda.empty_cache()
-    return {"losses": hand, "launches_per_step": per, "fit_s": fit_s, "bit_for_bit": bits}
+    return {"losses": hand, "launches_per_step": per, "fit_s": fit_s, "bit_for_bit": bits,
+            "rewind_goodput": goodput.report()}
 
 
 def dir_bytes(path) -> int:
@@ -4291,6 +4320,8 @@ def phase28_trainer(np_tree, dev, card, hybrid_run, keep=None) -> dict:
     os.makedirs(TRAINER_WORK, exist_ok=True)
     try:
         a = phase28a_trainer_vs_steps(np_tree, dev)
+        if keep is not None:
+            keep["rewind_goodput"] = a["rewind_goodput"]    # phase 35 (d)
         b = phase28b_timed_trainer(np_tree, dev, card, hybrid_run, keep)
     finally:
         import shutil
@@ -6496,7 +6527,7 @@ TELEMETRY_BYTES_GAUGES = "serving.memledger."         # bytes: compared as pages
 TELEMETRY_COST_TICKS = 4       # decode ticks a serving turn of (d)
 TELEMETRY_COST_ROUNDS = 3      # (d)'s serving rounds of turns (on, off, off, on)
 TELEMETRY_FIT_TURN = 2         # (d)'s Trainer steps a turn
-TELEMETRY_FIT_ROUNDS = 2       # (d)'s Trainer rounds of turns (on, off, off, on)
+TELEMETRY_FIT_ROUNDS = 1       # (d)'s Trainer rounds of turns (on, off, off, on)
 TELEMETRY_HOST_CALLS = 500     # calls a turn of (d)'s timing of the host work alone
 TELEMETRY_MFU_RTOL = 1e-12     # the callback's MFU against the phase's formula
 # the CPU engine that predicts the card's host counts: the schedule depends
@@ -6522,15 +6553,17 @@ def telemetry_counts(reg, bytes_per_page) -> dict:
             "histograms": {k: h["count"] for k, h in snap["histograms"].items()}}
 
 
-def telemetry_engine(params, cfg, dev, kv, label):
+def telemetry_engine(params, cfg, dev, kv, label, traced=False):
     """Phase 4's engine with telemetry on: an enabled private registry, a
-    FlightRecorder writing under TELEMETRY_WORK, and the memory ledger."""
-    from pipegoose_tpu_torch.telemetry import FlightRecorder, MetricsRegistry
+    FlightRecorder writing under TELEMETRY_WORK, and the memory ledger;
+    with ``traced`` a RequestTracer on the same registry (phase 35 (a))."""
+    from pipegoose_tpu_torch.telemetry import FlightRecorder, MetricsRegistry, RequestTracer
 
     reg = MetricsRegistry(enabled=True)
     rec = FlightRecorder(os.path.join(TELEMETRY_WORK, label), capacity=1024)
     eng = make_engine(params, cfg, dev, num_slots=8, kv_dtype=kv, registry=reg,
-                      recorder=rec, memledger=True)
+                      recorder=rec, memledger=True,
+                      tracer=RequestTracer(registry=reg) if traced else None)
     return eng, reg, rec
 
 
@@ -6549,19 +6582,21 @@ def telemetry_ledger(eng) -> dict:
 
 def phase34_instrumented_serve(params, cfg, requests, dev, kv) -> dict:
     """Phase 4's warm-up run of one arm, instrumented (phase 34 (a) checks
-    it): every serving counter set to 0 just before and read just after."""
+    it) and traced, with the plane's hops marked around it (phase 35 (a)):
+    every serving counter set to 0 just before and read just after."""
     from pipegoose_tpu_torch.ops import paged_attention as pa
 
     label = kv or "fp"
-    eng, reg, rec = telemetry_engine(params, cfg, dev, kv, f"serve_{label}")
+    eng, reg, rec = telemetry_engine(params, cfg, dev, kv, f"serve_{label}", traced=True)
     serving_counters_zero()
-    outs, m = eng.run(as_requests(requests))
+    outs, m, stitched = traced_fleet_run(eng, requests)
     torch.cuda.synchronize()
     out = {"tokens": [o.generated.tolist() for o in outs], "metrics": m,
            "launches": {"all": pa.paged_attention.launches, **pa.paged_attention.routes},
            "counts": telemetry_counts(reg, eng.memledger.bytes_per_page),
            "ledger": telemetry_ledger(eng), "records": len(rec.records),
-           "dumps": list(rec.dumps), "memory": m["memory"]}
+           "dumps": list(rec.dumps), "memory": m["memory"],
+           "trace": trace_summary(eng, outs, stitched)}
     del eng
     return out
 
@@ -6569,26 +6604,40 @@ def phase34_instrumented_serve(params, cfg, requests, dev, kv) -> dict:
 def phase34_stall(params, cfg, dev) -> dict:
     """A run forced to stall: a 3-page pool, two pages held outside any
     request, a head whose worst case needs two. The watchdog must raise
-    after ``stall_patience`` ticks, naming the black box it wrote."""
-    from pipegoose_tpu_torch.telemetry import FlightRecorder
+    after ``stall_patience`` ticks, naming the black box it wrote. The
+    engine is traced, with an enabled registry and the memory ledger, and
+    an OpsServer serves them throughout (phase 35 (b) checks what it
+    served, and the box's request timelines)."""
+    from pipegoose_tpu_torch.telemetry import (FlightRecorder, MetricsRegistry, OpsServer,
+                                               RequestTracer, SLOMonitor, default_serving_slos)
 
+    reg = MetricsRegistry(enabled=True)
     rec = FlightRecorder(os.path.join(TELEMETRY_WORK, "stall"))
+    tracer = RequestTracer(registry=reg)
     eng = make_engine(params, cfg, dev, num_slots=2, num_pages=4, max_context=64,
-                      prefill_chunk=16, stall_patience=3, recorder=rec)
+                      prefill_chunk=16, stall_patience=3, recorder=rec, registry=reg,
+                      tracer=tracer, memledger=True)
     eng.pool.alloc(2)
     prompt = np.arange(1, 21)
-    try:
-        eng.run(as_requests([(prompt, 4)]))
-    except RuntimeError as e:
-        err = str(e)
-    else:
-        raise AssertionError("phase 34 (a): the stalled run did not raise")
+    slo = SLOMonitor(default_serving_slos(), registry=reg)
+    with OpsServer(reg, host="127.0.0.1", port=0, slo=slo, recorder=rec, tracer=tracer,
+                   memory=eng.memledger.report) as ops:
+        before = http_get(ops.url + "/healthz")
+        try:
+            eng.run(as_requests([(prompt, 4)]))
+        except RuntimeError as e:
+            err = str(e)
+        else:
+            raise AssertionError("phase 34 (a): the stalled run did not raise")
+        served = ops_reads(ops, eng, reg, tracer)
     if not rec.dumps or rec.dumps[-1] not in err:
         raise AssertionError(f"phase 34 (a): the stall names no black box: {err}")
     with open(rec.dumps[-1]) as f:
         box = json.load(f)
     return {"error": err, "path": rec.dumps[-1], "trigger": box["trigger"]["name"],
-            "environment": box["environment"], "context": box["context"]}
+            "environment": box["environment"], "context": box["context"],
+            "request_timelines": box.get("request_timelines"),
+            "ops": {"healthz_before": before, **served}}
 
 
 def phase34_serving_cost(params, cfg, requests, dev) -> dict:
@@ -6653,10 +6702,11 @@ def phase34_serving_cost(params, cfg, requests, dev) -> dict:
         host[name].append((time.perf_counter() - t0) * 1e6 / TELEMETRY_HOST_CALLS)
     failures += eng.memledger.conservation_failures
     eng.attach_memledger(None)
+    traced = phase35_host_cost(eng, reg, rs, active)
     eng.finish_run()
     del eng
     return {"turns_ms": turns, "round_ratios": ratios, "ledger_failures": failures,
-            "host_us": host, "host_slots": len(active)}
+            "host_us": host, "host_slots": len(active), **traced}
 
 
 def phase34_cpu_counts(requests, kv) -> dict:
@@ -6668,10 +6718,12 @@ def phase34_cpu_counts(requests, kv) -> dict:
 
     cfg = BloomConfig(vocab_size=250880, **TELEMETRY_CPU_MODEL)
     params = params_from_jax(init_params_numpy(cfg, seed=SEED), cfg, device="cpu")
-    eng, reg, rec = telemetry_engine(params, cfg, "cpu", kv, f"cpu_{kv or 'fp'}")
+    eng, reg, rec = telemetry_engine(params, cfg, "cpu", kv, f"cpu_{kv or 'fp'}", traced=True)
     outs, m = eng.run(as_requests(requests))
     return {"metrics": m, "counts": telemetry_counts(reg, eng.memledger.bytes_per_page),
-            "ledger": telemetry_ledger(eng), "records": len(rec.records)}
+            "ledger": telemetry_ledger(eng), "records": len(rec.records),
+            "trace": {"kinds": trace_kinds(eng.tracer), "programs_run": eng.programs_run,
+                      "admission_deferrals": eng.sched.admission_deferrals}}
 
 
 def phase34a_serving(card, tele) -> dict:
@@ -6686,6 +6738,7 @@ def phase34a_serving(card, tele) -> dict:
         label = f"phase 34 (a) {kv} KV"
         t0 = time.perf_counter()
         cpu = phase34_cpu_counts(requests, None if kv == "fp" else "int8")
+        arm["cpu_trace"] = cpu["trace"]         # phase 35 (a)'s prediction
         log(f"  {label}: cpu engine {time.perf_counter() - t0:.1f} s")
         same_tokens = arm["tokens"] == arm["timed_tokens"]
         log(f"  {label}: tokens equal the registry-off engine's: {same_tokens}; launches "
@@ -6739,7 +6792,8 @@ def phase34b_trainer(np_tree, dev, card, keep) -> dict:
     the allocator's in-use bytes read at that point; then (d): the unfenced
     step with the registry on and off in turns, and its host work alone."""
     from pipegoose_tpu_torch.models.bloom import BloomConfig
-    from pipegoose_tpu_torch.telemetry import (FlightRecorder, TelemetryCallback,
+    from pipegoose_tpu_torch.telemetry import (ChromeTraceExporter, FlightRecorder,
+                                               TelemetryCallback, TrainerGoodput,
                                                get_registry, span)
     from pipegoose_tpu_torch.telemetry.derived import hbm_utilization
     from pipegoose_tpu_torch.nn.parallel import tree_leaves
@@ -6772,8 +6826,13 @@ def phase34b_trainer(np_tree, dev, card, keep) -> dict:
     reg.attach(events.append)
     rec = FlightRecorder(os.path.join(TELEMETRY_WORK, "train"))
     probe = HbmProbe()
+    # phase 35 (d): a TrainerGoodput (its bookings counted by class) and a
+    # ChromeTraceExporter on the registry ride on the same fit
+    goodput, booked = counted_goodput(TrainerGoodput())
+    chrome = ChromeTraceExporter(os.path.join(TELEMETRY_WORK, "train.trace.json"), registry=reg)
     tele_cbs = [TelemetryCallback(flops_per_step=bs * seq * flops_per_token, hbm_every=1,
-                                  fence=True), rec, FailureDetector(recorder=rec), probe]
+                                  fence=True), rec, FailureDetector(recorder=rec), probe,
+                goodput]
     logger_cb = LossLoggerCallback(every=8)
     t = bloom_trainer(np_tree, cfg, 1e-4, dev, callbacks=[logger_cb, *tele_cbs])
     log(f"phase 34 (b): phase 28 (b)'s {len(batches)} batches ({bs} x {seq}) through a "
@@ -6816,6 +6875,21 @@ def phase34b_trainer(np_tree, dev, card, keep) -> dict:
         raise AssertionError("phase 34 (b): train.hbm_bytes_in_use is not the allocator's")
     if len(rec.records) != len(batches) or rec.dumps:
         raise AssertionError("phase 34 (b): the recorder's ring or a stray trigger is off")
+    chrome.close()
+    with open(chrome.write()) as f:
+        trace = json.load(f)
+    fenced = {"report": goodput.report(), "booked": dict(booked),
+              "slices": {name: sum(1 for e in trace["traceEvents"]
+                                   if e["ph"] == "X" and e["name"] == name)
+                         for name in ("train.step", "train.data")},
+              "trace_events": len(trace["traceEvents"])}
+    # ... and the same 8 batches again with a TrainerGoodput alone (no fence)
+    goodput_unfenced, booked_unfenced = counted_goodput(TrainerGoodput())
+    reg.disable()
+    t.callbacks = [logger_cb, goodput_unfenced]
+    t.fit(list(batches))
+    torch.cuda.synchronize()
+    unfenced = {"report": goodput_unfenced.report(), "booked": dict(booked_unfenced)}
 
     # (d): the step with the registry on and off, in turns (on, off, off, on),
     # unfenced: on, the fit's spans and a TelemetryCallback(fence=False); off,
@@ -6879,7 +6953,8 @@ def phase34b_trainer(np_tree, dev, card, keep) -> dict:
             "mfu": [e["mfu"] for e in steps], "mfu_rel_err": mfu_err,
             "hbm_bytes_in_use": [a for a, _ in probe.pairs],
             "cost": {"turns_ms": turns, "ratio": ratio, "pair_range": [min(pairs), max(pairs)],
-                     "host_us": host}}
+                     "host_us": host},
+            "goodput": {"fenced": fenced, "unfenced": unfenced}}
 
 
 def phase34c_capture(dev) -> dict:
@@ -6949,6 +7024,389 @@ def phase34_telemetry(np_tree, dev, card, tele, keep) -> dict:
     return {"a": a, "b": b, "c": c, "serving_cost": {
         "turns_ms": cost["turns_ms"], "round_ratios": cost["round_ratios"],
         "host_us": cost["host_us"]}}
+
+
+# -- phase 35 ------------------------------------------------------------------
+
+TRACE_SUM_ATOL = 1e-6          # seconds: components against end to end, hops against e2e
+TRACE_REPLICA = "replica0"     # (a)'s engine in its FleetTracer
+SENTINEL_NEW_TOKENS = 16       # (c)'s real runs: phase 4's first 8 prompts, this many tokens
+SENTINEL_SLOWDOWN = 3.0        # (c)'s one observation: the decode-step time at this x baseline
+OPS_PATHS = ("/healthz", "/metrics", "/debug/requests", "/debug/memory", "/debug/doctor")
+
+
+def http_get(url) -> tuple:
+    """(status, body) of one GET on the local ops server."""
+    from urllib.error import HTTPError
+    from urllib.request import urlopen
+
+    try:
+        with urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+    except HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def prom_values(text) -> dict:
+    """``parse_prometheus_text`` with NaN (a gauge never set) as None."""
+    from pipegoose_tpu_torch.telemetry import parse_prometheus_text
+
+    return {k: (None if v != v else v) for k, v in parse_prometheus_text(text).items()}
+
+
+def ops_reads(ops, eng, reg, tracer) -> dict:
+    """(b): every path of OPS_PATHS read from the server, beside the direct
+    calls it serves, and what the card did meanwhile (paged launches and
+    allocated bytes before and after the reads: the server thread reads
+    host state only)."""
+    from pipegoose_tpu_torch.ops import paged_attention as pa
+    from pipegoose_tpu_torch.telemetry.exporters import safe_json_dumps
+
+    torch.cuda.synchronize()
+    launches, allocated = pa.paged_attention.launches, torch.cuda.memory_allocated()
+    served = {path: http_get(ops.url + path) for path in OPS_PATHS}
+    torch.cuda.synchronize()
+    moved = {"paged_launches": pa.paged_attention.launches - launches,
+             "allocated_bytes": torch.cuda.memory_allocated() - allocated}
+    direct = {"/metrics": reg.to_prometheus(),
+              "/debug/requests": json.loads(safe_json_dumps(tracer.snapshot())),
+              "/debug/memory": json.loads(safe_json_dumps(eng.memledger.report()))}
+    return {"served": served, "direct": direct, "moved": moved}
+
+
+def trace_kinds(tracer) -> dict:
+    """uid -> {event kind: count} over a tracer's completed timelines, and
+    the events each dropped."""
+    out = {}
+    for tl in tracer.completed:
+        kinds = {}
+        for ev in tl.events:
+            kinds[ev["kind"]] = kinds.get(ev["kind"], 0) + 1
+        out[tl.uid] = {"kinds": kinds, "dropped": tl.dropped}
+    return out
+
+
+def traced_fleet_run(eng, requests):
+    """``eng.run`` with a control plane's hops marked by hand around it, as
+    ``tests/telemetry/test_fleettrace.py`` marks them: the engine's tracer
+    is replica TRACE_REPLICA of a FleetTracer on the engine's clock (ingress,
+    the dispatch pass, the ledger pop and the route before the run; the
+    dispatch right after each submit; done at the end). Returns (outputs,
+    metrics, each request's stitched trace)."""
+    from types import SimpleNamespace
+
+    from pipegoose_tpu_torch.telemetry import FleetTracer, MetricsRegistry
+
+    now = time.perf_counter
+    ft = FleetTracer(registry=MetricsRegistry(enabled=True), clock=now)
+    ft.register_replica(TRACE_REPLICA, eng.tracer)
+    reqs = as_requests(requests)
+    for r in reqs:
+        ft.on_ingress(r, now())
+    ft.on_dispatch_pass(now())
+    for r in reqs:
+        ft.on_ledger_pop(r, now())
+        ft.on_routed(r, now(), TRACE_REPLICA)
+    try:
+        eng.start_run(reqs, now=now)
+        for r in reqs:
+            ft.on_dispatched(r, TRACE_REPLICA)
+        while not eng.sched.all_done():
+            eng.tick_once()
+        outs, m = eng.finish_run()
+    finally:
+        eng._run = None
+    t0 = {r.trace_id: ft.active[r.trace_id].t0 for r in reqs}
+    for r, o in zip(reqs, outs):
+        ft.on_finished(r, SimpleNamespace(
+            e2e_latency_s=r.t_done - t0[r.trace_id], ttft_s=r.t_first_token - t0[r.trace_id],
+            finish_reason=o.finish_reason))
+    return outs, m, [ft.trace_json(trace_id=r.trace_id) for r in reqs]
+
+
+def trace_summary(eng, outs, stitched) -> dict:
+    """(a) on the live traced engine: each request's components against its
+    measured end to end and TTFT, its event kinds, the program and deferral
+    counts, the Perfetto rows' validity and slot tracks, the stitched
+    traces' hops plus replica share against their end to end."""
+    from pipegoose_tpu_torch.telemetry import request_trace_events
+
+    tracer = eng.tracer
+    by_uid = {o.uid: o for o in outs}
+    sums = []
+    for tl in tracer.completed:
+        o = by_uid[tl.uid]
+        sums.append({"uid": tl.uid,
+                     "e2e_err": abs(sum(tl.components.values()) - o.e2e_latency_s),
+                     "ttft_err": abs(sum(tl.ttft_components.values()) - o.ttft_s),
+                     "components": dict(tl.components)})
+    events = json.loads(json.dumps(request_trace_events(tracer)))
+    bad = [e for e in events if e["ph"] not in ("X", "M", "i") or not isinstance(e["pid"], int)
+           or not isinstance(e.get("tid", 0), int) or (e["ph"] == "X" and e["dur"] < 0)]
+    tracks = {e["args"]["name"] for e in events
+              if e["ph"] == "M" and e["name"] == "thread_name"}
+    phase_tids = {e["tid"] for e in events if e["ph"] == "X"
+                  and e["cat"] in ("request.prefill", "request.decode", "request.prefill_chunk")}
+    return {"sums": sums, "kinds": trace_kinds(tracer), "in_flight": len(tracer.in_flight),
+            "programs_run": eng.programs_run,
+            "admission_deferrals": eng.sched.admission_deferrals,
+            "events": len(events), "bad_events": len(bad), "tracks": sorted(tracks),
+            "slots": sorted({tl.slot for tl in tracer.completed}),
+            "phase_tids": sorted(phase_tids),
+            "stitched": [{"uid": row["uid"], "hops": row["hops"], "replica_s": row["replica_s"],
+                          "e2e_s": row["e2e_s"],
+                          "err": abs(row["stitched_total_s"] - row["e2e_s"]),
+                          "dominant": row["dominant_hop"]} for row in stitched]}
+
+
+def counted_goodput(goodput):
+    """``goodput`` with its bookings counted by class (a step booked twice
+    would show): returns (goodput, the counts)."""
+    booked = {}
+    book = goodput._book
+
+    def counting(klass, dt):
+        booked[klass] = booked.get(klass, 0) + 1
+        book(klass, dt)
+
+    goodput._book = counting
+    return goodput, booked
+
+
+def phase35_sentinel(params, cfg, requests, dev) -> dict:
+    """(c) a bf16 engine with ``sentinel=PerfSentinel(min_baseline=2)`` and a
+    FlightRecorder: two real runs (phase 4's first 8 prompts,
+    SENTINEL_NEW_TOKENS tokens each) seed the baseline; one observation with
+    the decode-step time at SENTINEL_SLOWDOWN x the baseline fires one
+    perf_regression box; a run whose every request is shed is not
+    observed."""
+    from pipegoose_tpu_torch.serving import Request
+    from pipegoose_tpu_torch.telemetry import FlightRecorder, PerfSentinel
+
+    rec = FlightRecorder(os.path.join(TELEMETRY_WORK, "sentinel"))
+    sent = PerfSentinel(recorder=rec, min_baseline=2)
+    eng = make_engine(params, cfg, dev, num_slots=8, sentinel=sent)
+    runs = []
+    for _ in range(2):
+        _, m = eng.run(as_requests([(p, SENTINEL_NEW_TOKENS) for p, _ in requests[:8]]))
+        runs.append({k: m[k] for k in ("decode_steps", "decode_step_time_s", "wall_time_s",
+                                       "generated_tokens", "decode_tokens_per_s")})
+    seeded = {"size": sent.baseline_size, "regressions": sent.regressions,
+              "baseline": sent.baseline(), "dumps": len(rec.dumps)}
+    base = seeded["baseline"]
+    trig = sent.observe({"decode_step_s": SENTINEL_SLOWDOWN * base["decode_step_s"],
+                         "idle_s": base["idle_s"]}, step=runs[-1]["decode_steps"],
+                        tokens_per_s=base["tokens_per_s"])
+    with open(trig.dump_path) as f:
+        box = json.load(f)
+    _, shed = eng.run([Request(prompt=p, max_new_tokens=4, deadline_s=0.0)
+                       for p, _ in requests[:2]])
+    del eng
+    return {"runs": runs, "seeded": seeded, "trigger": trig.name, "reason": trig.reason,
+            "box_trigger": box["trigger"]["name"],
+            "box_device": box["environment"].get("device_name"),
+            "box_components": [r["component"] for r in box["trigger"]["details"]["regressions"]],
+            "after": {"size": sent.baseline_size, "regressions": sent.regressions,
+                      "dumps": len(rec.dumps), "shed_steps": shed["decode_steps"],
+                      "shed": shed["shed_requests"]}}
+
+
+def phase35_host_cost(eng, reg, rs, active) -> dict:
+    """(e): the tracer's and the sentinel's host work alone, in the same
+    turns as phase 34 (d)'s (on, off, off, on; TELEMETRY_HOST_CALLS calls a
+    turn) on the cost engine's live decoding slots: the decode tick's
+    ``_trace_tick`` with a tracer and with none, and a finished run's
+    ``_sentinel_observe`` with a seeded sentinel and with none."""
+    from pipegoose_tpu_torch.telemetry import PerfSentinel, RequestTracer
+
+    tracer = RequestTracer(registry=reg)
+    sent = PerfSentinel(min_baseline=2)
+    generated = sum(len(r.generated) for r in active)
+    wall = max(rs.now() - rs.t0, 1e-9)
+    trace_us, sent_us = {"on": [], "off": []}, {"on": [], "off": []}
+    for name in ("on", "off", "off", "on"):
+        eng.tracer = tracer if name == "on" else None
+        t0 = time.perf_counter()
+        for _ in range(TELEMETRY_HOST_CALLS):
+            eng._trace_tick(active, 0.0, 1e-3)
+        trace_us[name].append((time.perf_counter() - t0) * 1e6 / TELEMETRY_HOST_CALLS)
+        eng.sentinel = sent if name == "on" else None
+        t0 = time.perf_counter()
+        for _ in range(TELEMETRY_HOST_CALLS):
+            eng._sentinel_observe(rs, wall, generated)
+        sent_us[name].append((time.perf_counter() - t0) * 1e6 / TELEMETRY_HOST_CALLS)
+    eng.tracer = eng.sentinel = None
+    return {"tracer_us": trace_us, "sentinel_us": sent_us,
+            "sentinel_regressions": sent.regressions}
+
+
+def phase35a_traced_serving(card, tele) -> dict:
+    """(a) phase 34 (a)'s engines, traced: each request's components sum to
+    its end to end and its TTFT components to its TTFT (TRACE_SUM_ATOL); its
+    event kinds and counts, the programs run and the admissions deferred
+    equal the CPU engine's; the Perfetto rows are valid with one track per
+    decode slot; the stitched fleet traces' hops plus replica share equal
+    their end to end; the stall's box names the stuck request and the card."""
+    out = {}
+    for kv in ("fp", "int8"):
+        label = f"phase 35 (a) {kv} KV"
+        tr, cpu = tele[kv]["trace"], tele[kv]["cpu_trace"]
+        worst = max(max(s["e2e_err"], s["ttft_err"]) for s in tr["sums"])
+        comps = {c: sum(s["components"][c] for s in tr["sums"]) / len(tr["sums"])
+                 for c in tr["sums"][0]["components"]}
+        log(f"  {label}: {len(tr['sums'])} requests, worst |components - e2e| or "
+            f"|ttft components - TTFT| {worst:.3g} s (atol {TRACE_SUM_ATOL}); mean components "
+            f"{comps}")
+        if len(tr["sums"]) != len(tele["requests"]) or tr["in_flight"] or worst > TRACE_SUM_ATOL:
+            raise AssertionError(f"{label}: the components do not sum to the measured times")
+        kinds = {u: k["kinds"] for u, k in tr["kinds"].items()}
+        log(f"  {label}: event kinds of request 0 {kinds[0]}; programs run "
+            f"{tr['programs_run']}, admissions deferred {tr['admission_deferrals']}; CPU "
+            f"engine {cpu['programs_run']}, {cpu['admission_deferrals']}")
+        if tr["kinds"] != cpu["kinds"]:
+            diff = {u: (tr["kinds"].get(u), cpu["kinds"].get(u))
+                    for u in set(tr["kinds"]) | set(cpu["kinds"])
+                    if tr["kinds"].get(u) != cpu["kinds"].get(u)}
+            raise AssertionError(f"{label}: event kinds differ from the CPU engine's: {diff}")
+        if (tr["programs_run"], tr["admission_deferrals"]) != (
+                cpu["programs_run"], cpu["admission_deferrals"]):
+            raise AssertionError(f"{label}: programs run or admissions deferred differ")
+        slots = [f"slot {s}" for s in tr["slots"]]
+        log(f"  {label}: request_trace_events {tr['events']} rows, {tr['bad_events']} invalid; "
+            f"tracks {tr['tracks']}; phase slices on tids {tr['phase_tids']}")
+        if (tr["bad_events"] or not set(slots) <= set(tr["tracks"])
+                or tr["phase_tids"] != tr["slots"]):
+            raise AssertionError(f"{label}: the Perfetto rows are not one track per slot")
+        st = tr["stitched"]
+        err = max(s["err"] for s in st)
+        log(f"  {label}: FleetTracer, {len(st)} stitched traces; worst |hops + replica - e2e| "
+            f"{err:.3g} s; request 0 hops {st[0]['hops']}, replica {st[0]['replica_s']} s, "
+            f"dominant {st[0]['dominant']}")
+        if len(st) != len(tele["requests"]) or err > TRACE_SUM_ATOL or any(
+                s["replica_s"] <= 0 for s in st):
+            raise AssertionError(f"{label}: a stitched trace does not add up")
+        out[kv] = {"worst_sum_err": worst, "mean_components": comps,
+                   "programs_run": tr["programs_run"],
+                   "admission_deferrals": tr["admission_deferrals"],
+                   "stitched_worst_err": err, "events": tr["events"]}
+    stall = tele["stall"]
+    timelines = stall["request_timelines"] or {}
+    stuck = [tl["uid"] for tl in timelines.get("in_flight", [])]
+    name = torch.cuda.get_device_name(0)
+    log(f"  phase 35 (a) stall box: in-flight requests {stuck} (phase "
+        f"{[tl['phase'] for tl in timelines.get('in_flight', [])]}), device "
+        f"{stall['environment'].get('device_name')}")
+    if stuck != [0] or stall["environment"].get("device_name") != name:
+        raise AssertionError("phase 35 (a): the stall's box does not name the request and card")
+    out["stall_in_flight"] = stuck
+    return out
+
+
+def phase35b_ops(tele) -> dict:
+    """(b) the OpsServer around the stalled engine: /healthz 200 before, the
+    degraded code naming decode_stall while the trigger is pending;
+    /metrics parsed equals the registry's text parsed; /debug/requests and
+    /debug/memory equal the direct calls; /debug/doctor answers as an unset
+    provider; no paged launch and no allocation while serving."""
+    ops = tele["stall"]["ops"]
+    served, direct = ops["served"], ops["direct"]
+    before, after = ops["healthz_before"], served["/healthz"]
+    body = json.loads(after[1])
+    doctor = (served["/debug/doctor"][0], json.loads(served["/debug/doctor"][1]))
+    log(f"  phase 35 (b): /healthz {before[0]} before the stall, {after[0]} after "
+        f"({[(p['kind'], p.get('name')) for p in body['problems']]}); /metrics "
+        f"{len(prom_values(served['/metrics'][1]))} samples; /debug/doctor {doctor}; card "
+        f"work while serving {ops['moved']}")
+    checks = {
+        "healthz": before[0] == 200 and after[0] == 503 and any(
+            p["kind"] == "flight_recorder_trigger" and p["name"] == "decode_stall"
+            for p in body["problems"]),
+        "metrics": served["/metrics"][0] == 200 and prom_values(
+            served["/metrics"][1]) == prom_values(direct["/metrics"]),
+        "requests": served["/debug/requests"][0] == 200 and json.loads(
+            served["/debug/requests"][1]) == direct["/debug/requests"],
+        "memory": served["/debug/memory"][0] == 200 and json.loads(
+            served["/debug/memory"][1]) == direct["/debug/memory"],
+        "doctor": doctor == (404, {"error": "no doctor report attached"}),
+        "host_only": ops["moved"] == {"paged_launches": 0, "allocated_bytes": 0},
+    }
+    log(f"  phase 35 (b): {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"phase 35 (b): the ops server disagrees: {checks}")
+    return checks
+
+
+def phase35c_sentinel(tele) -> dict:
+    s = tele["sentinel"]
+    name = torch.cuda.get_device_name(0)
+    log(f"  phase 35 (c): real runs {s['runs']}; baseline {s['seeded']}; the "
+        f"{SENTINEL_SLOWDOWN}x observation: {s['trigger']} '{s['reason']}' (box "
+        f"{s['box_trigger']}, {s['box_device']}, components {s['box_components']}); after a "
+        f"run of shed requests {s['after']}")
+    seeded = s["seeded"]
+    if seeded["size"] != 2 or seeded["regressions"] or seeded["dumps"]:
+        raise AssertionError("phase 35 (c): the real runs did not seed a clean baseline")
+    if (s["trigger"] != "perf_regression" or s["box_trigger"] != "perf_regression"
+            or not s["reason"].startswith("decode-step time")
+            or s["box_components"][0] != "decode_step_s" or s["box_device"] != name):
+        raise AssertionError("phase 35 (c): the box does not name the decode step and card")
+    if s["after"] != {"size": 2, "regressions": 1, "dumps": 1, "shed_steps": 0, "shed": 2}:
+        raise AssertionError("phase 35 (c): a run without decode steps was observed")
+    return {"baseline": seeded["baseline"], "reason": s["reason"], "runs": s["runs"]}
+
+
+def phase35d_goodput(card, b, rewind) -> dict:
+    """(d) phase 34 (b)'s fenced fit with a TrainerGoodput and a
+    ChromeTraceExporter: (its losses and params were held bit for bit
+    there) conservation, one step booked as warm-up, one "X" slice per
+    train.step and train.data span; the unfenced refit's split; phase 28
+    (a)'s AutoRecovery run: one incident, its replayed steps the rewind's
+    length, its MTTR set."""
+    g = b["goodput"]
+    fenced, unfenced = g["fenced"], g["unfenced"]
+    steps = b["histograms"].get("span.train.step.seconds")
+    for label, run in (("TelemetryCallback(fence=True)", fenced), ("no fence", unfenced)):
+        rep = run["report"]
+        log(f"  phase 35 (d) {label}: goodput_fraction {rep['goodput_fraction']}, classes "
+            f"{rep['classes']}, fit wall {rep['fit_wall_s']} s, bookings {run['booked']}, "
+            f"conservation error {rep['conservation_error_s']:.3g} s on {card}")
+        if (not rep["conservation_ok"] or run["booked"].get("compile_warmup") != 1
+                or run["booked"].get("step_compute") != steps - 1 or rep["incidents"]):
+            raise AssertionError(f"phase 35 (d) {label}: the goodput account is off")
+    log(f"  phase 35 (d): Chrome trace {fenced['trace_events']} rows, X slices {fenced['slices']}")
+    if fenced["slices"] != {"train.step": steps, "train.data": steps}:
+        raise AssertionError("phase 35 (d): the trace is not one slice a step span")
+    (inc,) = rewind["incidents"] or [None]
+    log(f"  phase 35 (d) phase 28 (a)'s rewind: {rewind['classes']}, replayed "
+        f"{rewind['replayed_steps']}, incident {inc}")
+    if (inc is None or inc["open"] or inc["mttr_s"] is None
+            or inc["replayed_steps"] != inc["step_detected"] - inc["rewound_to"]
+            or rewind["replayed_steps"] != 1 or not rewind["conservation_ok"]):
+        raise AssertionError("phase 35 (d): the rewind's incident is off")
+    return {"fenced": fenced["report"], "unfenced": unfenced["report"], "rewind": rewind}
+
+
+def phase35_traces(card, tele, keep, b) -> dict:
+    """Phase 35: the rest of the telemetry core on the card, read from the
+    runs phases 4, 28 and 34 made with it: (a) traced serving, (b) the ops
+    server, (c) the sentinel, (d) training goodput and the Chrome trace,
+    (e) the tracer's and the sentinel's host cost."""
+    log(f"phase 35: request tracer, fleet tracer, ops server, perf sentinel, goodput "
+        f"and Chrome trace on {card}")
+    a = phase35a_traced_serving(card, tele)
+    ops = phase35b_ops(tele)
+    c = phase35c_sentinel(tele)
+    d = phase35d_goodput(card, b, keep["rewind_goodput"])
+    cost = tele["cost"]
+    e = {"tracer_us": cost["tracer_us"], "sentinel_us": cost["sentinel_us"]}
+    log(f"  phase 35 (e) host work alone ({cost['host_slots']} decoding slots, "
+        f"{TELEMETRY_HOST_CALLS} calls a turn, on, off, off, on): the tracer's decode tick on "
+        f"{e['tracer_us']['on']} us, off {e['tracer_us']['off']} us; the sentinel's "
+        f"per-run observation on {e['sentinel_us']['on']} us, off {e['sentinel_us']['off']} "
+        f"us on {card}")
+    if cost["sentinel_regressions"]:
+        raise AssertionError("phase 35 (e): a steady observation fired the sentinel")
+    return {"a": a, "b": ops, "c": c, "d": d, "e": e}
 
 
 def main(argv) -> int:
@@ -7045,8 +7503,11 @@ def main(argv) -> int:
         trainer = phase28_trainer(np_tree, dev, card, hybrid_run, trainer_keep)
         lap("phase 28")
         telemetry = phase34_telemetry(np_tree, dev, card, fp_arm["telemetry"], trainer_keep)
-        del trainer_keep
         lap("phase 34")
+        telemetry["traces"] = phase35_traces(card, fp_arm["telemetry"], trainer_keep,
+                                             telemetry["b"])
+        del trainer_keep
+        lap("phase 35")
         rows += phase29_tp_serving(np_tree, dev, card, fp_arm)
         lap("phase 29")
         comm_pipeline = phase30_comm_pipeline(np_tree, dev, card, hybrid_run)

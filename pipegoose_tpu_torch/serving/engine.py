@@ -66,9 +66,17 @@ wall time covers the card's work (each ends with the token read). A
 ``recorder=`` (``telemetry.FlightRecorder``) records every decode step and
 dumps a black box when the watchdog trips; ``memledger=True`` (or a
 ``telemetry.MemoryLedger``) keeps a byte-exact account of the pool's pages,
-checked every tick. The request tracer waits for ROADMAP.md queue A, A13a
-split (2); sampling, the fleet API (``submit_request``, ``take_finished``,
-faults), disaggregation and KV tiers for A12.
+checked every tick. ``tracer=`` (``telemetry.RequestTracer``) records every
+request's timeline and attributes its latency to queue, prefill, decode and
+stall; each traced prefill chunk and decode tick reads its end time after
+the token read, so its duration is the card's work. ``sentinel=``
+(``telemetry.PerfSentinel``) holds every finished run's decode-step time,
+idle time and tokens/s against a rolling baseline. ``programs_run`` counts
+the distinct (family, width) programs the engine has run, the goodput
+ledger's first-run signal: on the card the first of each pays its first
+launch, and at a process's first use the kernel build. Sampling, the fleet
+API (``submit_request``, ``take_finished``, faults, the transfer hooks of
+the tracer), disaggregation and KV tiers wait for ROADMAP.md queue A, A12.
 """
 from __future__ import annotations
 
@@ -187,8 +195,9 @@ class ServingEngine:
     the same requests. With ``param_specs=None`` the engine is the
     single-device one, whatever ``tp_axis`` says.
 
-    ``registry``, ``recorder`` and ``memledger`` are the telemetry hooks of
-    the module docstring."""
+    ``registry``, ``recorder``, ``memledger``, ``tracer`` and ``sentinel``
+    are the telemetry hooks of the module docstring; each left None costs
+    one attribute read and branch per site."""
 
     def __init__(self, params, config, *, num_slots: int = 4,
                  num_pages: int = 64, page_size: int = 16,
@@ -200,7 +209,8 @@ class ServingEngine:
                  weight_dtype: Optional[str] = None,
                  weight_group_size: int = 32, param_specs=None,
                  tp_axis: str = "tensor", parallel_context=None, device="cuda",
-                 registry=None, recorder=None, memledger=None):
+                 registry=None, recorder=None, memledger=None, tracer=None,
+                 sentinel=None):
         if max_context % page_size:
             raise ValueError("max_context must be a multiple of page_size")
         if stall_patience < 1:
@@ -263,7 +273,7 @@ class ServingEngine:
         self.sched = Scheduler(num_slots, self.pool, max_context,
                                continuous=continuous,
                                prefix_cache=self.prefix_cache,
-                               chunk_tokens=prefill_chunk)
+                               chunk_tokens=prefill_chunk, tracer=tracer)
         # the cache's tails attend to shared pages, so they take the paged
         # prefill too; the monolithic path stays the default otherwise
         self._paged_prefill = prefix_cache or prefill_chunk is not None
@@ -273,6 +283,17 @@ class ServingEngine:
         self._mask_fn = vocab_mask_for(config)
         self._run: Optional[_RunState] = None
         self.recorder = recorder
+        self.tracer = tracer
+        self.sentinel = sentinel
+        if recorder is not None and tracer is not None:
+            # a black box then embeds the live timelines: a decode_stall
+            # box names the stuck request
+            recorder.set_request_tracer(tracer)
+        # one entry per (program family, width) run: the goodput ledger
+        # reads the counter's delta around a tick to tell a first run
+        # from steady-state work
+        self._progs_seen: set = set()
+        self.programs_run = 0
         self.registry = registry if registry is not None else get_registry()
         self._resolve_metrics()
         # the memory ledger comes last: its bytes per page are measured
@@ -363,6 +384,8 @@ class ServingEngine:
             req.prefilled_len += m
             rs.cow_copies += 1
             self._m_cow.inc()
+            if self.tracer is not None:
+                self.tracer.on_cow(req, rs.now())
 
     def _observe_ttft(self, req: Request) -> None:
         """TTFT into its histogram once per request: a preempted request
@@ -386,17 +409,23 @@ class ServingEngine:
         # page-multiple bucket
         prog = (self.prefill_chunk if self.prefill_chunk is not None
                 else self.pool.pages_for(n) * self.page_size)
+        self._note_program("chunk", prog)
         self.sched.ensure_pages(req, end)
         ids = np.zeros((1, prog), np.int32)
         ids[0, :n] = req.tokens[begin:end]
         table = np.zeros((1, self.table_width), np.int32)
         table[0, :len(req.pages)] = req.pages
+        tr = self.tracer
+        t0 = rs.now() if tr is not None else 0.0
         with span("serving.prefill", registry=self.registry):
             logits = paged_prefill_chunk(
                 self.params, self._tensor(ids), self.k_pages, self.v_pages,
                 self._tensor(table), self._tensor([begin]), self._tensor([n]),
                 self.config, self.tp_axis)
             tok = int(self._pick(logits)[0])        # syncs: span = card work
+        if tr is not None:
+            t1 = rs.now()                           # after the sync
+            tr.on_prefill_chunk(req, t1, dur_s=t1 - t0, tokens=n)
         req.prefilled_len = end
         rs.prefill_tokens += n
         self._m_chunks.inc()
@@ -414,6 +443,8 @@ class ServingEngine:
             # resumed after preemption: the last logits re-derive the
             # pending token (greedy); decode picks up where it left off
             req.status = Status.DECODE
+            if tr is not None:
+                tr.on_resume(req, rs.now())
             return
         self.sched.record_token(req, tok, rs.now())
         self._m_tokens.inc()
@@ -430,8 +461,11 @@ class ServingEngine:
                 "and/or prefill_chunk")
         s = req.prompt_len
         ps = self.pool.page_size
+        tr = self.tracer
+        t0 = rs.now() if tr is not None else 0.0
         with span("serving.prefill", registry=self.registry):
             bucket = self.pool.pages_for(s) * ps
+            self._note_program("prefill", bucket)
             pad = bucket - s
             ids = np.zeros((1, bucket), np.int32)
             ids[0, pad:] = np.asarray(req.prompt, np.int32)
@@ -447,9 +481,12 @@ class ServingEngine:
             write_prompt_pages(self.k_pages, self.v_pages, cache,
                                self._tensor(phys), pad, ps)
             tok = int(tok[0])                        # syncs: span = card work
+            t1 = rs.now()                            # after the sync
+            if tr is not None:
+                tr.on_prefill_chunk(req, t1, dur_s=t1 - t0, tokens=s)
             req.prefilled_len = s
             rs.prefill_tokens += s
-            self.sched.record_token(req, tok, rs.now())
+            self.sched.record_token(req, tok, t1)
         self._m_prefill_tok.inc(s)
         self._m_prefills.inc()
         self._m_tokens.inc()  # the prefill's token
@@ -482,6 +519,7 @@ class ServingEngine:
         rejected token survives. Returns (emitted, drafted, accepted,
         surviving rows: lazy growth may retract a neighbour)."""
         spec_k, n_spec = self.speculative
+        self._note_program("spec", n_spec)
         table = np.zeros((self.num_slots, self.table_width), np.int32)
         seq = np.zeros((self.num_slots,), np.int32)
         tok0 = np.zeros((self.num_slots,), np.int32)
@@ -499,6 +537,8 @@ class ServingEngine:
             seq[r.slot] = r.cached_len
             tok0[r.slot] = r.generated[-1]
             g[r.slot] = min(n_spec, r.max_new_tokens - len(r.generated) - 1)
+        tr = self.tracer
+        t_c0 = rs.now() if tr is not None else 0.0
         # the plain path's span: speculation must not make the decode-step
         # stream vanish
         with span("serving.decode_step", registry=self.registry):
@@ -527,6 +567,8 @@ class ServingEngine:
             while m < g[i] and int(drafts[i, m]) == int(toks[i, m]):
                 m += 1
             accepted += m
+            if tr is not None:
+                tr.on_spec(r, t, dur_s=t - t_c0, drafted=int(g[i]), accepted=m)
             # m matched drafts + the correction (or bonus) token
             for j in range(m + 1):
                 self.sched.record_token(r, int(toks[i, j]), t)
@@ -539,6 +581,25 @@ class ServingEngine:
         self._m_spec_draft.inc(drafted)
         self._m_spec_acc.inc(accepted)
         return emitted, drafted, accepted, rows
+
+    def _note_program(self, family: str, width: int) -> None:
+        """Count a (program family, width) the engine runs for the first
+        time: the goodput ledger books the tick that ran it as warm-up."""
+        key = (family, width)
+        if key not in self._progs_seen:
+            self._progs_seen.add(key)
+            self.programs_run += 1
+
+    def _trace_tick(self, active: List[Request], t_step: float, t: float) -> None:
+        """A decode step's per-request ticks into the tracer. Without a
+        tracer (the default) the cost is this one attribute read and
+        branch."""
+        tr = self.tracer
+        if tr is None:
+            return
+        dur = t - t_step
+        for req in active:
+            tr.on_decode_tick(req, t, dur_s=dur)
 
     def _stall(self, rs: _RunState) -> None:
         """The no-progress watchdog tripped: dump a black box (when a
@@ -629,6 +690,16 @@ class ServingEngine:
         ).set(float(report["kv"]["page_capacity_ratio"]))
         return report
 
+    def attach_tracer(self, tracer) -> None:
+        """Attach (or detach, with None) a ``telemetry.RequestTracer``: the
+        engine and its scheduler share it, and an attached flight recorder
+        embeds its timelines in every later black box. A warm engine can
+        so run one traced replay without being rebuilt."""
+        self.tracer = tracer
+        self.sched.tracer = tracer
+        if self.recorder is not None:
+            self.recorder.set_request_tracer(tracer)
+
     def attach_memledger(self, ledger) -> None:
         """Attach (or detach, with None) a ``telemetry.MemoryLedger``: bind
         it to the pool (as its synchronous event observer), the scheduler,
@@ -681,6 +752,12 @@ class ServingEngine:
         if self._run is not None:
             raise RuntimeError("a serving run is already in progress")
         now = self._lockstep_clock(now)
+        if self.tracer is not None:
+            # one time domain: the tracer's own readings (a preemption's)
+            # come from the clock that stamps t_submit and t_done; under a
+            # tensor axis that is the lockstep clock, so every rank's
+            # timelines agree
+            self.tracer.set_clock(now)
         rs = _RunState(now, tick_hook, self._m_tokens.value)
         self._run = rs
         for r in requests:
@@ -759,10 +836,12 @@ class ServingEngine:
                     self.sched.ensure_page(req)
             # lazy growth may have retracted a neighbour
             active = [r for r in active if r.status is Status.DECODE]
+            self._note_program("step", 0)
             t_step = now()
             nxt = self._decode_step(active)
-            t = now()
+            t = now()                        # after the step's token read
             emitted = len(active)
+            self._trace_tick(active, t_step, t)
         if rs.t_last_decode is not None:
             gap = t_step - rs.t_last_decode
             self._m_gap.observe(gap)
@@ -883,8 +962,27 @@ class ServingEngine:
             # peak per-class occupancy, fragmentation, leak and audit
             # verdicts: the run's memory trajectory in one block
             metrics["memory"] = self.memledger.run_summary()
+        self._sentinel_observe(rs, wall, generated)
         self._run = None
         return outputs, metrics
+
+    def _sentinel_observe(self, rs: _RunState, wall: float, generated: int) -> None:
+        """The run's decode-step time, idle time (host time between decode
+        steps) and tokens/s into the perf sentinel. Without a sentinel
+        (the default) the cost is this one attribute read and branch. A
+        run with no decode steps (everything shed) is not observed: it
+        is no sample of the per-step baseline."""
+        s = self.sentinel
+        if s is None or rs.steps == 0:
+            return
+        steps = rs.steps
+        s.observe(
+            {"decode_step_s": rs.step_time / steps,
+             "idle_s": max(wall - rs.step_time, 0.0) / steps},
+            step=steps,
+            tokens_per_s=generated / wall if wall > 0 else 0.0,
+            context={"num_slots": self.num_slots, "decode_steps": steps,
+                     "wall_s": wall})
 
 
 def make_skewed_replay(*, n_requests: int, n_prefixes: int, prefix_len: int,
@@ -915,7 +1013,7 @@ def prefix_replay_benchmark(params, config, *, n_requests=12, n_prefixes=3,
                             page_size=8, max_context=64, prefill_chunk=None,
                             include_speculative=False, speculative=(1, 3),
                             arms=None, measure=None, param_specs=None,
-                            tp_axis="tensor", device="cuda"):
+                            tp_axis="tensor", device="cuda", trace=False):
     """One skewed-prompt-reuse replay through (a) the baseline engine
     (monolithic prefill, no sharing), (b) chunked prefill, (c) the prefix
     cache, (d) both, and optionally (e) both + self-speculative decoding.
@@ -932,9 +1030,15 @@ def prefix_replay_benchmark(params, config, *, n_requests=12, n_prefixes=3,
     caller can read device counters around exactly that run.
     ``param_specs`` and ``tp_axis`` pass through to every arm's engine
     (tensor-parallel serving over the current context, every rank running
-    the same replay). The JAX version's ``trace`` waits for the port's
-    request tracer (ROADMAP.md queue A, A13a split (2)), ``include_quant``
-    and ``include_tiered`` for its KV tiers (A12)."""
+    the same replay). ``trace=True`` replays each arm once more with a
+    ``telemetry.RequestTracer`` attached, after the measured run (which so
+    stays untraced), and returns a ``request_trace`` block: each arm's
+    attribution summary (every request's queue / prefill / decode / stall
+    components, which sum to its end-to-end time) and, with the baseline
+    and cached arms, how much of the cached arm's TTFT gain its prefill
+    component accounts for. The JAX version's ``include_quant`` and
+    ``include_tiered`` wait for the port's KV tiers (ROADMAP.md queue A,
+    A12)."""
     vocab = getattr(config, "valid_vocab_size", None) or config.vocab_size
     replay = make_skewed_replay(
         n_requests=n_requests, n_prefixes=n_prefixes, prefix_len=prefix_len,
@@ -956,6 +1060,7 @@ def prefix_replay_benchmark(params, config, *, n_requests=12, n_prefixes=3,
             arms["cached+spec"] = {"prefill_chunk": chunk, "prefix_cache": True,
                                    "speculative": tuple(speculative)}
     results = {}
+    arm_traces = {}
     for label, kw in arms.items():
         engine = ServingEngine(
             params, config, num_slots=num_slots, num_pages=num_pages,
@@ -981,6 +1086,17 @@ def prefix_replay_benchmark(params, config, *, n_requests=12, n_prefixes=3,
         if "speculative" in metrics:
             row["spec_acceptance_rate"] = metrics["speculative"]["acceptance_rate"]
         results[label] = row
+        if trace:
+            from pipegoose_tpu_torch.telemetry.reqtrace import RequestTracer
+
+            tracer = RequestTracer(registry=engine.registry,
+                                   keep_completed=max(n_requests, 1))
+            engine.attach_tracer(tracer)
+            engine.run(requests())
+            arm_traces[label] = tracer.attribution_summary()
+            engine.attach_tracer(None)
+    if trace:
+        results["request_trace"] = {"arms": arm_traces}
     if "baseline" not in results or "cached" not in results:
         return results
     base, cached = results["baseline"], results["cached"]
@@ -996,4 +1112,21 @@ def prefix_replay_benchmark(params, config, *, n_requests=12, n_prefixes=3,
             cached["decode_tokens_per_s"]
             / max(base["decode_tokens_per_s"], 1e-9), 3),
     }
+    if trace:
+        bt, ct = arm_traces["baseline"], arm_traces["cached"]
+        b_ttft = bt["mean_ttft_s"] or 0.0
+        c_ttft = ct["mean_ttft_s"] or 0.0
+        b_pre = bt["mean_ttft_components"]["prefill_s"]
+        c_pre = ct["mean_ttft_components"]["prefill_s"]
+        results["request_trace"]["summary"] = {
+            "baseline_mean_ttft_s": b_ttft,
+            "cached_mean_ttft_s": c_ttft,
+            "ttft_improvement_s": b_ttft - c_ttft,
+            "baseline_prefill_component_s": b_pre,
+            "cached_prefill_component_s": c_pre,
+            "prefill_component_reduction_s": b_pre - c_pre,
+            "cache_hit_share": ct["cache_hit_share"],
+            "prefill_token_reduction": results["summary"]["prefill_token_reduction"],
+            "cached_mean_cache_saved_est_s": ct["mean_cache_saved_est_s"],
+        }
     return results

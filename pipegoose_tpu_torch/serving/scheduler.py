@@ -32,10 +32,13 @@ drains it fully before the next: the naive padded baseline of an A/B.
 
 With a memory ledger on the pool (``telemetry.memledger``), every alloc
 and release names its owner (``PagePool``'s ``owner=``) and admission reports the
-queue head's worst-case need (``note_admission``). The disaggregated
-transfers and their ledger tags, ``withdraw`` and ``capacity_snapshot``
-wait for the port's fleet layer (ROADMAP.md queue A, item A12), the tracer
-hooks for A13a split (2).
+queue head's worst-case need (``note_admission``). With a request tracer
+(``telemetry.RequestTracer``, ``tracer=``) the scheduler drives its
+lifecycle hooks: submit, shed, admit, preempt, first token and done. Every
+admission the ledger defers counts in ``admission_deferrals``, the goodput
+ledger's admission-blocked signal. The disaggregated transfers with their
+ledger tags and tracer hooks, ``withdraw`` and ``capacity_snapshot`` wait
+for the port's fleet layer (ROADMAP.md queue A, item A12).
 """
 from __future__ import annotations
 
@@ -70,6 +73,9 @@ class Request:
     tenant: Optional[str] = None
 
     uid: Optional[int] = None
+    # the fleet tracer's join key (telemetry.FleetTracer.on_ingress): uids
+    # are scheduler-local, the trace id follows the request across replicas
+    trace_id: Optional[int] = None
     status: Status = Status.QUEUED
     generated: List[int] = field(default_factory=list)
     slot: Optional[int] = None
@@ -115,11 +121,14 @@ class Request:
 
 class Scheduler:
     """``retractions`` counts the requests that ``_alloc`` preempted to
-    keep a reservation."""
+    keep a reservation, ``admission_deferrals`` the admissions the ledger
+    deferred (the head did not fit). ``tracer`` (None by default: one
+    attribute read and branch per lifecycle event) takes the request
+    tracer's lifecycle hooks."""
 
     def __init__(self, num_slots: int, pool: PagePool, max_context: int,
                  continuous: bool = True, prefix_cache=None,
-                 chunk_tokens: Optional[int] = None):
+                 chunk_tokens: Optional[int] = None, tracer=None):
         if num_slots < 1:
             raise ValueError("need at least one decode slot")
         if chunk_tokens is not None and (
@@ -134,12 +143,14 @@ class Scheduler:
         self.continuous = continuous
         self.cache = prefix_cache
         self.chunk_tokens = chunk_tokens
+        self.tracer = tracer
         self.slots: List[Optional[Request]] = [None] * num_slots
         self.queue: deque = deque()
         self.shed: List[Request] = []   # shed since the last drain_shed()
         self._outstanding_total = 0
         self._next_uid = 0
         self.retractions = 0
+        self.admission_deferrals = 0
 
     def _worst_tokens(self, req: Request) -> int:
         return req.prompt_len + req.max_new_tokens
@@ -168,6 +179,8 @@ class Scheduler:
             req.t_submit = now
         req.status = Status.QUEUED
         self.queue.append(req)
+        if self.tracer is not None:
+            self.tracer.on_submit(req, now)
 
     def _shed_expired(self, now: float) -> None:
         """Drop QUEUED requests already past their deadline into
@@ -185,6 +198,8 @@ class Scheduler:
                 req.finish_reason = "shed"
                 req.t_done = now
                 self.shed.append(req)
+                if self.tracer is not None:
+                    self.tracer.on_shed(req, now)
             else:
                 kept.append(req)
         self.queue = kept
@@ -257,6 +272,7 @@ class Scheduler:
                 # need, and whether memory let it in
                 led.note_admission(worst, fits)
             if not fits:
+                self.admission_deferrals += 1
                 break  # FIFO head-of-line: deterministic admission order
             shared: List[int] = hit.pages if hit is not None else []
             need_new = worst - len(shared)
@@ -285,6 +301,8 @@ class Scheduler:
             req.outstanding = need_new - n_now
             self._outstanding_total += req.outstanding
             admitted.append(req)
+            if self.tracer is not None:
+                self.tracer.on_admit(req, now)
         return admitted
 
     def preempt(self, req: Request) -> None:
@@ -308,6 +326,8 @@ class Scheduler:
                and self.queue[pos].uid < req.uid):
             pos += 1
         self.queue.insert(pos, req)
+        if self.tracer is not None:
+            self.tracer.on_preempt(req)
 
     def ensure_pages(self, req: Request, n_tokens: int) -> None:
         """Lazy growth to cover ``n_tokens`` cached positions (decode: one
@@ -335,6 +355,8 @@ class Scheduler:
     def record_token(self, req: Request, token: int, now: float) -> None:
         if req.t_first_token is None:
             req.t_first_token = now
+            if self.tracer is not None:
+                self.tracer.on_first_token(req, now)
         req.status = Status.DECODE
         req.generated.append(int(token))
         if req.eos_token_id is not None and int(token) == req.eos_token_id:
@@ -380,6 +402,8 @@ class Scheduler:
         self._outstanding_total -= req.outstanding
         req.outstanding = 0
         self.slots[req.slot] = None
+        if self.tracer is not None:
+            self.tracer.on_done(req, now)
 
     # -- queries -----------------------------------------------------------
 

@@ -15,7 +15,10 @@ The counterpart of ``pipegoose_tpu/telemetry/flightrec.py``:
 - on a trigger, an ATOMIC JSON black box: the ring, the trigger (name,
   reason, details), the parallel layout, and the environment (Python,
   torch, CUDA, the device's name and count, the ``torch.distributed``
-  rank).
+  rank), and the in-flight and newest request timelines of an attached
+  request tracer (``set_request_tracer``; a ``decode_stall`` box so names
+  the stuck request) and the active traces and tail exemplars of an
+  attached fleet tracer (``set_fleet_tracer``).
 
 ``FailureDetector`` / ``AutoRecovery`` (``trainer/recovery.py``) accept
 ``recorder=``: a fired trigger is consumed by the detector in the SAME
@@ -114,6 +117,8 @@ class FlightRecorder(Callback):
         self._lock = threading.Lock()
         self._t0: Optional[float] = None
         self._attached = False
+        self._req_tracer: Any = None
+        self._fleet_tracer: Any = None
 
     # -- ring --------------------------------------------------------------
 
@@ -286,6 +291,17 @@ class FlightRecorder(Callback):
                     )
         return None
 
+    def set_request_tracer(self, tracer: Any) -> None:
+        """Attach (or detach, with None) a ``telemetry.RequestTracer``
+        whose in-flight and newest completed timelines every later black
+        box embeds (``ServingEngine`` wires this when given both)."""
+        self._req_tracer = tracer
+
+    def set_fleet_tracer(self, tracer: Any) -> None:
+        """Attach (or detach, with None) a ``telemetry.FleetTracer`` whose
+        active traces and tail exemplars every later black box embeds."""
+        self._fleet_tracer = tracer
+
     def fire_trigger(
         self, name: str, reason: str, step: int,
         context: Optional[dict] = None,
@@ -402,6 +418,16 @@ class FlightRecorder(Callback):
             "environment": self._environment(),
             "created_ts": time.time(),
         }
+        if self._req_tracer is not None:
+            try:
+                payload["request_timelines"] = self._req_tracer.blackbox_payload()
+            except Exception:  # noqa: BLE001 - never let forensics crash
+                pass
+        if self._fleet_tracer is not None:
+            try:
+                payload["fleet_traces"] = self._fleet_tracer.blackbox_payload()
+            except Exception:  # noqa: BLE001 - never let forensics crash
+                pass
         atomic_write_text(
             path, safe_json_dumps(payload, indent=1), suffix=".blackbox.tmp"
         )

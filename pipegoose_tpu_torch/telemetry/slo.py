@@ -96,9 +96,10 @@ class SLOMonitor:
     ``recorder``: optional ``telemetry.FlightRecorder``; a breach
     transition fires a structured ``slo_burn`` trigger (black-box dump)
     through it. ``exemplars``: optional zero-argument callable whose
-    result the trigger's details embed as ``exemplar`` (the JAX fleet
-    tracer's slowest stitched trace; the port's fleet tracer waits for
-    ROADMAP.md queue A, A13a split (2)). ``clock`` is injectable for
+    result the trigger's details embed as ``exemplar`` (e.g.
+    ``telemetry.FleetTracer.exemplar``: the slowest stitched trace, its
+    dominant hop named; the control plane that wires it waits for
+    ROADMAP.md queue A, A12). ``clock`` is injectable for
     tests (default ``time.monotonic``; only deltas are used).
     """
 

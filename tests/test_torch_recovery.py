@@ -1,6 +1,6 @@
 """Failure detection and automatic recovery of the port's Trainer: a mirror
-of ``tests/trainer/test_recovery.py`` (but its flight-recorder test: the
-recorder is ROADMAP.md queue A, item 13), each test with the same
+of ``tests/trainer/test_recovery.py`` (its flight-recorder test runs in
+``tests/test_torch_flightrec.py``), each test with the same
 poisoned-batch schedule and the same expected steps and restore counts, at
 tp = dp = 1 on one gloo rank in this process. The restores also give back
 an uninterrupted run: its losses and params bit for bit. The same at dp =
@@ -253,10 +253,10 @@ def test_checkpoint_refuses_nonfinite_params_or_moments(parts, tmp_path, where):
     assert latest_step(run_dir) == 1
 
 
-def test_recorder_is_not_ported():
-    """The flight recorder is ported now (A13a): a detector keeps the
-    recorder it is given, and consumes its pending trigger
-    (``tests/test_torch_flightrec.py`` drives it through ``fit``)."""
+def test_detector_keeps_its_recorder():
+    """A detector keeps the flight recorder it is given, and consumes its
+    pending trigger (``tests/test_torch_flightrec.py`` drives it through
+    ``fit``)."""
     from pipegoose_tpu_torch.telemetry import FlightRecorder
 
     rec = FlightRecorder("unused")
